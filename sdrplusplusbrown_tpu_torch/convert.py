@@ -1,0 +1,44 @@
+"""Map runtime params and carried state between the JAX package and the
+port.
+
+In an SDR the "weights" are the designed taps and the runtime params.
+Both packages design their taps deterministically from the same numpy
+code (pinned equal by test); the runtime params and the carried state are
+trees (dicts and lists) of arrays with the same keys, shapes and dtypes on
+both sides, and these functions convert them leaf by leaf.  Anything with
+``__array__`` (numpy arrays, or the JAX package's device arrays) is read
+through numpy, so this module imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _from(tree, device):
+    if isinstance(tree, dict):
+        return {k: _from(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_from(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def params_from_jax(tree, device="cpu"):
+    """JAX-package params tree → the port's tensors on ``device``."""
+    return _from(tree, device)
+
+
+def state_from_jax(tree, device="cpu"):
+    """JAX-package state tree → the port's tensors on ``device``."""
+    return _from(tree, device)
+
+
+def state_to_jax(tree):
+    """The port's state tree → numpy arrays (what the JAX package's
+    blocks take as state)."""
+    if isinstance(tree, dict):
+        return {k: state_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [state_to_jax(v) for v in tree]
+    return tree.detach().cpu().numpy()

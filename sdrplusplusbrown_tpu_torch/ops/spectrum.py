@@ -1,0 +1,81 @@
+"""Spectrum path: keep/skip framing, windowed FFT → dB power (counterpart
+of sdrplusplusbrown_tpu/ops/spectrum.py).
+
+  * framing parameters — IQFrontEnd::genReshapeParams
+    (reference signal_path/iq_frontend.h:88-92);
+  * window with the alternating-sign DC-centering factor
+    (reference iq_frontend.cpp:304-311);
+  * 10·log10(|X|²/N²) (reference iq_frontend.cpp:282).
+
+``SpectrumPath.apply`` runs kernel K4 (ops/fft_kernel.py) with the frames
+the TPU kernel path uses (start rup(f·interval, 1024)).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..runtime.block import Block
+from . import windows
+
+
+def gen_reshape_params(samplerate: float, fft_size: int,
+                       fft_rate: float) -> Tuple[int, int]:
+    """(nz_samp_count, skip) — reference iq_frontend.h:88-92."""
+    fft_interval = int(round(samplerate / fft_rate))
+    nz = min(fft_interval, fft_size)
+    return nz, fft_interval - nz
+
+
+class Reshaper(Block):
+    """Keep/skip framing parameters: frames of ``keep`` samples every
+    ``keep + skip``."""
+
+    def __init__(self, keep: int, skip: int):
+        self.keep = int(keep)
+        self.skip = int(skip)
+        self.interval = self.keep + self.skip
+        self.in_multiple = self.interval
+
+
+def make_fft_window(name: str, nz_size: int) -> np.ndarray:
+    """Window including the (−1)^i DC-centering factor."""
+    w = windows.fft_window(name, nz_size)
+    signs = np.where(np.arange(nz_size) % 2 == 1, -1.0, 1.0)
+    return (w * signs).astype(np.float32)
+
+
+class SpectrumPath(Block):
+    """Wideband block → [n_frames, fft_size] dB spectra at ``fft_rate`` Hz
+    (defaults 65536 bins @ 20 fps Nuttall, reference core.cpp:559-561)."""
+
+    def __init__(self, samplerate: float, fft_size: int = 65536,
+                 fft_rate: float = 20.0, window: str = "nuttall"):
+        self.samplerate = float(samplerate)
+        nz, skip = gen_reshape_params(samplerate, fft_size, fft_rate)
+        self.reshaper = Reshaper(nz, skip)
+        self.window = make_fft_window(window, nz)
+        self.floor_db = -300.0       # dB floor of an empty bin
+        self.fft_size = int(fft_size)
+        self.in_multiple = self.reshaper.in_multiple
+        self._dev_window = {}
+
+    def window_on(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._dev_window:
+            self._dev_window[key] = torch.tensor(self.window).to(device)
+        return self._dev_window[key]
+
+    def apply(self, params, state, x):
+        """x: (xr, xi) float32 [T] planes or a complex [T] block."""
+        from .fft_kernel import spectrum_frames_db
+        xr, xi = x if isinstance(x, tuple) else (x.real, x.imag)
+        xr = xr.float().contiguous()
+        xi = xi.float().contiguous()
+        db = spectrum_frames_db(xr, xi, self.reshaper.keep,
+                                self.reshaper.interval, self.fft_size,
+                                self.floor_db, self.window_on(xr.device))
+        return db, state

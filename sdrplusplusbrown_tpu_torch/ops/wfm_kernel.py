@@ -1,0 +1,262 @@
+"""WFM demodulator and audio polyphase — kernels K2 and K3 with their
+plain versions (counterpart of sdrplusplusbrown_tpu/ops/wfm_kernel.py).
+
+K2 (``wfm_demod``): the IF planes [2C, ≥m_if] → discriminator → MPX
+halfbands → stereo section (pilot band-pass, normalize VCO with the
+one-sample PLL lag, L±R matrix) → L/R planes [2C, m_mpx] in the handoff
+dtype.  The stereo section uses the identities of the TPU kernel
+(ops/pallas_wfm.py there): the lagged pilot is a window offset,
+u = conj(pilot_phase_corr)² folds the phase correction, and the
+``mpx_hist`` state (last K MPX samples) covers the pilot FIR, its lag and
+the L+R delay d ≤ K.
+
+K3 (``mpx_audio_poly``): the de-emphasis-folded 48/125 audio polyphase
+over the L/R planes → audio [2C, m_aud] float32.
+
+Carried state is rounded to the handoff dtype at the same places as the
+JAX kernels (their state tails ride device memory in that dtype).
+Dispatch follows the input: CPU tensors run the ``*_ref`` versions, CUDA
+tensors launch the kernels (csrc/wfm_demod.cu, csrc/mpx_poly.cu) or raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import _build
+from .demod import quad_planes
+from .precision import get_handoff_dtype, round_to
+from .resampler import poly_rows
+
+#: storage dtypes the kernels read and write
+_STORAGE = (torch.float32, torch.bfloat16)
+
+
+def _f32_taps(a, dtype, device) -> torch.Tensor:
+    """numpy taps → float32 tensor rounded to the storage ``dtype``."""
+    return round_to(torch.tensor(np.asarray(a, np.float32)), dtype) \
+        .to(device).contiguous()
+
+
+class WFMDemodPipeline:
+    """K2 configuration built from a BroadcastFM demod."""
+
+    def __init__(self, dem):
+        if (dem.pll_mode != "normalize" or not dem.stereo or dem.rds_out
+                or not dem.mpx_stages):
+            raise NotImplementedError(
+                "WFM kernel: stereo, normalize pilot, no RDS only")
+        self.inv_dev = float(dem.quad.inv_deviation)
+        self.K = int(len(dem.pilot_taps))
+        self.d = int(dem.lpr_delay.delay)
+        if self.d > self.K:
+            raise NotImplementedError("L+R delay longer than the pilot FIR")
+        u = np.conj(complex(dem.pilot_phase_corr)) ** 2
+        self.ur = float(np.float32(np.real(u)))
+        self.ui2 = float(np.float32(2.0 * np.imag(u)))
+        for stg in dem.mpx_stages:
+            if stg.decim != 2 or stg._complex_taps:
+                raise NotImplementedError("MPX stage is not a real halfband")
+        self.hb_taps = [np.asarray(s.taps, np.float32) for s in dem.mpx_stages]
+        self.pilot = np.asarray(dem.pilot_taps)
+        self._dev_taps = {}
+
+    def taps(self, device, dtype):
+        """([halfband taps], pilot re, pilot im) float32 device tensors
+        rounded to the storage ``dtype``."""
+        key = (str(device), dtype)
+        if key not in self._dev_taps:
+            self._dev_taps[key] = (
+                [_f32_taps(h, dtype, device) for h in self.hb_taps],
+                _f32_taps(np.real(self.pilot), dtype, device),
+                _f32_taps(np.imag(self.pilot), dtype, device))
+        return self._dev_taps[key]
+
+    def apply(self, state, iq, m_if: int):
+        """iq: [2C, ≥m_if] IF planes (re rows, im rows) → (L/R planes
+        [2C, m_mpx] in the handoff dtype, new_state with quad / mpx_decim /
+        mpx_hist updated and every other key passed through)."""
+        dev = iq.device
+        C = iq.shape[0] // 2
+        h_dt = get_handoff_dtype()
+        q = state["quad"].to(dev)[:, 0]
+        qprev = round_to(torch.cat([q.real, q.imag]).float(), h_dt)
+        hb_tails = [round_to(t.to(dev).float(), h_dt).contiguous()
+                    for t in state["mpx_decim"]]
+        hist = round_to(state["mpx_hist"].to(dev).float(), h_dt).contiguous()
+        lr, ins = wfm_demod(self, iq, m_if, qprev.contiguous(), hb_tails,
+                            hist, h_dt)
+        new_state = dict(state)
+        last = iq[:, m_if - 1].float()
+        last = round_to(last, h_dt)
+        new_state["quad"] = torch.complex(last[:C], last[C:])[:, None]
+        new_state["mpx_decim"] = [
+            round_to(torch.cat([t, y], dim=1)[:, -t.shape[1]:], h_dt)
+            for t, y in zip(hb_tails, ins[:-1])]
+        new_state["mpx_hist"] = round_to(
+            torch.cat([hist, ins[-1]], dim=1)[:, -self.K:], h_dt)
+        return lr, new_state
+
+
+def _check_wfm(pipe, iq, m_if, qprev, hb_tails, hist):
+    C = iq.shape[0] // 2
+    if iq.dim() != 2 or iq.shape[0] != 2 * C or iq.shape[1] < m_if:
+        raise ValueError(f"IF planes shape {tuple(iq.shape)}")
+    if m_if % (1 << len(pipe.hb_taps)):
+        raise ValueError(f"m_if {m_if} not a multiple of the MPX decimation")
+    if tuple(qprev.shape) != (2 * C,):
+        raise ValueError(f"quad state shape {tuple(qprev.shape)}")
+    for h, t in zip(pipe.hb_taps, hb_tails):
+        if tuple(t.shape) != (C, len(h) - 1):
+            raise ValueError(f"halfband tail shape {tuple(t.shape)}")
+    if tuple(hist.shape) != (C, pipe.K):
+        raise ValueError(f"mpx_hist shape {tuple(hist.shape)}")
+    return C
+
+
+def wfm_demod_ref(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype):
+    """Plain PyTorch K2: returns (L/R planes [2C, m_mpx] ``out_dtype``,
+    [input of each halfband ..., MPX] float32)."""
+    C = _check_wfm(pipe, iq, m_if, qprev, hb_tails, hist)
+    hbs, hr, hi = pipe.taps(iq.device, out_dtype)
+    x = iq[:, :m_if].float()
+    er, ei = x[:C], x[C:]
+    erp = torch.cat([qprev[:C, None], er[:, :-1]], dim=1)
+    eip = torch.cat([qprev[C:, None], ei[:, :-1]], dim=1)
+    y = quad_planes(er, ei, erp, eip, pipe.inv_dev)
+    ins = []
+    for h, t in zip(hbs, hb_tails):
+        ins.append(y)
+        y = poly_rows(torch.cat([t, y], dim=1), h[None, :], 1, 2)
+    ins.append(y)
+    m = y.shape[1]
+    K, d = pipe.K, pipe.d
+    ext = torch.cat([hist, y], dim=1)
+    a = poly_rows(ext[:, :m + K - 1], hr[None, :], 1, 1)
+    b = poly_rows(ext[:, :m + K - 1], hi[None, :], 1, 1)
+    lpr = ext[:, K - d:K - d + m]
+    wsub = (pipe.ur * (a * a - b * b) + pipe.ui2 * (a * b)) \
+        / torch.clamp(a * a + b * b, min=1e-20)
+    two = 2.0 * wsub
+    lr = torch.cat([lpr * (1.0 + two), lpr * (1.0 - two)])
+    return lr.to(out_dtype), ins
+
+
+@_build.counted
+def wfm_demod_kernel(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype):
+    """K2 on the card (csrc/wfm_demod.cu); same contract as
+    ``wfm_demod_ref``."""
+    dev = iq.device
+    f32 = torch.float32
+    C = _check_wfm(pipe, iq, m_if, qprev, hb_tails, hist)
+    if out_dtype not in _STORAGE:
+        raise ValueError(f"output dtype {out_dtype}")
+    hbs, hr, hi = pipe.taps(dev, out_dtype)
+    y = torch.empty((C, m_if), dtype=f32, device=dev)
+    _build.launch(
+        "sdr_wfm_quad", dev,
+        _build.check(iq, "IF planes", _STORAGE, device=dev),
+        int(iq.dtype == torch.bfloat16), iq.shape[1], C, m_if,
+        _build.check(qprev, "quad state", f32, device=dev),
+        pipe.inv_dev, y.data_ptr())
+    ins = []
+    for h, t in zip(hbs, hb_tails):
+        ins.append(y)
+        out = torch.empty((C, y.shape[1] // 2), dtype=f32, device=dev)
+        _build.launch(
+            "sdr_wfm_halfband", dev,
+            _build.check(t, "halfband tail", f32, device=dev), t.shape[1],
+            y.data_ptr(), y.shape[1], _build.check(h, "halfband taps", f32),
+            h.shape[0], out.data_ptr(), out.shape[1], C)
+        y = out
+    ins.append(y)
+    m = y.shape[1]
+    lr = torch.empty((2 * C, m), dtype=out_dtype, device=dev)
+    _build.launch(
+        "sdr_wfm_stereo", dev, y.data_ptr(),
+        _build.check(hist, "mpx_hist", f32, device=dev), pipe.K, pipe.d, m,
+        _build.check(hr, "pilot re", f32), _build.check(hi, "pilot im", f32),
+        pipe.ur, pipe.ui2, lr.data_ptr(),
+        int(out_dtype == torch.bfloat16), C)
+    return lr, ins
+
+
+def wfm_demod(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype):
+    """K2 dispatch: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    fn = wfm_demod_kernel if iq.is_cuda else wfm_demod_ref
+    return fn(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype)
+
+
+class MPXAudioPoly:
+    """K3 configuration built from the (de-emphasis-folded) audio
+    PolyphaseResampler."""
+
+    def __init__(self, poly):
+        self.I, self.D = int(poly.interp), int(poly.decim)
+        self.kernel = np.asarray(poly.kernel, np.float32)
+        self.hist = poly.tpp - 1
+        self._dev_taps = {}
+
+    def taps(self, device, dtype) -> torch.Tensor:
+        key = (str(device), dtype)
+        if key not in self._dev_taps:
+            self._dev_taps[key] = _f32_taps(self.kernel, dtype, device)
+        return self._dev_taps[key]
+
+    def apply(self, ars, raw, m_in: int):
+        """ars: [2, C, hist] carried input (state["audio_rs"]); raw:
+        [2C, ≥m_in] L/R planes → (audio [C, 2, m_aud] float32, new ars)."""
+        h_dt = get_handoff_dtype()
+        ars = ars.to(raw.device)
+        C = ars.shape[1]
+        ptail = round_to(torch.cat([ars[0], ars[1]]).float(), h_dt) \
+            .contiguous()
+        audio = mpx_audio_poly(self, raw, m_in, ptail, h_dt)
+        lr = torch.stack([audio[:C], audio[C:]], dim=1)
+        t = round_to(torch.cat([ptail, raw[:, :m_in].float()], dim=1)
+                     [:, -self.hist:], h_dt)
+        return lr, torch.stack([t[:C], t[C:]])
+
+
+def _check_poly(pipe, raw, m_in, ptail):
+    if raw.dim() != 2 or raw.shape[1] < m_in or m_in % pipe.D:
+        raise ValueError(f"L/R planes shape {tuple(raw.shape)}, m {m_in}")
+    if tuple(ptail.shape) != (raw.shape[0], pipe.hist):
+        raise ValueError(f"audio tail shape {tuple(ptail.shape)}")
+    return m_in // pipe.D * pipe.I
+
+
+def mpx_audio_poly_ref(pipe, raw, m_in, ptail, tap_dtype):
+    """Plain PyTorch K3: audio [2C, m_aud] float32."""
+    _check_poly(pipe, raw, m_in, ptail)
+    ker = pipe.taps(raw.device, tap_dtype)
+    ext = torch.cat([ptail, raw[:, :m_in].float()], dim=1)
+    return poly_rows(ext, ker, pipe.I, pipe.D)
+
+
+@_build.counted
+def mpx_audio_poly_kernel(pipe, raw, m_in, ptail, tap_dtype):
+    """K3 on the card (csrc/mpx_poly.cu); same contract as
+    ``mpx_audio_poly_ref``."""
+    dev = raw.device
+    f32 = torch.float32
+    m_aud = _check_poly(pipe, raw, m_in, ptail)
+    ker = pipe.taps(dev, tap_dtype)
+    out = torch.empty((raw.shape[0], m_aud), dtype=f32, device=dev)
+    _build.launch(
+        "sdr_mpx_poly", dev, _build.check(ptail, "audio tail", f32,
+                                          device=dev), pipe.hist,
+        _build.check(raw, "L/R planes", _STORAGE, device=dev),
+        int(raw.dtype == torch.bfloat16), raw.shape[1],
+        _build.check(ker, "audio kernel", f32), pipe.I, pipe.D,
+        ker.shape[1], out.data_ptr(), m_aud, raw.shape[0])
+    return out
+
+
+def mpx_audio_poly(pipe, raw, m_in, ptail, tap_dtype):
+    """K3 dispatch: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    fn = mpx_audio_poly_kernel if raw.is_cuda else mpx_audio_poly_ref
+    return fn(pipe, raw, m_in, ptail, tap_dtype)

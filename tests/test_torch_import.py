@@ -1,0 +1,42 @@
+"""The PyTorch port stands alone: importing it loads nothing of JAX or of
+the JAX package (the machine with the card has no JAX)."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "sdrplusplusbrown_tpu_torch"
+PY_FILES = sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py"))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import sdrplusplusbrown_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "sdrplusplusbrown_tpu"))
+print(len([n for n in sys.modules if n.startswith(pkg.__name__)]), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_import_loads_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    n_modules = int(res.stdout.split()[0])
+    assert n_modules >= len(PY_FILES) - 1, res.stdout
+
+
+@pytest.mark.parametrize("path", PY_FILES)
+def test_no_jax_import_statement(path):
+    src = (REPO / path).read_text()
+    bad = re.findall(r"^\s*(?:import|from)\s+(jax\w*|sdrplusplusbrown_tpu)\b",
+                     src, re.M)
+    assert not bad, (path, bad)

@@ -1,0 +1,127 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages; the
+JAX package runs its Pallas kernels in interpret mode, the port its plain
+PyTorch versions (its CUDA kernels need the card and are checked against
+those same plain versions by chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sdrplusplusbrown_tpu_torch import convert
+from sdrplusplusbrown_tpu_torch.ops import precision as port_precision
+
+FS = 2_400_000.0
+
+
+@pytest.fixture(autouse=True)
+def port_f32_handoff():
+    """Pin the port's kernel-to-kernel handoff to float32 (the JAX side is
+    pinned by tests/conftest.py)."""
+    prev = port_precision.get_handoff_name()
+    port_precision.set_handoff_dtype("float32")
+    yield
+    port_precision.set_handoff_dtype(prev)
+
+
+def tone_hz(k: int) -> float:
+    return 500.0 + 60.0 * k
+
+
+def wfm_iq(T: int, offsets, seed: int = 0) -> np.ndarray:
+    """One stereo FM broadcast per carrier offset (tone 500 + 60·k Hz in
+    L only, 19 kHz pilot) plus a little noise, as tests/test_raw_handoff.py
+    builds it: off-carrier channels would see a near-zero pilot."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / FS
+    x = np.zeros(T, np.complex64)
+    for k, off in enumerate(offsets):
+        tone = np.sin(2 * np.pi * tone_hz(k) * t)
+        mpx = (0.45 * tone + 0.45 * tone * -np.cos(2 * np.pi * 38_000.0 * t)
+               + 0.1 * np.sin(2 * np.pi * 19_000.0 * t))
+        phase = 2 * np.pi * (off * t + 75_000.0 * np.cumsum(mpx) / FS)
+        x = x + (0.3 * np.exp(1j * phase)).astype(np.complex64)
+    x = x + 1e-3 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+    return x.astype(np.complex64)
+
+
+def planes(x: np.ndarray):
+    """complex numpy block → (xr, xi) float32 torch planes."""
+    return (torch.from_numpy(np.ascontiguousarray(x.real, np.float32)),
+            torch.from_numpy(np.ascontiguousarray(x.imag, np.float32)))
+
+
+def snr_db(ref, got) -> float:
+    """Agreement of ``got`` with ``ref`` in dB (complex as re/im pairs)."""
+    ref = np.asarray(ref)
+    got = np.asarray(got)
+    if np.iscomplexobj(ref):
+        ref = np.stack([ref.real, ref.imag])
+        got = np.stack([got.real, got.imag])
+    ref = ref.astype(np.float64)
+    err = got.astype(np.float64) - ref
+    return float(10 * np.log10(np.mean(ref ** 2)
+                               / max(np.mean(err ** 2), 1e-300)))
+
+
+def leaves(tree, path=""):
+    """(path, leaf) pairs of a dict/list tree, in a fixed order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def assert_state_close(jax_state, port_state, min_db: float):
+    """Same keys, shapes and dtypes; every leaf equal, or within
+    ``min_db`` of the JAX package's where it is nonzero."""
+    j = list(leaves(jax_state))
+    p = list(leaves(convert.state_to_jax(port_state)))
+    assert [k for k, _ in j] == [k for k, _ in p]
+    for (path, a), (_, b) in zip(j, p):
+        a = np.asarray(a)
+        assert a.shape == b.shape and a.dtype == b.dtype, \
+            (path, a.shape, b.shape, a.dtype, b.dtype)
+        if not np.any(a) or np.array_equal(a, b):
+            np.testing.assert_array_equal(a, b, err_msg=path)
+        else:
+            s = snr_db(a, b)
+            assert s >= min_db, (path, s)
+
+
+def assert_spectra_close(want: np.ndarray, got: np.ndarray):
+    """dB spectra: <= 0.01 dB within 60 dB of each frame's peak, <= 0.1 dB
+    within 80 dB."""
+    assert want.shape == got.shape
+    pk = want.max(axis=-1, keepdims=True)
+    d = np.abs(got.astype(np.float64) - want)
+    assert d[want > pk - 60].max() <= 0.01, d[want > pk - 60].max()
+    assert d[want > pk - 80].max() <= 0.1, d[want > pk - 80].max()
+    assert np.isfinite(got).all()
+
+
+def tone_oracles(audio: np.ndarray, channels, fs_audio: float = 48_000.0):
+    """(mean tone SNR, L/R separation) in dB of ``audio`` [C, 2, n] on
+    ``channels``, channel k carrying tone_hz(k) in L only — the signal
+    oracles of tests/test_bf16_handoff.py."""
+    L = audio[channels, 0].astype(np.float64)
+    R = audio[channels, 1].astype(np.float64)
+    sep = 10 * np.log10(np.mean(L ** 2) / max(np.mean(R ** 2), 1e-15))
+    n = L.shape[-1]
+    tt = np.arange(n) / fs_audio
+    snrs = []
+    for i, k in enumerate(channels):
+        f = tone_hz(k)
+        A = np.stack([np.cos(2 * np.pi * f * tt), np.sin(2 * np.pi * f * tt),
+                      np.ones(n)], 1)
+        coef, *_ = np.linalg.lstsq(A, L[i], rcond=None)
+        r = L[i] - A @ coef
+        snrs.append(10 * np.log10(np.mean((A[:, :2] @ coef[:2]) ** 2)
+                                  / np.mean(r ** 2)))
+    return float(np.mean(snrs)), float(sep)
