@@ -5,9 +5,12 @@ In an SDR the "weights" are the designed taps and the runtime params.
 Both packages design their taps deterministically from the same numpy
 code (pinned equal by test); the runtime params and the carried state are
 trees (dicts and lists) of arrays with the same keys, shapes and dtypes on
-both sides, and these functions convert them leaf by leaf.  Anything with
-``__array__`` (numpy arrays, or the JAX package's device arrays) is read
-through numpy, so this module imports nothing of JAX.
+both sides — the shared-VFO and the channelized layouts alike (int32 bin
+indices, complex64 filter tails, float32 audio tails) — and these
+functions convert them leaf by leaf.  Anything with ``__array__`` (numpy
+arrays, or the JAX package's device arrays) is read through numpy, so
+this module imports nothing of JAX.  The port's trees go to the device
+the caller names: there is no default.
 """
 
 from __future__ import annotations
@@ -24,19 +27,19 @@ def _from(tree, device):
     return torch.from_numpy(np.array(tree)).to(device)
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, *, device):
     """JAX-package params tree → the port's tensors on ``device``."""
     return _from(tree, device)
 
 
-def state_from_jax(tree, device="cpu"):
+def state_from_jax(tree, *, device):
     """JAX-package state tree → the port's tensors on ``device``."""
     return _from(tree, device)
 
 
 def state_to_jax(tree):
-    """The port's state tree → numpy arrays (what the JAX package's
-    blocks take as state)."""
+    """The port's state (or params) tree → numpy arrays (what the JAX
+    package's blocks take)."""
     if isinstance(tree, dict):
         return {k: state_to_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

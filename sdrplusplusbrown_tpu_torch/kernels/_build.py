@@ -1,12 +1,13 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into ONE shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), at first use, into ``_build/`` inside the package.  The file
-name carries a hash of the sources and flags: a changed source rebuilds,
-an unchanged one loads the existing build.  Each C entry point takes raw
-device pointers and the CUDA stream as ``void*``, launches on that stream
-and returns the launch's ``cudaError_t``; ``launch`` raises on nonzero.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process for ``sm_90a``
+(all started together), then linked into ONE shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds), at first use,
+into ``_build/`` inside the package.  The file name carries a hash of the
+sources and flags: a changed source rebuilds, an unchanged one loads the
+existing build.  Each C entry point takes raw device pointers and the CUDA
+stream as ``void*``, launches on that stream and returns the launch's
+``cudaError_t``; ``launch`` raises on nonzero.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -40,6 +41,11 @@ SIGNATURES = {
     "sdr_mpx_poly": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I],
     "sdr_fft_cols": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
     "sdr_fft_rows": [_P, _P, _I, _I, _I, _F, _F, _P],
+    "sdr_pfb_bins": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _I],
+    "sdr_chan_post": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                      _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I],
+    "sdr_fm_audio": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                     _F, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I],
 }
 
 #: what the last build did (for chip_smoke.py's report)
@@ -80,17 +86,38 @@ def build() -> str:
         BUILD_INFO.setdefault("cached", True)
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, f) for f in _sources() if f.endswith(".cu")]]
+    nvcc = _nvcc()
+    tag = f"{so[:-3]}.{os.getpid()}"
+    units = [f for f in _sources() if f.endswith(".cu")]
+    objs = [f"{tag}.{u[:-3]}.o" for u in units]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o,
+                               os.path.join(CSRC, u)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for u, o in zip(units, objs)]
+    logs, failed = [], []
+    for u, p in zip(units, procs):
+        out, _ = p.communicate()
+        logs.append(f"== {u}\n{out}")
+        if p.returncode != 0:
+            failed.append(u)
+    res = None
+    if not failed:
+        res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                              "-shared", "-o", f"{tag}.tmp", *objs],
+                             capture_output=True, text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    log = "".join(logs)
     with open(so[:-3] + ".log", "w") as fh:
         fh.write(log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log[-6000:]}")
-    os.replace(tmp, so)
+    if failed or res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({failed or 'link'}):\n"
+                           f"{log[-6000:]}")
+    os.replace(f"{tag}.tmp", so)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False,
                       log=log)
     return so

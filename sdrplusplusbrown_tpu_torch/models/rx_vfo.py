@@ -5,13 +5,21 @@ sdrplusplusbrown_tpu/models/rx_vfo.py; reference channel/rx_vfo.h:89-121).
 VFOs of one shared wideband through the front-end kernel K1
 (ops/mono_frontend.py), with the mix-down folded into the first
 decimating FIR so the wideband is read once for all channels.
+``ChannelizedRxVFOBank`` serves wide banks through the 2×-oversampled
+PFB (kernel K5, ops/channelizer_kernel.py) and the post-channelizer
+(kernel K6, ops/chan_frontend.py).
+
+The banks are entry points: each owns a device (``device=``, CUDA unless
+the caller asks for the CPU), creates its params and state there, and
+moves only the wideband input to it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..runtime.block import Block
+from ..runtime.block import Block, entry_device, to_device
 from ..ops import taps as taps_mod
 from ..ops.fir import FIR
 from ..ops.xlator import FrequencyXlator, nco_params
@@ -66,8 +74,9 @@ class SharedRxVFOBank(Block):
     chain on the decimated planes, all in kernel K1."""
 
     def __init__(self, in_samplerate: float, out_samplerate: float,
-                 bandwidth: float):
+                 bandwidth: float, device="cuda"):
         from ..ops.fused_frontend import SharedXlateDecimFIR
+        self.device = torch.device(device)
         self.base = RxVFO(in_samplerate, out_samplerate, bandwidth)
         self.in_samplerate = float(in_samplerate)
         blocks = self.base.resamp.chain.named_blocks
@@ -85,8 +94,10 @@ class SharedRxVFOBank(Block):
 
     def make_params(self, offsets_hz):
         from ..ops.fused_frontend import fused_params
-        return {"fused": fused_params(np.asarray(offsets_hz, np.float64),
-                                      self.in_samplerate, self.fused.decim)}
+        return to_device(
+            {"fused": fused_params(np.asarray(offsets_hz, np.float64),
+                                   self.in_samplerate, self.fused.decim)},
+            entry_device(self.device))
 
     def init_state(self, C: int):
         st = {"fused": self.fused.init_state((C,)),
@@ -95,7 +106,7 @@ class SharedRxVFOBank(Block):
             st[n] = b.init_state((C,))
         if self.filter_needed:
             st["fir"] = self.base.fir.init_state((C,))
-        return st
+        return to_device(st, entry_device(self.device))
 
     def mono_pipe(self):
         if self._pipe is None:
@@ -107,6 +118,106 @@ class SharedRxVFOBank(Block):
         """x: [T] shared wideband, complex64 or (xr, xi) float32 planes →
         (IF planes [2C, T·ratio] in the handoff dtype — re rows then im
         rows — and the new state)."""
-        if not isinstance(x, tuple):
-            x = (x.real, x.imag)
+        dev = entry_device(self.device)
+        xr, xi = x if isinstance(x, tuple) else (x.real, x.imag)
+        x = (xr.to(dev, torch.float32), xi.to(dev, torch.float32))
         return self.mono_pipe().apply(params["fused"], state, x)
+
+
+class ChannelizedRxVFOBank(Block):
+    """RxVFO bank over a shared wideband via the 2×-oversampled PFB: the
+    band is split once into M = in/out bins at twice the channel rate,
+    then each channel gathers its nearest bin, rotates by the residual
+    offset and runs the 2:1 anti-alias and bandwidth FIRs (the designs of
+    the JAX package's bank, models/rx_vfo.py there).  Offsets are runtime
+    params: a retune is a new params dict."""
+
+    def __init__(self, in_samplerate: float, out_samplerate: float,
+                 bandwidth: float, device="cuda"):
+        from ..ops.channelizer import OversampledChannelizer
+        self.device = torch.device(device)
+        self.in_samplerate = float(in_samplerate)
+        self.out_samplerate = float(out_samplerate)
+        self.bandwidth = float(bandwidth)
+        r = in_samplerate / out_samplerate
+        M = int(round(r))
+        if abs(r - M) > 1e-9 or M % 2:
+            raise ValueError(f"ChannelizedRxVFOBank: in/out rate ratio {r} "
+                             f"must be an even integer")
+        if not bandwidth < out_samplerate:
+            raise ValueError(f"ChannelizedRxVFOBank: bandwidth {bandwidth} "
+                             f"must be < out rate {out_samplerate}")
+        self.M = M
+        # prototype: passband to out_sr/2 + bw/2, stopband from
+        # 3/2·out_sr − bw/2 (the alias edge at the 2·out_sr bin rate)
+        proto = taps_mod.low_pass(out_samplerate, out_samplerate - bandwidth,
+                                  in_samplerate)
+        self.chz = OversampledChannelizer(in_samplerate, M, proto)
+        self.fine = FrequencyXlator(0.0, 2.0 * out_samplerate)
+        # 2:1 anti-alias: stopband from out_sr − bw/2
+        self.decim2 = FIR(taps_mod.low_pass(out_samplerate / 2.0,
+                                            (out_samplerate - bandwidth) / 2.0,
+                                            2.0 * out_samplerate), decim=2)
+        self.filter_needed = bandwidth != out_samplerate
+        if self.filter_needed:
+            fw = bandwidth / 2.0
+            self.fir = FIR(taps_mod.low_pass(fw, fw * 0.1, out_samplerate))
+        from fractions import Fraction
+        self.ratio = Fraction(1, M)
+        self.in_multiple = M
+        self._pfb = self._post = None
+
+    def make_params(self, offsets_hz):
+        """Per-channel offsets (Hz) → nearest bin, the residual NCO and
+        its host-float64 spans for the post-channelizer's phase."""
+        from ..ops.chan_frontend import BS, SPAN
+        from ..ops.xlator import _TWO_PI
+        f = np.asarray(offsets_hz, np.float64)
+        k = np.round(f / self.out_samplerate)
+        delta = f - k * self.out_samplerate
+        omega = -delta * (_TWO_PI / (2.0 * self.out_samplerate))
+        return to_device(
+            {"bin": torch.from_numpy(
+                np.mod(k.astype(np.int64), self.M).astype(np.int32)),
+             "xl": nco_params(-delta, 2.0 * self.out_samplerate),
+             "xl_bs": torch.tensor(np.mod(omega * BS, _TWO_PI),
+                                   dtype=torch.float32),
+             "xl_sup": torch.tensor(np.mod(omega * SPAN, _TWO_PI),
+                                    dtype=torch.float32)},
+            entry_device(self.device))
+
+    def init_state(self, C: int):
+        st = {"chz": self.chz.init_state(),
+              "xl": self.fine.init_state((C,)),
+              "d2": self.decim2.init_state((C,))}
+        if self.filter_needed:
+            st["fir"] = self.fir.init_state((C,))
+        return to_device(st, entry_device(self.device))
+
+    def pipes(self):
+        """(K5 configuration, K6 configuration), built once."""
+        if self._pfb is None:
+            from ..ops.chan_frontend import ChanPostPipeline
+            self._pfb = self.chz.pfb()
+            self._post = ChanPostPipeline(self)
+        return self._pfb, self._post
+
+    def apply(self, params, state, x, raw: bool = False):
+        """x: [T] shared wideband, (xr, xi) float32 planes or complex →
+        (y, sq_sums [C], state'): y the complex [C, T/M] IF, or with
+        ``raw`` (buf [2C, W] in the handoff dtype, m_if); sq_sums = Σ|y|
+        per channel over the block (the squelch's block mean × m_if).
+        Runs K5 then K6 (their plain versions on the CPU)."""
+        dev = entry_device(self.device)
+        xr, xi = x if isinstance(x, tuple) else (x.real, x.imag)
+        xr = xr.to(dev, torch.float32).contiguous()
+        xi = xi.to(dev, torch.float32).contiguous()
+        T = xr.shape[-1]
+        if T % self.M:
+            raise ValueError(f"block length {T} not a multiple of M={self.M}")
+        pfb, post = self.pipes()
+        Tb = 2 * T // self.M
+        st = dict(state)
+        bins, st["chz"] = pfb.apply(state["chz"], (xr, xi),
+                                    post.plan(Tb)["Tb_pad"])
+        return post.apply(params, st, bins, Tb, raw=raw)

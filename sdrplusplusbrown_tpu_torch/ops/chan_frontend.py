@@ -1,0 +1,228 @@
+"""Post-channelizer front end — kernel K6 and its plain version
+(counterpart of sdrplusplusbrown_tpu/ops/chan_frontend.py, whose
+``_chan_kernel`` body also runs inside ``_chan_fused_kernel_v3``).
+
+Per channel c, from the stacked PFB bins [2M, Tb_pad] (ops/
+channelizer_kernel.py):
+
+  1. gather bin ``bin[c]`` and rotate by the residual NCO,
+         z[n] = bins[bin[c], n] · e^{jθ_c(n)},
+         θ_c(n) = ((ph0 + span·i) + bs·b) + ω·j,  n = i·adv0 + 128·b + j,
+     each operation rounded to float32 on its own, as the TPU kernel
+     evaluates it (the spans are host-float64 products reduced mod 2π);
+  2. the 2:1 anti-alias FIR (``d2``) and the bandwidth FIR (``fir``),
+     overlap-save over the carried complex tails;
+  3. Σ|y| over the VALID outputs (the squelch's whole-block mean; the
+     padded tail of the output is garbage by design).
+
+The output is the untrimmed [2C, n_super·adv_f] IF buffer (re rows over
+im rows) plus its valid width; taps and carried tails are rounded to the
+handoff storage dtype where the JAX kernel rounds them.
+
+Dispatch follows the input: CPU tensors run ``chan_post_ref``; CUDA
+tensors launch ``chan_post_kernel`` (csrc/chan_post.cu) or raise.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels import _build
+from .precision import get_handoff_dtype, round_to
+from .xlator import advance_phase
+
+BS = 128          # NCO block (the TPU kernel's lane width)
+SPAN = 2048       # baked span of the ``xl_sup`` param (bin-rate samples)
+POST_TILE = 512   # final outputs per CUDA block (csrc/chan_post.cu)
+
+_STORAGE = (torch.float32, torch.bfloat16)
+
+
+def _rup(n: int, a: int) -> int:
+    return (n + a - 1) // a * a
+
+
+class ChanPostPipeline:
+    """K6 configuration built from a ChannelizedRxVFOBank: the d2 and
+    bandwidth FIR designs and the TPU kernel's step geometry (adv0 bin
+    samples in, adv_f IF samples out per step), which fixes the NCO's
+    (i, b, j) decomposition and the padded output width."""
+
+    def __init__(self, bank):
+        self.M = int(bank.M)
+        if not bank.filter_needed:
+            raise NotImplementedError("post-channelizer without a "
+                                      "bandwidth FIR")
+        blocks = [("d2", bank.decim2), ("fir", bank.fir)]
+        if bank.decim2.decim != 2 or bank.fir.decim != 1:
+            raise NotImplementedError("post-channelizer stages must be "
+                                      "a 2:1 FIR then a 1:1 FIR")
+        self.names = [n for n, _ in blocks]
+        self.taps = [np.asarray(b.taps, np.float32) for _, b in blocks]
+        if any(np.iscomplexobj(t) for t in self.taps):
+            raise NotImplementedError("complex-tap post-channelizer stage")
+        self.hists = [len(t) - 1 for t in self.taps]
+        # the TPU kernel's choice of advances (its VMEM cap aside)
+        for k in (4, 8, 2, 16, 1):
+            advs = [128 * k]
+            for _, b in reversed(blocks):
+                advs.insert(0, advs[0] * b.decim)
+            if all(_rup(h, 128) + a >= max(127 * b.decim + h + 1,
+                                            _rup(h + 127, 128))
+                   for h, a, (_, b) in zip(self.hists, advs, blocks)):
+                break
+        else:
+            raise NotImplementedError("no step geometry for these stages")
+        self.adv0, self.adv_f = advs[0], advs[-1]
+        self._dev = {}
+
+    def plan(self, Tb: int) -> dict:
+        """Valid lengths after each stage, the step count and the padded
+        bin width for ``Tb`` valid bin samples."""
+        m = [Tb, Tb // 2, Tb // 2]
+        n_super = -(-m[-1] // self.adv_f)
+        return {"m": m, "n_super": n_super, "Tb_pad": n_super * self.adv0,
+                "n_out": n_super * self.adv_f}
+
+    def dev_taps(self, device, dtype) -> List[torch.Tensor]:
+        key = (str(device), dtype)
+        if key not in self._dev:
+            self._dev[key] = [round_to(torch.from_numpy(t), dtype)
+                              .to(device).contiguous() for t in self.taps]
+        return self._dev[key]
+
+    def apply(self, params, state, bins, Tb: int, raw: bool = False):
+        """bins: [2M, Tb_pad] stacked PFB planes with ``Tb`` valid frames
+        → (y, sq_sums [C], state') with y the complex [C, m_if] IF, or
+        with ``raw`` (buf [2C, n_out] in the handoff dtype, m_if)."""
+        plan = self.plan(Tb)
+        if tuple(bins.shape) != (2 * self.M, plan["Tb_pad"]):
+            raise ValueError(f"bins shape {tuple(bins.shape)}, expected "
+                             f"{(2 * self.M, plan['Tb_pad'])}")
+        h_dt = get_handoff_dtype()
+        om = params["xl"]["omega"]
+        phase0 = state["xl"]
+        a_sup, rem = divmod(self.adv0, SPAN)
+        span_adv = params["xl_sup"] * a_sup + params["xl_bs"] * (rem // BS)
+        tails = [round_to(torch.cat([state[n].real, state[n].imag])
+                          .float(), h_dt).contiguous() for n in self.names]
+        out, sq, new_tails = chan_post(
+            self, bins, params["bin"], om.contiguous(), phase0.contiguous(),
+            span_adv.contiguous(), params["xl_bs"].contiguous(), tails, Tb,
+            h_dt if raw else torch.float32, h_dt)
+        C = om.shape[0]
+        m_out = plan["m"][-1]
+        y = (out, m_out) if raw else torch.complex(out[:C, :m_out],
+                                                   out[C:, :m_out])
+        new_state = dict(state)
+        new_state["xl"] = advance_phase(phase0, om,
+                                        params["xl"]["omega_span"], Tb)
+        for name, t in zip(self.names, new_tails):
+            new_state[name] = torch.complex(t[:C], t[C:])
+        return y, sq, new_state
+
+
+def _check_post(pipe, bins, bin_idx, om, tails, Tb):
+    C = om.shape[0]
+    plan = pipe.plan(Tb)
+    if tuple(bins.shape) != (2 * pipe.M, plan["Tb_pad"]):
+        raise ValueError(f"bins shape {tuple(bins.shape)}")
+    if tuple(bin_idx.shape) != (C,):
+        raise ValueError(f"bin index shape {tuple(bin_idx.shape)}")
+    for h, t in zip(pipe.hists, tails):
+        if tuple(t.shape) != (2 * C, h):
+            raise ValueError(f"tail shape {tuple(t.shape)}")
+    return C, plan
+
+
+def nco_phase(pipe, om, ph0, span_adv, sbs, n: int) -> torch.Tensor:
+    """[C, n] NCO angles of bin samples 0..n−1, evaluated as the TPU
+    kernel does: ((ph0 + span·i) + bs·b) + ω·j, one rounding per op."""
+    dev = om.device
+    idx = torch.arange(n, device=dev)
+    i = (idx // pipe.adv0).float()
+    b = ((idx % pipe.adv0) // BS).float()
+    j = (idx % BS).float()
+    return ((ph0[:, None] + span_adv[:, None] * i)
+            + sbs[:, None] * b) + om[:, None] * j
+
+
+def _fir_rows(ext: torch.Tensor, taps: torch.Tensor, decim: int):
+    return F.conv1d(ext[:, None, :], taps[None, None, :],
+                    stride=decim)[:, 0]
+
+
+def chan_post_ref(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
+                  out_dtype, tail_dtype):
+    """Plain PyTorch K6: (out [2C, n_out] ``out_dtype``, Σ|y| over the
+    valid outputs [C] float32, next-call tails [[2C, hist] float32
+    rounded to ``tail_dtype``])."""
+    C, plan = _check_post(pipe, bins, bin_idx, om, tails, Tb)
+    taps = pipe.dev_taps(bins.device, tail_dtype)
+    n = plan["Tb_pad"]
+    b = bins.float()
+    zr, zi = b[bin_idx.long()], b[pipe.M + bin_idx.long()]
+    ang = nco_phase(pipe, om, ph0, span_adv, sbs, n)
+    co, si = torch.cos(ang), torch.sin(ang)
+    y = torch.cat([zr * co - zi * si, zr * si + zi * co])      # [2C, n]
+    new_tails = []
+    for s, (h, t, tp) in enumerate(zip(pipe.hists, tails, taps)):
+        ext = torch.cat([t, y], dim=1)
+        m_in = plan["m"][s]
+        new_tails.append(round_to(ext[:, m_in:m_in + h], tail_dtype))
+        y = _fir_rows(ext, tp, 2 if s == 0 else 1)
+    m_out = plan["m"][-1]
+    mag = torch.sqrt(y[:C, :m_out] ** 2 + y[C:, :m_out] ** 2)
+    return (y[:, :plan["n_out"]].to(out_dtype).contiguous(), mag.sum(-1),
+            new_tails)
+
+
+@_build.counted
+def chan_post_kernel(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
+                     out_dtype, tail_dtype):
+    """K6 on the card (csrc/chan_post.cu); same contract as
+    ``chan_post_ref``.  The squelch sums come back per output tile and
+    are summed over the tiles by one torch reduction on the device (no
+    atomics, no host copy)."""
+    dev = bins.device
+    f32 = torch.float32
+    C, plan = _check_post(pipe, bins, bin_idx, om, tails, Tb)
+    if out_dtype not in _STORAGE or tail_dtype not in _STORAGE:
+        raise ValueError(f"dtypes {out_dtype}, {tail_dtype}")
+    taps = pipe.dev_taps(dev, tail_dtype)
+    m1, m_out, n_out = plan["m"][1], plan["m"][-1], plan["n_out"]
+    n_tiles = max(-(-n_out // POST_TILE), m1 // POST_TILE + 1)
+    out = torch.empty((2 * C, n_out), dtype=out_dtype, device=dev)
+    sq = torch.empty((C, n_tiles), dtype=f32, device=dev)
+    t_d2 = torch.empty((2 * C, pipe.hists[0]), dtype=f32, device=dev)
+    t_fir = torch.empty((2 * C, pipe.hists[1]), dtype=f32, device=dev)
+    _build.launch(
+        "sdr_chan_post", dev,
+        _build.check(bins, "bins", _STORAGE, device=dev),
+        int(bins.dtype == torch.bfloat16), pipe.M, plan["Tb_pad"], Tb,
+        _build.check(bin_idx, "bin index", torch.int32, (C,), dev),
+        _build.check(om, "omega", f32, (C,), dev),
+        _build.check(ph0, "phase", f32, (C,), dev),
+        _build.check(span_adv, "span", f32, (C,), dev),
+        _build.check(sbs, "block span", f32, (C,), dev), pipe.adv0,
+        _build.check(tails[0], "d2 tail", f32, device=dev),
+        _build.check(tails[1], "fir tail", f32, device=dev),
+        _build.check(taps[0], "d2 taps", f32, device=dev), taps[0].shape[0],
+        _build.check(taps[1], "fir taps", f32, device=dev), taps[1].shape[0],
+        out.data_ptr(), int(out_dtype == torch.bfloat16), n_out, m_out,
+        sq.data_ptr(), n_tiles, t_d2.data_ptr(), t_fir.data_ptr(),
+        int(tail_dtype == torch.bfloat16), C)
+    return out, sq.sum(-1), [t_d2, t_fir]
+
+
+def chan_post(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
+              out_dtype, tail_dtype):
+    """K6 dispatch: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    fn = chan_post_kernel if bins.is_cuda else chan_post_ref
+    return fn(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
+              out_dtype, tail_dtype)

@@ -182,22 +182,19 @@ class MonoVFOPipeline:
         """x: (xr, xi) float32 [T] planes of the shared wideband →
         (buf [2C, m_if] in the handoff dtype, new_state)."""
         xr, xi = x
-        dev = xr.device
         xr = xr.float().contiguous()
         xi = xi.float().contiguous()
         T = xr.shape[-1]
-        params = {k: v.to(dev) for k, v in params.items()}
         omega = params["omega"].contiguous()
         C = omega.shape[0]
         fused = state["fused"]
-        tail = fused["tail"].to(dev)
-        phase = fused["phase"].to(dev)
+        tail = fused["tail"]
+        phase = fused["phase"]
         h_dt = get_handoff_dtype()
         # narrow banks keep float32 tails, as the JAX kernel does
         t_dt = h_dt if C >= 16 else torch.float32
         tail_planes = []
         for tc in self.stage_tails(state):
-            tc = tc.to(dev)
             tail_planes.append(round_to(
                 torch.cat([tc.real, tc.imag], dim=0).float(), t_dt)
                 .contiguous())

@@ -77,14 +77,13 @@ class WFMDemodPipeline:
         """iq: [2C, ≥m_if] IF planes (re rows, im rows) → (L/R planes
         [2C, m_mpx] in the handoff dtype, new_state with quad / mpx_decim /
         mpx_hist updated and every other key passed through)."""
-        dev = iq.device
         C = iq.shape[0] // 2
         h_dt = get_handoff_dtype()
-        q = state["quad"].to(dev)[:, 0]
+        q = state["quad"][:, 0]
         qprev = round_to(torch.cat([q.real, q.imag]).float(), h_dt)
-        hb_tails = [round_to(t.to(dev).float(), h_dt).contiguous()
+        hb_tails = [round_to(t.float(), h_dt).contiguous()
                     for t in state["mpx_decim"]]
-        hist = round_to(state["mpx_hist"].to(dev).float(), h_dt).contiguous()
+        hist = round_to(state["mpx_hist"].float(), h_dt).contiguous()
         lr, ins = wfm_demod(self, iq, m_if, qprev.contiguous(), hb_tails,
                             hist, h_dt)
         new_state = dict(state)
@@ -209,7 +208,6 @@ class MPXAudioPoly:
         """ars: [2, C, hist] carried input (state["audio_rs"]); raw:
         [2C, ≥m_in] L/R planes → (audio [C, 2, m_aud] float32, new ars)."""
         h_dt = get_handoff_dtype()
-        ars = ars.to(raw.device)
         C = ars.shape[1]
         ptail = round_to(torch.cat([ars[0], ars[1]]).float(), h_dt) \
             .contiguous()

@@ -6,7 +6,10 @@ carried state:
     y, new_state = block.apply(params, state, x)
 
   * ``x``/``y`` are tensors shaped ``[..., T]``; leading axes are batched
-    VFO channels.  The device follows the input tensor.
+    VFO channels.  A plain block follows its input's device; the entry
+    points (``Radio``, the VFO banks, ``SpectrumPath``) own a device of
+    their own (``device=``, CUDA by default), create their params and
+    state there and move only the input to it.
   * ``state`` is a dict/list tree of tensors (filter tails, NCO phase) with
     the JAX package's keys, shapes and dtypes, so checkpoints and parity
     tests convert one-to-one (``convert.py``).
@@ -23,6 +26,8 @@ from __future__ import annotations
 import math
 from fractions import Fraction
 from typing import Any, Sequence, Tuple
+
+import torch
 
 
 class Block:
@@ -42,6 +47,28 @@ class Block:
 
     def apply(self, params: Any, state: Any, x):
         raise NotImplementedError
+
+
+def entry_device(device) -> torch.device:
+    """The device of an entry point: CUDA unless the caller asks for the
+    CPU.  Raises, rather than running on the host, when it is a CUDA
+    device and this machine has none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU unless it is built "
+            "with device='cpu'")
+    return dev
+
+
+def to_device(tree, device: torch.device):
+    """A dict/list tree of tensors moved to ``device`` (at init and
+    retune time only, never per step)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
 
 
 def lcm_fraction(a: Fraction, b: Fraction) -> Fraction:

@@ -27,7 +27,7 @@ def _cplx(rng, *shape):
 
 def _stream(jblk, pblk, jst, blocks):
     """Run both blocks over consecutive blocks; yield (jax y, port y)."""
-    pst = convert.state_from_jax(jst)
+    pst = convert.state_from_jax(jst, device="cpu")
     for xb in blocks:
         jy, jst = jblk.apply(None, jst, jnp.asarray(xb))
         py, pst = pblk.apply(None, pst, torch.from_numpy(xb))
@@ -105,7 +105,7 @@ def test_rx_vfo_like_jax():
     pv = RxVFO(2.4e6, 500e3, 150e3)
     jp, pp = jv.make_params(offs), pv.make_params(offs)
     jst = jv.init_state((2,))
-    pst = convert.state_from_jax(jst)
+    pst = convert.state_from_jax(jst, device="cpu")
     for _ in range(2):
         xb = _cplx(rng, 2, 4800)
         jy, jst = jv.apply(jp, jst, jnp.asarray(xb))
@@ -122,11 +122,12 @@ def test_quadrature_and_delay_like_jax():
     x[:, 10] = 0                     # a zero sample: exact silence
     jst = jq.init_state((2,))
     jy, jst2 = jq.apply(None, jst, jnp.asarray(x))
-    py, pst2 = pq.apply(None, convert.state_from_jax(jst), torch.from_numpy(x))
+    py, pst2 = pq.apply(None, convert.state_from_jax(jst, device="cpu"),
+                        torch.from_numpy(x))
     assert snr_db(np.asarray(jy), py.numpy()) > 120.0
     assert py[0, 10] == 0 and py[0, 11] == 0
     jy2, _ = jq.apply_planes(jst, jnp.asarray(x.real), jnp.asarray(x.imag))
-    py2, _ = pq.apply_planes(convert.state_from_jax(jst),
+    py2, _ = pq.apply_planes(convert.state_from_jax(jst, device="cpu"),
                              torch.from_numpy(x.real.copy()),
                              torch.from_numpy(x.imag.copy()))
     assert snr_db(np.asarray(jy2), py2.numpy()) > 120.0

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card, over
 shapes the main path does not reach (odd channel counts, partial tiles and
-windows, both handoff dtypes, every supported FFT size).  These need an
+windows, both handoff dtypes, every supported FFT size, the scanner banks
+at C = 8, 128 and 256 with offsets at both band edges).  These need an
 NVIDIA GPU and skip without one; on the GPU machine, which has no JAX, run
 
     python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py
@@ -10,12 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from sdrplusplusbrown_tpu_torch.models.radio import Radio, DEMOD_WFM
-from sdrplusplusbrown_tpu_torch.ops import fft_kernel, mono_frontend
+from sdrplusplusbrown_tpu_torch.models.radio import (Radio, DEMOD_NFM,
+                                                     DEMOD_WFM)
+from sdrplusplusbrown_tpu_torch.ops import (chan_frontend, channelizer_kernel,
+                                            demod_kernel, fft_kernel,
+                                            mono_frontend)
 from sdrplusplusbrown_tpu_torch.ops import precision, wfm_kernel
 from sdrplusplusbrown_tpu_torch.ops.spectrum import make_fft_window
 
-from torch_parity import FS, assert_spectra_close, snr_db, wfm_iq
+from torch_parity import FS, assert_spectra_close, nfm_iq, snr_db, wfm_iq
 
 pytestmark = pytest.mark.cuda
 
@@ -63,19 +67,21 @@ def _planes(x, dev):
 @pytest.mark.parametrize("C,T", [(1, 24_000), (3, 36_000), (8, 240_000),
                                  (16, 48_000)])
 def test_frontend_kernel_matches_plain(gpu, handoff, C, T):
-    radio = Radio(FS, DEMOD_WFM)
-    bank = radio._build_vfo_shared()
+    bank = Radio(FS, DEMOD_WFM, device="cpu")._build_vfo_shared()
+    bank_gpu = Radio(FS, DEMOD_WFM)._build_vfo_shared()
     offs = np.linspace(-1.0e6, 1.0e6, C) if C > 1 else np.array([3e5])
     x = wfm_iq(2 * T, offs, seed=C)
-    p = bank.make_params(offs)
+    p, p_gpu = bank.make_params(offs), bank_gpu.make_params(offs)
     s_cpu = bank.init_state(C)
-    s_gpu = _to(s_cpu, gpu)
+    s_gpu = bank_gpu.init_state(C)
+    assert s_gpu["fused"]["tail"].is_cuda and p_gpu["fused"]["omega"].is_cuda
     n0 = mono_frontend.mono_frontend_kernel.launches
     bound = 80.0 if handoff == "float32" else 60.0
     for b in range(2):
         xb = x[b * T:(b + 1) * T]
         y_cpu, s_cpu = bank.apply(p, s_cpu, _planes(xb, "cpu"))
-        y_gpu, s_gpu = bank.apply(p, s_gpu, _planes(xb, gpu))
+        # the host planes go in as they are: the bank moves them
+        y_gpu, s_gpu = bank_gpu.apply(p_gpu, s_gpu, _planes(xb, "cpu"))
         assert y_gpu.is_cuda and y_gpu.dtype == y_cpu.dtype
         _close(y_cpu, y_gpu, bound, f"IF block {b}")
         for key in ("resamp", "fir"):
@@ -88,7 +94,7 @@ def test_frontend_kernel_matches_plain(gpu, handoff, C, T):
 
 @pytest.mark.parametrize("C", [1, 4, 8])
 def test_wfm_kernels_match_plain(gpu, handoff, C):
-    radio = Radio(FS, DEMOD_WFM)
+    radio = Radio(FS, DEMOD_WFM, device="cpu")
     bank, dem = radio._build_vfo_shared(), radio.demod
     T = 48_000
     offs = np.linspace(-0.9e6, 0.9e6, C) if C > 1 else np.array([-2e5])
@@ -144,22 +150,185 @@ def test_kernels_raise_instead_of_falling_back(gpu):
 
 def test_radio_slice_matches_plain(gpu, handoff):
     from sdrplusplusbrown_tpu_torch.ops.spectrum import SpectrumPath
-    radio = Radio(FS, DEMOD_WFM)
-    sp = SpectrumPath(FS, fft_size=4096, fft_rate=200.0)
+    radio = Radio(FS, DEMOD_WFM, device="cpu")
+    radio_gpu = Radio(FS, DEMOD_WFM)
+    sp = SpectrumPath(FS, fft_size=4096, fft_rate=200.0, device="cpu")
+    sp_gpu = SpectrumPath(FS, fft_size=4096, fft_rate=200.0)
     C, T = 4, 48_000
     offs = np.linspace(-0.9e6, 0.9e6, C)
     x = wfm_iq(3 * T, offs, seed=5)
     s_cpu = radio.init_state_shared(C)
-    s_gpu = radio.init_state_shared(C)
+    s_gpu = radio_gpu.init_state_shared(C)
     bound = 70.0 if handoff == "float32" else 50.0
     for b in range(3):
-        p = radio.make_params_shared(offs if b < 2 else offs + 20e3)
+        o = offs if b < 2 else offs + 20e3
         xb = x[b * T:(b + 1) * T]
-        (a1, sp1), s_cpu = radio.apply_shared(p, s_cpu, _planes(xb, "cpu"),
+        (a1, sp1), s_cpu = radio.apply_shared(radio.make_params_shared(o),
+                                              s_cpu, _planes(xb, "cpu"),
                                               spectrum=sp)
-        (a2, sp2), s_gpu = radio.apply_shared(p, s_gpu, _planes(xb, gpu),
-                                              spectrum=sp)
+        (a2, sp2), s_gpu = radio_gpu.apply_shared(
+            radio_gpu.make_params_shared(o), s_gpu, _planes(xb, gpu),
+            spectrum=sp_gpu)
         assert a2.is_cuda and sp2.is_cuda
         if b:
             _close(a1, a2, bound, f"audio block {b}")
         assert_spectra_close(sp1.numpy(), sp2.cpu().numpy())
+
+
+# ---- the wide-bank NFM scanner: K5, K6, K7 -------------------------------
+
+SCAN_T = 240_000
+
+
+def _scan_offsets(C):
+    """bench.py's scanner offsets (both band edges at ±1.1 MHz) with two
+    channels either side of DC (bins 47 and 0)."""
+    offs = np.linspace(-1.1e6, 1.1e6, C) + 917.0
+    offs[C // 2 - 1:C // 2 + 1] = [-30e3, 10e3]
+    return offs
+
+
+@pytest.mark.parametrize("T", [SCAN_T, 384 * 30])
+def test_pfb_kernel_matches_plain(gpu, handoff, T):
+    """Scanner block length, and one whose last frame block is partial."""
+    bank = Radio(FS, DEMOD_NFM)._build_vfo_channelized()
+    pfb, post = bank.pipes()
+    x = nfm_iq(2 * T, _scan_offsets(16), range(0, 16, 3), seed=T)
+    Tb = 2 * T // 48
+    W = post.plan(Tb)["Tb_pad"]
+    st = bank.init_state(8)["chz"]
+    n0 = channelizer_kernel.pfb_bins_kernel.launches
+    bound = 100.0 if handoff == "float32" else 45.0
+    for b in range(2):
+        xr, xi = _planes(x[b * T:(b + 1) * T], gpu)
+        xw = pfb.state_to_xw(st)
+        args = (pfb, xr, xi, xw.real.contiguous(), xw.imag.contiguous(), W,
+                precision.get_handoff_dtype(), precision.get_handoff_dtype())
+        got = channelizer_kernel.pfb_bins(*args)
+        want = channelizer_kernel.pfb_bins_ref(*args)
+        assert got.is_cuda and got.dtype == want.dtype
+        _close(want, got, bound, f"bins block {b}")
+        _, st = pfb.apply(st, (xr, xi), W)
+    assert channelizer_kernel.pfb_bins_kernel.launches == n0 + 4
+
+
+@pytest.mark.parametrize("C", [8, 128, 256])
+def test_post_kernel_matches_plain(gpu, handoff, C):
+    bank = Radio(FS, DEMOD_NFM)._build_vfo_channelized()
+    _, post = bank.pipes()
+    params = bank.make_params(_scan_offsets(C))
+    assert {0, 22, 26, 47} <= set(params["bin"].tolist())
+    Tb = 2 * SCAN_T // 48
+    plan = post.plan(Tb)
+    rng = np.random.default_rng(C)
+    h_dt = precision.get_handoff_dtype()
+    state = bank.init_state(C)
+    n0 = chan_frontend.chan_post_kernel.launches
+    bound = 80.0 if handoff == "float32" else 45.0
+    for b in range(2):
+        bins = torch.from_numpy(rng.standard_normal(
+            (96, plan["Tb_pad"])).astype(np.float32)).to(gpu).to(h_dt)
+        om = params["xl"]["omega"]
+        span = params["xl_sup"] * 0 + params["xl_bs"] * (post.adv0 // 128)
+        tails = [precision.round_to(torch.cat([state[n].real,
+                                               state[n].imag]).float(),
+                                    h_dt).contiguous() for n in post.names]
+        args = (post, bins, params["bin"], om, state["xl"], span,
+                params["xl_bs"], tails, Tb, h_dt, h_dt)
+        out, sq, nt = chan_frontend.chan_post(*args)
+        out0, sq0, nt0 = chan_frontend.chan_post_ref(*args)
+        m = plan["m"][-1]
+        assert out.is_cuda and out.shape == out0.shape == (2 * C,
+                                                           plan["n_out"])
+        _close(out0[:, :m], out[:, :m], bound, f"IF block {b}")
+        torch.testing.assert_close(sq, sq0, rtol=1e-5, atol=0)
+        for t, t0 in zip(nt, nt0):
+            _close(t0, t, bound, "tail")
+        _, _, state = post.apply(params, state, bins, Tb, raw=True)
+    assert chan_frontend.chan_post_kernel.launches == n0 + 4
+
+
+@pytest.mark.parametrize("C", [8, 128, 256])
+def test_fm_audio_kernel_matches_plain(gpu, handoff, C):
+    radio = Radio(FS, DEMOD_NFM, squelch_enabled=True)
+    pipe = radio.fm_audio_pipe()
+    m_if = 5000
+    rng = np.random.default_rng(C)
+    h_dt = precision.get_handoff_dtype()
+    gate = torch.from_numpy((np.arange(C) % 3 != 1).astype(np.float32)) \
+        .to(gpu)
+    st = radio.init_state((C,))
+    dstate, astate = st["demod"], st["af_resamp"]
+    n0 = demod_kernel.fm_audio_kernel.launches
+    bound = 80.0 if handoff == "float32" else 45.0
+    for b in range(2):
+        dphi = 0.3 * np.sin(np.arange(5120) / 15.0) \
+            + 0.05 * rng.standard_normal((C, 5120))
+        z = np.exp(1j * np.cumsum(dphi, axis=1))
+        iq = torch.from_numpy(np.concatenate([z.real, z.imag])
+                              .astype(np.float32)).to(gpu).to(h_dt)
+        q = dstate["quad"][:, 0]
+        args = (pipe, iq, m_if, gate,
+                precision.round_to(torch.cat([q.real, q.imag]).float(),
+                                   h_dt).contiguous(),
+                precision.round_to(dstate["fir"].float(), h_dt).contiguous(),
+                precision.round_to(astate["resamp"].float(), h_dt)
+                .contiguous(), h_dt, h_dt)
+        got = demod_kernel.fm_audio(*args)
+        want = demod_kernel.fm_audio_ref(*args)
+        assert got[0].is_cuda and got[0].shape == want[0].shape == (C, 6144)
+        _close(want[0], got[0], bound, f"audio block {b}")
+        assert not got[0][gate == 0].any()     # closed from the start
+        for g, w, what in zip(got[1:], want[1:], ("quad", "fir", "resamp")):
+            _close(w, g, bound, what)
+        _, dstate, astate = pipe.apply(gate, dstate, astate, iq, m_if)
+    assert demod_kernel.fm_audio_kernel.launches == n0 + 4
+
+
+def test_scanner_slice_matches_plain(gpu, handoff):
+    """Radio.apply_channelized on the card (K5 → K6 → K7, one launch each
+    per step) against the same Radio on the CPU, 3 blocks, a retune."""
+    C = 16
+    rc = Radio(FS, DEMOD_NFM, squelch_enabled=True, device="cpu")
+    rg = Radio(FS, DEMOD_NFM, squelch_enabled=True)
+    offs = _scan_offsets(C)
+    x = nfm_iq(3 * SCAN_T, offs, range(0, C, 4), seed=3)
+    s_cpu = rc.init_state_channelized(C)
+    s_gpu = rg.init_state_channelized(C)
+    kernels = (channelizer_kernel.pfb_bins_kernel,
+               chan_frontend.chan_post_kernel, demod_kernel.fm_audio_kernel)
+    n0 = [k.launches for k in kernels]
+    bound = 70.0 if handoff == "float32" else 30.0
+    for b in range(3):
+        o = offs if b < 2 else offs + 1500.0
+        xb = x[b * SCAN_T:(b + 1) * SCAN_T]
+        a1, s_cpu = rc.apply_channelized(
+            rc.make_params_channelized(o, squelch_level=-30.0), s_cpu,
+            _planes(xb, "cpu"), mono_out=True)
+        a2, s_gpu = rg.apply_channelized(
+            rg.make_params_channelized(o, squelch_level=-30.0), s_gpu,
+            _planes(xb, "cpu"), mono_out=True)
+        assert a2.is_cuda and a2.shape == a1.shape == (C, SCAN_T // 50)
+        open1 = a1.abs().amax(-1) > 0
+        open2 = a2.abs().amax(-1).cpu() > 0
+        assert torch.equal(open1, open2)
+        assert open1.nonzero().flatten().tolist() == list(range(0, C, 4))
+        _close(a1[open1], a2.cpu()[open1], bound, f"audio block {b}")
+    assert [k.launches for k in kernels] == [n + 3 for n in n0]
+
+
+def test_scanner_kernels_raise_instead_of_falling_back(gpu):
+    radio = Radio(FS, DEMOD_NFM)
+    pipe = radio.fm_audio_pipe()
+    iq = torch.zeros((8, 10_000), device=gpu)[:, ::2]       # not contiguous
+    z = torch.zeros
+    with pytest.raises(ValueError):
+        demod_kernel.fm_audio(pipe, iq, 5000, z(4, device=gpu),
+                              z(8, device=gpu), z((4, 303), device=gpu),
+                              z((4, 79), device=gpu), torch.float32,
+                              torch.float32)
+    pfb, _ = radio._build_vfo_channelized().pipes()
+    xr = z(48 * 100, device=gpu)
+    with pytest.raises(ValueError):                        # history on host
+        channelizer_kernel.pfb_bins(pfb, xr, xr, z(264), z(264), 256,
+                                    torch.float32, torch.float32)

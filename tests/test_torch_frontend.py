@@ -31,12 +31,12 @@ def test_frontend_matches_jax_kernel(C, handoff, min_db):
     jax_precision.set_handoff_dtype(handoff)
     port_precision.set_handoff_dtype(handoff)
     jvs = JaxRadio(FS, DEMOD_WFM, pll_mode="normalize")._build_vfo_shared()
-    pvs = Radio(FS, DEMOD_WFM)._build_vfo_shared()
+    pvs = Radio(FS, DEMOD_WFM, device="cpu")._build_vfo_shared()
     offsets = np.linspace(-0.9e6, 0.9e6, C)
     retuned = offsets + np.linspace(-40e3, 35e3, C)
     x = wfm_iq(3 * T, offsets, seed=C)
     js = jvs.init_state(C)
-    ps = convert.state_from_jax(js)
+    ps = convert.state_from_jax(js, device="cpu")
     launches = mono_frontend.mono_frontend_kernel.launches
     for b in range(3):
         offs = offsets if b < 2 else retuned

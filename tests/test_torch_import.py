@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: importing it loads nothing of JAX or of
-the JAX package (the machine with the card has no JAX)."""
+"""The PyTorch port stands alone: importing it, or running chip_smoke.py,
+loads nothing of JAX or of the JAX package (the machine with the card has
+no JAX)."""
 
 import os
 import pathlib
@@ -40,3 +41,22 @@ def test_no_jax_import_statement(path):
     bad = re.findall(r"^\s*(?:import|from)\s+(jax\w*|sdrplusplusbrown_tpu)\b",
                      src, re.M)
     assert not bad, (path, bad)
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (REPO / "chip_smoke.py").read_text()
+    bad = re.findall(r"^\s*(?:import|from)\s+(jax\w*|sdrplusplusbrown_tpu)\b",
+                     src, re.M)
+    assert not bad, bad
+    assert "sdrplusplusbrown_tpu_torch" in src
+
+
+def test_chip_smoke_fails_without_cuda():
+    """Without a card the script exits nonzero and prints no result."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout

@@ -41,9 +41,9 @@ def test_apply_shared_matches_jax(handoff, state_min_db):
     jax_precision.set_handoff_dtype(handoff)
     port_precision.set_handoff_dtype(handoff)
     jr = JaxRadio(FS, DEMOD_WFM, pll_mode="normalize")
-    pr = Radio(FS, DEMOD_WFM)
+    pr = Radio(FS, DEMOD_WFM, device="cpu")
     jsp = JaxSpectrum(FS, FFT, FFT_RATE)
-    psp = SpectrumPath(FS, FFT, FFT_RATE)
+    psp = SpectrumPath(FS, FFT, FFT_RATE, device="cpu")
     T = 4 * int(np.lcm(pr.in_multiple, psp.in_multiple))
     assert T == 48_000
     # the JAX path computes the spectrum inside its front-end kernel (and
@@ -79,7 +79,7 @@ def test_apply_shared_matches_jax(handoff, state_min_db):
 def test_apply_shared_streams_exactly():
     """Two half blocks give the one-block output (state carries across
     calls) and the block length is checked."""
-    pr = Radio(FS, DEMOD_WFM)
+    pr = Radio(FS, DEMOD_WFM, device="cpu")
     T = 2 * pr.in_multiple * 10
     x = wfm_iq(2 * T, OFFSETS, seed=4)
     params = pr.make_params_shared(OFFSETS)

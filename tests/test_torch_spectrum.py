@@ -39,7 +39,7 @@ def test_spectrum_matches_jax_kernel(fft_size, interval, T):
 def test_spectrum_path_frames_and_peaks():
     """SpectrumPath frames at rup(f·interval, 1024) and puts each carrier
     at its DC-centred bin."""
-    sp = SpectrumPath(FS, fft_size=4096, fft_rate=200.0)
+    sp = SpectrumPath(FS, fft_size=4096, fft_rate=200.0, device="cpu")
     T = 4 * sp.reshaper.interval
     offsets = np.linspace(-0.9e6, 0.9e6, 4)
     x = wfm_iq(T, offsets, seed=3)

@@ -22,7 +22,8 @@ OFFSETS = np.linspace(-1.0e6, 1.0e6, 8)
 
 @pytest.fixture(scope="module")
 def radios():
-    return JaxRadio(FS, DEMOD_WFM, pll_mode="normalize"), Radio(FS, DEMOD_WFM)
+    return (JaxRadio(FS, DEMOD_WFM, pll_mode="normalize"),
+            Radio(FS, DEMOD_WFM, device="cpu"))
 
 
 def _designs(radio):
@@ -56,7 +57,8 @@ def test_designed_taps_bit_identical(radios, name):
 
 @pytest.mark.parametrize("fft_size,rate", [(65536, 20.0), (4096, 200.0)])
 def test_fft_window_bit_identical(fft_size, rate):
-    j, p = JaxSpectrum(FS, fft_size, rate), SpectrumPath(FS, fft_size, rate)
+    j, p = JaxSpectrum(FS, fft_size, rate), SpectrumPath(FS, fft_size, rate,
+                                                      device="cpu")
     assert (j.reshaper.keep, j.reshaper.interval) == \
         (p.reshaper.keep, p.reshaper.interval)
     np.testing.assert_array_equal(p.window, j.fft.window)
@@ -90,7 +92,7 @@ def test_fused_params_bit_identical(radios):
     for (k, a), (_, b) in zip(jl, pl):
         assert b.dtype == torch.float32, k
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=k)
-    conv = convert.params_from_jax(jp)
+    conv = convert.params_from_jax(jp, device="cpu")
     for (k, a), (_, b) in zip(leaves(conv), pl):
         assert torch.equal(a, b), k
 
@@ -124,7 +126,7 @@ def test_state_round_trip_exact(radios):
             v = v + 1j * rng.standard_normal(a.shape)
         return v.astype(a.dtype)
     st = fill(jr.init_state_shared(8))
-    back = convert.state_to_jax(convert.state_from_jax(st))
+    back = convert.state_to_jax(convert.state_from_jax(st, device="cpu"))
     jl, bl = list(leaves(st)), list(leaves(back))
     assert [k for k, _ in jl] == [k for k, _ in bl]
     for (k, a), (_, b) in zip(jl, bl):

@@ -37,10 +37,10 @@ def _stereo_if(C: int, n: int, seed: int) -> np.ndarray:
 @pytest.mark.parametrize("C", [4, 8])
 def test_wfm_demod_matches_jax_kernel(C):
     jdem = JaxRadio(FS, DEMOD_WFM, pll_mode="normalize").demod
-    pdem = Radio(FS, DEMOD_WFM).demod
+    pdem = Radio(FS, DEMOD_WFM, device="cpu").demod
     x = _stereo_if(C, 2 * M_IF, seed=C)
     js = jdem.init_state((C,))
-    ps = convert.state_from_jax(js)
+    ps = convert.state_from_jax(js, device="cpu")
     k2 = wfm_kernel.wfm_demod_kernel.launches
     for b in range(2):
         xb = x[:, b * M_IF:(b + 1) * M_IF]
@@ -50,7 +50,7 @@ def test_wfm_demod_matches_jax_kernel(C):
                                               jnp.asarray(xi)),
                                    _force_kernel=True)
         pa, ps = pdem.apply_planes(None, ps, tuple(
-            convert.state_from_jax([xr, xi])))
+            convert.state_from_jax([xr, xi], device="cpu")))
         ja = np.asarray(ja)
         assert pa.shape == ja.shape == (C, 2, M_IF // 4 * 48 // 125)
         s = snr_db(ja, pa.numpy())

@@ -47,6 +47,23 @@ def wfm_iq(T: int, offsets, seed: int = 0) -> np.ndarray:
     return x.astype(np.complex64)
 
 
+def nfm_iq(T: int, offsets, channels, seed: int = 0, amp: float = 0.3,
+           noise: float = 1e-3) -> np.ndarray:
+    """An NFM carrier (tone 700 + 100·k Hz, 2 kHz peak deviation) on each
+    channel k of ``channels`` at its offset, plus complex noise of
+    ``noise`` per component elsewhere — the scanner input of
+    tests/test_chan_frontend.py, with a tone per carrier."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(T)
+    x = noise * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+    for k in channels:
+        tone = 0.8 * np.sin(2 * np.pi * (700.0 + 100.0 * k) * n / FS)
+        phase = 2 * np.pi * (offsets[k] * n / FS
+                             + 2500.0 * np.cumsum(tone) / FS)
+        x = x + amp * np.exp(1j * phase)
+    return x.astype(np.complex64)
+
+
 def planes(x: np.ndarray):
     """complex numpy block → (xr, xi) float32 torch planes."""
     return (torch.from_numpy(np.ascontiguousarray(x.real, np.float32)),
@@ -80,7 +97,8 @@ def leaves(tree, path=""):
 
 def assert_state_close(jax_state, port_state, min_db: float):
     """Same keys, shapes and dtypes; every leaf equal, or within
-    ``min_db`` of the JAX package's where it is nonzero."""
+    ``min_db`` of the JAX package's where it is nonzero (any state tree:
+    the shared-VFO and the channelized layouts alike)."""
     j = list(leaves(jax_state))
     p = list(leaves(convert.state_to_jax(port_state)))
     assert [k for k, _ in j] == [k for k, _ in p]
