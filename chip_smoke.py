@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through their seven hand-written CUDA
+Drives the port's three main paths through their hand-written CUDA
 kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
 
   * broadcast FM — ``Radio.apply_shared`` on the WFM-8 configuration (one
@@ -14,7 +14,13 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     scanner128 configuration (bench.py:build_scanner: 128 squelched NFM
     channels at linspace(−1.1, 1.1) MHz + 917 Hz on the same wideband),
     and one step of scanner256: K5 PFB, K6 post-channelizer, K7 demod +
-    audio.
+    audio;
+  * the app's per-radio step — ``IQFrontEnd.apply`` (2.4 MS/s, decimation
+    1, 65 536-bin spectrum at 20 fps) then ``Radio.apply`` for a WFM and
+    an NFM radio with the squelch on, as the app builds them, and for 8
+    WFM radios batched: K8 FIR rows (every decimator, polyphase and FIR
+    stage), K9 complex-tap FIR (the WFM pilot band-pass of one radio),
+    K10 stereo section (batched WFM), K4f spectrum of the complex block.
 
 Phases, each fatal on failure:
 
@@ -38,12 +44,33 @@ Phases, each fatal on failure:
      exactly the tone channels open, their tone SNR;
   8. one scanner256 step: K5-K7 one launch each, each against its plain
      version;
-  9. the scanner128 step (bf16, raw audio) on the same noise, as in 5.
+  9. the scanner128 step (bf16, raw audio) on the same noise, as in 5;
+ 10. K8, K9, K10 and K4f each against its plain version at the app
+     step's shapes (K8 on every distinct geometry the three runs of 11
+     give it, four of them timed: the WFM stage-0 decimator, the
+     bandwidth FIR, the 5/6 polyphase and the 48/125 audio polyphase; K9
+     on the pilot band-pass; K10 at C = 8; K4f at 65 536 and 262 144
+     points), float32, timed with CUDA events beside one PyTorch library
+     call computing the same function (conv1d, TF32 off; torch.fft.fft);
+ 11. the app step, three steps with a retune before the third, the
+     launch counts zeroed just before: WFM at batch () (K4f, K8, K9
+     launched, K10 not; tone SNR, stereo separation, spectrum peaks on
+     the carriers), NFM at batch () (tone SNR; a second radio off the
+     signal, squelch at −30 dB, gives exact zeros), WFM at batch (8,)
+     (K10 launched, K9 not; per-radio oracles);
+ 12. the app step's rate, wall time and profiler window (``step_rate``),
+     WFM at batch () and at (8,), on noise, and what ``Radio.apply``'s
+     discriminator costs on the card (``quad_cost``).
 
-Each kernel's bound is the larger of the bytes its function must move
+Beside each CUDA-event time (which, for a kernel shorter than its
+wrapper's host work, is the wrapper's time) every comparison prints the
+kernel's device time per call from a torch.profiler window.  Each
+kernel's bound is the larger of the bytes its function must move
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM's
 published HBM and non-tensor FP32 rates).  The next-to-last line is a
-JSON report of the kernels; the last line, printed only when every phase
+JSON report of the kernels (an app-step kernel's ``launches`` are those
+of the path it was timed on, with every path's count beside them); the
+last line, printed only when every phase
 passed, is the device JSON.  Without a CUDA device, or without the
 package beside it, the script exits nonzero and prints no result.
 """
@@ -74,6 +101,13 @@ SCAN_TONES = list(range(0, SCAN_C, 8))
 # the retune moves the channels half-way between tone channels by 3 kHz
 SCAN_RETUNE = SCAN_OFFSETS + np.where(np.arange(SCAN_C) % 8 == 4, 3e3, 0.0)
 SQUELCH_DB = -30.0
+
+# the app step: two stereo stations and two NFM carriers (1 kHz tone);
+# each radio moves from its first to its second carrier before step 3
+APP_WFM = (-300e3, -650e3)
+APP_NFM = (400e3, 700e3)
+APP_NFM_OFF = (1.0e6, 1.05e6)      # the squelched radio, off the signal
+APP_SKIP = 960                     # audio settling after a retune (20 ms)
 
 HBM_BPS = 3.35e12            # H100 SXM HBM3, bytes/s
 FP32_FLOPS = 67e12           # H100 SXM non-tensor FP32, flop/s
@@ -194,7 +228,35 @@ def work(tag: str, args) -> tuple:
                 + Cn * plan["n_aud"] * nbytes(odt),
                 Cn * (30 * m_if + 2 * m_if * len(pipe.hf)
                       + 2 * plan["m_aud"] * pipe.kernel.shape[1]))
+    if tag in ("K8", "K9"):     # y and the new tail out, block/tail/taps in
+        x, tail, kern = args[:3]
+        n_out = fir_out_len(tag, args)
+        parts = 2 if x.is_complex() else 1
+        b = (x.numel() + 2 * tail.numel()) * x.element_size() \
+            + 4 * kern.numel() + n_out * x.numel() // x.shape[-1] \
+            * x.element_size()
+        macs = (kern.shape[1] * parts if tag == "K8"
+                else 4 * kern.shape[1])
+        return b, 2 * macs * n_out * x.numel() // x.shape[-1]
+    if tag == "K10":
+        pipe, mpx, hist = args
+        Cn, m = mpx.shape
+        return (4 * (mpx.numel() + hist.numel() + 2 * Cn * m),
+                Cn * m * (4 * pipe.K + 12))
+    if tag == "K4f":
+        x, keep, interval, N = args[:4]
+        n = x.shape[0] // interval
+        return (n * (8 * keep + 4 * N),
+                n * (5 * N * int(np.log2(N)) + 2 * keep + 4 * N))
     raise KeyError(tag)
+
+
+def fir_out_len(tag: str, args) -> int:
+    """Outputs per row of a K8 (x, tail, kern, I, D) or K9 (x, tail,
+    taps, D) call."""
+    x, tail, kern = args[:3]
+    I, D = (args[3], args[4]) if tag == "K8" else (1, args[3])
+    return ((tail.shape[-1] + x.shape[-1] - kern.shape[1]) // D + 1) * I
 
 
 def bound(tag: str, args) -> tuple:
@@ -216,6 +278,33 @@ def event_ms(fn, reps: int = 20) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def call_profile(fn, reps: int = 20) -> tuple:
+    """(device µs, kernel launches) per call of ``fn``: the kernels and
+    copies a torch.profiler window of ``reps`` calls saw on the card (the
+    wrapper's host time, which CUDA events around a short kernel also
+    count, left out) and its cudaLaunchKernel calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evts = prof.key_averages()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in evts if not e.key.startswith(("aten::", "cuda")))
+    launches = sum(e.count for e in evts if e.key == "cudaLaunchKernel")
+    return us / reps, launches / reps
+
+
+def device_us(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn`` in µs (``call_profile``)."""
+    return call_profile(fn, reps)[0]
 
 
 def noise_planes(T: int, dev):
@@ -259,7 +348,7 @@ def step_rate(label: str, step, st, T: int, card: str) -> None:
     torch.cuda.synchronize()
     pipe_s = (time.perf_counter() - t0) / 100
     pct = " / ".join(f"{np.percentile(walls, q):.4f}" for q in (50, 10, 90, 99))
-    print(f"{label} step (T={T}, bf16 handoff): pipelined "
+    print(f"{label} step (T={T}): pipelined "
           f"{pipe_s * 1e3:.4f} ms, {T / pipe_s / 1e6:.1f} MS/s wideband; "
           f"synced median / p10 / p90 / p99 {pct} ms [{card}]")
     n = 20
@@ -313,15 +402,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     report = drive(dev, card)
     report.update(drive_scanner(dev, card))
+    report.update(drive_app(dev, card))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: report[t][k] for k in keys}
-                                  for t in sorted(report)]}))
+    extra = ("launches_path", "launches_by_path")
+    print(json.dumps({"kernels": [
+        {k: report[t][k] for k in keys + extra if k in report[t]}
+        for t in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def stereo_oracle(aud: np.ndarray) -> tuple:
+    """(mean 1 kHz tone SNR in L, L/R separation) in dB of audio [C, 2, n]
+    whose stations carry the tone in L only."""
+    L, R = aud[:, 0], aud[:, 1]
+    sep = 10 * np.log10(np.mean(L ** 2) / max(np.mean(R ** 2), 1e-300))
+    return float(np.mean([tone_snr_db(row) for row in L])), float(sep)
 
 
 def drive(dev, card: str) -> dict:
@@ -369,11 +469,14 @@ def drive(dev, card: str) -> dict:
     # settled), then run kernel and plain version on exactly those tensors
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    print("phases 3-9: TF32 off for every kernel/plain/library comparison "
+          "(torch.backends.cudnn.allow_tf32 = False, "
+          "torch.backends.cuda.matmul.allow_tf32 = False)")
     ref32, captured = capture(("K1", "K2", "K3", "K4"),
                               lambda: run3("float32"))
     report = {}
     for tag in ("K1", "K2", "K3", "K4"):
-        args = captured[tag]
+        args = captured[tag][-1]
         mod, name = kernel_fn(tag, "")
         kern = getattr(mod, name + "_kernel")
         ref = getattr(mod, name + "_ref")
@@ -400,6 +503,8 @@ def drive(dev, card: str) -> dict:
             ok = s >= min_db
         ms = event_ms(lambda: kern(*args))
         plain_ms = event_ms(lambda: ref(*args))
+        dev_us = (device_us(lambda: kern(*args)),
+                  device_us(lambda: ref(*args)))
         library_ms = None
         if tag == "K3":          # one strided correlation: one conv1d call
             pipe, raw, m_in = args[0], args[1], args[2]
@@ -417,7 +522,9 @@ def drive(dev, card: str) -> dict:
         lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"{tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {lib}, bound {bms:.4f} ms ({by}), "
-              f"max|err| {err:.3e}, {agree} [{card}]")
+              f"max|err| {err:.3e}, {agree}; device time per call "
+              f"(profiler) kernel {dev_us[0]:.1f} us, plain {dev_us[1]:.1f} "
+              f"us [{card}]")
         if not ok:
             fail(f"{tag}: kernel disagrees with its plain version: {agree}")
         report[tag] = {"name": name, "route": "cuda",
@@ -452,22 +559,10 @@ def drive(dev, card: str) -> dict:
     for b in (1, 2):
         # channels the retune moved off their carrier carry no oracle
         on = [ch for ch in range(C) if b < 2 or RETUNE[ch] == OFFSETS[ch]]
-        aud = outs[b][0].double().cpu().numpy()[on]
-        L, R = aud[:, 0], aud[:, 1]
-        sep = 10 * np.log10(np.mean(L ** 2) / max(np.mean(R ** 2), 1e-300))
-        n = L.shape[-1]
-        tt = np.arange(n) / 48_000.0
-        A = np.stack([np.cos(2 * np.pi * TONE_HZ * tt),
-                      np.sin(2 * np.pi * TONE_HZ * tt), np.ones(n)], 1)
-        snrs = []
-        for ch in range(len(on)):
-            coef, *_ = np.linalg.lstsq(A, L[ch], rcond=None)
-            r = L[ch] - A @ coef
-            snrs.append(10 * np.log10(np.mean((A[:, :2] @ coef[:2]) ** 2)
-                                      / np.mean(r ** 2)))
-        print(f"step {b}: tone SNR {np.mean(snrs):.1f} dB (bound 35), "
+        snr, sep = stereo_oracle(outs[b][0].double().cpu().numpy()[on])
+        print(f"step {b}: tone SNR {snr:.1f} dB (bound 35), "
               f"L/R separation {sep:.1f} dB (bound 25)")
-        if np.mean(snrs) <= 35.0 or sep <= 25.0:
+        if snr <= 35.0 or sep <= 25.0:
             fail(f"step {b}: audio oracle failed")
         sp = outs[b][1][0].cpu().numpy()
         floor = np.percentile(sp, 2)
@@ -487,7 +582,7 @@ def drive(dev, card: str) -> dict:
     precision.set_handoff_dtype("bf16")
     xn = noise_planes(T, dev)
     params = radio.make_params_shared(OFFSETS)
-    step_rate(f"WFM-8 (C={C}, fft {FFT})",
+    step_rate(f"WFM-8 (C={C}, fft {FFT}, bf16 handoff)",
               lambda st: radio.apply_shared(params, st, xn, spectrum=spec)[1],
               radio.init_state_shared(C), T, card)
     return report
@@ -515,6 +610,18 @@ KERNELS = {
     "K7": ("demod_kernel", "fm_audio",
            "sdrplusplusbrown_tpu_torch/csrc/fm_audio.cu",
            "sdrplusplusbrown_tpu/ops/demod_kernel.py:80"),
+    "K8": ("fir_kernel", "fir_rows",
+           "sdrplusplusbrown_tpu_torch/csrc/fir_rows.cu",
+           "sdrplusplusbrown_tpu/ops/pallas_fir.py:199"),
+    "K9": ("fir_kernel", "fir_cplx",
+           "sdrplusplusbrown_tpu_torch/csrc/fir_cplx.cu",
+           "sdrplusplusbrown_tpu/ops/pallas_fir.py:441"),
+    "K10": ("wfm_kernel", "wfm_stereo",
+            "sdrplusplusbrown_tpu_torch/csrc/wfm_demod.cu",
+            "sdrplusplusbrown_tpu/ops/pallas_wfm.py:59"),
+    "K4f": ("fft_kernel", "spectrum_path_db",
+            "sdrplusplusbrown_tpu_torch/csrc/spectrum_fft.cu",
+            "sdrplusplusbrown_tpu/ops/pallas_fft.py:64"),
 }
 
 
@@ -533,15 +640,15 @@ def reset_counts() -> None:
 
 
 def capture(tags, run):
-    """Run ``run()`` with the wrappers of ``tags`` recording their last
-    arguments; returns (run's result, {tag: args})."""
+    """Run ``run()`` with the wrappers of ``tags`` recording their
+    arguments; returns (run's result, {tag: [args of each call]})."""
     captured, originals = {}, {}
     for tag in tags:
         mod, name = kernel_fn(tag, "_kernel")
         originals[tag] = orig = getattr(mod, name)
 
         def rec(*args, _tag=tag, _orig=orig):
-            captured[_tag] = args
+            captured.setdefault(_tag, []).append(args)
             return _orig(*args)
         setattr(mod, name, rec)
     try:
@@ -587,10 +694,13 @@ def check_scanner_kernel(tag: str, args, card: str, bound_db: float,
         out["plain_ms"] = event_ms(lambda: ref(*args))
         out["bound_ms"], out["bound_by"] = bound(tag, args)
         out["library_ms"] = None
+        k_us, p_us = device_us(lambda: kern(*args)), device_us(
+            lambda: ref(*args))
         print(f"{tag} {name}: kernel {out['ms']:.4f} ms, plain "
               f"{out['plain_ms']:.4f} ms, library n/a, bound "
               f"{out['bound_ms']:.4f} ms ({out['bound_by']}), max|err| "
-              f"{err:.3e}, {agree} [{card}]")
+              f"{err:.3e}, {agree}; device time per call (profiler) "
+              f"kernel {k_us:.1f} us, plain {p_us:.1f} us [{card}]")
     else:
         print(f"{tag} {name} at C = {SCAN_WIDE_C}: max|err| {err:.3e}, "
               f"{agree}")
@@ -634,7 +744,7 @@ def drive_scanner(dev, card: str) -> dict:
     _, captured = capture(tags, lambda: run3("float32"))
     report = {}
     for tag in tags:
-        report[tag] = check_scanner_kernel(tag, captured[tag], card,
+        report[tag] = check_scanner_kernel(tag, captured[tag][-1], card,
                                            100.0 if tag == "K5" else 80.0,
                                            timed=True)
 
@@ -677,7 +787,7 @@ def drive_scanner(dev, card: str) -> dict:
                  f"scanner256 step")
         # bf16 storage: a float32 difference that crosses a bf16 rounding
         # boundary moves a value by a bf16 ulp (2^-8)
-        check_scanner_kernel(tag, cap256[tag], card,
+        check_scanner_kernel(tag, cap256[tag][-1], card,
                              60.0 if tag == "K5" else 45.0, timed=False)
 
     # ---- 9. the scanner128 step (bench.py's: raw mono audio) -------------
@@ -685,11 +795,338 @@ def drive_scanner(dev, card: str) -> dict:
     xn = noise_planes(T, dev)
     params = radio.make_params_channelized(SCAN_OFFSETS,
                                            squelch_level=SQUELCH_DB)
-    step_rate(f"scanner128 (C={SCAN_C}, raw audio)",
+    step_rate(f"scanner128 (C={SCAN_C}, raw audio, bf16 handoff)",
               lambda st: radio.apply_channelized(params, st, xn, mono_out=True,
                                                  raw_audio=True)[1],
               radio.init_state_channelized(SCAN_C), T, card)
     return report
+
+
+APP_TAGS = ("K8", "K9", "K10", "K4f")
+
+
+def app_stage(call) -> str:
+    """Name of the K8 geometry a captured call (x, tail, kern, I, D) has:
+    dtype, rows, I/D and kernel width."""
+    x, _, kern, I, D = call
+    rows = x.numel() // x.shape[-1]
+    return f"{'complex' if x.is_complex() else 'real'} rows {rows} I/D " \
+        f"{I}/{D} kw {kern.shape[1]}"
+
+
+def library_call(tag: str, args):
+    """One PyTorch call computing kernel ``tag``'s function on ``args``
+    (its inputs prepared outside the timed call), or None."""
+    import torch
+    import torch.nn.functional as F
+    if tag == "K8":
+        x, tail, kern, I, D = args
+        ext = torch.cat([tail, x], dim=-1)
+        W = ext.shape[-1]
+        rows = (torch.cat([ext.real.reshape(-1, W), ext.imag.reshape(-1, W)])
+                if x.is_complex() else ext.reshape(-1, W))[:, None]
+        return lambda: F.conv1d(rows, kern[:, None], stride=D)
+    if tag == "K9":
+        x, tail, taps, D = args
+        ext = torch.cat([tail, x], dim=-1)
+        W = ext.shape[-1]
+        planes = torch.stack([ext.real.reshape(-1, W),
+                              ext.imag.reshape(-1, W)], dim=1)
+        hr, hi = taps[0], taps[1]
+        ker = torch.stack([torch.stack([hr, -hi]), torch.stack([hi, hr])])
+        return lambda: F.conv1d(planes, ker, stride=D)
+    if tag == "K4f":
+        from sdrplusplusbrown_tpu_torch.ops import fft_kernel as k4
+        x, keep, interval, N, _, window = args
+        starts = k4.frame_starts(x.shape[0], keep, interval, align=1)
+        fr = torch.stack([x[p:p + keep] for p in starts]) * window
+        return lambda: torch.fft.fft(fr, n=N, dim=-1)
+    return None
+
+
+def check_app_kernel(tag: str, args, card: str, what: str,
+                     timed: bool = True) -> dict:
+    """K8-K10 or K4f against its plain version on ``args``; with ``timed``
+    both are timed with CUDA events beside the library call.  Raises on
+    disagreement."""
+    import torch
+    mod, name = kernel_fn(tag, "")
+    kern = getattr(mod, name + "_kernel")
+    ref = getattr(mod, name + "_ref")
+    got, want = kern(*args), ref(*args)
+    torch.cuda.synchronize()
+    if tag in ("K8", "K9"):     # (y, new tail): the tail is a copy
+        if not torch.equal(got[1], want[1]):
+            fail(f"{tag} {what}: new tail differs from the plain version")
+        got, want = got[0], want[0]
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{tag} {what}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    if tag == "K4f":
+        pk = want.max(dim=-1, keepdim=True).values
+        d = (got - want).abs()
+        e60 = float(d[want > pk - 60].max())
+        e80 = float(d[want > pk - 80].max())
+        agree = f"{e60:.2e} dB within 60 dB, {e80:.2e} within 80 dB"
+        ok = e60 <= 0.01 and e80 <= 0.1
+    elif not want.any():
+        ok = torch.equal(got, want)
+        agree = "all-zero plain output, kernel " + ("equal" if ok else
+                                                    "not equal")
+    else:
+        sn = snr_db(want, got)
+        agree = f"{sn:.1f} dB SNR (bound 100)"
+        ok = sn >= 100.0
+    if not timed:
+        print(f"{tag} {name} ({what}): max|err| {err:.3e}, {agree}")
+        if not ok:
+            fail(f"{tag} {what}: kernel disagrees with its plain version: "
+                 f"{agree}")
+        return {"max_abs_err": err}
+    ms = event_ms(lambda: kern(*args))
+    plain_ms = event_ms(lambda: ref(*args))
+    lib = library_call(tag, args)
+    library_ms = event_ms(lib) if lib is not None else None
+    us = [device_us(f) for f in (lambda: kern(*args), lambda: ref(*args),
+                                 lib) if f is not None]
+    bms, by = bound(tag, args)
+    libs = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"{tag} {name} ({what}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, library {libs}, bound {bms:.4f} ms ({by}), max|err| "
+          f"{err:.3e}, {agree}; device time per call (profiler) kernel "
+          f"{us[0]:.1f} us, plain {us[1]:.1f} us"
+          + (f", library {us[2]:.1f} us" if lib is not None else "")
+          + f" [{card}]")
+    if not ok:
+        fail(f"{tag} {what}: kernel disagrees with its plain version: "
+             f"{agree}")
+    return {"name": name, "route": "cuda", "source": KERNELS[tag][2],
+            "replaces": KERNELS[tag][3], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def drive_app(dev, card: str) -> dict:
+    """Phases 10-12 on ``dev``; raises on the first failure.  Returns the
+    K8-K10 and K4f entries of the kernel report."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models.iq_frontend import IQFrontEnd
+    from sdrplusplusbrown_tpu_torch.models.radio import (Radio, DEMOD_NFM,
+                                                         DEMOD_WFM)
+    from sdrplusplusbrown_tpu_torch.ops.spectrum import make_fft_window
+
+    fe = IQFrontEnd(FS, decim_ratio=1, fft_size=FFT, fft_rate=20.0,
+                    device=dev)
+    wfm = Radio(FS, DEMOD_WFM, squelch_enabled=True, device=dev)
+    nfm = Radio(FS, DEMOD_NFM, squelch_enabled=True, device=dev)
+    g = int(np.lcm.reduce([fe.in_multiple, wfm.in_multiple,
+                           nfm.in_multiple]))
+    T = (STEP + g - 1) // g * g
+
+    def blocks(x):
+        return [torch.from_numpy(x[b * T:(b + 1) * T]).to(dev)
+                for b in range(3)]
+
+    x_wfm = blocks(stereo_wideband(3 * T, APP_WFM))
+    x_nfm = blocks(nfm_wideband(3 * T, APP_NFM, range(len(APP_NFM))))
+    x_wfm8 = blocks(stereo_wideband(3 * T, OFFSETS))
+
+    def run3(xs, radios):
+        """Three app steps: IQFrontEnd, then each (radio, offsets, batch,
+        squelch level) on its baseband, the radios retuned before step 3.
+        Returns [(spectra, [audio per radio])]."""
+        fst = fe.init_state()
+        states = [r.init_state(batch) for r, _, batch, _ in radios]
+        outs = []
+        for b, xb in enumerate(xs):
+            (bb, spectra), fst = fe.apply(None, fst, xb)
+            auds = []
+            for i, (r, offs, _, lvl) in enumerate(radios):
+                p = r.make_params(offs[0] if b < 2 else offs[1],
+                                  squelch_level=lvl)
+                a, states[i] = r.apply(p, states[i], bb)
+                auds.append(a)
+            outs.append((spectra, auds))
+        torch.cuda.synchronize()
+        return outs
+
+    wfm1 = [(wfm, APP_WFM, (), None)]
+    nfm2 = [(nfm, APP_NFM, (), None), (nfm, APP_NFM_OFF, (), SQUELCH_DB)]
+    wfm8 = [(wfm, (OFFSETS, RETUNE), (C,), None)]
+
+    # ---- 10. K8, K9, K10, K4f against their plain versions ---------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("phase 10: TF32 off for every kernel/plain/library comparison "
+          "(torch.backends.cudnn.allow_tf32 = False, "
+          "torch.backends.cuda.matmul.allow_tf32 = False)")
+    _, cap = capture(APP_TAGS, lambda: run3(x_wfm, wfm1))
+    _, cap_n = capture(("K8",), lambda: run3(x_nfm, nfm2))
+    _, cap8 = capture(("K8", "K10"), lambda: run3(x_wfm8, wfm8))
+    # every distinct K8 geometry of the three paths, each held against the
+    # plain version on its last call (state settled); four WFM () stages
+    # are also timed
+    stages = {}
+    for path, c in (("WFM ()", cap), ("NFM ()", cap_n), (f"WFM ({C},)", cap8)):
+        for call in c["K8"]:
+            paths, last = stages.get(app_stage(call), ({}, None))
+            paths[path] = True
+            # a squelched radio's all-zero block checks nothing: keep the
+            # last call with data
+            keep = last is not None and not bool(call[0].any())
+            stages[app_stage(call)] = (paths, last if keep else call)
+    timed = {"stage-0 decimator": ("complex", 1, 4), "bandwidth FIR":
+             ("complex", 1, 1), "5/6 polyphase": ("complex", 5, 6),
+             "48/125 audio polyphase": ("real", 48, 125)}
+    names = {}
+    for what, (kind, I, D) in timed.items():
+        key = [k for k in stages if k.startswith(f"{kind} rows ")
+               and f" I/D {I}/{D} " in k and "WFM ()" in stages[k][0]]
+        if len(key) != 1:
+            fail(f"K8: no single WFM () {what} call among {sorted(stages)}")
+        names[key[0]] = what
+    report, k8, errs = {}, [], []
+    for key in sorted(stages):
+        paths, call = stages[key]
+        what = f"{names.get(key, 'stage')}, {key}, {' + '.join(paths)}"
+        out = check_app_kernel("K8", call, card, what, timed=key in names)
+        errs.append(out["max_abs_err"])
+        if key in names:
+            k8.append(out)
+    print(f"K8: {len(stages)} distinct geometries held against the plain "
+          f"version (100 dB, the new tail exact), {len(k8)} of them timed")
+    report["K8"] = dict(k8[0], max_abs_err=max(errs))
+    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        report["K8"][k] = sum(e[k] for e in k8)
+    report["K8"]["bound_by"] = "+".join(sorted({e["bound_by"] for e in k8}))
+    report["K9"] = check_app_kernel("K9", cap["K9"][-1], card,
+                                    "pilot band-pass")
+    report["K10"] = check_app_kernel("K10", cap8["K10"][-1], card,
+                                     f"stereo section, C = {C}")
+    report["K4f"] = check_app_kernel("K4f", cap["K4f"][-1], card,
+                                     f"{FFT} points")
+    keep = fe.spectrum.reshaper.interval
+    win = torch.from_numpy(make_fft_window("nuttall", keep)).to(dev)
+    check_app_kernel("K4f", (x_wfm[0], keep, keep, 262_144, -300.0, win),
+                     card, "262144 points")
+
+    # ---- 11. the app step, three steps with a retune ---------------------
+    reset_counts()
+    seen = {}
+
+    def counted_run(label, xs, radios):
+        before = {t: kernel_count(t) for t in APP_TAGS}
+        outs = run3(xs, radios)
+        seen[label] = {t: kernel_count(t) - before[t] for t in APP_TAGS}
+        print(f"app step, {label}: launches in 3 steps "
+              + ", ".join(f"{t}={n}" for t, n in seen[label].items()))
+        for spectra, auds in outs:
+            for a in auds:
+                if not torch.isfinite(a).all():
+                    fail(f"{label}: non-finite audio")
+            if spectra.shape != (T // fe.spectrum.reshaper.interval, FFT):
+                fail(f"{label}: spectra {tuple(spectra.shape)}")
+        return outs
+
+    outs = counted_run("WFM, batch ()", x_wfm, wfm1)
+    n = seen["WFM, batch ()"]
+    if min(n["K4f"], n["K8"], n["K9"]) < 1 or n["K10"]:
+        fail(f"WFM batch (): launch pattern {n}")
+    for b in (1, 2):
+        aud = outs[b][1][0].double().cpu().numpy()[None]
+        snr, sep = stereo_oracle(aud[..., APP_SKIP:] if b == 2 else aud)
+        print(f"WFM step {b}: tone SNR {snr:.1f} dB (bound 35), L/R "
+              f"separation {sep:.1f} dB (bound 25)")
+        if snr <= 35.0 or sep <= 25.0:
+            fail(f"WFM step {b}: audio oracle failed")
+        sp = outs[b][0][0].cpu().numpy()
+        floor = np.percentile(sp, 2)
+        w = int(75e3 / FS * FFT)
+        for o in APP_WFM:
+            k = int((o / FS + 0.5) * FFT)
+            if sp[k - w:k + w].max() < floor + 30.0:
+                fail(f"WFM step {b}: no spectrum peak at {o:.0f} Hz")
+        fmax = (int(np.argmax(sp)) / FFT - 0.5) * FS
+        if np.min(np.abs(np.array(APP_WFM) - fmax)) > 100e3:
+            fail(f"WFM step {b}: spectrum peak at {fmax:.0f} Hz")
+    outs = counted_run("NFM, batch (), two radios", x_nfm, nfm2)
+    for b in range(3):
+        on, off = outs[b][1]
+        if on.shape != (2, T // 50) or off.any():
+            fail(f"NFM step {b}: shape {tuple(on.shape)} or the squelched "
+                 f"radio is not silent")
+        if b:
+            row = on[0].double().cpu().numpy()
+            snr = tone_snr_db(row[APP_SKIP:] if b == 2 else row)
+            print(f"NFM step {b}: tone SNR {snr:.1f} dB (bound 40), the "
+                  f"radio off the signal (squelch {SQUELCH_DB:.0f} dB) "
+                  f"exactly silent")
+            if snr <= 40.0:
+                fail(f"NFM step {b}: tone SNR {snr:.1f} dB")
+    outs = counted_run(f"WFM, batch ({C},)", x_wfm8, wfm8)
+    n = seen[f"WFM, batch ({C},)"]
+    if n["K10"] < 1 or n["K9"]:
+        fail(f"WFM batch ({C},): launch pattern {n}")
+    for b in (1, 2):
+        on = [ch for ch in range(C) if b < 2 or RETUNE[ch] == OFFSETS[ch]]
+        snr, sep = stereo_oracle(outs[b][1][0].double().cpu().numpy()[on])
+        print(f"WFM-{C} step {b}: tone SNR {snr:.1f} dB (bound 35), L/R "
+              f"separation {sep:.1f} dB (bound 25)")
+        if snr <= 35.0 or sep <= 25.0:
+            fail(f"WFM-{C} step {b}: audio oracle failed")
+    # launches: those of the path each entry was measured on; every
+    # path's own count beside it
+    for t in APP_TAGS:
+        path = f"WFM, batch ({C},)" if t == "K10" else "WFM, batch ()"
+        report[t]["launches"] = seen[path][t]
+        report[t]["launches_path"] = path
+        report[t]["launches_by_path"] = {p: v[t] for p, v in seen.items()}
+
+    # ---- 12. the app step's rate and profile ------------------------------
+    xn = torch.complex(*noise_planes(T, dev))
+    for label, batch, offs in (("WFM", (), APP_WFM[0]),
+                               (f"WFM-{C}", (C,), OFFSETS)):
+        params = wfm.make_params(offs)
+
+        def step(st, params=params):
+            (bb, _), fst = fe.apply(None, st[0], xn)
+            return fst, wfm.apply(params, st[1], bb)[1]
+        step_rate(f"app step IQFrontEnd + Radio.apply {label} (batch "
+                  f"{batch}, squelch on, fft {FFT})", step,
+                  (fe.init_state(), wfm.init_state(batch)), T, card)
+    quad_cost(wfm, dev, card)
+    return report
+
+
+def quad_cost(radio, dev, card: str) -> None:
+    """What Radio.apply's discriminator costs on the card: ``quad_xla``
+    (XLA's complex multiply, float64 elementwise ops) beside K2's plain
+    ``quad_planes`` on the same WFM IF planes (50 000 samples per step),
+    at batch () and (8,): device time and launches per call."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.ops import demod
+    inv = radio.demod.quad.inv_deviation
+    g = torch.Generator(device=dev).manual_seed(3)
+    for batch in ((), (C,)):
+        x = torch.randn(batch + (50_001,), generator=g, device=dev,
+                        dtype=torch.complex64)
+        er, ei = x.real[..., 1:], x.imag[..., 1:]
+        erp, eip = x.real[..., :-1], x.imag[..., :-1]
+        cost = {name: call_profile(lambda f=f: f(er, ei, erp, eip, inv))
+                for name, f in (("quad_xla", demod.quad_xla),
+                                ("quad_planes", demod.quad_planes))}
+        print(f"discriminator at batch {batch}, 50000 samples: "
+              + "; ".join(f"{n} {us:.1f} us device, {ln:.0f} launches per "
+                          f"call" for n, (us, ln) in cost.items())
+              + f" [{card}]")
+
+
+def kernel_count(tag: str) -> int:
+    mod, name = kernel_fn(tag, "_kernel")
+    return getattr(mod, name).launches
 
 
 if __name__ == "__main__":

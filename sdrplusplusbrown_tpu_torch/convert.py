@@ -5,8 +5,10 @@ In an SDR the "weights" are the designed taps and the runtime params.
 Both packages design their taps deterministically from the same numpy
 code (pinned equal by test); the runtime params and the carried state are
 trees (dicts and lists) of arrays with the same keys, shapes and dtypes on
-both sides — the shared-VFO and the channelized layouts alike (int32 bin
-indices, complex64 filter tails, float32 audio tails) — and these
+both sides — the per-radio (``Radio.apply``, with its lists of decimator
+and MPX tails, the PLL dict and ``audio_rs`` [2, ..., hist]), IQFrontEnd,
+shared-VFO and channelized layouts alike (int32 bin indices, complex64
+filter tails, float32 audio tails) — and these
 functions convert them leaf by leaf.  Anything with ``__array__`` (numpy
 arrays, or the JAX package's device arrays) is read through numpy, so
 this module imports nothing of JAX.  The port's trees go to the device

@@ -25,6 +25,16 @@ __device__ __forceinline__ void st(void* p, long i, float v, int bf16) {
   }
 }
 
+// Opt ``kernel`` in to ``bytes`` of dynamic shared memory: a launch above
+// the default 48 KB needs it (the H100 allows up to 227 KB a block).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 // Outputs per block of the widened-polyphase FIR (one thread each).
 constexpr int POLY_TILE = 256;
 
@@ -39,11 +49,13 @@ __host__ __device__ inline int poly_span(int I, int D, int kw) {
 // Decimating FIRs are the I = 1 case (kern = taps), stride-1 FIRs
 // I = D = 1.  The tile's input span is staged in shared memory ``sx``
 // (poly_span floats); the taps are read through the read-only cache.
+// ``es`` is the element stride of tail, x and y (2 for one part of
+// interleaved complex64 rows, the re or im of each sample).
 __device__ __forceinline__ void poly_fir_tile(
     const float* __restrict__ tail, int hist, const void* __restrict__ x,
     long x_off, int x_bf16, const float* __restrict__ kern, int I, int D,
     int kw, void* __restrict__ y, long y_off, int y_bf16, int n_out,
-    float* sx) {
+    float* sx, int es = 1) {
   const int o0 = blockIdx.x * POLY_TILE;
   const int o_last = min(o0 + POLY_TILE, n_out) - 1;
   const int m_first = o0 / I;
@@ -52,7 +64,7 @@ __device__ __forceinline__ void poly_fir_tile(
   const int span = (m_last - m_first) * D + kw;
   for (int t = threadIdx.x; t < span; t += blockDim.x) {
     const long e = e0 + t;
-    sx[t] = e < hist ? tail[e] : ld(x, x_off + e - hist, x_bf16);
+    sx[t] = e < hist ? tail[e * es] : ld(x, x_off + (e - hist) * es, x_bf16);
   }
   __syncthreads();
   const int o = o0 + threadIdx.x;
@@ -63,7 +75,7 @@ __device__ __forceinline__ void poly_fir_tile(
     const float* w = sx + (m - m_first) * D;
     float acc = 0.f;
     for (int l = 0; l < kw; ++l) acc = fmaf(__ldg(kr + l), w[l], acc);
-    st(y, y_off + o, acc, y_bf16);
+    st(y, y_off + static_cast<long>(o) * es, acc, y_bf16);
   }
 }
 

@@ -1,34 +1,43 @@
-// K4 — framed wideband power spectrum in dB.
+// K4 / K4f — framed wideband power spectrum in dB.
 //
 // Replaces: sdrplusplusbrown_tpu/ops/pallas_fft.py:fft_pow_db_tile (the
 // 4-step matmul FFT fused into the TPU front end, ops/mono_frontend.py
-// there) and :_fft_pow_frames_kernel (the standalone framed spectrum).
+// there) and :_fft_pow_frames_kernel (the standalone framed spectrum):
+// K4, frames at 1024-aligned starts; and :_fft_pow_kernel (the windowed
+// 4-step FFT on pre-framed planes behind spectrum_path_db): K4f, the same
+// two launches with frames at exact starts.
 //
 // What it computes: frame f of ``keep`` samples starts at
-// rup(f·interval, 1024) of the shared wideband (xr, xi); it is multiplied
+// rup(f·interval, align) of the shared wideband (xr, xi) — align 1024
+// (K4) or 1 (K4f) — read with element stride ``es`` (1 for planes, 2 for
+// the parts of an interleaved complex64 block); it is multiplied
 // by the window (which includes the (−1)^i DC-centering factor),
 // zero-padded to N, transformed, and each bin becomes
 // 10·log10(max(|X|²/N², floor)), in natural bin order: [n_frames, N].
 //
 // A 65 536-point complex float32 frame is 512 KB, beyond the 227 KB of
 // shared memory a block may use, so the transform is the 4-step split
-// N = N1·N2 (the TPU's factorization, square here: 256·256):
+// N = N1·N2 (the TPU's factorization, square here: 256·256, and
+// 512·512 for 262 144 points):
 //   sdr_fft_cols: for each column n2, X1[k1] = FFT_N1 over n1 of
 //                 a[n1·N2 + n2]; times the twiddle W_N^(k1·n2); stored as
 //                 scratch C[f, k1, n2] (re/im planes).
 //   sdr_fft_rows: for each row k1, FFT_N2 over n2 of C[f, k1, n2] gives
 //                 X[k1 + N1·k2]; then power and dB.
-// Each block runs LANES (16) short radix-2 FFTs side by side in shared
-// memory (2·16·256 floats = 32 KB), lanes interleaved so that a butterfly
+// Each block runs LANES (16) short radix-2 FFTs side by side in dynamic
+// shared memory (2·16·N1 floats: 32 KB at 256, 64 KB at 512, above the
+// 48 KB default and opted in), lanes interleaved so that a butterfly
 // stage's threads touch consecutive banks and every device-memory access
 // moves 16 consecutive floats.  Twiddles come from sincospif with the
 // index product reduced mod N in integers, so every angle argument is an
 // exact float.
 //
 // What bounds it on the H100: ~5·N·log2(N) flops per frame (about 5
-// Mflop at N = 65 536, two frames per 0.1 s block) and ~1.5 MB of
-// traffic per frame including the scratch round trip — microseconds of
-// work; the time is the two launches and the log2(n) barrier-separated
+// Mflop at N = 65 536, two frames per 0.1 s block; 24 Mflop at 262 144)
+// and ~1.5 MB of traffic per 65 536-point frame including the scratch
+// round trip (0.8 MB of it the function's own input and output) —
+// microseconds of work; the time is the two launches and the log2(n)
+// barrier-separated
 // butterfly stages.  Keeping the scratch in distributed shared memory of
 // a cluster, or fusing with the front end's read of the wideband (as the
 // TPU did), is left for later work.
@@ -38,7 +47,7 @@ namespace {
 
 constexpr int FFT_THREADS = 256;
 constexpr int LANES = 16;
-constexpr int MAX_N12 = 256;
+constexpr int MAX_N12 = 512;
 
 __device__ __forceinline__ int bit_reverse(int v, int bits) {
   return static_cast<int>(__brev(static_cast<unsigned>(v)) >> (32 - bits));
@@ -71,17 +80,19 @@ __device__ void fft_lanes(float* sr, float* si, int n) {
 }
 
 __global__ void fft_cols_kernel(const float* __restrict__ xr,
-                                const float* __restrict__ xi,
+                                const float* __restrict__ xi, int es,
                                 const float* __restrict__ window, int keep,
-                                int interval, int log_n1, int N2,
+                                int interval, int align, int log_n1, int N2,
                                 float* __restrict__ cr,
                                 float* __restrict__ ci) {
-  __shared__ float sr[MAX_N12 * LANES];
-  __shared__ float si[MAX_N12 * LANES];
+  extern __shared__ float sm[];
   const int N1 = 1 << log_n1;
+  float* sr = sm;
+  float* si = sm + N1 * LANES;
   const int f = blockIdx.y;
   const int n2_0 = blockIdx.x * LANES;
-  const long p0 = (static_cast<long>(f) * interval + 1023) / 1024 * 1024;
+  const long p0 =
+      (static_cast<long>(f) * interval + align - 1) / align * align;
   for (int idx = threadIdx.x; idx < N1 * LANES; idx += blockDim.x) {
     const int lane = idx % LANES;
     const int n1 = idx / LANES;
@@ -89,8 +100,8 @@ __global__ void fft_cols_kernel(const float* __restrict__ xr,
     float a = 0.f, b = 0.f;
     if (n < keep) {
       const float w = window[n];
-      a = xr[p0 + n] * w;
-      b = xi[p0 + n] * w;
+      a = xr[(p0 + n) * es] * w;
+      b = xi[(p0 + n) * es] * w;
     }
     const int dst = bit_reverse(n1, log_n1) * LANES + lane;
     sr[dst] = a;
@@ -116,9 +127,10 @@ __global__ void fft_rows_kernel(const float* __restrict__ cr,
                                 const float* __restrict__ ci, int N1,
                                 int log_n2, float inv_n2, float floor_p,
                                 float* __restrict__ out) {
-  __shared__ float sr[MAX_N12 * LANES];
-  __shared__ float si[MAX_N12 * LANES];
+  extern __shared__ float sm[];
   const int N2 = 1 << log_n2;
+  float* sr = sm;
+  float* si = sm + N2 * LANES;
   const int f = blockIdx.y;
   const int k1_0 = blockIdx.x * LANES;
   for (int idx = threadIdx.x; idx < N2 * LANES; idx += blockDim.x) {
@@ -151,26 +163,35 @@ int log2i(int v) {
 
 }  // namespace
 
-extern "C" int sdr_fft_cols(const float* xr, const float* xi, int T,
+// Shared memory of one block over n-point short FFTs.
+static size_t lanes_smem(int n) { return 2 * sizeof(float) * LANES * n; }
+
+extern "C" int sdr_fft_cols(const float* xr, const float* xi, int es, int T,
                             const float* window, int keep, int interval,
-                            int n_frames, int N1, int N2, float* cr,
-                            float* ci, cudaStream_t stream) {
+                            int align, int n_frames, int N1, int N2,
+                            float* cr, float* ci, cudaStream_t stream) {
   if (!pow2_in_range(N1) || !pow2_in_range(N2) || keep > N1 * N2 ||
-      (static_cast<long>(n_frames - 1) * interval + 1023) / 1024 * 1024 +
-              keep > T)
+      align < 1 || es < 1 || n_frames < 1 ||
+      (static_cast<long>(n_frames - 1) * interval + align - 1) / align *
+                  align + keep > T)
     return cudaErrorInvalidValue;
+  const cudaError_t e = sdr::allow_smem(fft_cols_kernel, lanes_smem(N1));
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(N2 / LANES, n_frames);
-  fft_cols_kernel<<<grid, FFT_THREADS, 0, stream>>>(
-      xr, xi, window, keep, interval, log2i(N1), N2, cr, ci);
+  fft_cols_kernel<<<grid, FFT_THREADS, lanes_smem(N1), stream>>>(
+      xr, xi, es, window, keep, interval, align, log2i(N1), N2, cr, ci);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int sdr_fft_rows(const float* cr, const float* ci, int n_frames,
                             int N1, int N2, float inv_n2, float floor_p,
                             float* out, cudaStream_t stream) {
-  if (!pow2_in_range(N1) || !pow2_in_range(N2)) return cudaErrorInvalidValue;
+  if (!pow2_in_range(N1) || !pow2_in_range(N2) || n_frames < 1)
+    return cudaErrorInvalidValue;
+  const cudaError_t e = sdr::allow_smem(fft_rows_kernel, lanes_smem(N2));
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(N1 / LANES, n_frames);
-  fft_rows_kernel<<<grid, FFT_THREADS, 0, stream>>>(cr, ci, N1, log2i(N2),
-                                                   inv_n2, floor_p, out);
+  fft_rows_kernel<<<grid, FFT_THREADS, lanes_smem(N2), stream>>>(
+      cr, ci, N1, log2i(N2), inv_n2, floor_p, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,14 @@
 // (stereo) or the read-only cache (halfbands).  Fusing the four launches
 // (keeping the MPX in shared memory, as the TPU kept it in VMEM) is left
 // for later work.
+//
+// K10 is sdr_wfm_stereo launched alone (ops/wfm_kernel.py:wfm_stereo), on
+// the MPX of batched radios' per-stage chain (Radio.apply).  It replaces
+// sdrplusplusbrown_tpu/ops/pallas_wfm.py:_wfm_stereo_kernel, the same
+// stereo identities over an [C, K + T] MPX extension.  Bound: 4K + 12
+// operations per MPX sample and channel (65 Mflop and 1.2 MB at C = 8,
+// T = 12 500: ~1 µs by operations); the time is the launch and the serial
+// 159-tap loop, which a warp-split loop would shorten.
 #include <cfloat>
 
 #include "common.cuh"

@@ -1,0 +1,78 @@
+"""IQFrontEnd — the signal-path head (counterpart of
+sdrplusplusbrown_tpu/models/iq_frontend.py; reference
+core/src/signal_path/iq_frontend.{h,cpp}): power-of-two decimation, IQ
+inversion and the spectrum branch.  The splitter fan-out to the radios is
+free: the baseband it returns is what every ``Radio.apply`` takes.
+
+The decimator's FIR stages run kernel K8 and the spectrum kernel K4f.  An
+entry point: it runs on ``device`` (CUDA unless the caller asks for the
+CPU), keeps its state there and moves only the input to it.  The DC
+blocker is not ported yet and raises ``NotImplementedError``; nor are
+the pluggable baseband preprocessors (the IF noise reduction).
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+import torch
+
+from ..ops.resampler import PowerDecimator
+from ..ops.spectrum import SpectrumPath
+from ..runtime.block import Block, entry_device, to_device
+
+
+class Conjugate(Block):
+    """IQ inversion (reference math/conjugate.h, iq_frontend.cpp:42)."""
+
+    def apply(self, params, state, x):
+        return x.conj().resolve_conj(), state
+
+
+class IQFrontEnd(Block):
+    """Wideband block → ((baseband, dB spectra frames), state).
+
+    Defaults mirror the reference's MainWindow::init wiring: decimation 1,
+    FFT 65 536 bins at 20 fps, Nuttall window (gui/main_window.cpp:104,
+    core.cpp:559-561)."""
+
+    def __init__(self, samplerate: float, decim_ratio: int = 1,
+                 dc_blocking: bool = False, invert_iq: bool = False,
+                 fft_size: int = 65536, fft_rate: float = 20.0,
+                 fft_window: str = "nuttall", device="cuda"):
+        if dc_blocking:
+            raise NotImplementedError("IQFrontEnd: the DC blocker "
+                                      "(DCBlocker) is not ported yet")
+        self.device = torch.device(device)
+        self.samplerate = float(samplerate)
+        self.decim_ratio = int(decim_ratio)
+        self.effective_sr = self.samplerate / self.decim_ratio
+        self.decim = (PowerDecimator(self.samplerate, self.decim_ratio)
+                      if self.decim_ratio > 1 else None)
+        self.conj = Conjugate() if invert_iq else None
+        self.spectrum = SpectrumPath(self.effective_sr, fft_size, fft_rate,
+                                     fft_window, device=device)
+        self.in_multiple = self.spectrum.in_multiple * self.decim_ratio
+        self.ratio = Fraction(1, self.decim_ratio)
+
+    def init_state(self, batch_shape=()):
+        st = {}
+        if self.decim is not None:
+            st["decim"] = self.decim.init_state(batch_shape)
+        return to_device(st, entry_device(self.device))
+
+    def apply(self, params, state, x):
+        """x: complex wideband [T] on any device (moved to the front
+        end's) → ((baseband [T / decim_ratio] complex64, spectra
+        [n_frames, fft_size]), new_state)."""
+        if x.shape[-1] % self.in_multiple:
+            raise ValueError(f"IQFrontEnd: block length {x.shape[-1]} must "
+                             f"be a multiple of {self.in_multiple}")
+        x = x.to(entry_device(self.device), torch.complex64)
+        st = dict(state)
+        if self.decim is not None:
+            x, st["decim"] = self.decim.apply(None, state["decim"], x)
+        if self.conj is not None:
+            x, _ = self.conj.apply(None, None, x)
+        spectra, _ = self.spectrum.apply(None, None, x)
+        return (x, spectra), st

@@ -3,8 +3,15 @@ sdrplusplusbrown_tpu/models/radio.py; reference
 decoder_modules/radio/src/radio_module.h: VFO → IF chain → demodulator →
 AF chain).
 
-Two entry points over a SHARED wideband, both running C VFOs at once:
+Three entry points:
 
+  * ``apply`` — one radio's step, as the app runs it for every enabled
+    radio (its ``RadioModuleInstance``): the baseband → RxVFO (translate,
+    resample, bandwidth FIR) → squelch → WFM or NFM demod → AF resampler,
+    batched over the leading axes of the params and state (``()`` for one
+    radio, ``(C,)`` for C radios of one mode).  Every FIR, decimator and
+    polyphase stage runs kernel K8, the WFM pilot band-pass kernel K9 and
+    a batched WFM stereo section kernel K10;
   * ``apply_shared`` — broadcast FM (``DEMOD_WFM``: stereo, the normalize
     pilot, no RDS, the de-emphasis folded into the audio polyphase)
     through the front-end kernel K1, the WFM demod kernel K2 and the
@@ -16,8 +23,9 @@ Two entry points over a SHARED wideband, both running C VFOs at once:
 A Radio runs on its ``device`` (CUDA unless the caller asks for the
 CPU): its params and state are created there and only the wideband input
 is moved to it.  Without a CUDA device a default Radio raises at first
-use.  NFM through ``apply_shared``, the noise blanker, the FM IF filter
-and the other demodulators raise ``NotImplementedError``.
+use.  NFM or the squelch through ``apply_shared``, the noise blanker, the
+FM IF filter, RDS, the scan-mode PLL and the other demodulators raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,8 +88,6 @@ class Radio(Block):
         if nb_enabled or fmif_enabled:
             raise NotImplementedError("noise blanker / FM IF filter are "
                                       "not ported yet")
-        if squelch_enabled and demod_id == DEMOD_WFM:
-            raise NotImplementedError("squelch on WFM is not ported yet")
         self.device = torch.device(device)
         self.in_samplerate = float(in_samplerate)
         self.audio_samplerate = float(audio_samplerate)
@@ -179,6 +185,38 @@ class Radio(Block):
         p.update(self._squelch_params(squelch_level))
         return p
 
+    # ---- one radio's step (K8, K9, K10) ----------------------------------
+    def apply(self, params, state, x):
+        """x: the complex baseband, [T] (shared by every radio of the
+        batch) or [..., T], on any device (it is moved to the Radio's) →
+        (audio [..., 2, m_aud] float32, new_state).  The reference's
+        per-VFO chain (radio_module.h:92-107): RxVFO, the IF chain (the
+        squelch), the demodulator, the AF chain; NFM's mono audio comes
+        out twice, as L and R."""
+        if x.shape[-1] % self.in_multiple:
+            raise ValueError(
+                f"Radio[{self.demod_name}]: block length {x.shape[-1]} "
+                f"must be a multiple of in_multiple={self.in_multiple}")
+        x = x.to(self._dev(), torch.complex64)
+        st = dict(state)
+        y, st["vfo"] = self.vfo.apply(params["vfo"], state["vfo"], x)
+        return self._post_vfo(params, state, st, y)
+
+    def _post_vfo(self, params, state, st, y):
+        """IF chain → demod → AF chain."""
+        if self.squelch_enabled:
+            y, _ = self.squelch.apply(params.get("squelch"), None, y)
+        y, st["demod"] = self.demod.apply(None, state["demod"], y)
+        return self._post_demod(state, st, y)
+
+    def _post_demod(self, state, st, y):
+        if self.af_resamp is not None:
+            y, st["af_resamp"] = self.af_resamp.apply(None,
+                                                      state["af_resamp"], y)
+        if not self.demod_stereo:
+            y = torch.stack([y, y], dim=-2)
+        return y, st
+
     # ---- shared wideband, broadcast FM (K1 → K2 → K3, K4) ---------------
     def _build_vfo_shared(self) -> SharedRxVFOBank:
         if self._vfo_shared is None:
@@ -204,8 +242,9 @@ class Radio(Block):
         on any device (it is moved to the Radio's) → (audio [C, 2, m_aud]
         float32, new_state), or ((audio, spectra [n_frames, fft_size]),
         new_state) with a ``spectrum`` SpectrumPath."""
-        if self.demod_id != DEMOD_WFM:
-            raise NotImplementedError(f"{self.demod_name} through "
+        if self.demod_id != DEMOD_WFM or self.squelch_enabled:
+            raise NotImplementedError(f"{self.demod_name} (squelch "
+                                      f"{self.squelch_enabled}) through "
                                       f"apply_shared is not ported yet")
         xr, xi = self._input(x)
         st = dict(state)

@@ -8,8 +8,21 @@
   * ``Squelch`` — block-mean power gate (reference
     noise_reduction/squelch.h:55-69).
 
-The main paths run the discriminator inside kernels K2 (ops/wfm_kernel.py)
-and K7 (ops/demod_kernel.py); these are the plain blocks.
+The shared-VFO and scanner paths run the discriminator inside kernels K2
+(ops/wfm_kernel.py) and K7 (ops/demod_kernel.py); one radio's step
+(``Radio.apply``) runs these blocks, its FIRs on kernel K8.
+
+Two discriminators stay, because the JAX package computes two: its Pallas
+WFM kernel multiplies float32 planes, each product rounded on its own
+(``quad_planes``, K2's plain version), while its ``Quadrature`` block is
+XLA's complex multiply, which XLA:CPU compiles to fused multiply-adds with
+signed flush-to-zero (``quad_xla``).  They differ only where the products
+are subnormal or cancel, that is on the cold-start IF, where the sign of a
+flushed zero picks +π or −π.  Either one in place of the other fails its
+reference there: ``quad_xla`` in K2's plain version drops the first block
+of ``apply_shared`` to 19 dB against the JAX kernel, and ``quad_planes``
+in ``Quadrature`` drops the first block of ``Radio.apply`` to 4–14 dB
+against the JAX ``Radio.apply``.
 """
 
 from __future__ import annotations
@@ -26,15 +39,44 @@ _TINY = float(np.finfo(np.float32).tiny)
 
 
 def quad_planes(er, ei, erp, eip, inv_deviation: float) -> torch.Tensor:
-    """Discriminator on re/im planes given the one-sample-lagged planes;
-    a zero product (e.g. a closed squelch gate) gives exact silence.
-    Subnormal products count as zero, as on the TPU and XLA:CPU (which
-    flush them): the cold-start IF ramps through subnormals, whose angle
-    is noise."""
+    """Discriminator on re/im planes given the one-sample-lagged planes,
+    in the JAX Pallas WFM kernel's arithmetic (K2's plain version); a zero
+    product (e.g. a closed squelch gate) gives exact silence.  Subnormal
+    products count as zero, as on the TPU and XLA:CPU (which flush them):
+    the cold-start IF ramps through subnormals, whose angle is noise."""
     re = er * erp + ei * eip
     im = ei * erp - er * eip
     re = torch.where(re.abs() < _TINY, torch.zeros_like(re), re)
     im = torch.where(im.abs() < _TINY, torch.zeros_like(im), im)
+    y = torch.atan2(im, re)
+    return torch.where((re == 0) & (im == 0), torch.zeros_like(y), y) \
+        * inv_deviation
+
+
+def _ftz(v: torch.Tensor) -> torch.Tensor:
+    """Flush subnormals to a zero of the same sign, as XLA:CPU's
+    flush-to-zero does to each arithmetic result."""
+    return torch.where(v.abs() < _TINY, v * 0.0, v)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """a·b + c rounded once to float32 (the product is exact in
+    float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def quad_xla(er, ei, erp, eip, inv_deviation: float) -> torch.Tensor:
+    """The JAX package's XLA discriminator, angle(x[n]·conj(x[n−1])), in
+    the arithmetic XLA:CPU compiles its complex multiply to: one product
+    of each part fused into a multiply-add with the other, rounded and
+    flushed to a signed zero (flush-to-zero),
+        re = fma(er, erp, ftz(ei·eip)),  im = fma(ei, erp, −ftz(er·eip)).
+    On the cold-start IF the products are subnormal or cancel to a
+    subnormal, and the sign of the flushed zero picks +π or −π.  The
+    float64 multiply-add is a dozen elementwise launches more than
+    ``quad_planes`` on the card (chip_smoke.py prints both costs)."""
+    re = _ftz(_fma(er, erp, _ftz(ei * eip)))
+    im = _ftz(_fma(ei, erp, -_ftz(er * eip)))
     y = torch.atan2(im, re)
     return torch.where((re == 0) & (im == 0), torch.zeros_like(y), y) \
         * inv_deviation
@@ -52,22 +94,23 @@ class Quadrature(Block):
 
     def apply(self, params, state, x):
         ext = torch.cat([state.to(x.device), x], dim=-1)
-        y = quad_planes(ext.real[..., 1:], ext.imag[..., 1:],
-                        ext.real[..., :-1], ext.imag[..., :-1],
-                        self.inv_deviation)
+        y = quad_xla(ext.real[..., 1:], ext.imag[..., 1:],
+                     ext.real[..., :-1], ext.imag[..., :-1],
+                     self.inv_deviation)
         return y, x[..., -1:]
 
     def apply_planes(self, state, xr, xi):
         state = state.to(xr.device)
         er = torch.cat([state.real, xr], dim=-1)
         ei = torch.cat([state.imag, xi], dim=-1)
-        y = quad_planes(er[..., 1:], ei[..., 1:], er[..., :-1], ei[..., :-1],
-                        self.inv_deviation)
+        y = quad_xla(er[..., 1:], ei[..., 1:], er[..., :-1], ei[..., :-1],
+                     self.inv_deviation)
         return y, torch.complex(xr[..., -1:], xi[..., -1:])
 
 
 class Squelch(Block):
-    """Zero the block where 10·log10(mean |x|) < level."""
+    """Zero the block where 10·log10(mean |x|) < level, per row of a
+    [..., T] block; the gate stays on the device (no host sync)."""
 
     def __init__(self, level: float = -100.0):
         self.default_level = float(level)
@@ -103,6 +146,12 @@ class FMDemod(Block):
     def init_state(self, batch_shape=()):
         return {"quad": self.quad.init_state(batch_shape),
                 "fir": self.fir.init_state(batch_shape)}
+
+    def apply(self, params, state, x):
+        """Complex IF [..., T] → (audio [..., T] float32, new state)."""
+        y, qs = self.quad.apply(None, state["quad"], x)
+        y, fs = self.fir.apply(None, state["fir"], y)
+        return y, {"quad": qs, "fir": fs}
 
     def apply_planes(self, params, state, planes):
         """The same demod on (re, im) float32 planes."""

@@ -32,7 +32,7 @@ import torch
 
 from ..kernels import _build
 from .precision import get_handoff_dtype, round_to
-from .resampler import poly_rows
+from .fir_kernel import poly_rows
 
 # atan(z) = z·P(z²) on [0, 1], degree-8 P (the JAX kernel's coefficients)
 _ATAN_C = (0.9999999055480192, -0.33332657866595233, 0.19986537719204336,

@@ -30,7 +30,7 @@ import torch
 
 from ..kernels import _build
 from .precision import get_handoff_dtype, round_to
-from .resampler import poly_rows
+from .fir_kernel import poly_rows
 from .xlator import _TWO_PI, advance_phase, fmod_floor
 
 ALIGN1D = 1024       # mix-phase block (the TPU kernel's 1-D DMA granularity)

@@ -7,8 +7,10 @@ of sdrplusplusbrown_tpu/ops/spectrum.py).
     (reference iq_frontend.cpp:304-311);
   * 10·log10(|X|²/N²) (reference iq_frontend.cpp:282).
 
-``SpectrumPath.apply`` runs kernel K4 (ops/fft_kernel.py) with the frames
-the TPU kernel path uses (start rup(f·interval, 1024)).
+``SpectrumPath.apply`` frames a complex block as the reshaper does, at
+exactly f·interval (kernel K4f, the JAX package's ``spectrum_path_db``
+route), and (xr, xi) float32 planes as the TPU front-end kernel path
+does, at rup(f·interval, 1024) (kernel K4); ops/fft_kernel.py.
 """
 
 from __future__ import annotations
@@ -68,15 +70,17 @@ class SpectrumPath(Block):
         self._dev_window = None
 
     def apply(self, params, state, x):
-        """x: (xr, xi) float32 [T] planes or a complex [T] block."""
-        from .fft_kernel import spectrum_frames_db
+        """x: a complex [T] block (frames at f·interval, K4f) or (xr, xi)
+        float32 [T] planes (frames at rup(f·interval, 1024), K4) →
+        ([n_frames, fft_size] dB, state)."""
+        from .fft_kernel import spectrum_frames_db, spectrum_path_db
         dev = entry_device(self.device)
         if self._dev_window is None:
             self._dev_window = torch.from_numpy(self.window).to(dev)
-        xr, xi = x if isinstance(x, tuple) else (x.real, x.imag)
-        xr = xr.to(dev, torch.float32).contiguous()
-        xi = xi.to(dev, torch.float32).contiguous()
-        db = spectrum_frames_db(xr, xi, self.reshaper.keep,
-                                self.reshaper.interval, self.fft_size,
-                                self.floor_db, self._dev_window)
-        return db, state
+        args = (self.reshaper.keep, self.reshaper.interval, self.fft_size,
+                self.floor_db, self._dev_window)
+        if not isinstance(x, tuple):
+            x = x.to(dev, torch.complex64).contiguous()
+            return spectrum_path_db(x, *args), state
+        xr, xi = (p.to(dev, torch.float32).contiguous() for p in x)
+        return spectrum_frames_db(xr, xi, *args), state

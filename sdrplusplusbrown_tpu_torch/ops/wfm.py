@@ -6,10 +6,15 @@ sdrplusplusbrown_tpu/ops/wfm.py; reference demod/broadcast_fm.h:35-215).
     → audio polyphase straight to the audio rate (15 kHz low-pass
       merged, the radio's 50 µs de-emphasis folded in)
 
-The port supports the configuration the shared-VFO main path uses:
-stereo, ``pll_mode="normalize"``, no RDS, an integer audio rate.  Its
-``apply_planes`` runs kernel K2 (demod) then K3 (audio polyphase); the
-design-time taps and the state layout are the JAX package's.
+The port supports the configuration the app's radios and the shared-VFO
+main path use: stereo, ``pll_mode="normalize"``, no RDS, an integer audio
+rate.  ``apply_planes`` (the shared-VFO bank's IF planes) runs kernel K2
+(demod) then K3 (audio polyphase).  ``apply`` (one radio's complex IF, the
+per-radio step) runs the JAX package's per-stage chain: the
+discriminator, the MPX halfbands (K8), the stereo section (K10 for a 2-D
+MPX on the card; else the pilot band-pass on K9 and plain elementwise
+stages) and the audio polyphase (K8).  The design-time taps and the state
+layout are the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from ..runtime.block import Block
 from . import taps as taps_mod
 from .fir import FIR, RealFIR
 from .demod import Quadrature
-from .pll import PLL
+from .pll import PLL, pilot_normalize
 from .delay import Delay
 from .resampler import PolyphaseResampler, design_halfband_stage
 
@@ -130,3 +135,61 @@ class BroadcastFM(Block):
         lr, st = demod.apply(state, planes, m_if)
         y, st["audio_rs"] = audio.apply(state["audio_rs"], lr, lr.shape[1])
         return y, st
+
+    def apply(self, params, state, x):
+        """x: complex IF [..., m_if] → (audio [..., 2, m_aud] float32,
+        new_state)."""
+        st = dict(state)
+        mpx, st["quad"] = self.quad.apply(None, state["quad"], x)
+        return self._after_quad(params, state, st, mpx)
+
+    def _after_quad(self, params, state, st, mpx):
+        mpx_states = []
+        for stage, sst in zip(self.mpx_stages, state["mpx_decim"]):
+            mpx, nst = stage.apply(None, sst, mpx)
+            mpx_states.append(nst)
+        st["mpx_decim"] = mpx_states
+        lr2 = self._stereo_section(state, st, mpx)
+        return self._audio_out(state, st, lr2), st
+
+    def _stereo_section(self, state, st, mpx):
+        """MPX [..., T] → (L, R) planes [2, ..., T] at the MPX rate.
+
+        A 2-D MPX on the card runs kernel K10 (ops/wfm_kernel.py), as the
+        TPU runs its fused stereo kernel: only ``mpx_hist`` advances
+        there, and ``pilot_fir``, ``pll``, ``pilot_lag`` and the delays
+        pass through untouched (switching routes mid-stream costs a
+        one-block seam, as in the JAX package, ops/wfm.py:178-181).
+        Elsewhere (one radio's 1-D MPX, or any CPU tensor, as the JAX
+        package's CPU route) the per-stage section updates every key."""
+        K = len(self.pilot_taps)
+        hist = torch.cat([state["mpx_hist"], mpx], dim=-1)[..., -K:]
+        if mpx.is_cuda and mpx.dim() == 2:
+            from .wfm_kernel import wfm_stereo
+            lr2 = wfm_stereo(self.pipes()[0], mpx.contiguous(),
+                             state["mpx_hist"].contiguous())
+            st["mpx_hist"] = hist
+            return lr2
+        mpx_c = mpx.to(torch.complex64)
+        pilot, st["pilot_fir"] = self.pilot_fir.apply(
+            None, state["pilot_fir"], mpx_c)
+        vco = pilot_normalize(pilot)
+        vco, st["pilot_lag"] = self.pilot_lag.apply(None, state["pilot_lag"],
+                                                    vco)
+        vco = vco * complex(np.complex64(self.pilot_phase_corr))
+        lpr, st["lpr_delay"] = self.lpr_delay.apply(None, state["lpr_delay"],
+                                                    mpx)
+        lmr_c, st["lmr_delay"] = self.lmr_delay.apply(
+            None, state["lmr_delay"], mpx_c)
+        # the conjugate VCO squared downconverts the 38 kHz L−R subcarrier
+        vco2 = vco.conj()
+        lmr = (lmr_c * vco2 * vco2).real * 2.0
+        st["mpx_hist"] = hist
+        return torch.stack([lpr + lmr, lpr - lmr], dim=0)
+
+    def _audio_out(self, state, st, lr2):
+        """[2, ..., T] at the MPX rate → audio [..., 2, T'] through the
+        (de-emphasis-folded) audio polyphase."""
+        lr2, st["audio_rs"] = self.audio_poly.apply(None, state["audio_rs"],
+                                                    lr2)
+        return torch.movedim(lr2, 0, -2)

@@ -1,5 +1,6 @@
-"""WFM demodulator and audio polyphase — kernels K2 and K3 with their
-plain versions (counterpart of sdrplusplusbrown_tpu/ops/wfm_kernel.py).
+"""WFM demodulator, stereo section and audio polyphase — kernels K2, K10
+and K3 with their plain versions (counterpart of
+sdrplusplusbrown_tpu/ops/wfm_kernel.py and ops/pallas_wfm.py).
 
 K2 (``wfm_demod``): the IF planes [2C, ≥m_if] → discriminator → MPX
 halfbands → stereo section (pilot band-pass, normalize VCO with the
@@ -9,6 +10,11 @@ dtype.  The stereo section uses the identities of the TPU kernel
 u = conj(pilot_phase_corr)² folds the phase correction, and the
 ``mpx_hist`` state (last K MPX samples) covers the pilot FIR, its lag and
 the L+R delay d ≤ K.
+
+K10 (``wfm_stereo``): K2's stereo section launched alone, the
+counterpart of ``_wfm_stereo_kernel`` (ops/pallas_wfm.py there): MPX
+[C, T] float32 and ``mpx_hist`` [C, K] → [2, C, T] float32 (L plane, then
+R plane), as ``wfm_stereo_apply`` returns it.
 
 K3 (``mpx_audio_poly``): the de-emphasis-folded 48/125 audio polyphase
 over the L/R planes → audio [2C, m_aud] float32.
@@ -27,7 +33,7 @@ import torch
 from ..kernels import _build
 from .demod import quad_planes
 from .precision import get_handoff_dtype, round_to
-from .resampler import poly_rows
+from .fir_kernel import poly_rows
 
 #: storage dtypes the kernels read and write
 _STORAGE = (torch.float32, torch.bfloat16)
@@ -129,17 +135,23 @@ def wfm_demod_ref(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype):
         ins.append(y)
         y = poly_rows(torch.cat([t, y], dim=1), h[None, :], 1, 2)
     ins.append(y)
-    m = y.shape[1]
+    lr = _stereo_ref(pipe, y, hist, hr, hi)
+    return lr.reshape(2 * C, -1).to(out_dtype), ins
+
+
+def _stereo_ref(pipe, mpx, hist, hr, hi):
+    """The stereo section in plain PyTorch: MPX [C, m], history [C, K] →
+    [2, C, m] float32 (L, R)."""
+    m = mpx.shape[1]
     K, d = pipe.K, pipe.d
-    ext = torch.cat([hist, y], dim=1)
+    ext = torch.cat([hist, mpx], dim=1)
     a = poly_rows(ext[:, :m + K - 1], hr[None, :], 1, 1)
     b = poly_rows(ext[:, :m + K - 1], hi[None, :], 1, 1)
     lpr = ext[:, K - d:K - d + m]
     wsub = (pipe.ur * (a * a - b * b) + pipe.ui2 * (a * b)) \
         / torch.clamp(a * a + b * b, min=1e-20)
     two = 2.0 * wsub
-    lr = torch.cat([lpr * (1.0 + two), lpr * (1.0 - two)])
-    return lr.to(out_dtype), ins
+    return torch.stack([lpr * (1.0 + two), lpr * (1.0 - two)])
 
 
 @_build.counted
@@ -186,6 +198,46 @@ def wfm_demod(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype):
     CPU tensors."""
     fn = wfm_demod_kernel if iq.is_cuda else wfm_demod_ref
     return fn(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype)
+
+
+def _check_stereo(pipe, mpx, hist):
+    if mpx.dim() != 2 or mpx.dtype != torch.float32 or \
+            tuple(hist.shape) != (mpx.shape[0], pipe.K):
+        raise ValueError(f"stereo section: MPX {tuple(mpx.shape)} "
+                         f"{mpx.dtype}, history {tuple(hist.shape)}")
+
+
+def wfm_stereo_ref(pipe, mpx, hist):
+    """Plain PyTorch K10: MPX [C, T] float32, ``mpx_hist`` [C, K] → [2,
+    C, T] float32 (L plane, then R plane)."""
+    _check_stereo(pipe, mpx, hist)
+    _, hr, hi = pipe.taps(mpx.device, torch.float32)
+    return _stereo_ref(pipe, mpx, hist, hr, hi)
+
+
+@_build.counted
+def wfm_stereo_kernel(pipe, mpx, hist):
+    """K10 on the card (csrc/wfm_demod.cu:stereo_kernel launched alone
+    through ``sdr_wfm_stereo``); same contract as ``wfm_stereo_ref``."""
+    dev = mpx.device
+    f32 = torch.float32
+    _check_stereo(pipe, mpx, hist)
+    _, hr, hi = pipe.taps(dev, f32)
+    C, m = mpx.shape
+    out = torch.empty((2, C, m), dtype=f32, device=dev)
+    _build.launch(
+        "sdr_wfm_stereo", dev, _build.check(mpx, "MPX", f32, device=dev),
+        _build.check(hist, "mpx_hist", f32, device=dev), pipe.K, pipe.d, m,
+        _build.check(hr, "pilot re", f32), _build.check(hi, "pilot im", f32),
+        pipe.ur, pipe.ui2, out.data_ptr(), 0, C)
+    return out
+
+
+def wfm_stereo(pipe, mpx, hist):
+    """K10 dispatch: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    fn = wfm_stereo_kernel if mpx.is_cuda else wfm_stereo_ref
+    return fn(pipe, mpx, hist)
 
 
 class MPXAudioPoly:

@@ -332,3 +332,219 @@ def test_scanner_kernels_raise_instead_of_falling_back(gpu):
     with pytest.raises(ValueError):                        # history on host
         channelizer_kernel.pfb_bins(pfb, xr, xr, z(264), z(264), 256,
                                     torch.float32, torch.float32)
+
+
+# ---- the app's per-radio step: K8, K9, K10, K4f --------------------------
+
+def _rows(rng, lead, n, cplx, dev):
+    x = rng.standard_normal(lead + (n,))
+    if cplx:
+        x = x + 1j * rng.standard_normal(lead + (n,))
+    return torch.from_numpy(x.astype(np.complex64 if cplx
+                                      else np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("lead", [(), (17,)])
+@pytest.mark.parametrize("K,I,D", [(304, 1, 4), (600, 1, 1), (253, 1, 1),
+                                   (63, 1, 2), (97, 5, 6), (493, 48, 125),
+                                   (116, 2, 3), (1, 1, 2)])
+@pytest.mark.parametrize("cplx", [False, True])
+def test_fir_rows_kernel_matches_plain(gpu, lead, K, I, D, cplx):
+    """K8 on edge shapes: blocks that are no multiple of the 256-output
+    tile, K above the tile, D = 1, 2, 4 and the polyphase ratios, one row
+    and 17, a tail longer than the block; two blocks streamed."""
+    from sdrplusplusbrown_tpu_torch.ops import fir_kernel
+    rng = np.random.default_rng(K * 7 + D)
+    kern = torch.from_numpy(rng.standard_normal((I, K))
+                            .astype(np.float32)).to(gpu)
+    hist = max(K - D, K - 1) if I > 1 else K - 1
+    tail = _rows(rng, lead, hist, cplx, gpu)
+    n0 = fir_kernel.fir_rows_kernel.launches
+    for T in (D * 1037, D * 3):
+        x = _rows(rng, lead, T, cplx, gpu)
+        if (hist + T - K) // D + 1 < 1:
+            continue
+        got, gt = fir_kernel.fir_rows(x, tail, kern, I, D)
+        want, wt = fir_kernel.fir_rows_ref(x, tail, kern, I, D)
+        assert got.is_cuda and got.shape == want.shape
+        _close(want, got, 100.0, f"K8 T={T}")
+        assert torch.equal(gt, wt.contiguous())
+        tail = gt
+    assert fir_kernel.fir_rows_kernel.launches > n0
+
+
+@pytest.mark.parametrize("lead", [(), (17,)])
+@pytest.mark.parametrize("K,D", [(159, 1), (159, 2), (600, 4), (3, 1)])
+def test_fir_cplx_kernel_matches_plain(gpu, lead, K, D):
+    from sdrplusplusbrown_tpu_torch.ops import fir_kernel
+    rng = np.random.default_rng(K + D)
+    taps = torch.from_numpy(rng.standard_normal((2, K))
+                            .astype(np.float32)).to(gpu)
+    tail = _rows(rng, lead, K - 1, True, gpu)
+    for T in (D * 12_500, D * 5):
+        x = _rows(rng, lead, T, True, gpu)
+        got, gt = fir_kernel.fir_cplx(x, tail, taps, D)
+        want, wt = fir_kernel.fir_cplx_ref(x, tail, taps, D)
+        assert got.is_cuda and got.shape == want.shape
+        _close(want, got, 100.0, f"K9 T={T}")
+        assert torch.equal(gt, wt.contiguous())
+        tail = gt
+
+
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_stereo_kernel_matches_plain(gpu, C):
+    from sdrplusplusbrown_tpu_torch.ops import wfm_kernel
+    pipe = Radio(FS, DEMOD_WFM).demod.pipes()[0]
+    rng = np.random.default_rng(C)
+    for T in (12_500, 300):
+        mpx = torch.from_numpy(rng.standard_normal((C, T))
+                               .astype(np.float32)).to(gpu)
+        hist = torch.from_numpy(rng.standard_normal((C, pipe.K))
+                                .astype(np.float32)).to(gpu)
+        got = wfm_kernel.wfm_stereo(pipe, mpx, hist)
+        want = wfm_kernel.wfm_stereo_ref(pipe, mpx, hist)
+        assert got.is_cuda and got.shape == want.shape == (2, C, T)
+        _close(want, got, 100.0, f"K10 T={T}")
+
+
+@pytest.mark.parametrize("fft_size,keep,interval,n", [
+    (1024, 1024, 2_500, 5), (4096, 3_000, 3_000, 3),
+    (65536, 65536, 120_000, 2), (262144, 120_000, 120_000, 2)])
+def test_spectrum_path_kernel_matches_plain(gpu, fft_size, keep, interval,
+                                            n):
+    """K4f at every size class, frames at exact (unaligned) starts."""
+    x = wfm_iq(n * interval, np.linspace(-0.9e6, 0.9e6, 4), seed=fft_size)
+    win = torch.from_numpy(make_fft_window("nuttall", keep))
+    want = fft_kernel.spectrum_path_db(torch.from_numpy(x), keep, interval,
+                                       fft_size, -300.0, win)
+    got = fft_kernel.spectrum_path_db(torch.from_numpy(x).to(gpu), keep,
+                                      interval, fft_size, -300.0,
+                                      win.to(gpu))
+    assert got.is_cuda
+    assert_spectra_close(want.numpy(), got.cpu().numpy())
+
+
+def test_step_kernels_raise_instead_of_falling_back(gpu):
+    """A CPU tensor, a non-contiguous one or a wrong dtype given to a
+    kernel wrapper raises; nothing runs on the host instead."""
+    from sdrplusplusbrown_tpu_torch.ops import fir_kernel, wfm_kernel
+    z = torch.zeros
+    kern = z((1, 8), device=gpu)
+    x = z((2, 64), device=gpu)
+    tail = z((2, 7), device=gpu)
+    bad = [lambda: fir_kernel.fir_rows_kernel(x, tail, kern.cpu(), 1, 1),
+           lambda: fir_kernel.fir_rows_kernel(z((2, 128), device=gpu)
+                                              [:, ::2], tail, kern, 1, 1),
+           lambda: fir_kernel.fir_rows_kernel(x.double(), tail.double(),
+                                              kern, 1, 1),
+           lambda: fir_kernel.fir_cplx_kernel(
+               x.to(torch.complex64), tail.to(torch.complex64),
+               z((2, 8), device=gpu).double(), 1),
+           lambda: fir_kernel.fir_cplx_kernel(
+               x.to(torch.complex64), tail.to(torch.complex64).cpu(),
+               z((2, 8), device=gpu), 1)]
+    pipe = Radio(FS, DEMOD_WFM).demod.pipes()[0]
+    bad += [lambda: wfm_kernel.wfm_stereo_kernel(
+                pipe, z((2, 600), device=gpu)[:, ::2],
+                z((2, pipe.K), device=gpu)),
+            lambda: wfm_kernel.wfm_stereo_kernel(
+                pipe, z((2, 300), device=gpu).half(),
+                z((2, pipe.K), device=gpu)),
+            lambda: fft_kernel.spectrum_path_db_kernel(
+                z(2048, dtype=torch.complex64, device=gpu)[::2], 1024, 1024,
+                1024, -300.0, None),
+            lambda: fft_kernel.spectrum_path_db_kernel(
+                z(1024, device=gpu), 1024, 1024, 1024, -300.0, None),
+            lambda: fft_kernel.spectrum_path_db_kernel(
+                z(1024, dtype=torch.complex64), 1024, 1024, 1024, -300.0,
+                None)]
+    for i, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+            pytest.fail(f"call {i} did not raise")
+
+
+def _app_signal(T):
+    """Two stereo stations and two NFM carriers on one wideband."""
+    x = wfm_iq(3 * T, [-300e3, -650e3], seed=9)
+    return x + nfm_iq(3 * T, [400e3, 700e3], [0, 1], seed=10, noise=0.0)
+
+
+def test_app_step_reaches_no_library_kernel(gpu, monkeypatch):
+    """IQFrontEnd → Radio.apply (WFM and NFM, batch () and (8,)) on the
+    card with ``F.conv1d`` and ``torch.fft`` replaced by functions that
+    raise: no stage reaches cuDNN or cuFFT."""
+    import torch.nn.functional as F
+    from sdrplusplusbrown_tpu_torch.models.iq_frontend import IQFrontEnd
+
+    def refuse(*a, **k):
+        raise AssertionError("a library kernel was called on the card")
+    monkeypatch.setattr(F, "conv1d", refuse)
+    monkeypatch.setattr(torch.fft, "fft", refuse)
+    fe = IQFrontEnd(FS, fft_size=65536)
+    T = 240_000
+    x = torch.from_numpy(_app_signal(T)[:T])
+    (bb, spectra), _ = fe.apply(None, fe.init_state(), x)
+    assert bb.is_cuda and spectra.shape == (2, 65536)
+    for demod, batch, offs in ((DEMOD_WFM, (), -300e3),
+                               (DEMOD_WFM, (8,), np.linspace(-1e6, 1e6, 8)),
+                               (DEMOD_NFM, (), 400e3),
+                               (DEMOD_NFM, (8,), np.linspace(-1e6, 1e6, 8))):
+        r = Radio(FS, demod, squelch_enabled=True)
+        a, st = r.apply(r.make_params(offs), r.init_state(batch), bb)
+        assert a.is_cuda and a.shape == batch + (2, T // 50)
+        assert torch.isfinite(a).all()
+
+
+@pytest.mark.parametrize("batch", [(), (8,)])
+@pytest.mark.parametrize("demod", [DEMOD_WFM, DEMOD_NFM])
+def test_radio_apply_matches_plain(gpu, demod, batch):
+    """Radio.apply on the card against the same Radio on the CPU over
+    three blocks with a retune: 90 dB on the audio and every state leaf in
+    the cold-start block 0, 100 dB after (the card's K8 sums the taps in
+    another order than the CPU's conv1d; block 0's smallest margin was WFM
+    () at 96 dB, the later blocks' 128.7 dB, on an H100).  Batched WFM
+    takes K10 on the card and the per-stage section on the CPU, and only
+    mpx_hist advances on the card."""
+    from sdrplusplusbrown_tpu_torch.ops import fir_kernel, wfm_kernel
+    rc = Radio(FS, demod, squelch_enabled=True, device="cpu")
+    rg = Radio(FS, demod, squelch_enabled=True)
+    T = 48_000
+    x = _app_signal(T)
+    offs = {DEMOD_WFM: -300e3, DEMOD_NFM: 400e3}[demod]
+    if batch:
+        offs = offs + np.linspace(0.0, 7e3, 8)
+    s_cpu, s_gpu = rc.init_state(batch), rg.init_state(batch)
+    k10 = wfm_kernel.wfm_stereo_kernel.launches
+    k8 = fir_kernel.fir_rows_kernel.launches
+    for b in range(3):
+        o = offs if b < 2 else offs + 2e3
+        xb = torch.from_numpy(x[b * T:(b + 1) * T])
+        a1, s_cpu = rc.apply(rc.make_params(o), s_cpu, xb)
+        a2, s_gpu = rg.apply(rg.make_params(o), s_gpu, xb)
+        assert a2.is_cuda and a2.shape == a1.shape
+        _close(a1, a2, 90.0 if b == 0 else 100.0, f"audio block {b}")
+        keys = ["vfo", "demod"] + (["af_resamp"] if demod == DEMOD_NFM
+                                   else [])
+        for key in keys:
+            sub_c, sub_g = s_cpu[key], s_gpu[key]
+            if key == "demod" and demod == DEMOD_WFM and batch:
+                sub_c = {k: sub_c[k] for k in ("quad", "mpx_hist",
+                                               "audio_rs")}
+                sub_g = {k: sub_g[k] for k in sub_c}
+            for (p, vc), (_, vg) in zip(_leaves(sub_c), _leaves(sub_g)):
+                _close(vc, vg, 90.0 if b == 0 else 100.0, f"{key}{p}")
+    assert fir_kernel.fir_rows_kernel.launches > k8
+    want_k10 = 3 if (demod == DEMOD_WFM and batch) else 0
+    assert wfm_kernel.wfm_stereo_kernel.launches == k10 + want_k10
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree

@@ -35,6 +35,32 @@ def test_import_loads_no_jax():
     assert n_modules >= len(PY_FILES) - 1, res.stdout
 
 
+# the modules of the app's per-radio step, imported with jax, jaxlib and
+# the JAX package blocked (an import of any of them raises ImportError)
+_STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
+                 "ops.wfm", "ops.wfm_kernel", "ops.fft_kernel",
+                 "ops.spectrum", "models.radio", "models.iq_frontend",
+                 "convert"]
+_BLOCKED = """
+import importlib, sys
+for name in ("jax", "jaxlib", "sdrplusplusbrown_tpu"):
+    sys.modules[name] = None
+for m in {mods!r}:
+    importlib.import_module("sdrplusplusbrown_tpu_torch." + m)
+print("ok")
+"""
+
+
+def test_step_modules_import_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c",
+                          _BLOCKED.format(mods=_STEP_MODULES)], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", \
+        res.stdout + res.stderr
+
+
 @pytest.mark.parametrize("path", PY_FILES)
 def test_no_jax_import_statement(path):
     src = (REPO / path).read_text()

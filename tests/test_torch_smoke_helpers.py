@@ -52,3 +52,17 @@ def test_short_kernel_names(smoke):
         ">(int)") == "vectorized_elementwise_kernel"
     assert smoke.short_kernel("Memcpy DtoD (Device -> Device)") \
         == "Memcpy DtoD"
+
+
+@pytest.mark.parametrize("cplx,rows,I,D,kw", [(True, 1, 1, 4, 304),
+                                              (False, 8, 48, 125, 368)])
+def test_app_stage_names_each_k8_geometry(smoke, cplx, rows, I, D, kw):
+    """Phase 10 holds every distinct K8 geometry against its plain
+    version: the name tells dtype, rows, I/D and kernel width apart."""
+    dt = torch.complex64 if cplx else torch.float32
+    shape = (1000,) if rows == 1 else (rows, 1000)
+    call = (torch.zeros(shape, dtype=dt), torch.zeros(shape[:-1] + (7,),
+                                                      dtype=dt),
+            torch.zeros(I, kw), I, D)
+    assert smoke.app_stage(call) == (
+        f"{'complex' if cplx else 'real'} rows {rows} I/D {I}/{D} kw {kw}")
