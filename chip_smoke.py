@@ -20,7 +20,13 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     an NFM radio with the squelch on, as the app builds them, and for 8
     WFM radios batched: K8 FIR rows (every decimator, polyphase and FIR
     stage), K9 complex-tap FIR (the WFM pilot band-pass of one radio),
-    K10 stereo section (batched WFM), K4f spectrum of the complex block.
+    K10 stereo section (batched WFM), K4f spectrum of the complex block;
+  * the multi-mode bank — ``RadioBank.apply(..., mono_out=True)`` on
+    multimode8 (bench.py:build_multimode8, BASELINE config 2: 4 NFM, 2 AM
+    and 2 USB VFOs on one 2.4 MS/s wideband, 240 000-sample steps) and on
+    the same VFOs at 10 MS/s (1 040 000-sample steps): K1 (or K11 then
+    K8 where K1 cannot take the chain: every group at 10 MS/s), K7 for
+    NFM, K8 and the AGC kernel K12 for AM and USB.
 
 Phases, each fatal on failure:
 
@@ -60,7 +66,20 @@ Phases, each fatal on failure:
      (K10 launched, K9 not; per-radio oracles);
  12. the app step's rate, wall time and profiler window (``step_rate``),
      WFM at batch () and at (8,), on noise, and what ``Radio.apply``'s
-     discriminator costs on the card (``quad_cost``).
+     discriminator costs on the card (``quad_cost``);
+ 13. the bank's kernels against their plain versions at its shapes,
+     every tensor each returns (IF or audio, stage inputs, state): K1 on
+     each 2.4 MS/s group's call and K7 on each bank's NFM call, in the
+     float32 and again in the bf16 handoff (100 dB, 45 dB for a bf16
+     output); K11 on every 10 MS/s group call, K12 on each AM and USB
+     shape of both rates, timed with CUDA events (K11 beside one conv1d,
+     TF32 off); every distinct K8 geometry of the two bank paths;
+ 14. five steps of each bank, the launch counts zeroed just before each:
+     at 2.4 MS/s K1, K7, K8 and K12 launched and K11 not, at 10 MS/s K11,
+     K7, K8 and K12 and K1 not; on step 5 (the AGC's 4 800-sample start
+     ramp long over) the 1 kHz tone SNR of every VFO against the same
+     five steps of the port's plain path on the host CPU, less 3 dB;
+ 15. each bank's step on bench-style noise, as in 5 (``step_rate``).
 
 Beside each CUDA-event time (which, for a kernel shorter than its
 wrapper's host work, is the wrapper's time) every comparison prints the
@@ -177,7 +196,7 @@ def work(tag: str, args) -> tuple:
     the elementwise arithmetic.  Transcendentals (sin/cos, the minimax
     atan2's 20-odd operations aside) are not counted."""
     if tag == "K1":
-        pipe, xr, xi, tail, omega, base, tails, odt = args
+        pipe, xr, xi, tail, omega, base, tails, odt = args[:8]
         T, Cn = xr.shape[0], omega.shape[0]
         m = pipe.lengths(T)
         b = 8 * T + 2 * Cn * m[-1] * nbytes(odt)
@@ -248,6 +267,19 @@ def work(tag: str, args) -> tuple:
         n = x.shape[0] // interval
         return (n * (8 * keep + 4 * N),
                 n * (5 * N * int(np.log2(N)) + 2 * keep + 4 * N))
+    if tag == "K11":    # planes, tail, taps and params in; [2C, M] out
+        xr, _, tail_r, _, h, D, omega = args[:7]
+        T, K, Cn = xr.shape[0], h.shape[0], omega.shape[0]
+        M = T // D
+        b = 4 * (2 * T + 2 * (K - 1) + K + 4 * Cn) + 4 * 2 * Cn * M
+        # 2K complex taps on real planes: 2·2·2K flops a channel and
+        # output, the twiddle's complex rotate 6 more
+        return b, Cn * M * (8 * K + 6)
+    if tag == "K12":    # rows and state in and out
+        x = args[1]
+        R, T = x.shape
+        # |x|, compare, 2 mul + add, divide, min; ramp 3; 2 mul
+        return 8 * R * T + 16 * R, 12 * R * T
     raise KeyError(tag)
 
 
@@ -403,6 +435,7 @@ def main() -> int:
     report = drive(dev, card)
     report.update(drive_scanner(dev, card))
     report.update(drive_app(dev, card))
+    report.update(drive_bank(dev, card, report))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -622,6 +655,12 @@ KERNELS = {
     "K4f": ("fft_kernel", "spectrum_path_db",
             "sdrplusplusbrown_tpu_torch/csrc/spectrum_fft.cu",
             "sdrplusplusbrown_tpu/ops/pallas_fft.py:64"),
+    "K11": ("fused_frontend", "fused_mix",
+            "sdrplusplusbrown_tpu_torch/csrc/fused_mix.cu",
+            "sdrplusplusbrown_tpu/ops/pallas_fir.py:1034"),
+    "K12": ("agc", "agc_rows",
+            "sdrplusplusbrown_tpu_torch/csrc/agc.cu",
+            "sdrplusplusbrown_tpu/ops/agc.py:77"),
 }
 
 
@@ -841,14 +880,23 @@ def library_call(tag: str, args):
         starts = k4.frame_starts(x.shape[0], keep, interval, align=1)
         fr = torch.stack([x[p:p + keep] for p in starts]) * window
         return lambda: torch.fft.fft(fr, n=N, dim=-1)
+    if tag == "K11":    # the pre-twiddle sums: one strided 2-in conv
+        xr, xi, tr, ti, h, D, omega = args[:7]
+        k = torch.arange(h.shape[0], dtype=torch.float32, device=h.device)
+        ang = omega[:, None] * k
+        gr, gi = h * torch.cos(ang), h * torch.sin(ang)
+        ker = torch.cat([torch.stack([gr, -gi], dim=1),
+                         torch.stack([gi, gr], dim=1)])
+        ext = torch.stack([torch.cat([tr, xr]), torch.cat([ti, xi])])[None]
+        return lambda: F.conv1d(ext, ker, stride=D)
     return None
 
 
 def check_app_kernel(tag: str, args, card: str, what: str,
-                     timed: bool = True) -> dict:
-    """K8-K10 or K4f against its plain version on ``args``; with ``timed``
-    both are timed with CUDA events beside the library call.  Raises on
-    disagreement."""
+                     timed: bool = True, plain_reps: int = 20) -> dict:
+    """K8-K12 or K4f against its plain version on ``args``; with ``timed``
+    both are timed with CUDA events beside the library call (the plain
+    version over ``plain_reps`` calls).  Raises on disagreement."""
     import torch
     mod, name = kernel_fn(tag, "")
     kern = getattr(mod, name + "_kernel")
@@ -858,6 +906,12 @@ def check_app_kernel(tag: str, args, card: str, what: str,
     if tag in ("K8", "K9"):     # (y, new tail): the tail is a copy
         if not torch.equal(got[1], want[1]):
             fail(f"{tag} {what}: new tail differs from the plain version")
+        got, want = got[0], want[0]
+    if tag == "K12":            # (y, amp, env): the state exact
+        if not (torch.equal(got[1], want[1])
+                and torch.equal(got[2], want[2])):
+            fail(f"K12 {what}: the new state differs from the plain "
+                 f"version")
         got, want = got[0], want[0]
     if got.is_complex():
         got, want = torch.view_as_real(got), torch.view_as_real(want)
@@ -887,11 +941,13 @@ def check_app_kernel(tag: str, args, card: str, what: str,
                  f"{agree}")
         return {"max_abs_err": err}
     ms = event_ms(lambda: kern(*args))
-    plain_ms = event_ms(lambda: ref(*args))
+    plain_ms = event_ms(lambda: ref(*args), plain_reps)
     lib = library_call(tag, args)
     library_ms = event_ms(lib) if lib is not None else None
-    us = [device_us(f) for f in (lambda: kern(*args), lambda: ref(*args),
-                                 lib) if f is not None]
+    us = [device_us(lambda: kern(*args)),
+          device_us(lambda: ref(*args), plain_reps)]
+    if lib is not None:
+        us.append(device_us(lib))
     bms, by = bound(tag, args)
     libs = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"{tag} {name} ({what}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
@@ -1122,6 +1178,267 @@ def quad_cost(radio, dev, card: str) -> None:
               + "; ".join(f"{n} {us:.1f} us device, {ln:.0f} launches per "
                           f"call" for n, (us, ln) in cost.items())
               + f" [{card}]")
+
+
+BANK_FS = (2_400_000.0, 10_000_000.0)
+BANK_SECONDS = 0.1       # per step, rounded up to the bank's granularity
+BANK_STEPS = 5
+BANK_MARGIN_DB = 3.0     # the card's tone SNR may sit this far under the CPU's
+# and never under this: the AM and USB audio AGC (attack 50/IF) follows
+# the rectified 1 kHz tone and distorts it, so their tone SNR is ~21 dB
+# on the plain path too
+BANK_MIN_DB = 15.0
+BANK_TAGS = ("K1", "K7", "K8", "K11", "K12")
+# a kernel's bf16 output against its plain version's: a float32
+# difference that crosses a bf16 rounding boundary moves a value by 2^-8
+BF16_DB = 45.0
+
+
+def multimode_wideband(n: int, fs: float, carriers,
+                       seed: int = 13) -> np.ndarray:
+    """One carrier per (demod id, offset Hz) pair, plus low noise: NFM
+    an FM carrier (1 kHz tone, 2 kHz peak deviation), AM a 50 % AM
+    carrier (1 kHz tone), USB a carrier 1 kHz above the VFO's suppressed
+    carrier (its offset is the passband's centre, 1.4 kHz higher), any
+    other mode a carrier on the offset."""
+    from sdrplusplusbrown_tpu_torch.models.radio import (DEMOD_AM,
+                                                         DEMOD_NFM,
+                                                         DEMOD_USB)
+    t = np.arange(n) / fs
+    tone = np.sin(2 * np.pi * TONE_HZ * t)
+    fm = 2 * np.pi * 2000.0 * np.cumsum(tone) / fs
+    rng = np.random.default_rng(seed)
+    x = 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    for d, f in carriers:
+        if d == DEMOD_NFM:
+            x = x + 0.2 * np.exp(1j * (2 * np.pi * f * t + fm))
+        elif d == DEMOD_AM:
+            x = x + 0.2 * (1 + 0.5 * tone) * np.exp(2j * np.pi * f * t)
+        elif d == DEMOD_USB:
+            x = x + 0.1 * np.exp(2j * np.pi * (f - 400.0) * t)
+        else:
+            x = x + 0.1 * np.exp(2j * np.pi * f * t)
+    return x.astype(np.complex64)
+
+
+def bank_label(fs: float) -> str:
+    return f"multimode8 @ {fs / 1e6:g} MS/s"
+
+
+def drive_bank(dev, card: str, report: dict) -> dict:
+    """Phases 13-15 on ``dev``; raises on the first failure.  Returns the
+    K11 and K12 entries of the kernel report and adds the bank paths'
+    launches to the K1, K7 and K8 entries."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
+    from sdrplusplusbrown_tpu_torch.ops import precision
+
+    vfos = rb.multimode8_vfos()
+    banks, xs = {}, {}
+    for fs in BANK_FS:
+        bank = rb.RadioBank(fs, vfos, device=dev)
+        g = bank.in_multiple
+        T = -(-int(fs * BANK_SECONDS) // g) * g
+        x = multimode_wideband(BANK_STEPS * T, fs,
+                               [(v.demod_id, v.offset_hz) for v in vfos])
+        banks[fs] = (bank, T)
+        xs[fs] = [(torch.from_numpy(x[b * T:(b + 1) * T].real.copy()),
+                   torch.from_numpy(x[b * T:(b + 1) * T].imag.copy()))
+                  for b in range(BANK_STEPS)]
+        print(f"{bank_label(fs)}: T = {T}, routes "
+              + ", ".join(f"{r.demod_name} {r._build_vfo_shared().route}"
+                          for r in bank.radios.values()))
+
+    def run(fs, device, steps):
+        """``steps`` bank steps on ``device`` (the host's copy of the bank
+        for the CPU); the audio of each."""
+        bank = banks[fs][0] if device != "cpu" else rb.RadioBank(
+            fs, vfos, device="cpu")
+        params, st, outs = bank.make_params(), bank.init_state(), []
+        for b in range(steps):
+            xb = tuple(t.to(device) for t in xs[fs][b])
+            audio, st = bank.apply(params, st, xb, mono_out=True)
+            outs.append(audio)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return outs
+
+    # ---- 13. K1, K7, K11, K12 and the bank's K8 geometries against plain --
+    precision.set_handoff_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    caps = {fs: capture(BANK_TAGS, lambda fs=fs: run(fs, dev, 2))[1]
+            for fs in BANK_FS}
+    # K1 and K7 at the bank's own shapes: at 2.4 MS/s K1 takes the NFM
+    # (raw buffer) and the AM and USB chains (float32 IF), K7 the NFM
+    # group's K1 buffer; at 10 MS/s K7 reads K11 + K8's float32 buffer.
+    # Each group's call of the second step, then the same with the
+    # production bf16 handoff, where K1 rounds its taps to bf16 and
+    # writes the raw buffer (and K7 its audio) in bf16
+    bank24 = banks[BANK_FS[0]][0]
+    n24 = len(bank24.radios)
+    for fs in BANK_FS:
+        for i, call in enumerate(caps[fs].get("K1", [])[-n24:]):
+            check_outputs("K1", call, f"{bank_label(fs)} group {i}, "
+                          f"float32 handoff", 100.0)
+        check_outputs("K7", caps[fs]["K7"][-1],
+                      f"{bank_label(fs)}, float32 handoff", 100.0)
+    precision.set_handoff_dtype("bf16")
+    for fs in BANK_FS:
+        cap16 = capture(("K1", "K7"), lambda fs=fs: run(fs, dev, 2))[1]
+        for i, call in enumerate(cap16.get("K1", [])[-n24:]):
+            f32_if = call[7] == torch.float32
+            check_outputs("K1", call, f"{bank_label(fs)} group {i}, bf16 "
+                          f"handoff, {'float32 IF' if f32_if else 'raw'}",
+                          100.0 if f32_if else BF16_DB)
+        check_outputs("K7", cap16["K7"][-1],
+                      f"{bank_label(fs)}, bf16 handoff", BF16_DB)
+    if len(caps[BANK_FS[0]].get("K1", [])) != 2 * n24 or \
+            caps[BANK_FS[1]].get("K1"):
+        fail("K1: not one call per group and step at 2.4 MS/s only")
+    precision.set_handoff_dtype("float32")
+    k11 = caps[BANK_FS[1]]["K11"]
+    n_groups = len(banks[BANK_FS[1]][0].radios)
+    for i, call in enumerate(k11[-n_groups:-1]):
+        check_app_kernel("K11", call, card, f"10 MS/s group {i}",
+                         timed=False)
+    out = {"K11": check_app_kernel("K11", k11[-1], card,
+                                   "10 MS/s, last group, C = 4")}
+    # K11 is not on the 2.4 MS/s path (K1 takes every chain): held at its
+    # groups' stage-0 shapes all the same
+    xr, xi = (t.to(dev).contiguous() for t in xs[BANK_FS[0]][0])
+    for d, r in bank24.radios.items():
+        fused = r._build_vfo_shared().fused
+        p = bank24.make_params()[d]["vfo"]["fused"]
+        st = bank24.init_state()[d]["vfo"]["fused"]
+        check_app_kernel("K11", (xr, xi, st["tail"].real.contiguous(),
+                                 st["tail"].imag.contiguous(), fused.h(dev),
+                                 fused.decim, p["omega"], st["phase"],
+                                 p["omega_dec"], p["omega_dec_span"]),
+                         card, f"2.4 MS/s {r.demod_name} stage 0, K = "
+                         f"{fused.K}, not on the path", timed=False)
+    shapes = {}
+    for fs in BANK_FS:
+        for call in caps[fs]["K12"]:
+            shapes[(bank_label(fs), tuple(call[1].shape))] = call
+    timed = (bank_label(BANK_FS[0]), max(k[1] for k in shapes
+                                         if k[0] == bank_label(BANK_FS[0])))
+    for key, call in sorted(shapes.items()):
+        what = f"{key[0]}, rows x T {key[1][0]} x {key[1][1]}"
+        if key == timed:
+            out["K12"] = check_app_kernel("K12", call, card, what,
+                                          plain_reps=2)
+        else:
+            check_app_kernel("K12", call, card, what, timed=False)
+    stages = {}
+    for fs in BANK_FS:
+        for call in caps[fs]["K8"]:
+            paths, _ = stages.get(app_stage(call), ({}, None))
+            paths[bank_label(fs)] = True
+            stages[app_stage(call)] = (paths, call)
+    # two 10 MS/s plane-row stages are timed: the first decimator behind
+    # K11 (the TPU's _plane_decim_kernel) and the USB polyphase (its
+    # _plane_poly kernels)
+    timed_k8 = ("real rows 8 I/D 1/4 kw 34", "real rows 8 I/D 192/625 kw 872")
+    for key in sorted(stages):
+        paths, call = stages[key]
+        check_app_kernel("K8", call, card, f"{key}, {' + '.join(paths)}",
+                         timed=key in timed_k8)
+    print(f"K8: {len(stages)} distinct geometries of the two bank paths held "
+          f"against the plain version (100 dB, the new tail exact), "
+          f"{len(timed_k8)} of them timed")
+
+    # ---- 14. five steps of each bank, production bf16 handoff -------------
+    precision.set_handoff_dtype("bf16")
+    expect = {BANK_FS[0]: ("K1", "K11"), BANK_FS[1]: ("K11", "K1")}
+    for fs in BANK_FS:
+        label = bank_label(fs)
+        reset_counts()
+        outs = run(fs, dev, BANK_STEPS)
+        n = {t: kernel_count(t) for t in BANK_TAGS}
+        print(f"{label}: launches in {BANK_STEPS} steps "
+              + ", ".join(f"{t}={v}" for t, v in n.items()))
+        on, off = expect[fs]
+        if min(n[on], n["K7"], n["K8"], n["K12"]) < 1 or n[off]:
+            fail(f"{label}: launch pattern {n}")
+        for t in BANK_TAGS:
+            entry = out.get(t, report.get(t))
+            entry.setdefault("launches_by_path", {})[
+                f"{label} ({BANK_STEPS} steps)"] = n[t]
+            if t in ("K11", "K12") and (t == "K12") == (fs == BANK_FS[0]):
+                entry["launches"] = n[t]
+                entry["launches_path"] = f"{label} ({BANK_STEPS} steps)"
+        for a in outs:
+            for d, y in a.items():
+                if y.shape != (len(banks[fs][0].groups[d]),
+                               banks[fs][1] * 48_000 // int(fs)) or \
+                        not torch.isfinite(y).all():
+                    fail(f"{label}: group {d} audio {tuple(y.shape)} or "
+                         f"non-finite")
+        cpu = run(fs, "cpu", BANK_STEPS)[-1]
+        rows = []
+        for d, y in outs[-1].items():
+            for i, v in enumerate(banks[fs][0].groups[d]):
+                got = tone_snr_db(y[i].double().cpu().numpy())
+                ref = tone_snr_db(cpu[d][i].double().numpy())
+                bar = max(ref - BANK_MARGIN_DB, BANK_MIN_DB)
+                rows.append(f"{v.name} {got:.1f} (CPU {ref:.1f}, bar "
+                            f"{bar:.1f})")
+                if got < bar:
+                    fail(f"{label}: {v.name} tone SNR {got:.1f} dB, bar "
+                         f"{bar:.1f}")
+        print(f"{label} step {BANK_STEPS}: tone SNR dB, card against the "
+              f"port's plain path on the host CPU: " + "; ".join(rows))
+
+    # ---- 15. each bank's step on bench-style noise -------------------------
+    for fs in BANK_FS:
+        bank, T = banks[fs]
+        xn = noise_planes(T, dev)
+        params = bank.make_params()
+        step_rate(f"{bank_label(fs)} (bf16 handoff, mono audio)",
+                  lambda st, b=bank, p=params, x=xn:
+                  b.apply(p, st, x, mono_out=True)[1],
+                  bank.init_state(), T, card)
+    return out
+
+
+def check_outputs(tag: str, args, what: str, bound_db: float) -> None:
+    """Kernel ``tag`` against its plain version on ``args``, every tensor
+    each returns (the IF or audio, and each stage input or state): each
+    bit-identical, or >= ``bound_db``.  Raises on disagreement."""
+    import torch
+    mod, name = kernel_fn(tag, "")
+    got = getattr(mod, name + "_kernel")(*args)
+    want = getattr(mod, name + "_ref")(*args)
+    torch.cuda.synchronize()
+
+    def flat(t):
+        if isinstance(t, (tuple, list)):
+            return [u for v in t for u in flat(v)]
+        return [t] if isinstance(t, torch.Tensor) else []
+    got, want = flat(got), flat(want)
+    if [(t.shape, t.dtype) for t in got] != [(t.shape, t.dtype)
+                                             for t in want]:
+        fail(f"{tag} {what}: outputs' shapes or dtypes differ")
+    err, worst, n_exact = 0.0, float("inf"), 0
+    for g, w in zip(got, want):
+        if g.is_complex():
+            g, w = torch.view_as_real(g), torch.view_as_real(w)
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            fail(f"{tag} {what}: non-finite kernel output")
+        if torch.equal(g, w):
+            n_exact += 1
+            continue
+        err = max(err, float((g - w).abs().max()))
+        worst = min(worst, snr_db(w, g) if w.any() else -float("inf"))
+    agree = (f"worst {worst:.1f} dB SNR (bound {bound_db:.0f})"
+             if n_exact < len(got) else "all bit-identical")
+    print(f"{tag} {name} ({what}): {len(got)} outputs, {n_exact} "
+          f"bit-identical, max|err| {err:.3e}, {agree}")
+    if worst < bound_db:
+        fail(f"{tag} {what}: kernel disagrees with its plain version: "
+             f"{agree}")
 
 
 def kernel_count(tag: str) -> int:

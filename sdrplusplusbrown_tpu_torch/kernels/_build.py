@@ -48,6 +48,10 @@ SIGNATURES = {
                      _F, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I],
     "sdr_fir_rows": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _I],
     "sdr_fir_cplx": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I],
+    "sdr_fused_mix": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                      _P, _I],
+    "sdr_agc_rows": [_P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I,
+                     _P, _P, _P],
 }
 
 #: what the last build did (for chip_smoke.py's report)

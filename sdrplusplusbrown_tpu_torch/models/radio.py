@@ -7,15 +7,21 @@ Three entry points:
 
   * ``apply`` — one radio's step, as the app runs it for every enabled
     radio (its ``RadioModuleInstance``): the baseband → RxVFO (translate,
-    resample, bandwidth FIR) → squelch → WFM or NFM demod → AF resampler,
-    batched over the leading axes of the params and state (``()`` for one
-    radio, ``(C,)`` for C radios of one mode).  Every FIR, decimator and
-    polyphase stage runs kernel K8, the WFM pilot band-pass kernel K9 and
-    a batched WFM stereo section kernel K10;
-  * ``apply_shared`` — broadcast FM (``DEMOD_WFM``: stereo, the normalize
-    pilot, no RDS, the de-emphasis folded into the audio polyphase)
-    through the front-end kernel K1, the WFM demod kernel K2 and the
-    audio polyphase K3, with the wideband spectrum from K4 alongside;
+    resample, bandwidth FIR) → squelch → demod (WFM, NFM, AM, USB, LSB,
+    DSB or CW) → AF resampler, batched over the leading axes of the params
+    and state (``()`` for one radio, ``(C,)`` for C radios of one mode).
+    Every FIR, decimator and polyphase stage runs kernel K8, the WFM
+    pilot band-pass kernel K9, a batched WFM stereo section kernel K10
+    and every AGC kernel K12;
+  * ``apply_shared`` — C VFOs of one mode on one shared wideband, the
+    mix-down folded into the first decimator (``SharedRxVFOBank``: K1, or
+    K11 then K8 where K1 cannot take the chain).  Broadcast FM
+    (``DEMOD_WFM``: stereo, the normalize pilot, no RDS, the de-emphasis
+    folded into the audio polyphase) then runs the WFM demod kernel K2
+    and the audio polyphase K3, with the wideband spectrum from K4
+    alongside; NFM (with or without the squelch) the demod + audio
+    kernel K7 on the raw IF buffer; AM, SSB and CW the complex float32
+    IF through their demods (K8, K12) and the AF resampler (K8);
   * ``apply_channelized`` — the wide-bank NFM scanner (``DEMOD_NFM``,
     optionally squelched) through the PFB K5, the post-channelizer K6
     and the demod+audio kernel K7.
@@ -23,9 +29,9 @@ Three entry points:
 A Radio runs on its ``device`` (CUDA unless the caller asks for the
 CPU): its params and state are created there and only the wideband input
 is moved to it.  Without a CUDA device a default Radio raises at first
-use.  NFM or the squelch through ``apply_shared``, the noise blanker, the
-FM IF filter, RDS, the scan-mode PLL and the other demodulators raise
-``NotImplementedError``.
+use.  The squelch with WFM through ``apply_shared``, the noise blanker,
+the FM IF filter, RDS, the scan-mode PLL, de-emphasis on a mono demod,
+the RAW and plugin demodulators raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import numpy as np
 import torch
 
 from ..runtime.block import Block, entry_device, lcm_fraction, to_device
-from ..ops.demod import FMDemod, Squelch
+from ..ops.demod import AMDemod, CWDemod, FMDemod, SSBDemod, Squelch
 from ..ops.recurrence import Deemphasis
 from ..ops.resampler import RationalResampler, fold_output_fir
 from ..ops.wfm import BroadcastFM
@@ -65,6 +71,20 @@ DEMOD_IF_RATES = {
 DEEMP_TAUS = {"none": None, "22us": 22e-6, "50us": 50e-6, "75us": 75e-6}
 
 
+def _mono_demod(demod_id: int, bandwidth: float, if_rate: float) -> Block:
+    """The mono demodulator of ``demod_id`` (the JAX package's
+    ``make_demod``; CW's sidetone 800 Hz)."""
+    if demod_id == DEMOD_NFM:
+        return FMDemod(if_rate, bandwidth, low_pass=True)
+    if demod_id == DEMOD_AM:
+        return AMDemod(if_rate, bandwidth)
+    if demod_id == DEMOD_CW:
+        return CWDemod(800.0, if_rate)
+    mode = {DEMOD_USB: SSBDemod.USB, DEMOD_LSB: SSBDemod.LSB,
+            DEMOD_DSB: SSBDemod.DSB}[demod_id]
+    return SSBDemod(mode, bandwidth, if_rate)
+
+
 class Radio(Block):
     """Per-VFO demodulation pipeline: RxVFO → IF chain → demod → AF."""
 
@@ -81,10 +101,8 @@ class Radio(Block):
             if demod_id.upper() not in DEMOD_IDS:
                 raise ValueError(f"unknown demodulator '{demod_id}'")
             demod_id = DEMOD_IDS[demod_id.upper()]
-        if demod_id not in (DEMOD_WFM, DEMOD_NFM):
-            raise NotImplementedError(
-                f"demod {DEMOD_NAMES[demod_id]} is not ported yet "
-                f"(WFM and NFM only)")
+        if demod_id == DEMOD_RAW:
+            raise NotImplementedError("the RAW demod is not ported yet")
         if nb_enabled or fmif_enabled:
             raise NotImplementedError("noise blanker / FM IF filter are "
                                       "not ported yet")
@@ -124,12 +142,12 @@ class Radio(Block):
                     self.demod.audio_poly, deemp.impulse())
         else:
             self.demod_stereo = False
-            self.demod = FMDemod(self.if_rate, self.bandwidth,
-                                 low_pass=True)
+            self.demod = _mono_demod(demod_id, self.bandwidth, self.if_rate)
             self.deemp_tau = DEEMP_TAUS["none" if deemphasis is None
                                         else deemphasis]
             if self.deemp_tau:
-                raise NotImplementedError("NFM de-emphasis is not ported")
+                raise NotImplementedError(f"{self.demod_name} de-emphasis "
+                                          f"is not ported")
             if self.if_rate != self.audio_samplerate:
                 self.af_resamp = RationalResampler(self.if_rate,
                                                    self.audio_samplerate)
@@ -202,18 +220,18 @@ class Radio(Block):
         y, st["vfo"] = self.vfo.apply(params["vfo"], state["vfo"], x)
         return self._post_vfo(params, state, st, y)
 
-    def _post_vfo(self, params, state, st, y):
+    def _post_vfo(self, params, state, st, y, mono_out: bool = False):
         """IF chain → demod → AF chain."""
         if self.squelch_enabled:
             y, _ = self.squelch.apply(params.get("squelch"), None, y)
         y, st["demod"] = self.demod.apply(None, state["demod"], y)
-        return self._post_demod(state, st, y)
+        return self._post_demod(state, st, y, mono_out)
 
-    def _post_demod(self, state, st, y):
+    def _post_demod(self, state, st, y, mono_out: bool = False):
         if self.af_resamp is not None:
             y, st["af_resamp"] = self.af_resamp.apply(None,
                                                       state["af_resamp"], y)
-        if not self.demod_stereo:
+        if not (self.demod_stereo or mono_out):
             y = torch.stack([y, y], dim=-2)
         return y, st
 
@@ -225,33 +243,59 @@ class Radio(Block):
                 self.vfo.bandwidth, device=self.device)
         return self._vfo_shared
 
-    def make_params_shared(self, offsets_hz):
+    def make_params_shared(self, offsets_hz, squelch_level=None):
         """Runtime params for apply_shared: per-channel offsets (Hz) →
-        host-float64-derived float32 NCO params on the device.  Retuning
-        is a new params dict; nothing is rebuilt."""
+        host-float64-derived float32 NCO params on the device, and the
+        squelch level.  Retuning is a new params dict; nothing is
+        rebuilt."""
         vs = self._build_vfo_shared()
-        return {"vfo": vs.make_params(np.asarray(offsets_hz, np.float64))}
+        p = {"vfo": vs.make_params(np.asarray(offsets_hz, np.float64))}
+        p.update(self._squelch_params(squelch_level))
+        return p
 
     def init_state_shared(self, C: int):
         st = self.init_state((C,))
         st["vfo"] = self._build_vfo_shared().init_state(C)
         return st
 
-    def apply_shared(self, params, state, x, spectrum=None):
+    def apply_shared(self, params, state, x, spectrum=None,
+                     mono_out: bool = False):
         """x: [T] SHARED wideband, (xr, xi) float32 planes or complex64,
         on any device (it is moved to the Radio's) → (audio [C, 2, m_aud]
         float32, new_state), or ((audio, spectra [n_frames, fft_size]),
-        new_state) with a ``spectrum`` SpectrumPath."""
-        if self.demod_id != DEMOD_WFM or self.squelch_enabled:
-            raise NotImplementedError(f"{self.demod_name} (squelch "
-                                      f"{self.squelch_enabled}) through "
-                                      f"apply_shared is not ported yet")
+        new_state) with a ``spectrum`` SpectrumPath.  ``mono_out`` gives
+        a mono demod's audio once, [C, m_aud]; WFM audio stays [C, 2,
+        m_aud]."""
+        if self.demod_id == DEMOD_WFM and self.squelch_enabled:
+            raise NotImplementedError("WFM with the squelch through "
+                                      "apply_shared is not ported yet")
         xr, xi = self._input(x)
         st = dict(state)
-        if_planes, st["vfo"] = self._build_vfo_shared().apply(
-            params["vfo"], state["vfo"], (xr, xi))
-        audio, st["demod"] = self.demod.apply_planes(None, state["demod"],
-                                                     if_planes)
+        vs = self._build_vfo_shared()
+        if self.demod_id == DEMOD_WFM:
+            if_planes, st["vfo"] = vs.apply(params["vfo"], state["vfo"],
+                                            (xr, xi))
+            audio, st["demod"] = self.demod.apply_planes(
+                None, state["demod"], if_planes)
+        elif self.demod_id == DEMOD_NFM:
+            # the raw IF buffer straight into K7 (the JAX package's
+            # radio.py:397-422), the squelch as K7's per-channel gate
+            buf, st["vfo"] = vs.apply(params["vfo"], state["vfo"], (xr, xi))
+            C, m_if = buf.shape[0] // 2, buf.shape[1]
+            gate = None
+            if self.squelch_enabled:
+                iq = buf.float()
+                gate = Squelch.gate(torch.hypot(iq[:C], iq[C:]).sum(-1),
+                                    m_if, params.get("squelch", {}).get(
+                                        "level", self.squelch.default_level))
+            audio, st["demod"], st["af_resamp"] = self.fm_audio_pipe().apply(
+                gate, state["demod"], state["af_resamp"], buf, m_if)
+            if not mono_out:
+                audio = torch.stack([audio, audio], dim=-2)
+        else:
+            y, st["vfo"] = vs.apply(params["vfo"], state["vfo"], (xr, xi),
+                                    raw=False)
+            audio, st = self._post_vfo(params, state, st, y, mono_out)
         if spectrum is None:
             return audio, st
         spectra, _ = spectrum.apply(None, None, (xr, xi))

@@ -2,9 +2,11 @@
 sdrplusplusbrown_tpu/models/rx_vfo.py; reference channel/rx_vfo.h:89-121).
 
 ``RxVFO`` is the plain per-channel block.  ``SharedRxVFOBank`` serves C
-VFOs of one shared wideband through the front-end kernel K1
-(ops/mono_frontend.py), with the mix-down folded into the first
-decimating FIR so the wideband is read once for all channels.
+VFOs of one shared wideband, with the mix-down folded into the first
+decimating FIR so the wideband is read once for all channels: through the
+whole-chain front-end kernel K1 (ops/mono_frontend.py) where the JAX
+package's window solver takes the chain, else through K11 and one K8 per
+later stage (ops/plane_frontend.py).
 ``ChannelizedRxVFOBank`` serves wide banks through the 2×-oversampled
 PFB (kernel K5, ops/channelizer_kernel.py) and the post-channelizer
 (kernel K6, ops/chan_frontend.py).
@@ -71,7 +73,11 @@ class RxVFO(Block):
 class SharedRxVFOBank(Block):
     """RxVFO over a SHARED wideband: per-channel mix-down folded into the
     first predecimation stage (ops/fused_frontend.py), the rest of the
-    chain on the decimated planes, all in kernel K1."""
+    chain on the decimated planes.  The route is chosen once, here, from
+    the chain's geometry: ``route`` is "K1" where ``_solve_geometry``
+    solves it, else "K11" (K11 then K8 per stage) — at 2.4 MS/s the NFM,
+    AM, SSB and WFM chains take K1 and CW does not; at 10 MS/s none
+    does."""
 
     def __init__(self, in_samplerate: float, out_samplerate: float,
                  bandwidth: float, device="cuda"):
@@ -90,6 +96,8 @@ class SharedRxVFOBank(Block):
         self.ratio = self.base.ratio
         self.in_multiple = self.base.in_multiple
         self.filter_needed = self.base.filter_needed
+        from ..ops import mono_frontend
+        self.route = "K1" if mono_frontend.solves(self) else "K11"
         self._pipe = None
 
     def make_params(self, offsets_hz):
@@ -108,20 +116,56 @@ class SharedRxVFOBank(Block):
             st["fir"] = self.base.fir.init_state((C,))
         return to_device(st, entry_device(self.device))
 
-    def mono_pipe(self):
+    def stage_blocks(self) -> list:
+        """The chain's stages after stage 0, in order: the remaining
+        decimators, the polyphase resampler, the bandwidth FIR."""
+        blocks = list(self.rest_decim) + [b for _, b in self.rest]
+        if self.filter_needed:
+            blocks.append(self.base.fir)
+        return blocks
+
+    def stage_tails(self, state) -> list:
+        """Each later stage's carried complex tail, in stage order."""
+        tails = list(state.get("rest_decim", []))
+        tails += [state[n] for n, _ in self.rest]
+        if self.filter_needed:
+            tails.append(state["fir"])
+        return tails
+
+    def write_tails(self, state, tails) -> None:
+        """Store ``tails`` (stage order) in the state layout."""
+        n = len(self.rest_decim)
+        state["rest_decim"] = list(tails[:n])
+        for i, (name, _) in enumerate(self.rest):
+            state[name] = tails[n + i]
+        if self.filter_needed:
+            state["fir"] = tails[-1]
+
+    def pipe(self):
+        """The route's pipeline (built once)."""
         if self._pipe is None:
-            from ..ops.mono_frontend import MonoVFOPipeline
-            self._pipe = MonoVFOPipeline(self)
+            if self.route == "K1":
+                from ..ops.mono_frontend import MonoVFOPipeline
+                self._pipe = MonoVFOPipeline(self)
+            else:
+                from ..ops.plane_frontend import PlaneVFOPipeline
+                self._pipe = PlaneVFOPipeline(self)
         return self._pipe
 
-    def apply(self, params, state, x):
+    def apply(self, params, state, x, raw: bool = True):
         """x: [T] shared wideband, complex64 or (xr, xi) float32 planes →
-        (IF planes [2C, T·ratio] in the handoff dtype — re rows then im
-        rows — and the new state)."""
+        (IF, new state).  With ``raw`` the IF is the buffer [2C, T·ratio]
+        (re rows then im rows) that K2 and K7 take: in the handoff dtype
+        from K1, float32 from K11/K8.  Without, it is the complex64
+        [C, T·ratio] IF (float32 from either route)."""
         dev = entry_device(self.device)
         xr, xi = x if isinstance(x, tuple) else (x.real, x.imag)
         x = (xr.to(dev, torch.float32), xi.to(dev, torch.float32))
-        return self.mono_pipe().apply(params["fused"], state, x)
+        buf, st = self.pipe().apply(params["fused"], state, x, raw=raw)
+        if raw:
+            return buf, st
+        C = buf.shape[0] // 2
+        return torch.complex(buf[:C], buf[C:]), st
 
 
 class ChannelizedRxVFOBank(Block):

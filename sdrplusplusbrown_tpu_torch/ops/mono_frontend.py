@@ -77,39 +77,42 @@ def _solve_geometry(stages_raw, D0: int):
     return None
 
 
+def _chain(bank):
+    """(stage list for ``_solve_geometry``, stage list for the kernel) of
+    a SharedRxVFOBank's chain after stage 0."""
+    raw, stages = [], []
+    for blk in bank.stage_blocks():
+        if hasattr(blk, "interp"):
+            I, M = int(blk.interp), int(blk.decim)
+            mt = 128 // gcd(I, 128)
+            raw.append({"kind": "poly", "interp": I, "decim": M,
+                        "tile": mt * I})
+            stages.append({"I": I, "D": M, "carry": blk.tpp - 1,
+                           "kernel": np.asarray(blk.kernel)})
+        else:
+            if blk._complex_taps:
+                raise NotImplementedError("complex-tap front-end stage")
+            raw.append({"kind": "decim", "D": int(blk.decim), "tile": 128})
+            stages.append({"I": 1, "D": int(blk.decim), "carry": blk.K - 1,
+                           "kernel": np.asarray(blk.taps)[None, :]})
+    return raw, stages
+
+
+def solves(bank) -> bool:
+    """True when K1 takes this bank's chain: the JAX package's window
+    solver finds a geometry, as its ``_mono_kernel`` needs."""
+    return _solve_geometry(_chain(bank)[0], int(bank.fused.decim)) is not None
+
+
 class MonoVFOPipeline:
     """Static geometry of a SharedRxVFOBank's chain; ``apply`` runs it."""
 
     def __init__(self, bank):
-        if bank.fused is None:
-            raise NotImplementedError("front end without a predecimation "
-                                      "stage to fold the mix into")
         self.h0 = np.asarray(bank.fused.taps, np.float64)
         self.K0 = len(self.h0)
         self.D0 = int(bank.fused.decim)
-        blocks = list(bank.rest_decim) + [b for _, b in bank.rest]
-        if bank.filter_needed:
-            blocks.append(bank.base.fir)
-        self.rest_names = [n for n, _ in bank.rest]
-        self.n_rest_decim = len(bank.rest_decim)
-        self.has_fir = bool(bank.filter_needed)
-        raw, self.stages = [], []
-        for blk in blocks:
-            if hasattr(blk, "interp"):
-                I, M = int(blk.interp), int(blk.decim)
-                mt = 128 // gcd(I, 128)
-                raw.append({"kind": "poly", "interp": I, "decim": M,
-                            "tile": mt * I})
-                self.stages.append({"I": I, "D": M, "carry": blk.tpp - 1,
-                                    "kernel": np.asarray(blk.kernel)})
-            else:
-                if blk._complex_taps:
-                    raise NotImplementedError("complex-tap front-end stage")
-                raw.append({"kind": "decim", "D": int(blk.decim),
-                            "tile": 128})
-                self.stages.append({"I": 1, "D": int(blk.decim),
-                                    "carry": blk.K - 1,
-                                    "kernel": np.asarray(blk.taps)[None, :]})
+        self.bank = bank
+        raw, self.stages = _chain(bank)
         sol = _solve_geometry(raw, self.D0)
         if sol is None:
             raise NotImplementedError("no window geometry for this chain")
@@ -162,25 +165,12 @@ class MonoVFOPipeline:
                 + span_adv[:, None, None] * ii[None, :, None]
                 + om_mb[:, None, None] * uu[None, None, :]).contiguous()
 
-    def stage_tails(self, state) -> List[torch.Tensor]:
-        tails = list(state.get("rest_decim", []))
-        tails += [state[n] for n in self.rest_names]
-        if self.has_fir:
-            tails.append(state["fir"])
-        return tails
-
-    def write_tails(self, state, tails) -> None:
-        state["rest_decim"] = list(tails[:self.n_rest_decim])
-        i = self.n_rest_decim
-        for name in self.rest_names:
-            state[name] = tails[i]
-            i += 1
-        if self.has_fir:
-            state["fir"] = tails[i]
-
-    def apply(self, params, state, x):
+    def apply(self, params, state, x, raw: bool = True):
         """x: (xr, xi) float32 [T] planes of the shared wideband →
-        (buf [2C, m_if] in the handoff dtype, new_state)."""
+        (buf [2C, m_if], new_state): the handoff dtype for ``raw`` (the
+        K2/K7 consumers), float32 otherwise, as the JAX kernel writes its
+        trimmed outputs; the taps are rounded to the handoff dtype
+        either way."""
         xr, xi = x
         xr = xr.float().contiguous()
         xi = xi.float().contiguous()
@@ -194,13 +184,14 @@ class MonoVFOPipeline:
         # narrow banks keep float32 tails, as the JAX kernel does
         t_dt = h_dt if C >= 16 else torch.float32
         tail_planes = []
-        for tc in self.stage_tails(state):
+        for tc in self.bank.stage_tails(state):
             tail_planes.append(round_to(
                 torch.cat([tc.real, tc.imag], dim=0).float(), t_dt)
                 .contiguous())
         base = self.base_phases(params, phase, T)
         buf, stage_ins = mono_frontend(self, xr, xi, tail, omega, base,
-                                       tail_planes, h_dt)
+                                       tail_planes,
+                                       h_dt if raw else torch.float32, h_dt)
 
         new_state = dict(state)
         K0 = self.K0
@@ -216,7 +207,7 @@ class MonoVFOPipeline:
             ext_end = torch.cat([tp, yin], dim=1)[:, -st["carry"]:]
             ext_end = round_to(ext_end, t_dt)
             new_tails.append(torch.complex(ext_end[:C], ext_end[C:]))
-        self.write_tails(new_state, new_tails)
+        self.bank.write_tails(new_state, new_tails)
         return buf, new_state
 
 
@@ -237,12 +228,13 @@ def _check_args(pipe, xr, xi, tail, omega, base, tail_planes):
 
 
 def mono_frontend_ref(pipe, xr, xi, tail, omega, base, tail_planes,
-                      out_dtype):
+                      out_dtype, tap_dtype):
     """Plain PyTorch K1: returns (buf [2C, m_if] ``out_dtype``, [input of
-    each chained stage, [2C, m] float32])."""
+    each chained stage, [2C, m] float32]); the taps rounded to
+    ``tap_dtype``."""
     T, C = _check_args(pipe, xr, xi, tail, omega, base, tail_planes)
     K0, D0 = pipe.K0, pipe.D0
-    h0, kernels = pipe.taps(xr.device, out_dtype)
+    h0, kernels = pipe.taps(xr.device, tap_dtype)
     m0 = pipe.lengths(T)[0]
     ext_r = torch.cat([tail.real.float(), xr])
     ext_i = torch.cat([tail.imag.float(), xi])
@@ -270,7 +262,7 @@ def mono_frontend_ref(pipe, xr, xi, tail, omega, base, tail_planes,
 
 @_build.counted
 def mono_frontend_kernel(pipe, xr, xi, tail, omega, base, tail_planes,
-                         out_dtype):
+                         out_dtype, tap_dtype):
     """K1 on the card (csrc/mono_frontend.cu); same contract as
     ``mono_frontend_ref``."""
     dev = xr.device
@@ -280,7 +272,7 @@ def mono_frontend_kernel(pipe, xr, xi, tail, omega, base, tail_planes,
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"output dtype {out_dtype}")
     f32 = torch.float32
-    h0, kernels = pipe.taps(dev, out_dtype)
+    h0, kernels = pipe.taps(dev, tap_dtype)
     m = pipe.lengths(T)
     tail_r = tail.real.float().contiguous()
     tail_i = tail.imag.float().contiguous()
@@ -315,8 +307,10 @@ def mono_frontend_kernel(pipe, xr, xi, tail, omega, base, tail_planes,
     return y, ins
 
 
-def mono_frontend(pipe, xr, xi, tail, omega, base, tail_planes, out_dtype):
+def mono_frontend(pipe, xr, xi, tail, omega, base, tail_planes, out_dtype,
+                  tap_dtype):
     """K1 dispatch: the kernel for CUDA tensors, the plain version for
     CPU tensors."""
     fn = mono_frontend_kernel if xr.is_cuda else mono_frontend_ref
-    return fn(pipe, xr, xi, tail, omega, base, tail_planes, out_dtype)
+    return fn(pipe, xr, xi, tail, omega, base, tail_planes, out_dtype,
+              tap_dtype)

@@ -548,3 +548,134 @@ def _leaves(tree, path=""):
             yield from _leaves(v, f"{path}[{i}]")
     else:
         yield path, tree
+
+
+@pytest.mark.parametrize("span", [10e3, 4.9e6])
+@pytest.mark.parametrize("C,K,T", [(1, 31, 4 * 1000), (4, 31, 4 * 260_017),
+                                   (4, 320, 4 * 777), (64, 34, 2 * 4 * 9999)])
+def test_fused_mix_kernel_matches_plain(gpu, C, K, T, span):
+    """K11 against its plain version on the card: C = 1, 4, 64, K up to
+    320, output counts off the 256-output tile, the short (M <= 1024)
+    and the spanned twiddle, channels near the centre and across the
+    band: >= 100 dB."""
+    from sdrplusplusbrown_tpu_torch.ops import fused_frontend as ff
+    rng = np.random.default_rng(C + K)
+    D = 2 if C == 64 else 4
+    x = (rng.standard_normal((2, T)) * 0.3).astype(np.float32)
+    tail = (rng.standard_normal((2, K - 1)) * 0.3).astype(np.float32)
+    p = ff.fused_params(np.linspace(-span, 0.98 * span, C) + 917.0, 10e6, D)
+    args = [torch.from_numpy(a).to(gpu) for a in (x[0], x[1], tail[0],
+                                                   tail[1])]
+    args += [torch.from_numpy((np.hanning(K + 2)[1:-1] / K)
+                              .astype(np.float32)).to(gpu), D,
+             p["omega"].to(gpu),
+             torch.from_numpy(rng.uniform(-3, 3, C).astype(np.float32))
+             .to(gpu), p["omega_dec"].to(gpu), p["omega_dec_span"].to(gpu)]
+    n0 = ff.fused_mix_kernel.launches
+    got = ff.fused_mix_kernel(*args)
+    want = ff.fused_mix_ref(*args)
+    torch.cuda.synchronize()
+    assert ff.fused_mix_kernel.launches == n0 + 1
+    assert got.shape == (2 * C, T // D) and got.is_cuda
+    _close(want, got, 100.0, "K11")
+
+
+@pytest.mark.parametrize("R,T", [(1, 37), (4, 1500), (4, 2400), (64, 2400)])
+def test_agc_kernel_matches_plain(gpu, R, T):
+    """K12 against its plain version on the card (zero samples, frozen
+    rows aside, the ramp's end inside the block, env at its 2^30 cap):
+    the output >= 100 dB, the state exact (both round every operation on
+    its own)."""
+    from sdrplusplusbrown_tpu_torch.ops import agc
+    rng = np.random.default_rng(R * T)
+    blk = agc.AGC(attack=50 / 24e3, decay=5 / 24e3)
+    x = (rng.standard_normal((R, T)) * np.linspace(0.01, 3, T)) \
+        .astype(np.float32)
+    x[:, T // 3:T // 3 + 5] = 0.0
+    amp = rng.uniform(0.01, 1.0, R).astype(np.float32)
+    env = rng.choice(np.array([0, 4000, 4799, 1 << 30], np.int32), R)
+    for frozen in (False, True):
+        args = (blk, torch.from_numpy(x).to(gpu),
+                torch.from_numpy(amp).to(gpu),
+                torch.from_numpy(env).to(gpu), frozen)
+        y, a, e = agc.agc_rows_kernel(*args)
+        yr, ar, er = agc.agc_rows_ref(*args)
+        torch.cuda.synchronize()
+        _close(yr, y, 100.0, f"K12 frozen={frozen}")
+        assert torch.equal(a, ar) and torch.equal(e, er)
+
+
+def _multimode_banks(fs, device):
+    from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
+    vfos = rb.multimode8_vfos()
+    return rb.RadioBank(fs, vfos, device=device), vfos
+
+
+@pytest.mark.parametrize("fs", [2.4e6, 10e6])
+def test_multimode_step_matches_cpu(gpu, handoff, fs):
+    """RadioBank.apply (multimode8) on the card against the same bank on
+    the CPU, three blocks: audio and every state leaf >= 80 dB (60 dB in
+    bf16, a bf16 ulp either side of a tie).  The NFM audio of the
+    cold-start block 0 is compared from 20 ms on: before, the
+    discriminator works on the IF rising out of the filters' transient,
+    whose rounding decides its angle (card against CPU 17.3 dB there at
+    10 MS/s on an H100; the JAX package's own routes agree to 36.8 dB,
+    tests/test_torch_radio_bank.py)."""
+    from torch_parity import multimode_iq
+    bc, vfos = _multimode_banks(fs, "cpu")
+    bg, _ = _multimode_banks(fs, gpu)
+    T = bc.in_multiple * (2 if fs < 3e6 else 1)
+    x = multimode_iq(3 * T, fs, [(v.demod_id, v.offset_hz) for v in vfos])
+    sc, sg = bc.init_state(), bg.init_state()
+    bound = 80.0 if handoff == "float32" else 60.0
+    for b in range(3):
+        xb = torch.from_numpy(x[b * T:(b + 1) * T])
+        oc, sc = bc.apply(bc.make_params(), sc, xb, mono_out=True)
+        og, sg = bg.apply(bg.make_params(), sg, xb, mono_out=True)
+        for d in oc:
+            assert og[d].is_cuda and og[d].shape == oc[d].shape
+            assert torch.isfinite(og[d]).all()
+            skip = 960 if b == 0 and d == DEMOD_NFM else 0
+            _close(oc[d][:, skip:], og[d][:, skip:], bound,
+                   f"audio {d} block {b}")
+            for p, vc in _leaves(sc[d]):
+                vg = dict(_leaves(sg[d]))[p]
+                if vc.dtype == torch.int32:
+                    assert torch.equal(vc, vg.cpu()), p
+                else:
+                    _close(vc, vg, bound, f"state {d}{p} block {b}")
+
+
+def test_multimode_banks_reach_only_their_kernels(gpu, monkeypatch):
+    """Both multimode8 banks step on the card with every kernel's plain
+    version, ``F.conv1d`` and ``torch.fft.fft`` replaced by functions that
+    raise; with K11 refused the 10 MS/s bank raises, and with K1 refused
+    the 2.4 MS/s one."""
+    import torch.nn.functional as F
+    from sdrplusplusbrown_tpu_torch.ops import (agc, fir_kernel,
+                                                fused_frontend)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version or a library kernel ran")
+    for mod, name in ((F, "conv1d"), (torch.fft, "fft"),
+                      (fused_frontend, "fused_mix_ref"),
+                      (agc, "agc_rows_ref"), (fir_kernel, "fir_rows_ref"),
+                      (mono_frontend, "mono_frontend_ref"),
+                      (demod_kernel, "fm_audio_ref")):
+        monkeypatch.setattr(mod, name, refuse)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        80_000).astype(np.complex64) * 0.1)
+    for fs, kernel_mod, kernel in ((2.4e6, mono_frontend,
+                                    "mono_frontend_kernel"),
+                                   (10e6, fused_frontend,
+                                    "fused_mix_kernel")):
+        bank, _ = _multimode_banks(fs, gpu)
+        T = bank.in_multiple * (4 if fs < 3e6 else 1)
+        out, st = bank.apply(bank.make_params(), bank.init_state(), x[:T],
+                             mono_out=True)
+        assert all(o.is_cuda and torch.isfinite(o).all()
+                   for o in out.values())
+        with monkeypatch.context() as m:
+            m.setattr(kernel_mod, kernel, refuse)
+            with pytest.raises(AssertionError):
+                bank.apply(bank.make_params(), st, x[:T], mono_out=True)

@@ -148,13 +148,16 @@ def test_default_radio_runs_on_cuda_or_raises(monkeypatch):
 def test_unported_paths_raise():
     pr = Radio(FS, DEMOD_NFM, device="cpu")
     with pytest.raises(NotImplementedError):
-        pr.apply_shared(None, None, planes(nfm_iq(T, OFFSETS, [1])))
+        Radio(FS, DEMOD_WFM, squelch_enabled=True, device="cpu").apply_shared(
+            None, None, planes(nfm_iq(T, OFFSETS, [1])))
     with pytest.raises(NotImplementedError):
         Radio(FS, DEMOD_NFM, nb_enabled=True, device="cpu")
     with pytest.raises(NotImplementedError):
         Radio(FS, DEMOD_NFM, fmif_enabled=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        Radio(FS, "AM", device="cpu")
+        Radio(FS, "RAW", device="cpu")
+    with pytest.raises(NotImplementedError):
+        Radio(FS, "AM", deemphasis="50us", device="cpu")
     with pytest.raises(ValueError):
         pr.apply_channelized(pr.make_params_channelized(OFFSETS),
                              pr.init_state_channelized(C),

@@ -6,6 +6,9 @@ PyTorch versions (its CUDA kernels need the card and are checked against
 those same plain versions by chip_smoke.py).
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -143,3 +146,23 @@ def tone_oracles(audio: np.ndarray, channels, fs_audio: float = 48_000.0):
         snrs.append(10 * np.log10(np.mean((A[:, :2] @ coef[:2]) ** 2)
                                   / np.mean(r ** 2)))
     return float(np.mean(snrs)), float(sep)
+
+
+def multimode_iq(T: int, fs: float, carriers, seed: int = 0) -> np.ndarray:
+    """chip_smoke.py's multi-mode bank signal (``multimode_wideband``):
+    one carrier per (demod id, offset) pair, plus a little noise."""
+    return _chip_smoke().multimode_wideband(T, fs, carriers, seed)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its helpers need no card)."""
+    global _SMOKE
+    if _SMOKE is None:
+        path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        _SMOKE = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_SMOKE)
+    return _SMOKE
+
+
+_SMOKE = None
