@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths through their hand-written CUDA
+Drives the port's main paths through their hand-written CUDA
 kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
 
   * broadcast FM — ``Radio.apply_shared`` on the WFM-8 configuration (one
@@ -21,6 +21,11 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     WFM radios batched: K8 FIR rows (every decimator, polyphase and FIR
     stage), K9 complex-tap FIR (the WFM pilot band-pass of one radio),
     K10 stereo section (batched WFM), K4f spectrum of the complex block;
+  * channelizer64 — bench.py:build_channelizer64 (BASELINE config 4): a
+    10 MS/s wideband through ``PolyphaseChannelizer(10 MS/s, 64)
+    .apply_planes`` (K5's critically sampled form, K5c) and every
+    channel's 1024-bin dB spectra through ``fft_power_db_planes`` (K4's
+    launch pair batched over rows, K4r), 2^21-sample steps;
   * the multi-mode bank — ``RadioBank.apply(..., mono_out=True)`` on
     multimode8 (bench.py:build_multimode8, BASELINE config 2: 4 NFM, 2 AM
     and 2 USB VFOs on one 2.4 MS/s wideband, 240 000-sample steps) and on
@@ -79,7 +84,19 @@ Phases, each fatal on failure:
      K7, K8 and K12 and K1 not; on step 5 (the AGC's 4 800-sample start
      ramp long over) the 1 kHz tone SNR of every VFO against the same
      five steps of the port's plain path on the host CPU, less 3 dB;
- 15. each bank's step on bench-style noise, as in 5 (``step_rate``).
+ 15. each bank's step on bench-style noise, as in 5 (``step_rate``);
+ 16. K5c and K4r against their plain versions at channelizer64's shapes
+     (M = 64, tpp = 19, T = 2^21, W = 32 768; 64 channels × 32 frames of
+     1 024), in the float32 and the bf16 handoff (100 dB, 45 dB for bf16
+     bins; the spectra's dB bars), the bf16 one timed with CUDA events
+     beside one torch.fft.fft call (K4r), and what K5c's direct DFT
+     costs as written;
+ 17. three channelizer64 steps on tones at every 8th channel's centre +
+     20 kHz over noise, bf16 handoff, the counts zeroed just before: K5c
+     and K4r once a step, K5, K4, K4f, K1 and K11 never; each tone peaks
+     at its bin in its own channel, the others stay at the noise floor,
+     the state is the block's last samples;
+ 18. the channelizer64 step on bench.py's noise (seed 1), as in 5.
 
 Beside each CUDA-event time (which, for a kernel shorter than its
 wrapper's host work, is the wrapper's time) every comparison prints the
@@ -127,6 +144,14 @@ APP_WFM = (-300e3, -650e3)
 APP_NFM = (400e3, 700e3)
 APP_NFM_OFF = (1.0e6, 1.05e6)      # the squelched radio, off the signal
 APP_SKIP = 960                     # audio settling after a retune (20 ms)
+
+# channelizer64 (bench.py:build_channelizer64, BASELINE config 4): a 10 MS/s
+# wideband into 64 critically sampled channels, each channel's 1024-bin dB
+# spectra, 2^21-sample steps
+CHZ_FS = 10_000_000.0
+CHZ_M = 64
+CHZ_T = 1 << 21
+CHZ_FFT = 1024
 
 HBM_BPS = 3.35e12            # H100 SXM HBM3, bytes/s
 FP32_FLOPS = 67e12           # H100 SXM non-tensor FP32, flop/s
@@ -184,6 +209,33 @@ def snr_db(ref, got) -> float:
                                / max(float((err ** 2).mean()), 1e-300)))
 
 
+def channelizer64(device, T: int = CHZ_T):
+    """The channelizer64 step on the port, built as bench.py builds it:
+    (PolyphaseChannelizer, step), step(state, (xr, xi)) → (spectra
+    [M, T/(M·1024), 1024] float32 dB, state'): K5's critical form, then
+    every channel's frames through the row-batched K4 (K4r) in place."""
+    from sdrplusplusbrown_tpu_torch.ops.channelizer import PolyphaseChannelizer
+    from sdrplusplusbrown_tpu_torch.ops.fft_kernel import fft_power_db_planes
+    ch = PolyphaseChannelizer(CHZ_FS, CHZ_M, device=device)
+    M, k = CHZ_M, T // CHZ_M
+
+    def step(state, x):
+        bins, state = ch.apply_planes(state, x)
+        spec = fft_power_db_planes(bins[:M, :k].reshape(M, -1, CHZ_FFT),
+                                   bins[M:, :k].reshape(M, -1, CHZ_FFT),
+                                   CHZ_FFT)
+        return spec, state
+    return ch, step
+
+
+def channelizer64_noise(T: int = CHZ_T) -> tuple:
+    """bench.py's channelizer64 input: (re, im) float32 planes of
+    N(0, 0.1²) noise from seed 1."""
+    rng = np.random.default_rng(1)
+    return tuple((rng.standard_normal(T) * 0.1).astype(np.float32)
+                 for _ in range(2))
+
+
 def nbytes(dtype) -> int:
     import torch
     return torch.empty((), dtype=dtype).element_size()
@@ -224,9 +276,9 @@ def work(tag: str, args) -> tuple:
         n = xr.shape[0] // interval
         return (n * (8 * keep + 4 * N),
                 n * (5 * N * int(np.log2(N)) + 2 * keep + 4 * N))
-    if tag == "K5":     # the M-point DFT counted as an FFT, as K4's is
+    if tag in ("K5", "K5c"):    # the M-point DFT counted as an FFT
         pipe, xr, xi, xwr, xwi, width, tdt, odt = args
-        Tb = 2 * xr.shape[0] // pipe.M
+        Tb = xr.shape[0] // pipe.h
         return (8 * xr.shape[0] + 2 * pipe.M * width * nbytes(odt),
                 Tb * (2 * 2 * pipe.K0 + 5 * pipe.M * np.log2(pipe.M)))
     if tag == "K6":
@@ -267,6 +319,11 @@ def work(tag: str, args) -> tuple:
         n = x.shape[0] // interval
         return (n * (8 * keep + 4 * N),
                 n * (5 * N * int(np.log2(N)) + 2 * keep + 4 * N))
+    if tag == "K4r":    # framed planes in, float32 dB out, no window
+        xr, xi, N = args[:3]
+        n = xr.numel() // N
+        return (n * N * (2 * xr.element_size() + 4),
+                n * (5 * N * int(np.log2(N)) + 4 * N))
     if tag == "K11":    # planes, tail, taps and params in; [2C, M] out
         xr, _, tail_r, _, h, D, omega = args[:7]
         T, K, Cn = xr.shape[0], h.shape[0], omega.shape[0]
@@ -436,6 +493,7 @@ def main() -> int:
     report.update(drive_scanner(dev, card))
     report.update(drive_app(dev, card))
     report.update(drive_bank(dev, card, report))
+    report.update(drive_channelizer(dev, card))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -661,6 +719,12 @@ KERNELS = {
     "K12": ("agc", "agc_rows",
             "sdrplusplusbrown_tpu_torch/csrc/agc.cu",
             "sdrplusplusbrown_tpu/ops/agc.py:77"),
+    "K5c": ("channelizer_kernel", "pfb_critical_bins",
+            "sdrplusplusbrown_tpu_torch/csrc/pfb_channelizer.cu",
+            "sdrplusplusbrown_tpu/ops/pallas_channelizer.py:856"),
+    "K4r": ("fft_kernel", "fft_power_db_planes",
+            "sdrplusplusbrown_tpu_torch/csrc/spectrum_fft.cu",
+            "sdrplusplusbrown_tpu/ops/pallas_fft.py:64"),
 }
 
 
@@ -880,6 +944,10 @@ def library_call(tag: str, args):
         starts = k4.frame_starts(x.shape[0], keep, interval, align=1)
         fr = torch.stack([x[p:p + keep] for p in starts]) * window
         return lambda: torch.fft.fft(fr, n=N, dim=-1)
+    if tag == "K4r":    # the FFT of every channel's frames
+        xr, xi, N = args[:3]
+        fr = torch.complex(xr.float(), xi.float())
+        return lambda: torch.fft.fft(fr, n=N, dim=-1)
     if tag == "K11":    # the pre-twiddle sums: one strided 2-in conv
         xr, xi, tr, ti, h, D, omega = args[:7]
         k = torch.arange(h.shape[0], dtype=torch.float32, device=h.device)
@@ -893,10 +961,12 @@ def library_call(tag: str, args):
 
 
 def check_app_kernel(tag: str, args, card: str, what: str,
-                     timed: bool = True, plain_reps: int = 20) -> dict:
-    """K8-K12 or K4f against its plain version on ``args``; with ``timed``
-    both are timed with CUDA events beside the library call (the plain
-    version over ``plain_reps`` calls).  Raises on disagreement."""
+                     timed: bool = True, plain_reps: int = 20,
+                     min_db: float = 100.0) -> dict:
+    """K8-K12, K4f, K4r or K5c against its plain version on ``args``
+    (``min_db`` SNR, or the spectra's dB bars); with ``timed`` both are
+    timed with CUDA events beside the library call (the plain version
+    over ``plain_reps`` calls).  Raises on disagreement."""
     import torch
     mod, name = kernel_fn(tag, "")
     kern = getattr(mod, name + "_kernel")
@@ -919,7 +989,7 @@ def check_app_kernel(tag: str, args, card: str, what: str,
     if not torch.isfinite(got).all():
         fail(f"{tag} {what}: non-finite kernel output")
     err = float((got - want).abs().max())
-    if tag == "K4f":
+    if tag in ("K4f", "K4r"):
         pk = want.max(dim=-1, keepdim=True).values
         d = (got - want).abs()
         e60 = float(d[want > pk - 60].max())
@@ -932,8 +1002,8 @@ def check_app_kernel(tag: str, args, card: str, what: str,
                                                     "not equal")
     else:
         sn = snr_db(want, got)
-        agree = f"{sn:.1f} dB SNR (bound 100)"
-        ok = sn >= 100.0
+        agree = f"{sn:.1f} dB SNR (bound {min_db:.0f})"
+        ok = sn >= min_db
     if not timed:
         print(f"{tag} {name} ({what}): max|err| {err:.3e}, {agree}")
         if not ok:
@@ -1400,6 +1470,130 @@ def drive_bank(dev, card: str, report: dict) -> dict:
                   b.apply(p, st, x, mono_out=True)[1],
                   bank.init_state(), T, card)
     return out
+
+
+CHZ_TONES = list(range(3, CHZ_M, 8))     # one tone every 8th channel
+CHZ_TONE_HZ = 20e3                       # each tone's offset from its centre
+
+
+def chz_wideband(T: int, freqs, seed: int = 17) -> tuple:
+    """The channelizer64 oracle input: a tone of amplitude 0.3 at
+    ``freqs[m]`` + 20 kHz for every m in CHZ_TONES, over N(0, 0.1²) noise;
+    (re, im) float32 planes."""
+    rng = np.random.default_rng(seed)
+    x = 0.1 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+    t = np.arange(T) / CHZ_FS
+    for m in CHZ_TONES:
+        x = x + 0.3 * np.exp(2j * np.pi * (freqs[m] + CHZ_TONE_HZ) * t)
+    return x.real.astype(np.float32), x.imag.astype(np.float32)
+
+
+def chz_tone_oracle(spec) -> str:
+    """Every tone of ``chz_wideband`` peaks in its own channel at its bin
+    (20 kHz of the 156.25 kHz channel: bin 131 of 1024, ±2) at least 25 dB
+    over the noise floor (the median of the other channels' bins), and no
+    other channel rises 20 dB over that floor.  Raises, or returns a
+    summary line."""
+    sp = spec.float().cpu().numpy()                # [M, F, N]
+    M, _, N = sp.shape
+    others = [m for m in range(M) if m not in CHZ_TONES]
+    floor = float(np.median(sp[others]))
+    want = round(CHZ_TONE_HZ / (CHZ_FS / M) * N)
+    peaks = []
+    for m in CHZ_TONES:
+        avg = sp[m].mean(axis=0)
+        kmax = int(np.argmax(avg))
+        peaks.append(float(avg[kmax]) - floor)
+        if abs(kmax - want) > 2 or peaks[-1] < 25.0:
+            fail(f"channelizer64: channel {m}'s tone peaks at bin {kmax}, "
+                 f"{peaks[-1]:.1f} dB over the floor (want bin {want}, "
+                 f">= 25 dB)")
+    rise = float(sp[others].max()) - floor
+    if rise > 20.0:
+        fail(f"channelizer64: a channel without a tone rises {rise:.1f} dB "
+             f"over the floor")
+    return (f"{len(CHZ_TONES)} tones each at bin {want} of its channel, "
+            f"{min(peaks):.1f}-{max(peaks):.1f} dB over the floor "
+            f"({floor:.1f} dB; bound 25), the other {len(others)} channels "
+            f"at most {rise:.1f} dB over it (bound 20)")
+
+
+def drive_channelizer(dev, card: str) -> dict:
+    """Phases 16-18 on ``dev``; raises on the first failure.  Returns the
+    K5c and K4r entries of the kernel report."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.ops import precision
+
+    ch, step = channelizer64(dev)
+    M, T = CHZ_M, CHZ_T
+    xr, xi = chz_wideband(3 * T, ch.channel_freqs())
+    blocks = [(torch.from_numpy(xr[b * T:(b + 1) * T]).to(dev),
+               torch.from_numpy(xi[b * T:(b + 1) * T]).to(dev))
+              for b in range(3)]
+
+    def run3():
+        st, outs = ch.init_state(), []
+        for xb in blocks:
+            spec, st = step(st, xb)
+            outs.append((spec, st))
+        torch.cuda.synchronize()
+        return outs
+
+    # ---- 16. K5c and K4r against their plain versions ---------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    for handoff in ("float32", "bf16"):
+        precision.set_handoff_dtype(handoff)
+        _, cap = capture(("K5c", "K4r"), run3)
+        f32 = handoff == "float32"
+        # the production bf16 handoff is the one timed
+        report["K5c"] = check_app_kernel(
+            "K5c", cap["K5c"][-1], card, f"M = {M}, tpp = {ch.tpp}, T = {T}, "
+            f"W = {cap['K5c'][-1][5]}, {handoff} bins", timed=not f32,
+            min_db=100.0 if f32 else BF16_DB)
+        report["K4r"] = check_app_kernel(
+            "K4r", cap["K4r"][-1], card, f"{M} channels x "
+            f"{cap['K4r'][-1][0].shape[1]} frames of {CHZ_FFT}, {handoff} "
+            f"bins read in place", timed=not f32)
+    pipe = ch.pfb()
+    W = cap["K5c"][-1][5]
+    gflop = W * (2 * 2 * pipe.K0 + 4 * 2 * M * M) / 1e9
+    print(f"K5c as written (the fold and the direct DFT, 2·K0 + 4·M² "
+          f"multiply-adds a frame): "
+          f"{gflop:.3f} GFLOP a step, {gflop / FP32_FLOPS * 1e12:.4f} ms at "
+          f"the FP32 peak, against its bound {report['K5c']['bound_ms']:.4f} "
+          f"ms ({report['K5c']['bound_by']})")
+
+    # ---- 17. three channelizer64 steps, production bf16 handoff ----------
+    reset_counts()
+    outs = run3()
+    n = {t: kernel_count(t) for t in ("K5c", "K4r", "K5", "K4", "K4f",
+                                      "K1", "K11")}
+    print("channelizer64: launches in 3 steps "
+          + ", ".join(f"{t}={v}" for t, v in n.items()))
+    if n["K5c"] != 3 or n["K4r"] != 3 or any(
+            n[t] for t in ("K5", "K4", "K4f", "K1", "K11")):
+        fail(f"channelizer64: launch pattern {n}")
+    report["K5c"]["launches"] = report["K4r"]["launches"] = 3
+    nh = pipe.n_hist
+    for b, (spec, st) in enumerate(outs):
+        if spec.shape != (M, T // (M * CHZ_FFT), CHZ_FFT) or \
+                not torch.isfinite(spec).all():
+            fail(f"channelizer64 step {b}: spectra {tuple(spec.shape)} or "
+                 f"non-finite")
+        tail = torch.complex(blocks[b][0][-nh:], blocks[b][1][-nh:])
+        if not torch.equal(pipe.state_to_xw(st), tail):
+            fail(f"channelizer64 step {b}: the carried state is not the "
+                 f"block's last {nh} samples")
+        print(f"channelizer64 step {b}: {chz_tone_oracle(spec)}; state "
+              f"carried exactly")
+
+    # ---- 18. the channelizer64 step on bench.py's noise -------------------
+    xn = tuple(torch.from_numpy(a).to(dev) for a in channelizer64_noise())
+    step_rate(f"channelizer64 (M={M}, fft {CHZ_FFT}, bf16 handoff)",
+              lambda st: step(st, xn)[1], ch.init_state(), T, card)
+    return report
 
 
 def check_outputs(tag: str, args, what: str, bound_db: float) -> None:

@@ -1,34 +1,42 @@
-// K5 — 2×-oversampled WOLA polyphase channelizer.
+// K5 — polyphase WOLA channelizer, 2×-oversampled or critically sampled.
 //
 // Replaces: sdrplusplusbrown_tpu/ops/pallas_channelizer.py:_chz3_kernel (the
-// V3 phase-planar fold + DFT matmul, sequential grid), which also runs as
-// the first half of ops/chan_frontend.py:_chan_fused_kernel_v3; the V2 and
-// V1 bodies (_chz2_kernel, _chz_kernel) compute the same function.
+// V3 phase-planar fold + DFT matmul, sequential grid) in both its forms:
+// 2×-oversampled (PallasChannelizerV3; also the first half of
+// ops/chan_frontend.py:_chan_fused_kernel_v3) and critically sampled
+// (PallasPolyChannelizerV3, critical = True); the V2 and V1 bodies
+// (_chz2_kernel, also as PallasPolyChannelizer, and _chz_kernel) compute
+// the same function.
 //
-// What it computes, with s = [hist (nh = K0 − M/2 samples) | x (T) | 0…],
-// h = M/2 and K0 = tpp·M, for every output frame F < width:
-//     v_F[p]     = Σ_i br[p, i] · s[F·h + i·M + p]             (fold)
+// What it computes, with s = [hist (nh = K0 − hop samples) | x (T) | 0…],
+// K0 = tpp·M and hop = M/2 (oversampled) or M (critical), for every output
+// frame F < width:
+//     v_F[p]     = Σ_i br[p, i] · s[F·hop + i·M + p]            (fold)
 //     bins[m, F] = σ · Σ_p (cos[m,p] − j·sin[m,p]) · v_F[p]    (M-point DFT)
-// with σ = (−1)^m on even frames (the delayed pass's twiddle) and 1 on odd
-// ones; out is [2M, width] (re rows over im rows, float32 or bfloat16
-// storage).  The taps and the DFT matrix come from the host, designed in
-// float64 and rounded to float32 (and to the handoff dtype) as the JAX
-// package rounds them, so the kernel and its plain version use the same
-// numbers.
+// with σ = (−1)^m on even frames when ``even_sign`` (the oversampled
+// delayed pass's twiddle) and 1 otherwise (odd frames; every frame of the
+// critical form); out is [2M, width] (re rows over im rows, float32 or
+// bfloat16 storage).  The taps and the DFT matrix come from the host,
+// designed in float64 and rounded to float32 (and to the handoff dtype) as
+// the JAX package rounds them, so the kernel and its plain version use the
+// same numbers.
 //
-// What bounds it on the H100: the bytes.  The function reads the input
-// (1.9 MB per 0.1 s block at 2.4 MS/s) and writes the bins (3.9 MB in
-// float32), about 1.75 µs of HBM time; its arithmetic, the fold's 2·K0
-// multiply-adds per frame and an M-point DFT counted as an FFT
-// (5·M·log2 M ≈ 1 340 flops at M = 48), is about 0.4 µs at the FP32 peak.
-// This kernel does the DFT directly, 4·M² multiply-adds per frame (18 432
-// flops), about 0.19 GFLOP per block, so as written its own arithmetic
-// (~2.8 µs at the peak) exceeds the function's bound.  A block takes
+// What bounds it on the H100: the bytes.  The function reads the input and
+// writes the bins; its arithmetic, the fold's 2·K0 multiply-adds per frame
+// and an M-point DFT counted as an FFT (5·M·log2 M flops), is smaller.
+// Scanner128 (oversampled, M = 48, 0.1 s at 2.4 MS/s): 1.9 MB in, 3.9 MB
+// of float32 bins out, ~1.75 µs of HBM time against ~0.4 µs at the FP32
+// peak.  Channelizer64 (critical, M = 64, tpp = 19, 2^21 samples): 16.8 MB
+// in, 8.4 MB of bf16 bins out, ~7.5 µs of HBM time.  This kernel does the
+// DFT directly, 4·M² multiply-adds per frame, so as written its own
+// arithmetic exceeds the function's bound: ~2.8 µs at the FP32 peak for
+// scanner128, ~16 µs (1.07 GFLOP) for channelizer64.  A block takes
 // PFB_FRAMES consecutive frames: it stages their overlapping input span
-// once in shared memory, folds it, and runs the DFT with the matrix and
-// the folded frames in shared memory (rows padded to M + 1 against bank
-// conflicts).  An FFT, or tensor cores for the DFT, and fusing K5 with K6
-// (as the TPU did) are left for later work.
+// once in shared memory (78 KB at channelizer64, opted in), folds it, and
+// runs the DFT with the matrix and the folded frames in shared memory
+// (rows padded to M + 1 against bank conflicts).  An FFT, or tensor cores
+// for the DFT, and fusing K5 with K6 (as the TPU did) are left for later
+// work.
 #include "common.cuh"
 
 namespace {
@@ -43,10 +51,9 @@ __global__ void pfb_kernel(const float* __restrict__ xr,
                            const float* __restrict__ br,
                            const float* __restrict__ cm,
                            const float* __restrict__ sm, int M, int tpp,
-                           void* __restrict__ out, int out_bf16, int width,
-                           int span_max) {
+                           int h, int even_sign, void* __restrict__ out,
+                           int out_bf16, int width, int span_max) {
   extern __shared__ float smem[];
-  const int h = M / 2;
   const int K0 = tpp * M;
   const int vs = M + 1;
   float* sr = smem;
@@ -114,7 +121,7 @@ __global__ void pfb_kernel(const float* __restrict__ xr,
       im = fmaf(-s[p], ur[p], im);
     }
     const int F = F0 + f;
-    if (!(F & 1) && (k & 1)) {
+    if (even_sign && !(F & 1) && (k & 1)) {
       re = -re;
       im = -im;
     }
@@ -128,24 +135,22 @@ __global__ void pfb_kernel(const float* __restrict__ xr,
 extern "C" int sdr_pfb_bins(const float* xr, const float* xi, int T,
                             const float* hr, const float* hi, int nh,
                             const float* br, const float* cm, const float* sm,
-                            int M, int tpp, void* out, int out_bf16,
-                            int width, cudaStream_t stream) {
-  if (M < 2 || M % 2 || tpp < 1 || width < 1 || nh != tpp * M - M / 2)
+                            int M, int tpp, int hop, int even_sign,
+                            void* out, int out_bf16, int width,
+                            cudaStream_t stream) {
+  if (M < 2 || M % 2 || M > 64 || tpp < 2 || width < 1 ||
+      (hop != M / 2 && hop != M) || nh != tpp * M - hop)
     return cudaErrorInvalidValue;
-  const int span_max = (PFB_FRAMES - 1) * (M / 2) + tpp * M;
+  const int span_max = (PFB_FRAMES - 1) * hop + tpp * M;
   const size_t smem =
       (2 * static_cast<size_t>(span_max) + 2 * PFB_FRAMES * (M + 1) +
        2 * static_cast<size_t>(M) * M + static_cast<size_t>(M) * tpp) *
       sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pfb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = sdr::allow_smem(pfb_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = (width + PFB_FRAMES - 1) / PFB_FRAMES;
   pfb_kernel<<<grid, PFB_THREADS, smem, stream>>>(
-      xr, xi, T, hr, hi, nh, br, cm, sm, M, tpp, out, out_bf16, width,
-      span_max);
+      xr, xi, T, hr, hi, nh, br, cm, sm, M, tpp, hop, even_sign, out,
+      out_bf16, width, span_max);
   return static_cast<int>(cudaGetLastError());
 }

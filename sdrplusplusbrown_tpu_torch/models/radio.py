@@ -20,8 +20,9 @@ Three entry points:
     folded into the audio polyphase) then runs the WFM demod kernel K2
     and the audio polyphase K3, with the wideband spectrum from K4
     alongside; NFM (with or without the squelch) the demod + audio
-    kernel K7 on the raw IF buffer; AM, SSB and CW the complex float32
-    IF through their demods (K8, K12) and the AF resampler (K8);
+    kernel K7 on the raw IF buffer (K1's float32 IF when squelched);
+    AM, SSB and CW the complex float32 IF through their demods (K8, K12)
+    and the AF resampler (K8);
   * ``apply_channelized`` — the wide-bank NFM scanner (``DEMOD_NFM``,
     optionally squelched) through the PFB K5, the post-channelizer K6
     and the demod+audio kernel K7.
@@ -278,9 +279,15 @@ class Radio(Block):
             audio, st["demod"] = self.demod.apply_planes(
                 None, state["demod"], if_planes)
         elif self.demod_id == DEMOD_NFM:
-            # the raw IF buffer straight into K7 (the JAX package's
-            # radio.py:397-422), the squelch as K7's per-channel gate
-            buf, st["vfo"] = vs.apply(params["vfo"], state["vfo"], (xr, xi))
+            # the IF buffer straight into K7 (the JAX package's
+            # radio.py:397-422), the squelch as K7's per-channel gate.
+            # Squelched, the JAX route takes the float32 IF through
+            # Squelch and FMDemod (radio.py:252-265 there), so the gate
+            # and K7 read K1's float32 IF, not its handoff-dtype buffer,
+            # and K7 keeps float32 taps and tails
+            sq = self.squelch_enabled
+            buf, st["vfo"] = vs.apply(params["vfo"], state["vfo"], (xr, xi),
+                                      float32=sq)
             C, m_if = buf.shape[0] // 2, buf.shape[1]
             gate = None
             if self.squelch_enabled:
@@ -289,7 +296,8 @@ class Radio(Block):
                                     m_if, params.get("squelch", {}).get(
                                         "level", self.squelch.default_level))
             audio, st["demod"], st["af_resamp"] = self.fm_audio_pipe().apply(
-                gate, state["demod"], state["af_resamp"], buf, m_if)
+                gate, state["demod"], state["af_resamp"], buf, m_if,
+                dtype=torch.float32 if sq else None)
             if not mono_out:
                 audio = torch.stack([audio, audio], dim=-2)
         else:

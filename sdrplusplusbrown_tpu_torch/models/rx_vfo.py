@@ -152,16 +152,19 @@ class SharedRxVFOBank(Block):
                 self._pipe = PlaneVFOPipeline(self)
         return self._pipe
 
-    def apply(self, params, state, x, raw: bool = True):
+    def apply(self, params, state, x, raw: bool = True,
+              float32: bool = False):
         """x: [T] shared wideband, complex64 or (xr, xi) float32 planes →
         (IF, new state).  With ``raw`` the IF is the buffer [2C, T·ratio]
         (re rows then im rows) that K2 and K7 take: in the handoff dtype
-        from K1, float32 from K11/K8.  Without, it is the complex64
-        [C, T·ratio] IF (float32 from either route)."""
+        from K1 (float32 with ``float32``, K1's trimmed IF), float32 from
+        K11/K8.  Without, it is the complex64 [C, T·ratio] IF (float32
+        from either route)."""
         dev = entry_device(self.device)
         xr, xi = x if isinstance(x, tuple) else (x.real, x.imag)
         x = (xr.to(dev, torch.float32), xi.to(dev, torch.float32))
-        buf, st = self.pipe().apply(params["fused"], state, x, raw=raw)
+        buf, st = self.pipe().apply(params["fused"], state, x,
+                                    raw=raw and not float32)
         if raw:
             return buf, st
         C = buf.shape[0] // 2

@@ -116,12 +116,14 @@ class FMAudioPipeline:
         return self._dev[key]
 
     def apply(self, gate, dstate, astate, iq, m_if: int,
-              raw_audio: bool = False):
+              raw_audio: bool = False, dtype=None):
         """iq: raw [2C, ≥m_if] IF buffer; gate [C] float32 or None →
         (audio [C, m_aud] float32 — or with ``raw_audio`` (audio
-        [C, n_aud] in the handoff dtype, m_aud) — new demod state
-        {"quad", "fir"}, new AF state {"resamp"})."""
-        h_dt = get_handoff_dtype()
+        [C, n_aud] in ``dtype``, m_aud) — new demod state {"quad", "fir"},
+        new AF state {"resamp"}).  ``dtype`` is the storage of the taps,
+        the carried tails and the raw audio: the handoff dtype by default,
+        float32 where the JAX route runs FMDemod in float32."""
+        h_dt = get_handoff_dtype() if dtype is None else dtype
         C = iq.shape[0] // 2
         if gate is None:
             gate = torch.ones(C, dtype=torch.float32, device=iq.device)

@@ -14,10 +14,15 @@ returned as 10·log10(max(|X|²/N², floor)) in natural bin order,
     f·interval, the reshaper's frames, as ``spectrum_path_db`` frames them
     for ``_fft_pow_kernel``.
 
-Pre-framed [F, N] frames (``fft_power_db_planes``' input) are the block
-``frames.reshape(-1)`` with interval = keep = N: complex frames take
-K4f, (xr, xi) planes K4, whose 1024-aligned starts are the same frames
-for every N >= 1024.
+Pre-framed [F, N] frames are the block ``frames.reshape(-1)`` with
+interval = keep = N: complex frames take K4f, (xr, xi) planes K4, whose
+1024-aligned starts are the same frames for every N >= 1024.
+
+  * K4r (``fft_power_db_planes``, the JAX package's function of that name
+    on ``_fft_pow_kernel``) takes pre-framed [..., F, N] re/im plane views,
+    float32 or bf16, unwindowed: every row's frames in one launch pair,
+    read in place through the views' row stride (the channelizer's [2M,
+    W] bins, the columns past the valid frames skipped).
 
 Dispatch follows the input: CPU tensors run the ``*_ref`` versions
 (torch.fft), CUDA tensors launch the kernels (csrc/spectrum_fft.cu: a
@@ -77,19 +82,21 @@ def _split(fft_size: int):
 
 
 def _launch_fft(xr_ptr, xi_ptr, es, T, dev, keep, interval, align, n,
-                fft_size, floor_db, window) -> torch.Tensor:
-    """Both launches of the 4-step FFT over ``n`` frames."""
+                fft_size, floor_db, window, in_bf16: int = 0,
+                rows: int = 1, row_stride: int = 0) -> torch.Tensor:
+    """Both launches of the 4-step FFT over ``n`` frames in ``rows`` rows
+    of ``row_stride`` elements (``window`` None: unwindowed)."""
     f32 = torch.float32
     N1, N2 = _split(fft_size)
-    if window is None:
-        window = torch.ones(keep, dtype=f32, device=dev)
+    win = None if window is None else _build.check(window, "window", f32,
+                                                   (keep,), dev)
     cr = torch.empty((n, N1, N2), dtype=f32, device=dev)
     ci = torch.empty_like(cr)
     out = torch.empty((n, fft_size), dtype=f32, device=dev)
     _build.launch(
-        "sdr_fft_cols", dev, xr_ptr, xi_ptr, es, T,
-        _build.check(window, "window", f32, (keep,), dev), keep, interval,
-        align, n, N1, N2, cr.data_ptr(), ci.data_ptr())
+        "sdr_fft_cols", dev, xr_ptr, xi_ptr, in_bf16, es, T, win, keep,
+        interval, align, n, n // rows, row_stride, N1, N2, cr.data_ptr(),
+        ci.data_ptr())
     _build.launch(
         "sdr_fft_rows", dev, cr.data_ptr(), ci.data_ptr(), n, N1, N2,
         1.0 / float(fft_size) ** 2, 10.0 ** (floor_db / 10.0),
@@ -169,3 +176,62 @@ def spectrum_path_db(x, keep: int, interval: int, fft_size: int,
     CPU tensors."""
     fn = spectrum_path_db_kernel if x.is_cuda else spectrum_path_db_ref
     return fn(x, keep, interval, fft_size, floor_db, window)
+
+
+# ---- K4r: pre-framed [..., F, N] plane views, every row in one launch ----
+
+def _check_framed(xr, xi, fft_size):
+    if xr.shape != xi.shape or xr.dim() < 2 or xr.shape[-1] != fft_size:
+        raise ValueError(f"framed planes: [..., F, {fft_size}] re and im of "
+                         f"one shape, got {tuple(xr.shape)} and "
+                         f"{tuple(xi.shape)}")
+
+
+def fft_power_db_planes_ref(xr, xi, fft_size: int,
+                            floor_db: float = -300.0) -> torch.Tensor:
+    """Plain PyTorch K4r (torch.fft in float32): [..., F, N] → dB."""
+    _check_framed(xr, xi, fft_size)
+    return _frames_db(torch.complex(xr.float(), xi.float()), fft_size,
+                      floor_db, None)
+
+
+@_build.counted
+def fft_power_db_planes_kernel(xr, xi, fft_size: int,
+                               floor_db: float = -300.0) -> torch.Tensor:
+    """K4r on the card (csrc/spectrum_fft.cu); same contract as
+    ``fft_power_db_planes_ref``.  The views' frames must be contiguous
+    (strides N and 1) and their leading axes one uniform row stride; xr
+    and xi share dtype (float32 or bf16) and strides."""
+    _check_framed(xr, xi, fft_size)
+    dev = xr.device
+    for t, what in ((xr, "xr"), (xi, "xi")):
+        if t.device.type != "cuda" or t.device != xi.device:
+            raise ValueError(f"{what}: expected a CUDA tensor on {dev}")
+        if t.dtype not in (torch.float32, torch.bfloat16) or \
+                t.dtype != xr.dtype:
+            raise ValueError(f"{what}: dtype {t.dtype}, expected float32 or "
+                             f"bfloat16 for both planes")
+    lead, F = xr.shape[:-2], xr.shape[-2]
+    rows = int(np.prod(lead)) if lead else 1
+    v = xr.reshape(rows, F, fft_size) if xr.is_contiguous() else xr
+    if xr.stride() != xi.stride() or xr.stride(-1) != 1 or \
+            xr.stride(-2) != fft_size or v.dim() != 3 or \
+            not 0 <= v.stride(0) < 2 ** 31:
+        raise ValueError(f"framed planes: strides {xr.stride()} and "
+                         f"{xi.stride()}: frames must be contiguous rows of "
+                         f"one uniform stride")
+    out = _launch_fft(xr.data_ptr(), xi.data_ptr(), 1, F * fft_size, dev,
+                      fft_size, fft_size, 1, rows * F, fft_size, floor_db,
+                      None, int(xr.dtype == torch.bfloat16), rows,
+                      v.stride(0) if rows > 1 else 0)
+    return out.reshape(xr.shape)
+
+
+def fft_power_db_planes(xr, xi, fft_size: int,
+                        floor_db: float = -300.0) -> torch.Tensor:
+    """K4r dispatch: xr/xi [..., F, N] re/im planes → [..., F, N] float32
+    dB power, natural bin order; the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    fn = fft_power_db_planes_kernel if xr.is_cuda \
+        else fft_power_db_planes_ref
+    return fn(xr, xi, fft_size, floor_db)

@@ -679,3 +679,171 @@ def test_multimode_banks_reach_only_their_kernels(gpu, monkeypatch):
             m.setattr(kernel_mod, kernel, refuse)
             with pytest.raises(AssertionError):
                 bank.apply(bank.make_params(), st, x[:T], mono_out=True)
+
+
+# ---- channelizer64: K5's critical form, the row-batched spectrum K4r -----
+
+def _chz_blocks(T, M, n, seed):
+    from torch_parity import planes
+    rng = np.random.default_rng(seed)
+    x = 0.1 * (rng.standard_normal(n * T) + 1j * rng.standard_normal(n * T))
+    t = np.arange(n * T)
+    x = x + 0.3 * np.exp(2j * np.pi * (3 * 10e6 / M + 1e3) * t / 10e6)
+    return [planes(x[b * T:(b + 1) * T].astype(np.complex64))
+            for b in range(n)]
+
+
+@pytest.mark.parametrize("M,trans_frac", [(8, 0.2), (16, 2.0), (48, 0.2),
+                                          (64, 0.2), (64, 2.0)])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_pfb_critical_kernel_matches_plain(gpu, M, trans_frac, out):
+    """K5's critical form against its plain version: M = 8, 16, 48, 64,
+    tpp = 19 and 2, a width of 1000 frames (not a multiple of the kernel's
+    32), float32 and bf16 bins; >= 100 dB (bf16: 45 dB), two calls with
+    the state carried."""
+    from sdrplusplusbrown_tpu_torch.ops.channelizer import \
+        PolyphaseChannelizer
+    ch = PolyphaseChannelizer(10e6, M, trans_frac=trans_frac)
+    pipe = ch.pfb()
+    assert pipe.tpp == (19 if trans_frac < 1 else 2)
+    T = M * 1000
+    st = ch.init_state()
+    n0 = channelizer_kernel.pfb_critical_bins_kernel.launches
+    for b, (xr, xi) in enumerate(_chz_blocks(T, M, 2, seed=M)):
+        xw = pipe.state_to_xw(st)
+        args = (pipe, xr.to(gpu), xi.to(gpu), xw.real.contiguous(),
+                xw.imag.contiguous(), 1000, torch.float32, out)
+        got = channelizer_kernel.pfb_bins(*args)
+        want = channelizer_kernel.pfb_bins_ref(*args)
+        assert got.is_cuda and got.dtype == out and got.shape == (2 * M,
+                                                                  1000)
+        _close(want, got, 100.0 if out == torch.float32 else 45.0,
+               f"bins block {b}")
+        _, st = ch.apply_planes(st, (xr, xi))        # one more launch
+    assert channelizer_kernel.pfb_critical_bins_kernel.launches == n0 + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fft_rows_kernel_matches_plain(gpu, dtype):
+    """K4r on [M, F, 1024] views of a [2M, W] stack, W past the valid
+    frames (the kernel reads through the row stride): one launch pair for
+    every row, against its plain version on the same values."""
+    M, F, W = 64, 3, 3 * 1024 + 640
+    rng = np.random.default_rng(int(dtype == torch.bfloat16))
+    bins = torch.from_numpy(rng.standard_normal((2 * M, W))
+                            .astype(np.float32)).to(gpu).to(dtype)
+    xr = bins[:M, :F * 1024].reshape(M, F, 1024)
+    xi = bins[M:, :F * 1024].reshape(M, F, 1024)
+    n0 = fft_kernel.fft_power_db_planes_kernel.launches
+    got = fft_kernel.fft_power_db_planes(xr, xi, 1024)
+    want = fft_kernel.fft_power_db_planes_ref(xr.cpu(), xi.cpu(), 1024)
+    assert got.is_cuda and got.shape == (M, F, 1024)
+    assert fft_kernel.fft_power_db_planes_kernel.launches == n0 + 1
+    assert_spectra_close(want.numpy(), got.cpu().numpy())
+    # one row, and rows given as contiguous frames
+    one = fft_kernel.fft_power_db_planes(xr[5], xi[5], 1024)
+    assert_spectra_close(want[5].numpy(), one.cpu().numpy())
+    cont = fft_kernel.fft_power_db_planes(xr.contiguous(), xi.contiguous(),
+                                          1024)
+    assert_spectra_close(want.numpy(), cont.cpu().numpy())
+
+
+def test_channelizer64_step_matches_cpu(gpu, handoff):
+    """The channelizer64 step (M = 64, 10 MS/s, T = 2^21) on the card
+    against the same step on the CPU, three steps: spectra as the CPU
+    tests compare them in the float32 handoff; in bf16 the card's and the
+    CPU's float32 sums round some bins a bf16 ulp apart (2^-8), so there
+    the power spectra (linear) agree to >= 40 dB SNR.  State exact, K5c
+    and K4r once a step."""
+    from torch_parity import _chip_smoke
+    smoke = _chip_smoke()
+    T = smoke.CHZ_T
+    chc, stepc = smoke.channelizer64("cpu", T)
+    chg, stepg = smoke.channelizer64(gpu, T)
+    xr, xi = smoke.channelizer64_noise(3 * T)
+    sc, sg = chc.init_state(), chg.init_state()
+    kern = (channelizer_kernel.pfb_critical_bins_kernel,
+            fft_kernel.fft_power_db_planes_kernel)
+    n0 = [k.launches for k in kern]
+    for b in range(3):
+        xb = (torch.from_numpy(xr[b * T:(b + 1) * T]),
+              torch.from_numpy(xi[b * T:(b + 1) * T]))
+        spc, sc = stepc(sc, xb)
+        spg, sg = stepg(sg, xb)
+        assert spg.is_cuda and spg.shape == spc.shape == (64, 32, 1024)
+        assert torch.isfinite(spg).all()
+        want, got = spc.numpy(), spg.cpu().numpy()
+        if handoff == "float32":
+            assert_spectra_close(want, got)
+        else:
+            lin = snr_db(10.0 ** (want / 10.0), 10.0 ** (got / 10.0))
+            assert lin >= 40.0, lin
+        assert torch.equal(sg.cpu(), sc)
+    assert [k.launches for k in kern] == [n + 3 for n in n0]
+
+
+def test_channelizer64_reaches_no_library_kernel(gpu, monkeypatch):
+    """The channelizer64 step on the card with ``torch.fft.fft`` and both
+    plain versions replaced by functions that raise."""
+    from torch_parity import _chip_smoke
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version or a library kernel ran")
+    for mod, name in ((torch.fft, "fft"), (fft_kernel,
+                                           "fft_power_db_planes_ref"),
+                      (channelizer_kernel, "pfb_bins_ref")):
+        monkeypatch.setattr(mod, name, refuse)
+    smoke = _chip_smoke()
+    ch, step = smoke.channelizer64(gpu, 1 << 17)
+    xr, xi = smoke.channelizer64_noise(1 << 17)
+    spec, st = step(ch.init_state(), (torch.from_numpy(xr),
+                                      torch.from_numpy(xi)))
+    assert spec.is_cuda and spec.shape == (64, 2, 1024)
+    assert torch.isfinite(spec).all() and st.is_cuda
+    y, _ = ch.apply(None, st, torch.from_numpy(xr + 1j * xi))
+    assert y.is_cuda and y.shape == (64, 2048)
+
+
+def test_channelizer64_kernels_raise_instead_of_falling_back(gpu):
+    """A geometry K5's critical form cannot take (M > 64, odd M, one tap
+    per branch) raises NotImplementedError on the card; a CPU, a
+    non-contiguous or a wrong-dtype tensor given to the new wrappers
+    raises ValueError."""
+    from sdrplusplusbrown_tpu_torch.ops.channelizer import \
+        PolyphaseChannelizer
+    for M, tf in ((128, 0.2), (15, 0.2), (16, 5.0)):
+        ch = PolyphaseChannelizer(10e6, M, trans_frac=tf)
+        x = torch.zeros(M * 256, dtype=torch.complex64, device=gpu)
+        with pytest.raises(NotImplementedError):
+            ch.apply_planes(ch.init_state(), x)
+    ch = PolyphaseChannelizer(10e6, 64)
+    pipe = ch.pfb()
+    z = torch.zeros
+    xr = z(64 * 256, device=gpu)
+    hist = z(pipe.n_hist, device=gpu)
+    f32 = torch.float32
+    bad = [lambda: channelizer_kernel.pfb_critical_bins_kernel(
+               pipe, xr, xr, hist.cpu(), hist, 256, f32, f32),
+           lambda: channelizer_kernel.pfb_critical_bins_kernel(
+               pipe, z(2 * 64 * 256, device=gpu)[::2], xr, hist, hist, 256,
+               f32, f32),
+           lambda: channelizer_kernel.pfb_critical_bins_kernel(
+               pipe, xr.double(), xr.double(), hist, hist, 256, f32, f32),
+           lambda: channelizer_kernel.pfb_critical_bins_kernel(
+               pipe, xr, xr, hist, hist, 256, f32, torch.float16),
+           lambda: channelizer_kernel.pfb_bins_kernel(
+               pipe, xr, xr, hist, hist, 256, f32, f32)]
+    planes = z((2, 4096), device=gpu)
+    v = planes[:, :2048].reshape(2, 2, 1024)
+    bad += [lambda: fft_kernel.fft_power_db_planes_kernel(v.cpu(), v.cpu(),
+                                                          1024),
+            lambda: fft_kernel.fft_power_db_planes_kernel(
+                v[..., ::2], v[..., ::2], 512),
+            lambda: fft_kernel.fft_power_db_planes_kernel(
+                v.half(), v.half(), 1024),
+            lambda: fft_kernel.fft_power_db_planes_kernel(
+                v, v.to(torch.bfloat16), 1024)]
+    for i, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+            pytest.fail(f"call {i} did not raise")

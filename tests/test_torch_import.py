@@ -35,15 +35,17 @@ def test_import_loads_no_jax():
     assert n_modules >= len(PY_FILES) - 1, res.stdout
 
 
-# the modules of the app's per-radio step and of the multi-mode bank,
-# imported with jax, jaxlib and the JAX package blocked (an import of any
-# of them raises ImportError)
+# the modules of the app's per-radio step, of the multi-mode bank and of
+# channelizer64, imported with jax, jaxlib and the JAX package blocked (an
+# import of any of them raises ImportError)
 _STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
                  "ops.wfm", "ops.wfm_kernel", "ops.fft_kernel",
                  "ops.spectrum", "models.radio", "models.iq_frontend",
                  "convert", "ops.agc", "ops.recurrence",
                  "ops.fused_frontend", "ops.plane_frontend",
-                 "models.radio_bank"]
+                 "models.radio_bank", "ops.channelizer",
+                 "ops.channelizer_kernel", "models.rx_vfo",
+                 "ops.demod_kernel"]
 _BLOCKED = """
 import importlib, sys
 for name in ("jax", "jaxlib", "sdrplusplusbrown_tpu"):

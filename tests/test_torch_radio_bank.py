@@ -335,3 +335,60 @@ def test_nfm_squelch_through_apply_shared():
         assert a1.shape == (4, 2, T // 50)
         assert not a1[0].any() and a2[0].any()
         assert torch.equal(a1[1:], a2[1:])
+
+
+def test_nfm_squelch_bf16_matches_jax_route():
+    """Squelched NFM through ``apply_shared`` in the production bf16
+    handoff against the JAX route it matches: with the squelch on the JAX
+    radio takes the float32 IF (the mono kernel's trimmed output, here in
+    interpret mode) through ``_post_vfo`` (Squelch, FMDemod, the AF
+    resampler), so the port's gate and K7 read K1's float32 IF, not its
+    bf16 buffer, and K7 keeps float32 taps and tails.  Four 8 ms blocks:
+    channel 0 sits off the carriers and its gate stays closed (its audio
+    exact zeros on both sides), channels 1-3 sit on NFM carriers and open.
+    Audio and every state leaf >= 80 dB, but for the cold-start block 0's
+    audio: there the IF rises out of the filters' transient, two
+    discriminators (FMDemod's XLA atan2 and complex multiply, K7's minimax
+    atan2) turn its rounding into different audio (7 dB over the block),
+    so only its last quarter is held, at 40 dB as in
+    ``test_bank_matches_jax`` (measured 69.7 dB).  Measured after the
+    repair: IF 132 dB, audio 128 dB in blocks 1-3, state >= 111.9 dB;
+    before it the port demodulated the bf16 buffer (IF 56 dB) with bf16
+    taps and tails: audio 51.4-52.9 dB, the demod's FIR tail 43.4 dB."""
+    from sdrplusplusbrown_tpu.models.radio import Radio as JaxRadio
+    from sdrplusplusbrown_tpu_torch.models.radio import Radio
+    fs, lvl = 2.4e6, -30.0
+    offs = np.array([-3e5, 2e5, 4e5, 7e5])
+    jr = JaxRadio(fs, DEMOD_NFM, squelch_enabled=True)
+    pr = Radio(fs, DEMOD_NFM, squelch_enabled=True, device="cpu")
+    T = pr.in_multiple * 8
+    x = multimode_iq(4 * T, fs, [(DEMOD_NFM, o) for o in offs[1:]], seed=6)
+    prev = jax_precision.get_handoff_name()
+    jax_precision.set_handoff_dtype("bf16")
+    precision.set_handoff_dtype("bf16")
+    try:
+        jvs = jr._build_vfo_shared()
+        jp = jr.make_params_shared(offs, squelch_level=lvl)
+        pp = pr.make_params_shared(offs, squelch_level=lvl)
+        js, ps = jr.init_state_shared(4), pr.init_state_shared(4)
+        for b in range(4):
+            xb = x[b * T:(b + 1) * T]
+            st = dict(js)
+            y, st["vfo"] = jvs.apply(jp["vfo"], js["vfo"], jnp.asarray(xb),
+                                     _force_kernel=True)
+            ja, js = jr._post_vfo(jp, js, st, y, mono_out=True)
+            pa, ps = pr.apply_shared(pp, ps, planes(xb), mono_out=True)
+            ja = np.asarray(ja)
+            assert pa.shape == ja.shape == (4, T // 50)
+            assert not pa[0].any() and not ja[0].any()
+            assert pa[1:].abs().amax(-1).min() > 0
+            assert np.mean(ja[1:].astype(np.float64) ** 2) >= SIGNAL_POWER
+            pa = pa.numpy()
+            if b == 0:
+                q = 3 * pa.shape[-1] // 4
+                assert _agree(ja[:, q:], pa[:, q:]) >= NFM_BLOCK0_DB
+            else:
+                assert _agree(ja, pa) >= MIN_DB, (b, _agree(ja, pa))
+            _states_agree(js, ps, MIN_DB)
+    finally:
+        jax_precision.set_handoff_dtype(prev)

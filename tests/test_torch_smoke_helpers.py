@@ -66,3 +66,48 @@ def test_app_stage_names_each_k8_geometry(smoke, cplx, rows, I, D, kw):
             torch.zeros(I, kw), I, D)
     assert smoke.app_stage(call) == (
         f"{'complex' if cplx else 'real'} rows {rows} I/D {I}/{D} kw {kw}")
+
+
+@pytest.mark.parametrize("odt, nbytes", [(torch.float32, 4),
+                                         (torch.bfloat16, 2)])
+def test_k5c_bound_is_bound_by_bytes(smoke, odt, nbytes):
+    """channelizer64's K5c: 2^21 input samples, M = 64, tpp = 19, one
+    frame per M samples (hop M): 16.8 MB in, the bins out."""
+    ch, _ = smoke.channelizer64("cpu", smoke.CHZ_T)
+    pipe = ch.pfb()
+    T, M = smoke.CHZ_T, smoke.CHZ_M
+    xr = torch.zeros(T)
+    args = (pipe, xr, xr, None, None, T // M, odt, odt)
+    b, ops = smoke.work("K5c", args)
+    assert b == 8 * T + 2 * M * (T // M) * nbytes
+    assert ops == pytest.approx(T // M * (4 * 19 * M + 5 * M * np.log2(M)))
+    assert smoke.bound("K5c", args)[1] == "bytes"
+
+
+def test_k4r_work_counts_every_row(smoke):
+    """K4r on [64, 32, 1024] bf16 views: each frame's planes in, its float32
+    dB out, 5·N·log2 N flops of FFT and 4·N of power and log."""
+    v = torch.zeros((64, 32, 1024), dtype=torch.bfloat16)
+    b, ops = smoke.work("K4r", (v, v, 1024, -300.0))
+    assert b == 2048 * 1024 * (2 * 2 + 4)
+    assert ops == 2048 * (5 * 1024 * 10 + 4 * 1024)
+
+
+def test_channelizer64_tone_oracle_on_the_cpu(smoke):
+    """Phase 17's oracle on the port's plain path at a short block (two
+    spectrum frames a channel): every tone found at its bin in its own
+    channel; a spectrum with one channel's tone moved raises."""
+    T = 131_072
+    ch, step = smoke.channelizer64("cpu", T)
+    xr, xi = smoke.chz_wideband(T, ch.channel_freqs())
+    spec, st = step(ch.init_state(), (torch.from_numpy(xr),
+                                      torch.from_numpy(xi)))
+    assert spec.shape == (64, 2, 1024)
+    assert "8 tones each at bin 131" in smoke.chz_tone_oracle(spec)
+    bad = spec.clone()
+    bad[smoke.CHZ_TONES[0]] = bad[smoke.CHZ_TONES[0]].roll(40, dims=-1)
+    with pytest.raises(RuntimeError, match="tone peaks at bin"):
+        smoke.chz_tone_oracle(bad)
+    tail = torch.complex(torch.from_numpy(xr[-ch.pfb().n_hist:]),
+                         torch.from_numpy(xi[-ch.pfb().n_hist:]))
+    assert torch.equal(ch.pfb().state_to_xw(st), tail)
