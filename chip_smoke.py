@@ -25,7 +25,7 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     10 MS/s wideband through ``PolyphaseChannelizer(10 MS/s, 64)
     .apply_planes`` (K5's critically sampled form, K5c) and every
     channel's 1024-bin dB spectra through ``fft_power_db_planes`` (K4's
-    launch pair batched over rows, K4r), 2^21-sample steps;
+    one-pass route batched over rows, K4r), 2^21-sample steps;
   * the multi-mode bank — ``RadioBank.apply(..., mono_out=True)`` on
     multimode8 (bench.py:build_multimode8, BASELINE config 2: 4 NFM, 2 AM
     and 2 USB VFOs on one 2.4 MS/s wideband, 240 000-sample steps) and on
@@ -39,7 +39,9 @@ Phases, each fatal on failure:
   2. the kernel build and its time;
   3. K1-K4 each against its plain PyTorch version on the same inputs, at
      the WFM path's shapes on a stereo FM signal, float32 handoff; both
-     timed with CUDA events;
+     timed with CUDA events, K3 and K4 beside one library call (conv1d,
+     TF32 off; torch.fft.fft) with its device time; K4's route and
+     launches a call held to ``fft_kernel.plan``;
   4. three WFM steps with a retune before the third, in the production
      bf16 handoff, the launch counts zeroed just before: every kernel
      launched, finite outputs, the audio oracles (tone SNR, stereo
@@ -63,6 +65,8 @@ Phases, each fatal on failure:
      on the pilot band-pass; K10 at C = 8; K4f at 65 536 and 262 144
      points), float32, timed with CUDA events beside one PyTorch library
      call computing the same function (conv1d, TF32 off; torch.fft.fft);
+     each K4f call's route, launches and per-kernel device time, the
+     launches held to ``fft_kernel.plan``;
  11. the app step, three steps with a retune before the third, the
      launch counts zeroed just before: WFM at batch () (K4f, K8, K9
      launched, K10 not; tone SNR, stereo separation, spectrum peaks on
@@ -89,8 +93,9 @@ Phases, each fatal on failure:
      (M = 64, tpp = 19, T = 2^21, W = 32 768; 64 channels × 32 frames of
      1 024), in the float32 and the bf16 handoff (100 dB, 45 dB for bf16
      bins; the spectra's dB bars), the bf16 one timed with CUDA events
-     beside one torch.fft.fft call (K4r), and what K5c's direct DFT
-     costs as written;
+     beside one torch.fft.fft call (K4r; its route and launches a call,
+     one, held to ``fft_kernel.plan``), and what K5c's direct DFT costs
+     as written;
  17. three channelizer64 steps on tones at every 8th channel's centre +
      20 kHz over noise, bf16 handoff, the counts zeroed just before: K5c
      and K4r once a step, K5, K4, K4f, K1 and K11 never; each tone peaks
@@ -369,31 +374,69 @@ def event_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def call_profile(fn, reps: int = 20) -> tuple:
-    """(device µs, kernel launches) per call of ``fn``: the kernels and
-    copies a torch.profiler window of ``reps`` calls saw on the card (the
-    wrapper's host time, which CUDA events around a short kernel also
-    count, left out) and its cudaLaunchKernel calls."""
+def call_profile(fn, reps: int = 20, by_kernel: dict | None = None) -> tuple:
+    """(device µs, kernel launches) per call of ``fn`` from a torch.profiler
+    window of ``reps`` calls: the time of the kernels and copies the window
+    saw on the card over ``reps`` (the wrapper's host time, which CUDA
+    events around a short kernel also count, left out), and each kernel's
+    count over ``reps``, rounded, at least 1, so that an event the
+    profiler drops now and then does not count as a missing launch.  A
+    window that saw no device activity at all is taken again, twice at
+    most; ``by_kernel`` gets µs per call by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    seen = {}
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    evts = prof.key_averages()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in evts if not e.key.startswith(("aten::", "cuda")))
-    launches = sum(e.count for e in evts if e.key == "cudaLaunchKernel")
-    return us / reps, launches / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            if dev_us > 0 and e.count and not e.key.startswith(("aten::",
+                                                                "cuda")):
+                seen[e.key] = (dev_us, e.count)
+        if seen:
+            break
+        print("profiler window saw no device activity; taken again")
+    launches = sum(max(1, round(count / reps)) for key, (_, count)
+                   in seen.items() if not key.startswith(("Memcpy", "Memset")))
+    if by_kernel is not None:
+        for key, (total, _) in seen.items():
+            k = short_kernel(key)
+            by_kernel[k] = by_kernel.get(k, 0.0) + total / reps
+    return sum(total for total, _ in seen.values()) / reps, launches
 
 
 def device_us(fn, reps: int = 20) -> float:
     """Device time per call of ``fn`` in µs (``call_profile``)."""
     return call_profile(fn, reps)[0]
+
+
+def fft_launches(tag: str, launches: int, N: int, n_frames: int,
+                 by_kernel: dict) -> None:
+    """A spectrum kernel call made the launches its route plans: one for
+    the one-pass route (N <= 4 096), two for the four-step.  Fails on
+    another count (``call_profile``'s); a profiler that saw no kernel at
+    all measures nothing and is reported so.  Prints the device time of
+    each of the call's kernels."""
+    from sdrplusplusbrown_tpu_torch.ops import fft_kernel
+    p = fft_kernel.plan(N, n_frames)
+    seen = f"{launches}" if launches else "not measured (no kernel in " \
+        "the profiler window)"
+    print(f"{tag} at {n_frames} x {N}: {p['route']} route, "
+          f"CUDA launches a call {seen}, "
+          + ", ".join(f"{ln['entry']} {ln['blocks']} blocks of "
+                      f"{ln['threads']} threads" for ln in p["launches"])
+          + "; device us a call: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in by_kernel.items()))
+    if launches and launches != len(p["launches"]):
+        fail(f"{tag}: {launches} CUDA launches a call, the {p['route']} "
+             f"route plans {len(p['launches'])}")
 
 
 def noise_planes(T: int, dev):
@@ -594,28 +637,23 @@ def drive(dev, card: str) -> dict:
             ok = s >= min_db
         ms = event_ms(lambda: kern(*args))
         plain_ms = event_ms(lambda: ref(*args))
-        dev_us = (device_us(lambda: kern(*args)),
-                  device_us(lambda: ref(*args)))
-        library_ms = None
-        if tag == "K3":          # one strided correlation: one conv1d call
-            pipe, raw, m_in = args[0], args[1], args[2]
-            ext = torch.cat([args[3], raw[:, :m_in].float()], dim=1)[:, None]
-            ker = pipe.taps(dev, args[4])[:, None, :]
-            library_ms = event_ms(lambda: torch.nn.functional.conv1d(
-                ext, ker, stride=pipe.D))
-        if tag == "K4":          # the FFT of the windowed frames
-            xr, xi, keep, interval = args[0], args[1], args[2], args[3]
-            starts = k4.frame_starts(xr.shape[0], keep, interval)
-            fr = torch.stack([torch.complex(xr[p:p + keep], xi[p:p + keep])
-                              for p in starts]) * args[6]
-            library_ms = event_ms(lambda: torch.fft.fft(fr, n=FFT, dim=-1))
+        split = {}
+        k_us, n_launch = call_profile(lambda: kern(*args), by_kernel=split)
+        p_us = device_us(lambda: ref(*args))
+        lib = library_call(tag, args)
+        if tag == "K4":
+            fft_launches(tag, n_launch, args[4],
+                         len(k4.frame_starts(args[0].shape[0], args[2],
+                                             args[3])), split)
+        library_ms = None if lib is None else event_ms(lib)
+        libs = "n/a" if lib is None else \
+            f"{library_ms:.4f} ms (device {device_us(lib):.1f} us)"
         bms, by = bound(tag, args)
-        lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"{tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib}, bound {bms:.4f} ms ({by}), "
+              f"library {libs}, bound {bms:.4f} ms ({by}), "
               f"max|err| {err:.3e}, {agree}; device time per call "
-              f"(profiler) kernel {dev_us[0]:.1f} us, plain {dev_us[1]:.1f} "
-              f"us [{card}]")
+              f"(profiler) kernel {k_us:.1f} us in {n_launch:.0f} launches, "
+              f"plain {p_us:.1f} us [{card}]")
         if not ok:
             fail(f"{tag}: kernel disagrees with its plain version: {agree}")
         report[tag] = {"name": name, "route": "cuda",
@@ -938,6 +976,18 @@ def library_call(tag: str, args):
         hr, hi = taps[0], taps[1]
         ker = torch.stack([torch.stack([hr, -hi]), torch.stack([hi, hr])])
         return lambda: F.conv1d(planes, ker, stride=D)
+    if tag == "K3":     # one strided correlation: one conv1d call
+        pipe, raw, m_in, ptail, dt = args
+        ext = torch.cat([ptail, raw[:, :m_in].float()], dim=1)[:, None]
+        ker = pipe.taps(raw.device, dt)[:, None, :]
+        return lambda: F.conv1d(ext, ker, stride=pipe.D)
+    if tag == "K4":     # the FFT of the windowed frames
+        from sdrplusplusbrown_tpu_torch.ops import fft_kernel as k4
+        xr, xi, keep, interval, N, _, window = args
+        starts = k4.frame_starts(xr.shape[0], keep, interval)
+        fr = torch.stack([torch.complex(xr[p:p + keep], xi[p:p + keep])
+                          for p in starts]) * window
+        return lambda: torch.fft.fft(fr, n=N, dim=-1)
     if tag == "K4f":
         from sdrplusplusbrown_tpu_torch.ops import fft_kernel as k4
         x, keep, interval, N, _, window = args
@@ -1014,16 +1064,23 @@ def check_app_kernel(tag: str, args, card: str, what: str,
     plain_ms = event_ms(lambda: ref(*args), plain_reps)
     lib = library_call(tag, args)
     library_ms = event_ms(lib) if lib is not None else None
-    us = [device_us(lambda: kern(*args)),
-          device_us(lambda: ref(*args), plain_reps)]
+    split = {}
+    k_us, n_launch = call_profile(lambda: kern(*args), by_kernel=split)
+    us = [k_us, device_us(lambda: ref(*args), plain_reps)]
     if lib is not None:
         us.append(device_us(lib))
+    if tag == "K4f":
+        fft_launches(tag, n_launch, args[3], args[0].shape[0] // args[2],
+                     split)
+    if tag == "K4r":
+        fft_launches(tag, n_launch, args[2], args[0].numel() // args[2],
+                     split)
     bms, by = bound(tag, args)
     libs = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"{tag} {name} ({what}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, library {libs}, bound {bms:.4f} ms ({by}), max|err| "
           f"{err:.3e}, {agree}; device time per call (profiler) kernel "
-          f"{us[0]:.1f} us, plain {us[1]:.1f} us"
+          f"{us[0]:.1f} us in {n_launch:.0f} launches, plain {us[1]:.1f} us"
           + (f", library {us[2]:.1f} us" if lib is not None else "")
           + f" [{card}]")
     if not ok:

@@ -39,9 +39,11 @@ SIGNATURES = {
     "sdr_wfm_halfband": [_P, _I, _P, _I, _P, _I, _P, _I, _I],
     "sdr_wfm_stereo": [_P, _P, _I, _I, _I, _P, _P, _F, _F, _P, _I, _I],
     "sdr_mpx_poly": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I],
+    "sdr_fft_frames": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _P, _F, _P],
     "sdr_fft_cols": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _P, _P],
-    "sdr_fft_rows": [_P, _P, _I, _I, _I, _F, _F, _P],
+                     _I, _I, _P, _P, _P],
+    "sdr_fft_rows": [_P, _I, _I, _I, _I, _P, _F, _P],
     "sdr_pfb_bins": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                      _I, _I],
     "sdr_chan_post": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,

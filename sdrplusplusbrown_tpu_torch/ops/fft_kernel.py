@@ -20,14 +20,18 @@ interval = keep = N: complex frames take K4f, (xr, xi) planes K4, whose
 
   * K4r (``fft_power_db_planes``, the JAX package's function of that name
     on ``_fft_pow_kernel``) takes pre-framed [..., F, N] re/im plane views,
-    float32 or bf16, unwindowed: every row's frames in one launch pair,
+    float32 or bf16, unwindowed: every row's frames in one launch,
     read in place through the views' row stride (the channelizer's [2M,
     W] bins, the columns past the valid frames skipped).
 
 Dispatch follows the input: CPU tensors run the ``*_ref`` versions
-(torch.fft), CUDA tensors launch the kernels (csrc/spectrum_fft.cu: a
-4-step N1·N2 FFT in two launches; K4f reads the interleaved complex block
-in place) or raise.
+(torch.fft), CUDA tensors launch the kernels (csrc/spectrum_fft.cu) or
+raise.  ``plan`` picks the kernels' route by size: up to 4 096 points one
+launch holds whole frames in shared memory (K4r's 1024-point frames);
+from 8 192 on a four-step N1·N2 FFT runs in two launches sized to fill
+the card.  Both take their twiddles from ``twiddles``, a table per size
+made on the device at first use.  K4f reads the interleaved complex block
+in place.
 """
 
 from __future__ import annotations
@@ -37,8 +41,10 @@ import torch
 
 from ..kernels import _build
 
-LANES = 16       # short FFTs per block (csrc/spectrum_fft.cu)
-MAX_N12 = 512    # longest short FFT the kernel holds in shared memory
+E = 16               # complex values a thread holds: the radix (csrc)
+BLOCK = 256          # threads of a block at most
+SMS = 132            # the H100 SXM's SMs: four-step launches aim at >= 1 each
+MIN_N, ONE_PASS_MAX, MAX_N = 256, 4096, 262_144
 
 
 def frame_starts(T: int, keep: int, interval: int, align: int = 1024) -> list:
@@ -70,37 +76,119 @@ def _frames_db(fr, fft_size: int, floor_db: float, window) -> torch.Tensor:
     return 10.0 * torch.log10(torch.clamp(p, min=10.0 ** (floor_db / 10.0)))
 
 
-def _split(fft_size: int):
-    """(N1, N2) of the kernel's 4-step split; raises on a size it lacks."""
-    lg = int(np.log2(fft_size))
-    if 1 << lg != fft_size or not (2 * np.log2(LANES) <= lg
-                                   <= 2 * np.log2(MAX_N12)):
-        raise ValueError(f"fft size {fft_size}: the kernel takes powers of "
-                         f"2 from {LANES ** 2} to {MAX_N12 ** 2}")
+def radices(L: int) -> tuple:
+    """Radix of each Stockham pass of an L-point sequence: 16 while 16
+    divides what is left, then the remainder (1024 → 16, 16, 4)."""
+    out = []
+    while L > E:
+        out.append(E)
+        L //= E
+    return tuple(out + [L])
+
+
+def seq_smem(L: int, per_block: int) -> int:
+    """Shared-memory bytes of ``per_block`` L-point sequences: complex64,
+    one slot in 16 padding."""
+    return 8 * (L + L // 16) * per_block
+
+
+def _per_block(n_seq: int, L: int) -> int:
+    """Sequences of L points a four-step block takes: as many as 256
+    threads hold, halved while the launch has fewer than SMS blocks."""
+    b = BLOCK // (L // E)
+    while b > 1 and n_seq // b < SMS:
+        b //= 2
+    return b
+
+
+def plan(fft_size: int, n_frames: int) -> dict:
+    """How the kernels run ``n_frames`` transforms of ``fft_size`` points:
+    the route ("one-pass" up to ONE_PASS_MAX, else "four-step"), the
+    sequence lengths and their pass radices (N, or N1 then N2), and per
+    launch its C entry, sequences per block, blocks, threads and
+    shared-memory bytes.  Raises on a size the kernels lack."""
+    lg = int(fft_size).bit_length() - 1
+    if 1 << lg != fft_size or not MIN_N <= fft_size <= MAX_N:
+        raise ValueError(f"fft size {fft_size}: the kernels take powers of "
+                         f"2 from {MIN_N} to {MAX_N}")
+
+    def launch(entry, L, per, n_seq):
+        return {"entry": entry, "per_block": per, "blocks": -(-n_seq // per),
+                "threads": per * L // E, "smem": seq_smem(L, per)}
+    if fft_size <= ONE_PASS_MAX:
+        per = BLOCK // (fft_size // E)
+        return {"route": "one-pass", "sizes": (fft_size,),
+                "radices": (radices(fft_size),),
+                "launches": (launch("sdr_fft_frames", fft_size, per,
+                                    n_frames),)}
     N1 = 1 << ((lg + 1) // 2)
-    return N1, fft_size // N1
+    N2 = fft_size // N1
+    return {"route": "four-step", "sizes": (N1, N2),
+            "radices": (radices(N1), radices(N2)),
+            "launches": (
+                launch("sdr_fft_cols", N1, _per_block(n_frames * N2, N1),
+                       n_frames * N2),
+                launch("sdr_fft_rows", N2, _per_block(n_frames * N1, N2),
+                       n_frames * N1))}
+
+
+_TWIDDLES: dict = {}
+_FOUR_STEP: dict = {}
+
+
+def twiddles(n: int, device) -> torch.Tensor:
+    """[n, 2] float32 (cos, sin) of exp(−2πik/n), k < n: computed in
+    float64 and rounded once, made on ``device`` at first use and cached
+    per (n, device), so a step copies nothing from the host."""
+    key = (int(n), torch.device(device))
+    if key not in _TWIDDLES:
+        ang = torch.arange(n, dtype=torch.float64, device=key[1]) * (
+            -2.0 * np.pi / n)
+        _TWIDDLES[key] = torch.stack([torch.cos(ang), torch.sin(ang)],
+                                     dim=-1).to(torch.float32)
+    return _TWIDDLES[key]
+
+
+def four_step_twiddles(N1: int, N2: int, device) -> torch.Tensor:
+    """[N1·N2, 2] float32: entry k1·N2 + n2 is ``twiddles(N1·N2)``'s entry
+    n2·k1 mod N, the four-step twiddle W_N^(n2·k1) in the order the column
+    kernel reads it (adjacent columns adjacent); gathered on ``device`` at
+    first use and cached."""
+    key = (int(N1), int(N2), torch.device(device))
+    if key not in _FOUR_STEP:
+        N = N1 * N2
+        k1 = torch.arange(N1, device=key[2])[:, None]
+        n2 = torch.arange(N2, device=key[2])[None, :]
+        _FOUR_STEP[key] = twiddles(N, key[2])[((k1 * n2) % N).reshape(-1)]
+    return _FOUR_STEP[key]
 
 
 def _launch_fft(xr_ptr, xi_ptr, es, T, dev, keep, interval, align, n,
                 fft_size, floor_db, window, in_bf16: int = 0,
                 rows: int = 1, row_stride: int = 0) -> torch.Tensor:
-    """Both launches of the 4-step FFT over ``n`` frames in ``rows`` rows
-    of ``row_stride`` elements (``window`` None: unwindowed)."""
+    """``n`` frames in ``rows`` rows of ``row_stride`` elements through
+    the route ``plan`` picks (``window`` None: unwindowed)."""
     f32 = torch.float32
-    N1, N2 = _split(fft_size)
+    p = plan(fft_size, n)
     win = None if window is None else _build.check(window, "window", f32,
                                                    (keep,), dev)
-    cr = torch.empty((n, N1, N2), dtype=f32, device=dev)
-    ci = torch.empty_like(cr)
+    tw = twiddles(fft_size, dev).data_ptr()
     out = torch.empty((n, fft_size), dtype=f32, device=dev)
-    _build.launch(
-        "sdr_fft_cols", dev, xr_ptr, xi_ptr, in_bf16, es, T, win, keep,
-        interval, align, n, n // rows, row_stride, N1, N2, cr.data_ptr(),
-        ci.data_ptr())
-    _build.launch(
-        "sdr_fft_rows", dev, cr.data_ptr(), ci.data_ptr(), n, N1, N2,
-        1.0 / float(fft_size) ** 2, 10.0 ** (floor_db / 10.0),
-        out.data_ptr())
+    floor_p = 10.0 ** (floor_db / 10.0)
+    frames = (xr_ptr, xi_ptr, in_bf16, es, T, win, keep, interval, align, n,
+              n // rows, row_stride)
+    per = [ln["per_block"] for ln in p["launches"]]
+    if p["route"] == "one-pass":
+        _build.launch("sdr_fft_frames", dev, *frames, fft_size, per[0], tw,
+                      floor_p, out.data_ptr())
+        return out
+    N1, N2 = p["sizes"]
+    scratch = torch.empty((n, fft_size), dtype=torch.complex64, device=dev)
+    _build.launch("sdr_fft_cols", dev, *frames, N1, N2, per[0], tw,
+                  four_step_twiddles(N1, N2, dev).data_ptr(),
+                  scratch.data_ptr())
+    _build.launch("sdr_fft_rows", dev, scratch.data_ptr(), n, N1, N2, per[1],
+                  tw, floor_p, out.data_ptr())
     return out
 
 

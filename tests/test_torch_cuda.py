@@ -121,17 +121,26 @@ def test_wfm_kernels_match_plain(gpu, handoff, C):
                                                  (2048, 5_000, 3),
                                                  (4096, 12_000, 4),
                                                  (16384, 30_000, 2),
-                                                 (65536, 120_000, 2)])
+                                                 (65536, 120_000, 2),
+                                                 (256, 1_000, 3),
+                                                 (1024, 1024, 256),
+                                                 (8192, 20_000, 2),
+                                                 (65536, 51_200, 2),
+                                                 (262144, 300_000, 1)])
 def test_spectrum_kernel_matches_plain(gpu, fft_size, interval, n):
+    """K4 on both routes (one pass up to 4 096, four-step from 8 192) and
+    across their boundary, 1 to 256 frames, keep < N (zero padding)."""
     T = n * interval
     keep = min(interval, fft_size)
     x = wfm_iq(T, np.linspace(-0.9e6, 0.9e6, 4), seed=fft_size)
     win = torch.from_numpy(make_fft_window("nuttall", keep))
     want = fft_kernel.spectrum_frames_db(*_planes(x, "cpu"), keep, interval,
                                          fft_size, -300.0, win)
+    n0 = fft_kernel.spectrum_frames_db_kernel.launches
     got = fft_kernel.spectrum_frames_db(*_planes(x, gpu), keep, interval,
                                         fft_size, -300.0, win.to(gpu))
-    assert got.is_cuda
+    assert got.is_cuda and got.shape == want.shape
+    assert fft_kernel.spectrum_frames_db_kernel.launches == n0 + 1
     assert_spectra_close(want.numpy(), got.cpu().numpy())
 
 
@@ -409,18 +418,24 @@ def test_stereo_kernel_matches_plain(gpu, C):
 
 @pytest.mark.parametrize("fft_size,keep,interval,n", [
     (1024, 1024, 2_500, 5), (4096, 3_000, 3_000, 3),
-    (65536, 65536, 120_000, 2), (262144, 120_000, 120_000, 2)])
+    (65536, 65536, 120_000, 2), (262144, 120_000, 120_000, 2),
+    (256, 200, 333, 4), (1024, 1000, 1001, 300), (8192, 8192, 10_001, 3),
+    (16384, 10_000, 12_345, 2), (65536, 65536, 65_537, 1)])
 def test_spectrum_path_kernel_matches_plain(gpu, fft_size, keep, interval,
                                             n):
-    """K4f at every size class, frames at exact (unaligned) starts."""
+    """K4f at every size class on both routes, frames at exact starts
+    (odd intervals: half of them not 16-byte aligned, so the one-pass
+    route's scalar loads run beside its vector loads), 1 to 300 frames."""
     x = wfm_iq(n * interval, np.linspace(-0.9e6, 0.9e6, 4), seed=fft_size)
     win = torch.from_numpy(make_fft_window("nuttall", keep))
     want = fft_kernel.spectrum_path_db(torch.from_numpy(x), keep, interval,
                                        fft_size, -300.0, win)
+    n0 = fft_kernel.spectrum_path_db_kernel.launches
     got = fft_kernel.spectrum_path_db(torch.from_numpy(x).to(gpu), keep,
                                       interval, fft_size, -300.0,
                                       win.to(gpu))
-    assert got.is_cuda
+    assert got.is_cuda and got.shape == want.shape == (n, fft_size)
+    assert fft_kernel.spectrum_path_db_kernel.launches == n0 + 1
     assert_spectra_close(want.numpy(), got.cpu().numpy())
 
 
@@ -726,7 +741,7 @@ def test_pfb_critical_kernel_matches_plain(gpu, M, trans_frac, out):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fft_rows_kernel_matches_plain(gpu, dtype):
     """K4r on [M, F, 1024] views of a [2M, W] stack, W past the valid
-    frames (the kernel reads through the row stride): one launch pair for
+    frames (the kernel reads through the row stride): one wrapper call for
     every row, against its plain version on the same values."""
     M, F, W = 64, 3, 3 * 1024 + 640
     rng = np.random.default_rng(int(dtype == torch.bfloat16))
@@ -746,6 +761,54 @@ def test_fft_rows_kernel_matches_plain(gpu, dtype):
     cont = fft_kernel.fft_power_db_planes(xr.contiguous(), xi.contiguous(),
                                           1024)
     assert_spectra_close(want.numpy(), cont.cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,M,F", [(256, 4, 3), (4096, 3, 2), (8192, 2, 2),
+                                   (65536, 2, 1)])
+def test_fft_planes_routes_match_plain(gpu, dtype, N, M, F):
+    """K4r at every route and across their boundary: [M, F, N] views of
+    a [2M, W] stack whose rows run past the frames, read in place."""
+    W = F * N + 640
+    rng = np.random.default_rng(N + M)
+    bins = torch.from_numpy(rng.standard_normal((2 * M, W))
+                            .astype(np.float32)).to(gpu).to(dtype)
+    xr = bins[:M, :F * N].reshape(M, F, N)
+    xi = bins[M:, :F * N].reshape(M, F, N)
+    n0 = fft_kernel.fft_power_db_planes_kernel.launches
+    got = fft_kernel.fft_power_db_planes(xr, xi, N)
+    want = fft_kernel.fft_power_db_planes_ref(xr.cpu(), xi.cpu(), N)
+    assert got.is_cuda and got.shape == (M, F, N)
+    assert fft_kernel.fft_power_db_planes_kernel.launches == n0 + 1
+    assert_spectra_close(want.numpy(), got.cpu().numpy())
+
+
+def test_fft_routes_make_their_planned_launches(gpu):
+    """In a profiler window, after the twiddle table is made: K4r at
+    channelizer64's shapes runs one kernel a call (the one-pass route, no
+    scratch), K4 at 4 096 points one, K4f at two 65 536-point frames two
+    (the four-step), as ``plan`` says (``call_profile`` rounds the
+    count per call: the profiler drops an event now and then)."""
+    from torch_parity import _chip_smoke
+    smoke = _chip_smoke()
+    bins = torch.zeros((128, 32 * 1024 + 512), dtype=torch.bfloat16,
+                       device=gpu)
+    v = (bins[:64, :32 * 1024].reshape(64, 32, 1024),
+         bins[64:, :32 * 1024].reshape(64, 32, 1024))
+    x = torch.zeros(240_000, dtype=torch.complex64, device=gpu)
+    win = torch.ones(65536, device=gpu)
+    planes = (x.real.contiguous(), x.imag.contiguous())
+    calls = [(lambda: fft_kernel.fft_power_db_planes(*v, 1024), 1024, 2048),
+             (lambda: fft_kernel.spectrum_frames_db(*planes, 4096, 12_000,
+                                                    4096, -300.0, None),
+              4096, 20),
+             (lambda: fft_kernel.spectrum_path_db(x, 65536, 120_000, 65536,
+                                                  -300.0, win), 65536, 2)]
+    for fn, N, n in calls:
+        _, launches = smoke.call_profile(fn, reps=5)
+        assert launches == len(fft_kernel.plan(N, n)["launches"]), \
+            (N, n, launches)
+    assert fft_kernel.plan(1024, 2048)["route"] == "one-pass"
 
 
 def test_channelizer64_step_matches_cpu(gpu, handoff):
