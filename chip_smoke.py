@@ -60,8 +60,7 @@ Phases, each fatal on failure:
   9. the scanner128 step (bf16, raw audio) on the same noise, as in 5;
  10. K8, K9, K10 and K4f each against its plain version at the app
      step's shapes (K8 on every distinct geometry the three runs of 11
-     give it, four of them timed: the WFM stage-0 decimator, the
-     bandwidth FIR, the 5/6 polyphase and the 48/125 audio polyphase; K9
+     give it, each timed, with its launches a step on each path; K9
      on the pilot band-pass; K10 at C = 8; K4f at 65 536 and 262 144
      points), float32, timed with CUDA events beside one PyTorch library
      call computing the same function (conv1d, TF32 off; torch.fft.fft);
@@ -82,7 +81,8 @@ Phases, each fatal on failure:
      float32 and again in the bf16 handoff (100 dB, 45 dB for a bf16
      output); K11 on every 10 MS/s group call, K12 on each AM and USB
      shape of both rates, timed with CUDA events (K11 beside one conv1d,
-     TF32 off); every distinct K8 geometry of the two bank paths;
+     TF32 off); every distinct K8 geometry of the two bank paths, each
+     timed, with its launches a step on each bank;
  14. five steps of each bank, the launch counts zeroed just before each:
      at 2.4 MS/s K1, K7, K8 and K12 launched and K11 not, at 10 MS/s K11,
      K7, K8 and K12 and K1 not; on step 5 (the AGC's 4 800-sample start
@@ -249,8 +249,9 @@ def nbytes(dtype) -> int:
 def work(tag: str, args) -> tuple:
     """(bytes, float32 operations) that kernel ``tag``'s function needs
     on these arguments: each input read once, each output written once,
-    the valid outputs' direct-form multiply-adds (2 operations each) and
-    the elementwise arithmetic.  Transcendentals (sin/cos, the minimax
+    the valid outputs' direct-form multiply-adds (2 operations each; K3's
+    and K8's over each phase row's nonzero band only) and the elementwise
+    arithmetic.  Transcendentals (sin/cos, the minimax
     atan2's 20-odd operations aside) are not counted."""
     if tag == "K1":
         pipe, xr, xi, tail, omega, base, tails, odt = args[:8]
@@ -271,11 +272,12 @@ def work(tag: str, args) -> tuple:
             ops += 2 * Cn * m * len(h)
         b += 2 * Cn * m * nbytes(odt)
         return b, ops + Cn * m * (4 * pipe.K + 12)
-    if tag == "K3":
-        pipe, raw, m_in, ptail, _ = args
+    if tag == "K3":     # each phase row's nonzero band, as K8
+        pipe, raw, m_in, ptail, dt = args
         m_aud = m_in // pipe.D * pipe.I
         return (raw.shape[0] * (m_in * raw.element_size() + 4 * m_aud),
-                2 * raw.shape[0] * m_aud * pipe.kernel.shape[1])
+                2 * raw.shape[0] * m_in // pipe.D
+                * band_taps(pipe.taps(raw.device, dt)))
     if tag == "K4":
         xr, xi, keep, interval, N, floor_db, window = args
         n = xr.shape[0] // interval
@@ -311,9 +313,11 @@ def work(tag: str, args) -> tuple:
         b = (x.numel() + 2 * tail.numel()) * x.element_size() \
             + 4 * kern.numel() + n_out * x.numel() // x.shape[-1] \
             * x.element_size()
-        macs = (kern.shape[1] * parts if tag == "K8"
-                else 4 * kern.shape[1])
-        return b, 2 * macs * n_out * x.numel() // x.shape[-1]
+        rows = x.numel() // x.shape[-1]
+        if tag == "K9":
+            return b, 2 * 4 * kern.shape[1] * n_out * rows
+        # phase row r's n_out / I outputs each take its nonzero band
+        return b, 2 * parts * band_taps(kern) * n_out // args[3] * rows
     if tag == "K10":
         pipe, mpx, hist = args
         Cn, m = mpx.shape
@@ -343,6 +347,17 @@ def work(tag: str, args) -> tuple:
         # |x|, compare, 2 mul + add, divide, min; ramp 3; 2 mul
         return 8 * R * T + 16 * R, 12 * R * T
     raise KeyError(tag)
+
+
+def band_taps(kern) -> int:
+    """Sum over the phase rows of a FIR kernel [I, kw] of each row's
+    nonzero band, last nonzero tap − first + 1: the multiply-adds an
+    output of that row needs (csrc/fir_tile.cuh skips the rest)."""
+    total = 0
+    for row in kern.detach().cpu().numpy().reshape(-1, kern.shape[-1]):
+        nz = np.flatnonzero(row)
+        total += int(nz[-1] - nz[0] + 1) if nz.size else 0
+    return total
 
 
 def fir_out_len(tag: str, args) -> int:
@@ -955,6 +970,11 @@ def app_stage(call) -> str:
         f"{I}/{D} kw {kern.shape[1]}"
 
 
+def per_step(paths: dict) -> str:
+    """'path n, ...' of a geometry's launches a step on each path."""
+    return ", ".join(f"{p} {n:g}" for p, n in paths.items())
+
+
 def library_call(tag: str, args):
     """One PyTorch call computing kernel ``tag``'s function on ``args``
     (its inputs prepared outside the timed call), or None."""
@@ -1150,13 +1170,13 @@ def drive_app(dev, card: str) -> dict:
     _, cap_n = capture(("K8",), lambda: run3(x_nfm, nfm2))
     _, cap8 = capture(("K8", "K10"), lambda: run3(x_wfm8, wfm8))
     # every distinct K8 geometry of the three paths, each held against the
-    # plain version on its last call (state settled); four WFM () stages
-    # are also timed
+    # plain version on its last call (state settled) and timed, with its
+    # launches a step on each path
     stages = {}
     for path, c in (("WFM ()", cap), ("NFM ()", cap_n), (f"WFM ({C},)", cap8)):
         for call in c["K8"]:
             paths, last = stages.get(app_stage(call), ({}, None))
-            paths[path] = True
+            paths[path] = paths.get(path, 0) + 1 / 3
             # a squelched radio's all-zero block checks nothing: keep the
             # last call with data
             keep = last is not None and not bool(call[0].any())
@@ -1171,17 +1191,16 @@ def drive_app(dev, card: str) -> dict:
         if len(key) != 1:
             fail(f"K8: no single WFM () {what} call among {sorted(stages)}")
         names[key[0]] = what
-    report, k8, errs = {}, [], []
+    report, k8 = {}, []
     for key in sorted(stages):
         paths, call = stages[key]
-        what = f"{names.get(key, 'stage')}, {key}, {' + '.join(paths)}"
-        out = check_app_kernel("K8", call, card, what, timed=key in names)
-        errs.append(out["max_abs_err"])
-        if key in names:
-            k8.append(out)
+        what = f"{names.get(key, 'stage')}, {key}"
+        k8.append(check_app_kernel(
+            "K8", call, card, f"{what}, launches a step: {per_step(paths)}"))
     print(f"K8: {len(stages)} distinct geometries held against the plain "
-          f"version (100 dB, the new tail exact), {len(k8)} of them timed")
-    report["K8"] = dict(k8[0], max_abs_err=max(errs))
+          f"version (100 dB, the new tail exact) and timed")
+    report["K8"] = dict(k8[0], max_abs_err=max(e["max_abs_err"]
+                                               for e in k8))
     for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
         report["K8"][k] = sum(e[k] for e in k8)
     report["K8"]["bound_by"] = "+".join(sorted({e["bound_by"] for e in k8}))
@@ -1461,19 +1480,18 @@ def drive_bank(dev, card: str, report: dict) -> dict:
     for fs in BANK_FS:
         for call in caps[fs]["K8"]:
             paths, _ = stages.get(app_stage(call), ({}, None))
-            paths[bank_label(fs)] = True
+            paths[bank_label(fs)] = paths.get(bank_label(fs), 0) + 1 / 2
             stages[app_stage(call)] = (paths, call)
-    # two 10 MS/s plane-row stages are timed: the first decimator behind
-    # K11 (the TPU's _plane_decim_kernel) and the USB polyphase (its
-    # _plane_poly kernels)
-    timed_k8 = ("real rows 8 I/D 1/4 kw 34", "real rows 8 I/D 192/625 kw 872")
+    # every geometry timed: at 10 MS/s the first decimator behind K11 is
+    # the TPU's _plane_decim_kernel, the USB polyphase its _plane_poly
+    # kernels
     for key in sorted(stages):
         paths, call = stages[key]
-        check_app_kernel("K8", call, card, f"{key}, {' + '.join(paths)}",
-                         timed=key in timed_k8)
+        check_app_kernel("K8", call, card,
+                         f"{key}, launches a step: {per_step(paths)}")
     print(f"K8: {len(stages)} distinct geometries of the two bank paths held "
-          f"against the plain version (100 dB, the new tail exact), "
-          f"{len(timed_k8)} of them timed")
+          f"against the plain version (100 dB, the new tail exact) and "
+          f"timed")
 
     # ---- 14. five steps of each bank, production bf16 handoff -------------
     precision.set_handoff_dtype("bf16")

@@ -1,0 +1,306 @@
+// The polyphase FIR tile of K3 (mpx_poly.cu) and K8 (fir_rows.cu).
+//
+// What it computes, on one row of real (float) or complex (float2) samples:
+//     y[m·I + r] = Σ_l kern[r, l] · ext[m·D + l],   m < n_m, r < I
+//     ext        = concat(tail (hist samples), x)
+// with kern [I, kw] float32: a stride-1 FIR (I = D = 1), a decimating FIR
+// (I = 1) or the widened L/M polyphase kernel of ops/resampler.py.
+//
+// What bounds it on the H100: the path's geometries do 26-2 604 taps an
+// output on a few MB a call, so the operations bound (non-tensor float32)
+// and the bytes bound are both 0.1-3 µs; what the one-thread-an-output
+// tile (common.cuh:poly_fir_tile, kept for K1 and K2) lost was memory
+// access and latency.  The design, point by point:
+//
+//  1. Warp-uniform phase.  A warp's lanes share one phase row r, so every
+//     tap read is one shared-memory broadcast.  A block stages the taps
+//     of its group of G phase rows (fir_plan chooses G where I·kw does
+//     not fit) beside its input span.
+//  2. Nonzero band only.  Each phase row loops over its own band [lo_r,
+//     hi_r), found on the card from the staged taps (a warp reduction a
+//     row): no host sync, no argument for the callers to follow.  The
+//     consequence: a NaN or inf in ext outside a row's band (at D = 2 and
+//     4, outside the band's start rounded down to a multiple of D) no
+//     longer reaches that output, where conv1d and the TPU's banded
+//     matmul both multiply it by zero.
+//  3. Conflict-free input reads.  The span is staged de-interleaved by
+//     input phase, sx[p][j] = ext[e0 + j·D + p], so ext[m·D + l] =
+//     sx[l mod D][m − m0 + l div D]: for a fixed tap, consecutive outputs
+//     read consecutive words of one row, for every D.  float32 data is
+//     staged with cp.async (4 or 8 bytes a sample, no register round
+//     trip), in the same commit group as the taps; bf16 data (K3 in the
+//     bf16 handoff) is upcast once, on staging.
+//  4. A register tile.  Lane t of a warp computes P (odd: 1, 3 or 5)
+//     consecutive outputs m0 + t·P + j with independent accumulators, and
+//     one broadcast tap read feeds all P.  At D = 1, 2 and 4 (the
+//     decimators and stride-1 FIRs, the dense stages) the inputs slide
+//     through a ring of P·D registers, so one shared-memory input read
+//     feeds P multiply-adds (2P on complex rows); at other D (the
+//     polyphase ratios, 1-3 taps an input phase) each output reads its
+//     own.  The lanes' stride P is odd, so a warp's 32 reads hit 32
+//     distinct banks.  Every output sums its taps in ascending order,
+//     one fused multiply-add each, as the one-thread-an-output tile did:
+//     a zero tap's multiply-add is exact, so the outputs are the same
+//     bits, and a cold-start block, which amplifies rounding, matches the
+//     CPU's conv1d as closely as before.
+//  5. Complex rows in one block.  A complex64 row is read as float2: the
+//     re and im of one output share each tap read and each staging copy.
+//  6. A host-side plan (ops/fir_kernel.py:fir_plan) picks P, G, the
+//     output chunks a block takes (C of 32·P outputs each) and the warps,
+//     so that a call with enough work launches >= 132 blocks and the
+//     block's shared memory (fir_tile_layout) stays within 227 KB.
+//
+// Outputs go through a shared-memory tile, so that a block writes its
+// [m, r] outputs in order of y.  No tensor cores, on purpose: taps and
+// data are float32 and the parity bar is 100 dB.  TF32 keeps ~10
+// mantissa bits and fails it; a 3×TF32 split triples the matrix work,
+// where the operations bound is already ~1 µs a call.
+#pragma once
+
+#include "common.cuh"
+
+namespace sdr {
+
+constexpr int FIR_SMEM_MAX = 232448;     // the H100's 227 KB a block
+
+__host__ __device__ inline int fir_r4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ inline int fir_imin(int a, int b) { return a < b ? a : b; }
+
+// Float offsets of a block's shared memory: the G phase rows' taps, their
+// bands (lo[G], hi[G] as ints), the output tile [m][G | 1] and the
+// de-interleaved input [min(D, kw)][S]; ``total`` floats in all.
+// ops/fir_kernel.py:tile_smem mirrors it.
+struct FirLayout {
+  int band, out, in, stride, total;
+};
+
+__host__ __device__ inline FirLayout fir_tile_layout(int D, int kw, int n_m,
+                                                     int P, int G, int C,
+                                                     int comps) {
+  const int mb = fir_imin(C * 32 * P, n_m);
+  FirLayout f;
+  f.band = fir_r4(G * kw);
+  f.out = f.band + fir_r4(2 * G);
+  f.in = f.out + fir_r4(mb * (G | 1) * comps);
+  // odd, so that consecutive input phases of one j fall in distinct banks
+  f.stride = (mb + (kw - 1) / D) | 1;
+  // + P samples: the lanes past a block's last output read (and discard)
+  // up to P samples beyond the last input row
+  f.total = f.in + fir_r4((fir_imin(D, kw) * f.stride + P) * comps);
+  return f;
+}
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async(float2* dst, const float2* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// One ext sample into shared memory: float32 and complex64 by cp.async,
+// bf16 upcast through a register.
+__device__ __forceinline__ void stage(float* dst, const float* src) {
+  cp_async(dst, src);
+}
+__device__ __forceinline__ void stage(float2* dst, const float2* src) {
+  cp_async(dst, src);
+}
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src) {
+  *dst = __bfloat162float(*src);
+}
+
+__device__ __forceinline__ void fma_e(float& acc, float k, float v) {
+  acc = fmaf(k, v, acc);
+}
+__device__ __forceinline__ void fma_e(float2& acc, float k, float2 v) {
+  acc.x = fmaf(k, v.x, acc.x);
+  acc.y = fmaf(k, v.y, acc.y);
+}
+
+// Taps [lo, hi) of a phase row, in ascending order, on P consecutive
+// outputs, the first of which reads xs = sx + mm0: ext[(mm0 + j)·D + l] =
+// xs[(l mod D)·S + l div D + j].  Any D: tap l = a·D + p, a outer and the
+// input phase p inner, so that the inner loop is a plain stride-S walk;
+// each tap costs one broadcast tap read and P input reads.
+template <int P, typename E>
+__device__ __forceinline__ void taps_any_d(E (&acc)[P], const E* xs,
+                                           const float* kr, int S, int D,
+                                           int lo, int hi) {
+  int a = lo / D, p = lo - a * D;
+  for (int base = a * D; base < hi; base += D, ++a, p = 0) {
+    const int pe = fir_imin(D, hi - base);
+    const E* x = xs + a + p * S;
+#pragma unroll 4
+    for (; p < pe; ++p, x += S) {
+      const float k = kr[base + p];
+#pragma unroll
+      for (int j = 0; j < P; ++j) fma_e(acc[j], k, x[j]);
+    }
+  }
+}
+
+// The same for D = DT (1, 2 or 4; kw >= D): the inputs slide through a
+// ring of R = P·DT registers, so each tap costs one input read, one tap
+// read and P multiply-adds.  At tap t the ring holds the offsets [t, t +
+// R − 1] of output 0, offset e in slot (e − l0) mod R, and output j reads
+// offset t + j·DT.  The taps go in chunks of R from lo rounded down to a
+// multiple of DT (the taps below lo are zero), so that every slot and
+// input row is a compile-time constant.  A value loaded beyond what the
+// last tap needs is never read.
+template <int P, int DT, typename E>
+__device__ __forceinline__ void taps_ring(E (&acc)[P], const E* xs,
+                                          const float* kr, int S, int lo,
+                                          int hi) {
+  constexpr int R = P * DT;
+  int l = lo - lo % DT;
+  const E* x = xs + l / DT;         // offset l + e at x[(e % DT)·S + e / DT]
+  E w[R];
+#pragma unroll
+  for (int e = 0; e < R - 1; ++e) w[e] = x[(e % DT) * S + e / DT];
+  for (; l + R <= hi; l += R, x += P) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      w[(s + R - 1) % R] = x[((s + R - 1) % DT) * S + (s + R - 1) / DT];
+      const float k = kr[l + s];
+#pragma unroll
+      for (int j = 0; j < P; ++j) fma_e(acc[j], k, w[(s + j * DT) % R]);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < R - 1; ++s) {
+    if (l + s < hi) {
+      w[(s + R - 1) % R] = x[((s + R - 1) % DT) * S + (s + R - 1) / DT];
+      const float k = kr[l + s];
+#pragma unroll
+      for (int j = 0; j < P; ++j) fma_e(acc[j], k, w[(s + j * DT) % R]);
+    }
+  }
+}
+
+// One block: phase rows r0 = blockIdx.y·G ... (at most G), outputs m0 =
+// blockIdx.x·C·32·P ... (at most C·32·P) of the row whose tail, x and y
+// the caller points at.  E is the sample (float or float2), X x's storage
+// (E, or bf16 for real rows).
+template <int P, typename E, typename X>
+__device__ __forceinline__ void fir_tile(
+    const E* __restrict__ tail, int hist, const X* __restrict__ x,
+    const float* __restrict__ kern, int I, int D, int kw,
+    E* __restrict__ y, int n_m, int G, int C, float* smem) {
+  constexpr int comps = sizeof(E) / sizeof(float);
+  const FirLayout f = fir_tile_layout(D, kw, n_m, P, G, C, comps);
+  float* taps = smem;
+  int* band = reinterpret_cast<int*>(smem + f.band);
+  E* out = reinterpret_cast<E*>(smem + f.out);
+  E* sx = reinterpret_cast<E*>(smem + f.in);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nth >> 5;
+  const int r0 = blockIdx.y * G, gn = fir_imin(G, I - r0);
+  const int m0 = blockIdx.x * C * 32 * P, mb = fir_imin(C * 32 * P, n_m - m0);
+  const int S = f.stride, prow = fir_imin(D, kw);
+
+  // 1. the group's taps and the block's input span, one commit group
+  const float* kg = kern + static_cast<long>(r0) * kw;
+  for (int i = tid; i < gn * kw; i += nth) cp_async(taps + i, kg + i);
+  {
+    const int J = mb + (kw - 1) / D;          // samples a row holds
+    const int need = (mb - 1) * D + kw;       // ext samples the block reads
+    const long e0 = static_cast<long>(m0) * D;
+    const int dj = nth / prow, dp = nth - dj * prow;
+    int j = tid / prow, p = tid - j * prow;   // sample e0 + j·D + p
+    // unrolled, so that a bf16 block's loads are in flight together
+#pragma unroll 8
+    for (int i = tid; i < J * prow; i += nth) {
+      const int off = j * D + p;
+      if (off < need) {
+        const long e = e0 + off;
+        E* d = sx + p * S + j;
+        if (e < hist)
+          stage(d, tail + e);
+        else
+          stage(d, x + (e - hist));
+      }
+      j += dj;
+      p += dp;
+      if (p >= prow) {
+        p -= prow;
+        ++j;
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. each phase row's nonzero band [lo, hi), one warp a row
+  for (int g = warp; g < gn; g += nw) {
+    int lo = kw, hi = 0;
+    for (int l = lane; l < kw; l += 32) {
+      if (taps[g * kw + l] != 0.f) {
+        lo = fir_imin(lo, l);
+        hi = l + 1;
+      }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      band[g] = lo;
+      band[G + g] = hi;
+    }
+  }
+  __syncthreads();
+
+  // 3. each warp a (phase row, chunk of 32·P outputs) unit at a time
+  const int Gp = G | 1;
+  for (int u = warp; u < gn * C; u += nw) {
+    const int g = u % gn;
+    const int mm0 = (u / gn) * 32 * P + lane * P;
+    if (mm0 >= mb) continue;
+    E acc[P] = {};
+    const int lo = band[g], hi = band[G + g];
+    if (hi > lo) {
+      const E* xs = sx + mm0;
+      const float* kr = taps + g * kw;
+      if (D == 1)
+        taps_ring<P, 1>(acc, xs, kr, S, lo, hi);
+      else if (D == 2 && kw >= 2)
+        taps_ring<P, 2>(acc, xs, kr, S, lo, hi);
+      else if (D == 4 && kw >= 4)
+        taps_ring<P, 4>(acc, xs, kr, S, lo, hi);
+      else
+        taps_any_d<P>(acc, xs, kr, S, D, lo, hi);
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (mm0 + j < mb) out[(mm0 + j) * Gp + g] = acc[j];
+  }
+  __syncthreads();
+
+  // 4. the block's outputs in order of y
+  for (int i = tid; i < mb * gn; i += nth) {
+    const int mm = i / gn, g = i - mm * gn;
+    y[static_cast<long>(m0 + mm) * I + r0 + g] = out[mm * Gp + g];
+  }
+}
+
+// Opt the kernel in to its shared memory and launch it on ``grid``.
+template <typename Kernel, typename... Args>
+inline cudaError_t fir_launch(Kernel* kernel, dim3 grid, int warps,
+                              size_t smem, cudaStream_t stream,
+                              Args... args) {
+  if (smem > static_cast<size_t>(FIR_SMEM_MAX)) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, 32 * warps, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace sdr

@@ -38,7 +38,8 @@ SIGNATURES = {
     "sdr_wfm_quad": [_P, _I, _I, _I, _I, _P, _F, _P],
     "sdr_wfm_halfband": [_P, _I, _P, _I, _P, _I, _P, _I, _I],
     "sdr_wfm_stereo": [_P, _P, _I, _I, _I, _P, _P, _F, _F, _P, _I, _I],
-    "sdr_mpx_poly": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I],
+    "sdr_mpx_poly": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I,
+                     _I, _I, _I, _I],
     "sdr_fft_frames": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                        _I, _P, _F, _P],
     "sdr_fft_cols": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -50,7 +51,8 @@ SIGNATURES = {
                       _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I],
     "sdr_fm_audio": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
                      _F, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I],
-    "sdr_fir_rows": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _I],
+    "sdr_fir_rows": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _I,
+                     _I, _I, _I, _I],
     "sdr_fir_cplx": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I],
     "sdr_fused_mix": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                       _P, _I],

@@ -19,10 +19,15 @@ state of the next block.  Dispatch follows the input: CPU tensors run the
 (csrc/fir_rows.cu, csrc/fir_cplx.cu) or raise.  The kernels read the tail
 and the block through separate pointers and write the new tail
 themselves: no concat, split or recombine pass on the card.
+
+``fir_plan`` sizes the polyphase FIR tile (csrc/fir_tile.cuh) that K8 and
+K3 (ops/wfm_kernel.py) launch: outputs per lane, phase rows and output
+chunks per block, warps and grid.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -66,6 +71,95 @@ def _check(x, tail, kern, I: int, D: int, n_kern_rows: int):
     return n_m * I
 
 
+# ---- the polyphase FIR tile's plan (csrc/fir_tile.cuh) ----------------------
+
+SMS = 132                 # the H100 SXM's SMs: a launch aims at >= 1 block each
+SMEM_MAX = 232_448        # shared memory a block may take (227 KB)
+MAX_WARPS = 8
+MAX_CHUNKS = 4
+OUTS_PER_LANE = (5, 3, 1)   # odd: a warp's stride-P reads hit 32 banks
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def tile_smem(D: int, kw: int, n_m: int, P: int, G: int, C: int,
+              comps: int) -> int:
+    """Shared-memory bytes of one block (csrc/fir_tile.cuh:fir_tile_layout):
+    G phase rows of taps, their bands, the output tile [m, G | 1] and the
+    input staged de-interleaved by input phase, [min(D, kw), S] samples
+    with S = (m + (kw − 1) // D) | 1, m = min(C·32·P, n_m), plus P."""
+    mb = min(C * 32 * P, n_m)
+    stride = (mb + (kw - 1) // D) | 1
+    return 4 * (_r4(G * kw) + _r4(2 * G) + _r4(mb * (G | 1) * comps)
+                + _r4((min(D, kw) * stride + P) * comps))
+
+
+@functools.lru_cache(maxsize=None)
+def fir_plan(I: int, D: int, kw: int, n_out: int, rows: int,
+             comps: int) -> dict:
+    """How the tile computes ``rows`` rows of n_out = n_m·I outputs:
+    ``P`` outputs per lane (consecutive m), ``G`` phase rows and ``C``
+    chunks of 32·P outputs per block, ``warps`` per block (each takes one
+    (phase row, chunk) unit at a time), the ``grid`` (m tiles, phase
+    groups, rows), ``blocks`` and ``smem`` bytes.
+
+    P is the largest that leaves at most a quarter of the last chunk's
+    lanes idle and still gives 4·SMS warp units; else 1.  A block starts
+    at one unit a warp: G = min(I, 8) phase rows, which share its staged
+    input, and as many chunks as fill 8 warps, at most MAX_CHUNKS.  While
+    its shared memory exceeds SMEM_MAX it gives up phase rows (where the
+    taps take half of it), chunks, outputs per lane, then phase rows;
+    while the launch has fewer than SMS blocks, chunks, then phase rows.
+    (scripts/fir_rows_sweep.py --plans times the alternatives.)"""
+    if I < 1 or D < 1 or kw < 1 or rows < 1 or comps not in (1, 2) or \
+            n_out < I or n_out % I:
+        raise ValueError(f"FIR tile: I={I} D={D} kw={kw} n_out={n_out} "
+                         f"rows={rows} comps={comps}")
+    n_m = n_out // I
+
+    def chunks(P):
+        return -(-n_m // (32 * P))
+
+    fits = [P for P in OUTS_PER_LANE
+            if 4 * (chunks(P) * 32 * P - n_m) <= chunks(P) * 32 * P] or [1]
+    P = next((P for P in fits if rows * I * chunks(P) >= 4 * SMS), fits[-1])
+    n_c = chunks(P)
+    G = min(I, MAX_WARPS)
+    C = min(n_c, MAX_CHUNKS, max(1, MAX_WARPS // G))
+
+    def blocks(G, C):
+        return rows * -(-I // G) * -(-n_c // C)
+
+    while True:
+        smem = tile_smem(D, kw, n_m, P, G, C, comps)
+        if smem > SMEM_MAX:
+            if G > 1 and 4 * G * kw >= smem // 2:
+                G = (G + 1) // 2
+            elif C > 1:
+                C = (C + 1) // 2
+            elif P > 1:
+                P = OUTS_PER_LANE[OUTS_PER_LANE.index(P) + 1]
+                n_c = chunks(P)
+            elif G > 1:
+                G = (G + 1) // 2
+            else:
+                raise ValueError(f"FIR tile: {kw} taps at D={D} do not "
+                                 f"fit {SMEM_MAX} bytes")
+        elif blocks(G, C) < SMS and C > 1:
+            C = (C + 1) // 2
+        elif blocks(G, C) < SMS and G > 1:
+            G = (G + 1) // 2
+        else:
+            break
+    warps = min(MAX_WARPS, max(4, G * C))
+    grid = (-(-n_c // C), -(-I // G), rows)
+    return {"P": P, "G": G, "C": C, "warps": warps, "threads": 32 * warps,
+            "grid": grid, "blocks": math.prod(grid), "smem": smem,
+            "n_m": n_m, "m_block": C * 32 * P}
+
+
 # ---- K8: real taps ---------------------------------------------------------
 
 def fir_rows_ref(x, tail, kern, I: int, D: int):
@@ -86,11 +180,13 @@ def fir_rows_ref(x, tail, kern, I: int, D: int):
 
 @_build.counted
 def fir_rows_kernel(x, tail, kern, I: int, D: int):
-    """K8 on the card (csrc/fir_rows.cu); same contract as
-    ``fir_rows_ref``."""
+    """K8 on the card (csrc/fir_rows.cu, one launch of ``fir_plan``'s
+    grid); same contract as ``fir_rows_ref``."""
     dev = x.device
     n_out = _check(x, tail, kern, I, D, I)
     lead, T, hist = x.shape[:-1], x.shape[-1], tail.shape[-1]
+    rows, comps = math.prod(lead), 2 if x.is_complex() else 1
+    p = fir_plan(I, D, kern.shape[1], n_out, rows, comps)
     y = torch.empty(lead + (n_out,), dtype=x.dtype, device=dev)
     new_tail = torch.empty_like(tail)
     _build.launch(
@@ -98,8 +194,8 @@ def fir_rows_kernel(x, tail, kern, I: int, D: int):
                                           device=dev), hist,
         _build.check(x, "FIR block", _DTYPES, device=dev), T,
         _build.check(kern, "FIR taps", torch.float32, device=dev), I, D,
-        kern.shape[1], y.data_ptr(), n_out, new_tail.data_ptr(),
-        math.prod(lead), 2 if x.is_complex() else 1)
+        kern.shape[1], y.data_ptr(), n_out, new_tail.data_ptr(), rows,
+        comps, p["P"], p["G"], p["C"], p["warps"])
     return y, new_tail
 
 

@@ -33,7 +33,7 @@ import torch
 from ..kernels import _build
 from .demod import quad_planes
 from .precision import get_handoff_dtype, round_to
-from .fir_kernel import poly_rows
+from .fir_kernel import fir_plan, poly_rows
 
 #: storage dtypes the kernels read and write
 _STORAGE = (torch.float32, torch.bfloat16)
@@ -288,12 +288,13 @@ def mpx_audio_poly_ref(pipe, raw, m_in, ptail, tap_dtype):
 
 @_build.counted
 def mpx_audio_poly_kernel(pipe, raw, m_in, ptail, tap_dtype):
-    """K3 on the card (csrc/mpx_poly.cu); same contract as
-    ``mpx_audio_poly_ref``."""
+    """K3 on the card (csrc/mpx_poly.cu, the FIR tile of K8 on
+    ``fir_plan``'s grid); same contract as ``mpx_audio_poly_ref``."""
     dev = raw.device
     f32 = torch.float32
     m_aud = _check_poly(pipe, raw, m_in, ptail)
     ker = pipe.taps(dev, tap_dtype)
+    p = fir_plan(pipe.I, pipe.D, ker.shape[1], m_aud, raw.shape[0], 1)
     out = torch.empty((raw.shape[0], m_aud), dtype=f32, device=dev)
     _build.launch(
         "sdr_mpx_poly", dev, _build.check(ptail, "audio tail", f32,
@@ -301,7 +302,8 @@ def mpx_audio_poly_kernel(pipe, raw, m_in, ptail, tap_dtype):
         _build.check(raw, "L/R planes", _STORAGE, device=dev),
         int(raw.dtype == torch.bfloat16), raw.shape[1],
         _build.check(ker, "audio kernel", f32), pipe.I, pipe.D,
-        ker.shape[1], out.data_ptr(), m_aud, raw.shape[0])
+        ker.shape[1], out.data_ptr(), m_aud, raw.shape[0], p["P"], p["G"],
+        p["C"], p["warps"])
     return out
 
 

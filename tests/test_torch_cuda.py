@@ -353,19 +353,47 @@ def _rows(rng, lead, n, cplx, dev):
                                       else np.float32)).to(dev)
 
 
+def _path_kernel(name: str) -> np.ndarray:
+    """A widened polyphase kernel of the main paths, zero bands and all:
+    WFM's de-emphasis-folded 48/125 audio kernel, the 10 MS/s bank's USB
+    192/625 and 16/25 VFO resamplers, and the app's 5/6 VFO resampler with
+    one phase row zeroed."""
+    from sdrplusplusbrown_tpu_torch.ops.resampler import RationalResampler
+    if name == "folded 48/125":
+        return Radio(FS, DEMOD_WFM, device="cpu").demod.audio_poly.kernel
+    fs_out = {"usb 192/625": 24e3, "vfo 16/25": 50e3, "zero row 5/6": 250e3}
+    fs_in = 2.4e6 if name == "zero row 5/6" else 10e6
+    kern = dict(RationalResampler(fs_in, fs_out[name]).chain.named_blocks)[
+        "resamp"].kernel.copy()
+    if name == "zero row 5/6":
+        kern[2] = 0.0
+    return kern
+
+
 @pytest.mark.parametrize("lead", [(), (17,)])
 @pytest.mark.parametrize("K,I,D", [(304, 1, 4), (600, 1, 1), (253, 1, 1),
                                    (63, 1, 2), (97, 5, 6), (493, 48, 125),
-                                   (116, 2, 3), (1, 1, 2)])
+                                   (116, 2, 3), (1, 1, 2),
+                                   ("folded 48/125", 48, 125),
+                                   ("usb 192/625", 192, 625),
+                                   ("vfo 16/25", 16, 25),
+                                   ("zero row 5/6", 5, 6)])
 @pytest.mark.parametrize("cplx", [False, True])
 def test_fir_rows_kernel_matches_plain(gpu, lead, K, I, D, cplx):
-    """K8 on edge shapes: blocks that are no multiple of the 256-output
-    tile, K above the tile, D = 1, 2, 4 and the polyphase ratios, one row
-    and 17, a tail longer than the block; two blocks streamed."""
+    """K8 on edge shapes: blocks that are no multiple of a tile, kernels
+    of 1 to 872 taps, D = 1, 2, 4 and the polyphase ratios, one row and
+    17, a tail longer than the block, the paths' own widened kernels with
+    their zero bands (the tile loops over each phase row's nonzero band)
+    and an all-zero phase row; two blocks streamed."""
     from sdrplusplusbrown_tpu_torch.ops import fir_kernel
-    rng = np.random.default_rng(K * 7 + D)
-    kern = torch.from_numpy(rng.standard_normal((I, K))
-                            .astype(np.float32)).to(gpu)
+    if isinstance(K, str):
+        kern = _path_kernel(K)
+        K = kern.shape[1]
+        rng = np.random.default_rng(K * 7 + D)
+    else:
+        rng = np.random.default_rng(K * 7 + D)
+        kern = rng.standard_normal((I, K))
+    kern = torch.from_numpy(kern.astype(np.float32)).to(gpu)
     hist = max(K - D, K - 1) if I > 1 else K - 1
     tail = _rows(rng, lead, hist, cplx, gpu)
     n0 = fir_kernel.fir_rows_kernel.launches
@@ -378,8 +406,43 @@ def test_fir_rows_kernel_matches_plain(gpu, lead, K, I, D, cplx):
         assert got.is_cuda and got.shape == want.shape
         _close(want, got, 100.0, f"K8 T={T}")
         assert torch.equal(gt, wt.contiguous())
+        if not kern.any(dim=1).all():
+            zero = got.reshape(-1, got.shape[-1] // I, I)[
+                ..., ~kern.any(dim=1)]
+            assert not (zero != 0).any()
         tail = gt
     assert fir_kernel.fir_rows_kernel.launches > n0
+
+
+def test_fir_tile_kernels_make_one_launch(gpu):
+    """K8 (the 192/625 polyphase on 8 plane rows, the 304-tap decimator
+    on 8 complex rows) and K3 (WFM-8's 16 L/R rows, bf16 planes) run one
+    kernel a call, as ``fir_plan``'s grid, in a profiler window
+    (``call_profile`` rounds the count per call)."""
+    from sdrplusplusbrown_tpu_torch.ops import fir_kernel
+    from torch_parity import _chip_smoke
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(8)
+    usb = torch.from_numpy(_path_kernel("usb 192/625").astype(np.float32))
+    calls = [(_rows(rng, (8,), 8125, False, gpu),
+              _rows(rng, (8,), 871, False, gpu), usb.to(gpu), 192, 625),
+             (_rows(rng, (8,), 240_000, True, gpu),
+              _rows(rng, (8,), 303, True, gpu),
+              torch.from_numpy(rng.standard_normal((1, 304)).astype(
+                  np.float32)).to(gpu), 1, 4)]
+    for args in calls:
+        _, launches = smoke.call_profile(
+            lambda a=args: fir_kernel.fir_rows(*a), reps=5)
+        assert launches == 1, (args[3], args[4], launches)
+    pipe = wfm_kernel.MPXAudioPoly(
+        Radio(FS, DEMOD_WFM, device="cpu").demod.audio_poly)
+    raw = torch.from_numpy(rng.standard_normal((16, 12_500)).astype(
+        np.float32)).to(gpu, torch.bfloat16)
+    ptail = torch.zeros((16, pipe.hist), device=gpu)
+    _, launches = smoke.call_profile(
+        lambda: wfm_kernel.mpx_audio_poly(pipe, raw, 12_500, ptail,
+                                          torch.bfloat16), reps=5)
+    assert launches == 1
 
 
 @pytest.mark.parametrize("lead", [(), (17,)])

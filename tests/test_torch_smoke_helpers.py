@@ -111,3 +111,34 @@ def test_channelizer64_tone_oracle_on_the_cpu(smoke):
     tail = torch.complex(torch.from_numpy(xr[-ch.pfb().n_hist:]),
                          torch.from_numpy(xi[-ch.pfb().n_hist:]))
     assert torch.equal(ch.pfb().state_to_xw(st), tail)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_k8_work_counts_each_phase_rows_nonzero_band(smoke, cplx):
+    """The polyphase tile multiplies each phase row's band (first to last
+    nonzero tap), no more: the bound counts the same, an all-zero row
+    nothing (csrc/fir_tile.cuh)."""
+    kern = torch.zeros(3, 40)
+    kern[0, 5:9] = 1.0                  # band 4
+    kern[1, 10] = kern[1, 29] = 2.0     # band 20, zeros inside count
+    dt = torch.complex64 if cplx else torch.float32
+    x, tail = torch.zeros((2, 300), dtype=dt), torch.zeros((2, 39), dtype=dt)
+    n_m = (39 + 300 - 40) // 5 + 1
+    assert smoke.band_taps(kern) == 24
+    _, ops = smoke.work("K8", (x, tail, kern, 3, 5))
+    assert ops == 2 * (2 if cplx else 1) * 24 * n_m * 2
+
+
+def test_k3_work_counts_the_folded_kernels_band(smoke):
+    """K3's 48/125 folded kernel: 256-257 nonzero taps a phase row of 493,
+    so its bound is ~52 % of the dense count."""
+    from sdrplusplusbrown_tpu_torch.models.radio import Radio, DEMOD_WFM
+    from sdrplusplusbrown_tpu_torch.ops import wfm_kernel
+    pipe = wfm_kernel.MPXAudioPoly(
+        Radio(2.4e6, DEMOD_WFM, device="cpu").demod.audio_poly)
+    raw = torch.zeros((16, 12_500))
+    _, ops = smoke.work("K3", (pipe, raw, 12_500, None, torch.float32))
+    dense = 2 * 16 * 100 * 48 * 493
+    band = smoke.band_taps(pipe.taps("cpu", torch.float32))
+    assert 48 * 256 <= band <= 48 * 257
+    assert ops == 2 * 16 * 100 * band and 0.51 < ops / dense < 0.53
