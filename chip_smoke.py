@@ -41,14 +41,18 @@ Phases, each fatal on failure:
      the WFM path's shapes on a stereo FM signal, float32 handoff; both
      timed with CUDA events, K3 and K4 beside one library call (conv1d,
      TF32 off; torch.fft.fft) with its device time; K4's route and
-     launches a call held to ``fft_kernel.plan``;
+     launches a call held to ``fft_kernel.plan``; K1's device time split
+     into its mix stage and its chained stages, K2's launches a call;
+     K1's and K2's new carried state exactly the plain version's rule on
+     the kernels' own stage inputs (``tails_exact``);
   4. three WFM steps with a retune before the third, in the production
      bf16 handoff, the launch counts zeroed just before: every kernel
      launched, finite outputs, the audio oracles (tone SNR, stereo
      separation), spectrum peaks on the carriers, and bf16 audio within
      45 dB of the float32 run;
   5. the WFM-8 step on bench-style noise input: its rate, its wall time
-     and a profiler window (see ``step_rate``);
+     and a profiler window (see ``step_rate``), its kernel launches a
+     step beside the 87 before K1 and K2 ran on the FIR tile;
   6. K5-K7 each against its plain version at the scanner128 shapes on an
      NFM signal (a 1 kHz tone on every 8th channel), float32 handoff,
      timed with CUDA events;
@@ -76,13 +80,14 @@ Phases, each fatal on failure:
      WFM at batch () and at (8,), on noise, and what ``Radio.apply``'s
      discriminator costs on the card (``quad_cost``);
  13. the bank's kernels against their plain versions at its shapes,
-     every tensor each returns (IF or audio, stage inputs, state): K1 on
-     each 2.4 MS/s group's call and K7 on each bank's NFM call, in the
-     float32 and again in the bf16 handoff (100 dB, 45 dB for a bf16
-     output); K11 on every 10 MS/s group call, K12 on each AM and USB
-     shape of both rates, timed with CUDA events (K11 beside one conv1d,
-     TF32 off); every distinct K8 geometry of the two bank paths, each
-     timed, with its launches a step on each bank;
+     every tensor each returns (IF or audio, new tails, state): K1 on
+     each 2.4 MS/s group's call (its new tails also held as in 3) and K7
+     on each bank's NFM call, in the float32 and again in the bf16
+     handoff (100 dB, 45 dB for a bf16 output); K11 on every 10 MS/s
+     group call, K12 on each AM and USB shape of both rates, timed with
+     CUDA events (K11 beside one conv1d, TF32 off); every distinct K8
+     geometry of the two bank paths, each timed, with its launches a
+     step on each bank;
  14. five steps of each bank, the launch counts zeroed just before each:
      at 2.4 MS/s K1, K7, K8 and K12 launched and K11 not, at 10 MS/s K11,
      K7, K8 and K12 and K1 not; on step 5 (the AGC's 4 800-sample start
@@ -253,19 +258,21 @@ def work(tag: str, args) -> tuple:
     and K8's over each phase row's nonzero band only) and the elementwise
     arithmetic.  Transcendentals (sin/cos, the minimax
     atan2's 20-odd operations aside) are not counted."""
-    if tag == "K1":
+    if tag == "K1":     # + each stage's carried tail read and written
         pipe, xr, xi, tail, omega, base, tails, odt = args[:8]
         T, Cn = xr.shape[0], omega.shape[0]
         m = pipe.lengths(T)
-        b = 8 * T + 2 * Cn * m[-1] * nbytes(odt)
+        b = 8 * T + 2 * Cn * m[-1] * nbytes(odt) + sum(
+            2 * 8 * Cn * st["carry"] for st in pipe.stages)
         ops = 2 * 2 * Cn * m[0] * pipe.K0 + 6 * Cn * T
         for s, st in enumerate(pipe.stages):
             ops += 2 * 2 * Cn * m[s + 1] * st["kernel"].shape[1]
         return b, ops
-    if tag == "K2":
-        pipe, iq, m_if, qprev, hb_tails, hist, odt = args
+    if tag == "K2":     # + the carried state read and written
+        pipe, iq, m_if, quad, hb_tails, hist, odt = args
         Cn = iq.shape[0] // 2
-        b = 2 * Cn * m_if * iq.element_size()
+        b = 2 * Cn * m_if * iq.element_size() + 2 * 4 * (
+            2 * Cn + sum(t.numel() for t in hb_tails) + hist.numel())
         ops, m = 6 * Cn * m_if, m_if
         for h in pipe.hb_taps:
             m //= 2
@@ -470,14 +477,15 @@ def short_kernel(key: str) -> str:
     return re.split(r"[(<]", k, maxsplit=1)[0].split("::")[-1].strip()
 
 
-def step_rate(label: str, step, st, T: int, card: str) -> None:
+def step_rate(label: str, step, st, T: int, card: str) -> float:
     """Times ``step`` (state → state') on one T-sample block: the mean of
     100 pipelined steps (the throughput), the wall-time percentiles of 200
     steps each followed by a sync (the latency), and a torch.profiler
     window of 20 synced steps.  From the window: device time per step by
     kernel, the kernel launches and host-to-device copies per step, and
     the device's idle share, 1 − (the window's kernel and copy time) /
-    (its wall time); one stream, so those never overlap."""
+    (its wall time); one stream, so those never overlap.  Returns the
+    window's launches per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
@@ -524,13 +532,14 @@ def step_rate(label: str, step, st, T: int, card: str) -> None:
         print(f"{label} profile: device time not measured (the profiler "
               f"saw no device activity); {launches / n:.1f} launches and "
               f"{h2d / n:.1f} host-to-device copies per step")
-        return
+        return launches / n
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     print(f"{label} profile ({n} synced steps): device {busy:.1f} us/step, "
           f"idle share {1.0 - busy * n / window_us:.3f}, "
           f"{launches / n:.1f} kernel launches and {h2d / n:.1f} "
           f"host-to-device copies per step; us/step by kernel: "
           + ", ".join(f"{k} {v:.1f}" for k, v in top) + f" [{card}]")
+    return launches / n
 
 
 def main() -> int:
@@ -671,6 +680,13 @@ def drive(dev, card: str) -> dict:
               f"plain {p_us:.1f} us [{card}]")
         if not ok:
             fail(f"{tag}: kernel disagrees with its plain version: {agree}")
+        if tag == "K1":
+            mix = sum(v for k, v in split.items() if "mix" in k)
+            print(f"K1 device time per call: mix stage {mix:.1f} us, "
+                  f"chained stages {k_us - mix:.1f} us in "
+                  f"{n_launch - 1:.0f} launches [{card}]")
+        if tag in ("K1", "K2"):
+            tails_exact(tag, args, "WFM-8, float32 handoff")
         report[tag] = {"name": name, "route": "cuda",
                        "source": KERNELS[tag][2], "replaces": KERNELS[tag][3],
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -726,9 +742,12 @@ def drive(dev, card: str) -> dict:
     precision.set_handoff_dtype("bf16")
     xn = noise_planes(T, dev)
     params = radio.make_params_shared(OFFSETS)
-    step_rate(f"WFM-8 (C={C}, fft {FFT}, bf16 handoff)",
-              lambda st: radio.apply_shared(params, st, xn, spectrum=spec)[1],
-              radio.init_state_shared(C), T, card)
+    n = step_rate(f"WFM-8 (C={C}, fft {FFT}, bf16 handoff)",
+                  lambda st: radio.apply_shared(params, st, xn,
+                                                spectrum=spec)[1],
+                  radio.init_state_shared(C), T, card)
+    print(f"WFM-8 kernel launches per step: {n:.1f} "
+          f"(before K1 and K2 ran on the FIR tile: 87)")
     return report
 
 
@@ -1427,6 +1446,8 @@ def drive_bank(dev, card: str, report: dict) -> dict:
         for i, call in enumerate(caps[fs].get("K1", [])[-n24:]):
             check_outputs("K1", call, f"{bank_label(fs)} group {i}, "
                           f"float32 handoff", 100.0)
+            tails_exact("K1", call, f"{bank_label(fs)} group {i}, float32 "
+                        f"handoff")
         check_outputs("K7", caps[fs]["K7"][-1],
                       f"{bank_label(fs)}, float32 handoff", 100.0)
     precision.set_handoff_dtype("bf16")
@@ -1437,6 +1458,8 @@ def drive_bank(dev, card: str, report: dict) -> dict:
             check_outputs("K1", call, f"{bank_label(fs)} group {i}, bf16 "
                           f"handoff, {'float32 IF' if f32_if else 'raw'}",
                           100.0 if f32_if else BF16_DB)
+            tails_exact("K1", call, f"{bank_label(fs)} group {i}, bf16 "
+                        f"handoff")
         check_outputs("K7", cap16["K7"][-1],
                       f"{bank_label(fs)}, bf16 handoff", BF16_DB)
     if len(caps[BANK_FS[0]].get("K1", [])) != 2 * n24 or \
@@ -1708,6 +1731,52 @@ def check_outputs(tag: str, args, what: str, bound_db: float) -> None:
     if worst < bound_db:
         fail(f"{tag} {what}: kernel disagrees with its plain version: "
              f"{agree}")
+
+
+def tails_exact(tag: str, args, what: str) -> None:
+    """K1's or K2's new carried state on ``args``, each tensor exactly the
+    plain version's rule (concat the carried tail, rounded to the tail
+    dtype, with the stage's input, keep the last samples, round) applied
+    to the kernels' own stage inputs: K1's stage 0 and each chained
+    stage's output, K2's discriminator output (the first launch's probe)
+    and halfband outputs.  Fails on any difference."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.ops import mono_frontend as mf
+    from sdrplusplusbrown_tpu_torch.ops import wfm_kernel as wk
+    from sdrplusplusbrown_tpu_torch.ops.precision import round_to
+
+    def planes(t):
+        return torch.cat([t.real, t.imag]).float() if t.is_complex() else t
+
+    def rule(t_in, y, n, dt):
+        return round_to(torch.cat([round_to(planes(t_in), dt), planes(y)],
+                                  dim=1)[:, -n:], dt)
+    if tag == "K1":
+        pipe, xr, xi, tail, omega, base, tails, odt, tap_dt, t_dt = args
+        h0, kernels = pipe.taps(xr.device, tap_dt)
+        y0 = mf.mono_mix_kernel(pipe, xr, xi, tail, omega, base, h0)
+        _, got, mids = mf.mono_stages_kernel(pipe, y0, tails, kernels, odt,
+                                             t_dt)
+        want = [rule(t, y, st["carry"], t_dt) for st, t, y in
+                zip(pipe.stages, tails, [y0] + mids)]
+        wrapper = mf.mono_frontend_kernel(*args)[1]
+    else:
+        pipe, iq, m_if, quad, hb_tails, hist, odt = args
+        lr, q, hbt, h, ins = wk._wfm_demod_launches(*args, probe=True)
+        got = [q[:, 0], *hbt, h]
+        want = [round_to(iq[:, m_if - 1].float(), odt)]
+        want += [rule(t, y, t.shape[1], odt) for t, y in zip(hb_tails, ins)]
+        want.append(rule(hist, ins[-1], pipe.K, odt))
+        w = wk.wfm_demod_kernel(*args)
+        wrapper = [w[1][:, 0], *w[2], w[3]]
+    torch.cuda.synchronize()
+    bad = [i for i, (g, w, v) in enumerate(zip(got, want, wrapper))
+           if not (torch.equal(planes(g), w) and torch.equal(g, v))]
+    print(f"{tag} ({what}): {len(got) - len(bad)} of {len(got)} new state "
+          f"tensors exactly the plain version's rule on the kernels' own "
+          f"stage inputs")
+    if bad or len(got) != len(want):
+        fail(f"{tag} {what}: new state {bad} differs from the plain rule")
 
 
 def kernel_count(tag: str) -> int:

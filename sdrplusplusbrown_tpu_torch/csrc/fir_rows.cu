@@ -35,8 +35,8 @@ __global__ void fir_rows_kernel(const E* __restrict__ tail, int hist,
   const long b = blockIdx.z;
   const E* tr = tail + b * hist;
   const E* xr = x + b * T;
-  sdr::fir_tile<P>(tr, hist, xr, kern, I, D, kw,
-                   y + b * static_cast<long>(n_m) * I, n_m, G, C, smem);
+  sdr::fir_tile_grid<P>(tr, hist, xr, kern, I, D, kw,
+                        y + b * static_cast<long>(n_m) * I, n_m, G, C, smem);
   if (blockIdx.x == 0 && blockIdx.y == 0) {
     E* nt = new_tail + b * hist;
     for (int e = threadIdx.x; e < hist; e += blockDim.x) {

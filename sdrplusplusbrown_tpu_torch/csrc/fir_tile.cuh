@@ -6,11 +6,14 @@
 // with kern [I, kw] float32: a stride-1 FIR (I = D = 1), a decimating FIR
 // (I = 1) or the widened L/M polyphase kernel of ops/resampler.py.
 //
+// K1's stages (mono_frontend.cu) and K2's halfbands (wfm_demod.cu) run it
+// too, with their own staging and store hooks (point 7).
+//
 // What bounds it on the H100: the path's geometries do 26-2 604 taps an
 // output on a few MB a call, so the operations bound (non-tensor float32)
-// and the bytes bound are both 0.1-3 µs; what the one-thread-an-output
-// tile (common.cuh:poly_fir_tile, kept for K1 and K2) lost was memory
-// access and latency.  The design, point by point:
+// and the bytes bound are both 0.1-3 µs; what a one-thread-an-output tile
+// (a serial loop over every tap, the taps read through the read-only
+// cache) loses is memory access and latency.  The design, point by point:
 //
 //  1. Warp-uniform phase.  A warp's lanes share one phase row r, so every
 //     tap read is one shared-memory broadcast.  A block stages the taps
@@ -49,6 +52,16 @@
 //     output chunks a block takes (C of 32·P outputs each) and the warps,
 //     so that a call with enough work launches >= 132 blocks and the
 //     block's shared memory (fir_tile_layout) stays within 227 KB.
+//  7. Hooks.  The caller hands the tile its block's outputs [m0, m0 + mb)
+//     (at most C·32·P), a staging hook that puts ext sample e into shared
+//     memory (TailThen: the copy above; K2 runs its discriminator there;
+//     K1's stage 0 copies the raw wideband with cp.async, then, in a
+//     second pass once the copies have landed, mixes each sample by its
+//     NCO in place) and a store hook for output i of y (StoreTo: y[i];
+//     K1's last stage splits a complex row into the re and im planes of
+//     the handoff).  The tap loops take any accumulator
+//     and tap type that fma_e pairs with the sample: K2's stereo section
+//     sums two real tap rows (a float2 tap) on one real input.
 //
 // Outputs go through a shared-memory tile, so that a block writes its
 // [m, r] outputs in order of y.  No tensor cores, on purpose: taps and
@@ -56,6 +69,8 @@
 // mantissa bits and fails it; a 3×TF32 split triples the matrix work,
 // where the operations bound is already ~1 µs a call.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -119,6 +134,68 @@ __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src) {
   *dst = __bfloat162float(*src);
 }
 
+// bf16 rounding of a float32 value (the handoff's storage), read back.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float2 bf16_round(float2 v) {
+  return make_float2(bf16_round(v.x), bf16_round(v.y));
+}
+
+// Staging hook of a plain FIR: ext = concat(tail (hist samples), x).
+template <typename E, typename X>
+struct TailThen {
+  const E* tail;
+  int hist;
+  const X* x;
+  __device__ __forceinline__ void operator()(E* d, long e) const {
+    if (e < hist)
+      stage(d, tail + e);
+    else
+      stage(d, x + (e - hist));
+  }
+};
+
+// ``v`` rounded to bf16 where ``bf16`` is set (a carried tail stored so).
+template <typename E>
+__device__ __forceinline__ E bf16_round_if(E v, int bf16) {
+  return bf16 ? bf16_round(v) : v;
+}
+
+// Staging hook of a stage whose carried tail may be stored in bf16: ext =
+// concat(tail, read rounded to bf16 where ``bf16`` is set, x).
+template <typename E>
+struct RoundedTailThen {
+  const E* tail;
+  int hist, bf16;
+  const E* x;
+  __device__ __forceinline__ void operator()(E* d, long e) const {
+    if (e >= hist)
+      stage(d, x + (e - hist));
+    else if (bf16)
+      *d = bf16_round(tail[e]);
+    else
+      stage(d, tail + e);
+  }
+};
+
+// A staging hook with a finish(d, e) pass: its operator() only starts
+// the copies of sample e's inputs into d; after they land, finish(d, e)
+// turns them into the sample, each thread on the slots it staged.
+template <typename S, typename = void>
+struct two_pass : std::false_type {};
+template <typename S>
+struct two_pass<S, std::void_t<decltype(&S::finish)>> : std::true_type {};
+
+// Store hook of a plain FIR: y[i].
+template <typename E>
+struct StoreTo {
+  E* y;
+  __device__ __forceinline__ void operator()(long i, E v) const { y[i] = v; }
+};
+
+// One tap on an accumulator: real taps on real or complex (float2)
+// samples, or two real tap rows (a float2 tap) on a real sample.
 __device__ __forceinline__ void fma_e(float& acc, float k, float v) {
   acc = fmaf(k, v, acc);
 }
@@ -126,14 +203,18 @@ __device__ __forceinline__ void fma_e(float2& acc, float k, float2 v) {
   acc.x = fmaf(k, v.x, acc.x);
   acc.y = fmaf(k, v.y, acc.y);
 }
+__device__ __forceinline__ void fma_e(float2& acc, float2 k, float v) {
+  acc.x = fmaf(k.x, v, acc.x);
+  acc.y = fmaf(k.y, v, acc.y);
+}
 
 // Taps [lo, hi) of a phase row, in ascending order, on P consecutive
 // outputs, the first of which reads xs = sx + mm0: ext[(mm0 + j)·D + l] =
 // xs[(l mod D)·S + l div D + j].  Any D: tap l = a·D + p, a outer and the
 // input phase p inner, so that the inner loop is a plain stride-S walk;
 // each tap costs one broadcast tap read and P input reads.
-template <int P, typename E>
-__device__ __forceinline__ void taps_any_d(E (&acc)[P], const E* xs,
+template <int P, typename A, typename E>
+__device__ __forceinline__ void taps_any_d(A (&acc)[P], const E* xs,
                                            const float* kr, int S, int D,
                                            int lo, int hi) {
   int a = lo / D, p = lo - a * D;
@@ -157,9 +238,9 @@ __device__ __forceinline__ void taps_any_d(E (&acc)[P], const E* xs,
 // multiple of DT (the taps below lo are zero), so that every slot and
 // input row is a compile-time constant.  A value loaded beyond what the
 // last tap needs is never read.
-template <int P, int DT, typename E>
-__device__ __forceinline__ void taps_ring(E (&acc)[P], const E* xs,
-                                          const float* kr, int S, int lo,
+template <int P, int DT, typename A, typename E, typename T>
+__device__ __forceinline__ void taps_ring(A (&acc)[P], const E* xs,
+                                          const T* kr, int S, int lo,
                                           int hi) {
   constexpr int R = P * DT;
   int l = lo - lo % DT;
@@ -171,7 +252,7 @@ __device__ __forceinline__ void taps_ring(E (&acc)[P], const E* xs,
 #pragma unroll
     for (int s = 0; s < R; ++s) {
       w[(s + R - 1) % R] = x[((s + R - 1) % DT) * S + (s + R - 1) / DT];
-      const float k = kr[l + s];
+      const T k = kr[l + s];
 #pragma unroll
       for (int j = 0; j < P; ++j) fma_e(acc[j], k, w[(s + j * DT) % R]);
     }
@@ -180,22 +261,21 @@ __device__ __forceinline__ void taps_ring(E (&acc)[P], const E* xs,
   for (int s = 0; s < R - 1; ++s) {
     if (l + s < hi) {
       w[(s + R - 1) % R] = x[((s + R - 1) % DT) * S + (s + R - 1) / DT];
-      const float k = kr[l + s];
+      const T k = kr[l + s];
 #pragma unroll
       for (int j = 0; j < P; ++j) fma_e(acc[j], k, w[(s + j * DT) % R]);
     }
   }
 }
 
-// One block: phase rows r0 = blockIdx.y·G ... (at most G), outputs m0 =
-// blockIdx.x·C·32·P ... (at most C·32·P) of the row whose tail, x and y
-// the caller points at.  E is the sample (float or float2), X x's storage
-// (E, or bf16 for real rows).
-template <int P, typename E, typename X>
+// One block: phase rows r0 = blockIdx.y·G ... (at most G), outputs m0
+// ... m0 + mb − 1 (mb <= C·32·P) of the row whose staging hook ``src``
+// (src(d, e) puts ext sample e at d) and store hook ``dst`` (dst(i, v)
+// stores y[i]) the caller gives.  E is the sample, float or float2.
+template <int P, typename E, typename Src, typename Dst>
 __device__ __forceinline__ void fir_tile(
-    const E* __restrict__ tail, int hist, const X* __restrict__ x,
-    const float* __restrict__ kern, int I, int D, int kw,
-    E* __restrict__ y, int n_m, int G, int C, float* smem) {
+    const Src& src, const float* __restrict__ kern, int I, int D, int kw,
+    const Dst& dst, int n_m, int m0, int mb, int G, int C, float* smem) {
   constexpr int comps = sizeof(E) / sizeof(float);
   const FirLayout f = fir_tile_layout(D, kw, n_m, P, G, C, comps);
   float* taps = smem;
@@ -205,13 +285,13 @@ __device__ __forceinline__ void fir_tile(
   const int tid = threadIdx.x, nth = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nth >> 5;
   const int r0 = blockIdx.y * G, gn = fir_imin(G, I - r0);
-  const int m0 = blockIdx.x * C * 32 * P, mb = fir_imin(C * 32 * P, n_m - m0);
   const int S = f.stride, prow = fir_imin(D, kw);
 
-  // 1. the group's taps and the block's input span, one commit group
+  // 1. the group's taps and the block's input span, one commit group;
+  // a two-pass hook then finishes, in place, each sample it staged
   const float* kg = kern + static_cast<long>(r0) * kw;
   for (int i = tid; i < gn * kw; i += nth) cp_async(taps + i, kg + i);
-  {
+  const auto each_sample = [&](auto&& fn) {
     const int J = mb + (kw - 1) / D;          // samples a row holds
     const int need = (mb - 1) * D + kw;       // ext samples the block reads
     const long e0 = static_cast<long>(m0) * D;
@@ -221,14 +301,7 @@ __device__ __forceinline__ void fir_tile(
 #pragma unroll 8
     for (int i = tid; i < J * prow; i += nth) {
       const int off = j * D + p;
-      if (off < need) {
-        const long e = e0 + off;
-        E* d = sx + p * S + j;
-        if (e < hist)
-          stage(d, tail + e);
-        else
-          stage(d, x + (e - hist));
-      }
+      if (off < need) fn(sx + p * S + j, e0 + off);
       j += dj;
       p += dp;
       if (p >= prow) {
@@ -236,8 +309,11 @@ __device__ __forceinline__ void fir_tile(
         ++j;
       }
     }
-  }
+  };
+  each_sample([&](E* d, long e) { src(d, e); });
   cp_async_wait_all();
+  if constexpr (two_pass<Src>::value)
+    each_sample([&](E* d, long e) { src.finish(d, e); });
   __syncthreads();
 
   // 2. each phase row's nonzero band [lo, hi), one warp a row
@@ -287,8 +363,21 @@ __device__ __forceinline__ void fir_tile(
   // 4. the block's outputs in order of y
   for (int i = tid; i < mb * gn; i += nth) {
     const int mm = i / gn, g = i - mm * gn;
-    y[static_cast<long>(m0 + mm) * I + r0 + g] = out[mm * Gp + g];
+    dst(static_cast<long>(m0 + mm) * I + r0 + g, out[mm * Gp + g]);
   }
+}
+
+// The plain grid's block: outputs blockIdx.x·C·32·P ... of a row's n_m,
+// read through ``tail`` then ``x`` and written to ``y``.
+template <int P, typename E, typename X>
+__device__ __forceinline__ void fir_tile_grid(
+    const E* __restrict__ tail, int hist, const X* __restrict__ x,
+    const float* __restrict__ kern, int I, int D, int kw,
+    E* __restrict__ y, int n_m, int G, int C, float* smem) {
+  const int m0 = blockIdx.x * C * 32 * P;
+  fir_tile<P, E>(TailThen<E, X>{tail, hist, x}, kern, I, D, kw,
+                 StoreTo<E>{y}, n_m, m0, fir_imin(C * 32 * P, n_m - m0), G,
+                 C, smem);
 }
 
 // Opt the kernel in to its shared memory and launch it on ``grid``.
@@ -301,6 +390,16 @@ inline cudaError_t fir_launch(Kernel* kernel, dim3 grid, int warps,
   if (e != cudaSuccess) return e;
   kernel<<<grid, 32 * warps, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// fir_launch of the instance for P outputs a lane (k1, k3, k5: P = 1, 3, 5).
+template <typename Kernel, typename... Args>
+inline cudaError_t fir_launch_p(int P, Kernel* k1, Kernel* k3, Kernel* k5,
+                                dim3 grid, int warps, size_t smem,
+                                cudaStream_t stream, Args... args) {
+  Kernel* k = P == 1 ? k1 : P == 3 ? k3 : P == 5 ? k5 : nullptr;
+  if (!k) return cudaErrorInvalidValue;
+  return fir_launch(k, grid, warps, smem, stream, args...);
 }
 
 }  // namespace sdr

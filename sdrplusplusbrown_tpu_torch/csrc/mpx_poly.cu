@@ -28,8 +28,8 @@ __global__ void mpx_poly_kernel(const float* __restrict__ tail, int hist,
                                 int G, int C) {
   extern __shared__ __align__(16) float smem[];
   const long row = blockIdx.z;
-  sdr::fir_tile<P>(tail + row * hist, hist, x + row * x_stride, kern, I, D,
-                   kw, y + row * m_out, m_out / I, G, C, smem);
+  sdr::fir_tile_grid<P>(tail + row * hist, hist, x + row * x_stride, kern, I,
+                        D, kw, y + row * m_out, m_out / I, G, C, smem);
 }
 
 template <typename X>

@@ -32,12 +32,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: argument types of every C entry point (the stream, last, is added)
 SIGNATURES = {
-    "sdr_mono_mix_decim": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _P],
-    "sdr_mono_poly_stage": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I],
-    "sdr_wfm_quad": [_P, _I, _I, _I, _I, _P, _F, _P],
-    "sdr_wfm_halfband": [_P, _I, _P, _I, _P, _I, _P, _I, _I],
-    "sdr_wfm_stereo": [_P, _P, _I, _I, _I, _P, _P, _F, _F, _P, _I, _I],
+    "sdr_mono_mix": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _P, _I, _I, _I],
+    "sdr_mono_stage": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I,
+                       _P, _I, _I, _I, _I],
+    "sdr_wfm_quad_halfband": [_P, _I, _I, _I, _I, _P, _F, _P, _I, _P, _I,
+                              _P, _I, _I, _P, _P, _P, _I, _I, _I],
+    "sdr_wfm_halfband": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P, _I,
+                         _I, _I],
+    "sdr_wfm_stereo": [_P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P, _I, _P,
+                       _I, _I, _I, _I],
     "sdr_mpx_poly": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I,
                      _I, _I, _I, _I],
     "sdr_fft_frames": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -5,11 +5,12 @@ sdrplusplusbrown_tpu/ops/wfm_kernel.py and ops/pallas_wfm.py).
 K2 (``wfm_demod``): the IF planes [2C, ≥m_if] → discriminator → MPX
 halfbands → stereo section (pilot band-pass, normalize VCO with the
 one-sample PLL lag, L±R matrix) → L/R planes [2C, m_mpx] in the handoff
-dtype.  The stereo section uses the identities of the TPU kernel
-(ops/pallas_wfm.py there): the lagged pilot is a window offset,
-u = conj(pilot_phase_corr)² folds the phase correction, and the
-``mpx_hist`` state (last K MPX samples) covers the pilot FIR, its lag and
-the L+R delay d ≤ K.
+dtype, and the carried state it advances (quad, mpx_decim, mpx_hist),
+computed by the kernels themselves.  The stereo section uses the
+identities of the TPU kernel (ops/pallas_wfm.py there): the lagged pilot
+is a window offset, u = conj(pilot_phase_corr)² folds the phase
+correction, and the ``mpx_hist`` state (last K MPX samples) covers the
+pilot FIR, its lag and the L+R delay d ≤ K.
 
 K10 (``wfm_stereo``): K2's stereo section launched alone, the
 counterpart of ``_wfm_stereo_kernel`` (ops/pallas_wfm.py there): MPX
@@ -33,7 +34,7 @@ import torch
 from ..kernels import _build
 from .demod import quad_planes
 from .precision import get_handoff_dtype, round_to
-from .fir_kernel import fir_plan, poly_rows
+from .fir_kernel import SMS, fir_plan, poly_rows
 
 #: storage dtypes the kernels read and write
 _STORAGE = (torch.float32, torch.bfloat16)
@@ -83,35 +84,25 @@ class WFMDemodPipeline:
         """iq: [2C, ≥m_if] IF planes (re rows, im rows) → (L/R planes
         [2C, m_mpx] in the handoff dtype, new_state with quad / mpx_decim /
         mpx_hist updated and every other key passed through)."""
-        C = iq.shape[0] // 2
-        h_dt = get_handoff_dtype()
-        q = state["quad"][:, 0]
-        qprev = round_to(torch.cat([q.real, q.imag]).float(), h_dt)
-        hb_tails = [round_to(t.float(), h_dt).contiguous()
-                    for t in state["mpx_decim"]]
-        hist = round_to(state["mpx_hist"].float(), h_dt).contiguous()
-        lr, ins = wfm_demod(self, iq, m_if, qprev.contiguous(), hb_tails,
-                            hist, h_dt)
+        lr, quad, hb_tails, hist = wfm_demod(
+            self, iq, m_if, state["quad"].contiguous(),
+            [t.float().contiguous() for t in state["mpx_decim"]],
+            state["mpx_hist"].float().contiguous(), get_handoff_dtype())
         new_state = dict(state)
-        last = iq[:, m_if - 1].float()
-        last = round_to(last, h_dt)
-        new_state["quad"] = torch.complex(last[:C], last[C:])[:, None]
-        new_state["mpx_decim"] = [
-            round_to(torch.cat([t, y], dim=1)[:, -t.shape[1]:], h_dt)
-            for t, y in zip(hb_tails, ins[:-1])]
-        new_state["mpx_hist"] = round_to(
-            torch.cat([hist, ins[-1]], dim=1)[:, -self.K:], h_dt)
+        new_state.update(quad=quad, mpx_decim=hb_tails, mpx_hist=hist)
         return lr, new_state
 
 
-def _check_wfm(pipe, iq, m_if, qprev, hb_tails, hist):
+def _check_wfm(pipe, iq, m_if, quad, hb_tails, hist):
     C = iq.shape[0] // 2
     if iq.dim() != 2 or iq.shape[0] != 2 * C or iq.shape[1] < m_if:
         raise ValueError(f"IF planes shape {tuple(iq.shape)}")
     if m_if % (1 << len(pipe.hb_taps)):
         raise ValueError(f"m_if {m_if} not a multiple of the MPX decimation")
-    if tuple(qprev.shape) != (2 * C,):
-        raise ValueError(f"quad state shape {tuple(qprev.shape)}")
+    if tuple(quad.shape) != (C, 1) or not quad.is_complex():
+        raise ValueError(f"quad state {tuple(quad.shape)} {quad.dtype}")
+    if len(hb_tails) != len(pipe.hb_taps):
+        raise ValueError(f"{len(hb_tails)} halfband tails")
     for h, t in zip(pipe.hb_taps, hb_tails):
         if tuple(t.shape) != (C, len(h) - 1):
             raise ValueError(f"halfband tail shape {tuple(t.shape)}")
@@ -120,23 +111,42 @@ def _check_wfm(pipe, iq, m_if, qprev, hb_tails, hist):
     return C
 
 
-def wfm_demod_ref(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype):
-    """Plain PyTorch K2: returns (L/R planes [2C, m_mpx] ``out_dtype``,
-    [input of each halfband ..., MPX] float32)."""
-    C = _check_wfm(pipe, iq, m_if, qprev, hb_tails, hist)
+def wfm_demod_ref(pipe, iq, m_if, quad, hb_tails, hist, out_dtype):
+    """Plain PyTorch K2: the carried state ``quad`` (complex [C, 1]),
+    ``hb_tails`` ([C, K_i − 1] each) and ``hist`` ([C, K]) are read
+    rounded to ``out_dtype``, the handoff dtype; returns (L/R planes [2C,
+    m_mpx] ``out_dtype``, new quad complex64 [C, 1], [new halfband tails],
+    new mpx_hist), the state float32 with values rounded to
+    ``out_dtype``."""
+    lr, quad, tails, hist, _ = _wfm_demod_ref(pipe, iq, m_if, quad,
+                                              hb_tails, hist, out_dtype)
+    return lr, quad, tails, hist
+
+
+def _wfm_demod_ref(pipe, iq, m_if, quad, hb_tails, hist, out_dtype):
+    """``wfm_demod_ref``'s five results: those four, then [the
+    discriminator's output, each halfband's]."""
+    C = _check_wfm(pipe, iq, m_if, quad, hb_tails, hist)
     hbs, hr, hi = pipe.taps(iq.device, out_dtype)
     x = iq[:, :m_if].float()
     er, ei = x[:C], x[C:]
-    erp = torch.cat([qprev[:C, None], er[:, :-1]], dim=1)
-    eip = torch.cat([qprev[C:, None], ei[:, :-1]], dim=1)
+    q = round_to(quad[:, 0], out_dtype)
+    erp = torch.cat([q.real.float()[:, None], er[:, :-1]], dim=1)
+    eip = torch.cat([q.imag.float()[:, None], ei[:, :-1]], dim=1)
     y = quad_planes(er, ei, erp, eip, pipe.inv_dev)
-    ins = []
+    last = round_to(x[:, m_if - 1], out_dtype)
+    new_quad = torch.complex(last[:C], last[C:])[:, None]
+    outs, new_tails = [y], []
     for h, t in zip(hbs, hb_tails):
-        ins.append(y)
-        y = poly_rows(torch.cat([t, y], dim=1), h[None, :], 1, 2)
-    ins.append(y)
-    lr = _stereo_ref(pipe, y, hist, hr, hi)
-    return lr.reshape(2 * C, -1).to(out_dtype), ins
+        ext = torch.cat([round_to(t.float(), out_dtype), y], dim=1)
+        new_tails.append(round_to(ext[:, -t.shape[1]:], out_dtype))
+        y = poly_rows(ext, h[None, :], 1, 2)
+        outs.append(y)
+    ext = torch.cat([round_to(hist.float(), out_dtype), y], dim=1)
+    new_hist = round_to(ext[:, -pipe.K:], out_dtype)
+    lr = _stereo_ref(pipe, y, ext[:, :pipe.K], hr, hi)
+    return (lr.reshape(2 * C, -1).to(out_dtype), new_quad, new_tails,
+            new_hist, outs)
 
 
 def _stereo_ref(pipe, mpx, hist, hr, hi):
@@ -155,49 +165,104 @@ def _stereo_ref(pipe, mpx, hist, hr, hi):
 
 
 @_build.counted
-def wfm_demod_kernel(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype):
-    """K2 on the card (csrc/wfm_demod.cu); same contract as
-    ``wfm_demod_ref``."""
+def wfm_demod_kernel(pipe, iq, m_if, quad, hb_tails, hist, out_dtype):
+    """K2 on the card (csrc/wfm_demod.cu, three launches); same contract
+    as ``wfm_demod_ref``."""
+    return _wfm_demod_launches(pipe, iq, m_if, quad, hb_tails, hist,
+                               out_dtype)[:4]
+
+
+def demod_plan(n_out: int, rows: int) -> dict:
+    """The FIR tile's grid for K2's three launches and K10 (csrc/
+    wfm_demod.cu): ``P`` = 3 outputs a lane, 8 warps, ``C`` chunks of 32·P
+    outputs a block, halved from 4 until the launch has 4 blocks an SM
+    (or C = 1).  These launches last a few µs each, the first's staging
+    runs the discriminator (~60 operations a sample, more than an
+    output's 26 taps) and the stereo section's 159 taps feed two sums an
+    output: latency bounds them, and more, smaller blocks than
+    ``fir_plan`` gives K8 hide more of it (``scripts/front_end_sweep.py
+    --plans`` ranks this choice among a grid of plans for each
+    launch)."""
+    P = 3
+    n_c = -(-n_out // (32 * P))
+    C = min(4, n_c)
+    while C > 1 and rows * -(-n_c // C) < 4 * SMS:
+        C = (C + 1) // 2
+    return {"P": P, "C": C, "warps": 8, "grid": (-(-n_c // C), 1, rows)}
+
+
+def _wfm_demod_launches(pipe, iq, m_if, quad, hb_tails, hist, out_dtype,
+                        probe: bool = False):
+    """K2's three launches: ``wfm_demod_kernel``'s four results, then [the
+    discriminator's output (with ``probe``, else None), the first
+    halfband's, the second's (the MPX)]."""
     dev = iq.device
     f32 = torch.float32
-    C = _check_wfm(pipe, iq, m_if, qprev, hb_tails, hist)
-    if out_dtype not in _STORAGE:
-        raise ValueError(f"output dtype {out_dtype}")
+    C = _check_wfm(pipe, iq, m_if, quad, hb_tails, hist)
+    if out_dtype not in _STORAGE or len(hb_tails) != 2:
+        raise ValueError(f"output dtype {out_dtype}, "
+                         f"{len(hb_tails)} halfbands")
     hbs, hr, hi = pipe.taps(dev, out_dtype)
-    y = torch.empty((C, m_if), dtype=f32, device=dev)
+    h_bf16 = int(out_dtype == torch.bfloat16)
+    new_tails = [torch.empty_like(t) for t in hb_tails]
+    mpx0 = torch.empty((C, m_if), dtype=f32, device=dev) if probe else None
+    # the discriminator in the first halfband's staging
+    K = hbs[0].shape[0]
+    y = torch.empty((C, m_if // 2), dtype=f32, device=dev)
+    new_quad = torch.empty((C, 1), dtype=torch.complex64, device=dev)
+    p = demod_plan(y.shape[1], C)
     _build.launch(
-        "sdr_wfm_quad", dev,
+        "sdr_wfm_quad_halfband", dev,
         _build.check(iq, "IF planes", _STORAGE, device=dev),
         int(iq.dtype == torch.bfloat16), iq.shape[1], C, m_if,
-        _build.check(qprev, "quad state", f32, device=dev),
-        pipe.inv_dev, y.data_ptr())
-    ins = []
-    for h, t in zip(hbs, hb_tails):
-        ins.append(y)
-        out = torch.empty((C, y.shape[1] // 2), dtype=f32, device=dev)
-        _build.launch(
-            "sdr_wfm_halfband", dev,
-            _build.check(t, "halfband tail", f32, device=dev), t.shape[1],
-            y.data_ptr(), y.shape[1], _build.check(h, "halfband taps", f32),
-            h.shape[0], out.data_ptr(), out.shape[1], C)
-        y = out
-    ins.append(y)
-    m = y.shape[1]
-    lr = torch.empty((2 * C, m), dtype=out_dtype, device=dev)
+        _build.check(quad, "quad state", torch.complex64, device=dev),
+        pipe.inv_dev,
+        _build.check(hb_tails[0], "halfband tail", f32, device=dev), K - 1,
+        _build.check(hbs[0], "halfband taps", f32), K, y.data_ptr(),
+        y.shape[1], h_bf16, new_quad.data_ptr(), new_tails[0].data_ptr(),
+        None if mpx0 is None else mpx0.data_ptr(), p["P"], p["C"],
+        p["warps"])
+    outs = [mpx0, y]
+    K = hbs[1].shape[0]
+    mpx = torch.empty((C, y.shape[1] // 2), dtype=f32, device=dev)
+    p = demod_plan(mpx.shape[1], C)
     _build.launch(
-        "sdr_wfm_stereo", dev, y.data_ptr(),
-        _build.check(hist, "mpx_hist", f32, device=dev), pipe.K, pipe.d, m,
-        _build.check(hr, "pilot re", f32), _build.check(hi, "pilot im", f32),
-        pipe.ur, pipe.ui2, lr.data_ptr(),
-        int(out_dtype == torch.bfloat16), C)
-    return lr, ins
+        "sdr_wfm_halfband", dev,
+        _build.check(hb_tails[1], "halfband tail", f32, device=dev), K - 1,
+        h_bf16, y.data_ptr(), y.shape[1],
+        _build.check(hbs[1], "halfband taps", f32), K, mpx.data_ptr(),
+        mpx.shape[1], C, new_tails[1].data_ptr(), p["P"], p["C"],
+        p["warps"])
+    outs.append(mpx)
+    lr = torch.empty((2 * C, mpx.shape[1]), dtype=out_dtype, device=dev)
+    new_hist = torch.empty_like(hist)
+    _launch_stereo(pipe, mpx, hist, h_bf16, hr, hi, lr, new_hist)
+    return lr, new_quad, new_tails, new_hist, outs
 
 
-def wfm_demod(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype):
+def _launch_stereo(pipe, mpx, hist, h_bf16, hr, hi, out, new_hist):
+    """The stereo section (csrc/wfm_demod.cu:sdr_wfm_stereo) on MPX [C, m]
+    float32 into ``out`` ([2C, m] float32 or bf16), ``new_hist`` where
+    not None; ``demod_plan``'s grid."""
+    dev = mpx.device
+    f32 = torch.float32
+    C, m = mpx.shape
+    p = demod_plan(m, C)
+    _build.launch(
+        "sdr_wfm_stereo", dev, _build.check(mpx, "MPX", f32, device=dev),
+        _build.check(hist, "mpx_hist", f32, device=dev), h_bf16, pipe.K,
+        pipe.d, m, _build.check(hr, "pilot re", f32),
+        _build.check(hi, "pilot im", f32), pipe.ur, pipe.ui2,
+        out.data_ptr(), int(out.dtype == torch.bfloat16),
+        None if new_hist is None else new_hist.data_ptr(), C, p["P"], p["C"],
+        p["warps"])
+
+
+def wfm_demod(pipe, iq, m_if, quad, hb_tails, hist, out_dtype):
     """K2 dispatch: the kernel for CUDA tensors, the plain version for
     CPU tensors."""
     fn = wfm_demod_kernel if iq.is_cuda else wfm_demod_ref
-    return fn(pipe, iq, m_if, qprev, hb_tails, hist, out_dtype)
+    return fn(pipe, iq, m_if, quad, hb_tails, hist, out_dtype)
 
 
 def _check_stereo(pipe, mpx, hist):
@@ -219,17 +284,11 @@ def wfm_stereo_ref(pipe, mpx, hist):
 def wfm_stereo_kernel(pipe, mpx, hist):
     """K10 on the card (csrc/wfm_demod.cu:stereo_kernel launched alone
     through ``sdr_wfm_stereo``); same contract as ``wfm_stereo_ref``."""
-    dev = mpx.device
-    f32 = torch.float32
     _check_stereo(pipe, mpx, hist)
-    _, hr, hi = pipe.taps(dev, f32)
-    C, m = mpx.shape
-    out = torch.empty((2, C, m), dtype=f32, device=dev)
-    _build.launch(
-        "sdr_wfm_stereo", dev, _build.check(mpx, "MPX", f32, device=dev),
-        _build.check(hist, "mpx_hist", f32, device=dev), pipe.K, pipe.d, m,
-        _build.check(hr, "pilot re", f32), _build.check(hi, "pilot im", f32),
-        pipe.ur, pipe.ui2, out.data_ptr(), 0, C)
+    _, hr, hi = pipe.taps(mpx.device, torch.float32)
+    out = torch.empty((2,) + tuple(mpx.shape), dtype=torch.float32,
+                      device=mpx.device)
+    _launch_stereo(pipe, mpx, hist, 0, hr, hi, out, None)
     return out
 
 

@@ -117,6 +117,109 @@ def test_wfm_kernels_match_plain(gpu, handoff, C):
     assert wfm_kernel.mpx_audio_poly_kernel.launches == n3 + 2
 
 
+def _planes_of(t):
+    return torch.cat([t.real, t.imag]).float() if t.is_complex() else t
+
+
+def _tail_rule(t_in, y, n, dt):
+    """The plain version's new tail: concat(the carried tail rounded to
+    ``dt``, the stage input), the last ``n`` samples, rounded (planes)."""
+    return precision.round_to(torch.cat(
+        [precision.round_to(_planes_of(t_in), dt), _planes_of(y)],
+        dim=1)[:, -n:], dt)
+
+
+@pytest.mark.parametrize("group", ["NFM", "AM", "USB"])
+def test_frontend_chains_match_plain(gpu, handoff, group):
+    """K1 at multimode8's 2.4 MS/s chains (C = 4, 240 000 samples, each
+    group's IF dtype) against its plain version on the same card tensors:
+    the IF >= 100 dB (45 dB for a bf16 IF), every new stage tail within
+    the same bar of the plain version's and exactly the plain version's
+    rule on the kernels' own stage inputs; one counted launch a call."""
+    from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
+    bank = rb.RadioBank(2.4e6, rb.multimode8_vfos(), device=gpu)
+    d, r = next((d, r) for d, r in bank.radios.items()
+                if r.demod_name == group)
+    pipe = r._build_vfo_shared().pipe()
+    p = bank.make_params()[d]["vfo"]["fused"]
+    st = bank.init_state()[d]["vfo"]
+    C, T = p["omega"].shape[0], 240_000
+    rng = np.random.default_rng(len(group))
+    xr, xi = (torch.from_numpy(0.1 * rng.standard_normal(T)).float().to(gpu)
+              for _ in range(2))
+    h_dt = precision.get_handoff_dtype()
+    t_dt = h_dt if C >= 16 else torch.float32
+    out_dt = h_dt if group == "NFM" else torch.float32
+    tails = [precision.round_to(torch.from_numpy(
+        (rng.standard_normal((C, s["carry"]))
+         + 1j * rng.standard_normal((C, s["carry"]))).astype(np.complex64)),
+        t_dt).to(gpu) for s in pipe.stages]
+    tail = st["fused"]["tail"] + 0.01
+    base = pipe.base_phases(p, st["fused"]["phase"], T)
+    args = (pipe, xr, xi, tail, p["omega"], base, tails, out_dt, h_dt, t_dt)
+    n0 = mono_frontend.mono_frontend_kernel.launches
+    got = mono_frontend.mono_frontend_kernel(*args)
+    assert mono_frontend.mono_frontend_kernel.launches == n0 + 1
+    want = mono_frontend.mono_frontend_ref(*args)
+    bound = 45.0 if out_dt == torch.bfloat16 else 100.0
+    assert got[0].dtype == out_dt
+    _close(want[0], got[0], bound, "IF")
+    h0, kernels = pipe.taps(gpu, h_dt)
+    y0 = mono_frontend.mono_mix_kernel(pipe, xr, xi, tail, p["omega"], base,
+                                       h0)
+    _, new, mids = mono_frontend.mono_stages_kernel(pipe, y0, tails, kernels,
+                                                    out_dt, t_dt)
+    for s, (stg, t, y, g, w) in enumerate(zip(pipe.stages, tails,
+                                              [y0] + mids, got[1], want[1])):
+        _close(w, g, bound, f"stage {s} tail")
+        assert torch.equal(g, new[s])
+        assert torch.equal(_planes_of(g), _tail_rule(t, y, stg["carry"],
+                                                      t_dt)), s
+
+
+@pytest.mark.parametrize("C", [1, 8])
+def test_wfm_demod_state_matches_plain(gpu, handoff, C):
+    """K2's new state on the card against its plain version on the same
+    tensors (50 000 IF samples): the carried IF sample exactly; each
+    halfband's tail and mpx_hist within 70 dB (50 in bf16) and exactly
+    the plain version's rule on the kernels' own stage inputs (the
+    discriminator's output, read back through the first launch's probe,
+    and the halfbands' outputs); three launches a call."""
+    radio = Radio(FS, DEMOD_WFM, device=gpu)
+    pipe = radio.demod.pipes()[0]
+    dt = precision.get_handoff_dtype()
+    rng = np.random.default_rng(C)
+    offs = np.linspace(-0.5e6, 0.5e6, C) if C > 1 else np.array([1e5])
+    x = wfm_iq(50_000, offs, seed=C)
+    iq = torch.from_numpy(np.concatenate(
+        [np.tile(x.real, (C, 1)), np.tile(x.imag, (C, 1))]).astype(
+            np.float32)).to(gpu).to(dt)
+    quad = torch.from_numpy((rng.standard_normal((C, 1))
+                             + 1j * rng.standard_normal((C, 1))).astype(
+        np.complex64)).to(gpu)
+    hbt = [torch.from_numpy(rng.standard_normal((C, len(h) - 1)).astype(
+        np.float32)).to(gpu) for h in pipe.hb_taps]
+    hist = torch.from_numpy(rng.standard_normal((C, pipe.K)).astype(
+        np.float32)).to(gpu)
+    args = (pipe, iq, 50_000, quad, hbt, hist, dt)
+    n0 = wfm_kernel.wfm_demod_kernel.launches
+    got = wfm_kernel.wfm_demod_kernel(*args)
+    assert wfm_kernel.wfm_demod_kernel.launches == n0 + 1
+    want = wfm_kernel.wfm_demod_ref(*args)
+    bound = 70.0 if dt == torch.float32 else 50.0
+    _close(want[0], got[0], bound, "L/R")
+    assert torch.equal(got[1], want[1])
+    lr, q, new_t, new_h, ins = wfm_kernel._wfm_demod_launches(*args,
+                                                              probe=True)
+    assert torch.equal(lr, got[0]) and torch.equal(q, got[1])
+    for i, (t, y) in enumerate(zip(hbt, ins)):
+        _close(want[2][i], got[2][i], bound, f"mpx_decim {i}")
+        assert torch.equal(got[2][i], new_t[i])
+        assert torch.equal(got[2][i], _tail_rule(t, y, t.shape[1], dt)), i
+    _close(want[3], got[3], bound, "mpx_hist")
+    assert torch.equal(got[3], _tail_rule(hist, ins[-1], pipe.K, dt))
+
+
 @pytest.mark.parametrize("fft_size,interval,n", [(1024, 2_500, 5),
                                                  (2048, 5_000, 3),
                                                  (4096, 12_000, 4),

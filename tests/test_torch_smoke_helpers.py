@@ -142,3 +142,40 @@ def test_k3_work_counts_the_folded_kernels_band(smoke):
     band = smoke.band_taps(pipe.taps("cpu", torch.float32))
     assert 48 * 256 <= band <= 48 * 257
     assert ops == 2 * 16 * 100 * band and 0.51 < ops / dense < 0.53
+
+
+@pytest.mark.parametrize("odt, nbytes", [(torch.float32, 4),
+                                         (torch.bfloat16, 2)])
+def test_k1_work_counts_the_wideband_the_if_and_the_stage_tails(smoke, odt,
+                                                                 nbytes):
+    """WFM-8's K1: the wideband planes in, the IF planes out, each chained
+    stage's complex tail read and its new tail written (8 bytes a sample
+    each way); bound by its multiply-adds."""
+    from sdrplusplusbrown_tpu_torch.models.radio import Radio, DEMOD_WFM
+    pipe = Radio(2.4e6, DEMOD_WFM, device="cpu")._build_vfo_shared().pipe()
+    T, C = 240_000, 8
+    xr = torch.zeros(T)
+    args = (pipe, xr, xr, None, torch.zeros(C), None, None, odt)
+    b, ops = smoke.work("K1", args)
+    carry = sum(st["carry"] for st in pipe.stages)
+    assert carry == 91 + 252
+    assert b == 8 * T + 2 * C * 50_000 * nbytes + 16 * C * carry
+    assert ops == (4 * C * 60_000 * 304 + 6 * C * T
+                   + 4 * C * 50_000 * (97 + 253))
+    assert smoke.bound("K1", args)[1] == "operations"
+
+
+def test_k2_work_counts_the_carried_state(smoke):
+    """WFM-8's K2: the IF planes in, the L/R planes out, the carried IF
+    sample, the halfband tails and mpx_hist read and written."""
+    from sdrplusplusbrown_tpu_torch.models.radio import Radio, DEMOD_WFM
+    pipe = Radio(2.4e6, DEMOD_WFM, device="cpu").demod.pipes()[0]
+    C, m_if = 8, 50_000
+    iq = torch.zeros((2 * C, m_if), dtype=torch.bfloat16)
+    tails = [torch.zeros((C, len(h) - 1)) for h in pipe.hb_taps]
+    hist = torch.zeros((C, pipe.K))
+    args = (pipe, iq, m_if, None, tails, hist, torch.bfloat16)
+    b, _ = smoke.work("K2", args)
+    state = 2 * C + C * (25 + 104) + C * 159
+    assert [len(h) for h in pipe.hb_taps] == [26, 105] and pipe.K == 159
+    assert b == 2 * C * m_if * 2 + 2 * 4 * state + 2 * C * 12_500 * 2
