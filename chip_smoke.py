@@ -55,13 +55,18 @@ Phases, each fatal on failure:
      step beside the 87 before K1 and K2 ran on the FIR tile;
   6. K5-K7 each against its plain version at the scanner128 shapes on an
      NFM signal (a 1 kHz tone on every 8th channel), float32 handoff,
-     timed with CUDA events;
+     timed with CUDA events; K7's every output (bit-identical or 80 dB),
+     its device time by launch (profiler) and CUDA launches a call (its
+     wrapper counts each; held to ``demod_kernel.fm_plan`` and to the
+     profiler's count), its new tails as in 3;
   7. three scanner128 steps with a retune before the third, bf16 handoff,
-     the counts zeroed just before: K5, K6 and K7 once each per step,
-     exactly the tone channels open, their tone SNR;
-  8. one scanner256 step: K5-K7 one launch each, each against its plain
-     version;
-  9. the scanner128 step (bf16, raw audio) on the same noise, as in 5;
+     the counts zeroed just before: K5, K6 and K7 one call each per step
+     (K5 and K6 count a call, K7 each of its CUDA launches), exactly the
+     tone channels open, their tone SNR;
+  8. one scanner256 step: K5-K7 one call each, each against its plain
+     version; K7's launches and tails as in 6;
+  9. the scanner128 step (bf16, raw audio) on the same noise, as in 5,
+     its launches a step beside the 54 before K7 ran on the FIR tile;
  10. K8, K9, K10 and K4f each against its plain version at the app
      step's shapes (K8 on every distinct geometry the three runs of 11
      give it, each timed, with its launches a step on each path; K9
@@ -82,15 +87,18 @@ Phases, each fatal on failure:
  13. the bank's kernels against their plain versions at its shapes,
      every tensor each returns (IF or audio, new tails, state): K1 on
      each 2.4 MS/s group's call (its new tails also held as in 3) and K7
-     on each bank's NFM call, in the float32 and again in the bf16
-     handoff (100 dB, 45 dB for a bf16 output); K11 on every 10 MS/s
-     group call, K12 on each AM and USB shape of both rates, timed with
-     CUDA events (K11 beside one conv1d, TF32 off); every distinct K8
+     on each bank's NFM call (its tails, launches and device time by
+     launch as in 6), in the float32 and again in the bf16 handoff (100
+     dB, 45 dB for a bf16 output); K11 on every 10 MS/s group call, K12
+     on each AM and USB shape of both rates (each with its device µs a
+     launch beside its chain floor: T steps of CHAIN_CYCLES dependent
+     cycles at the SM clock), timed with CUDA events (K11 beside one
+     conv1d, TF32 off); every distinct K8
      geometry of the two bank paths, each timed, with its launches a
      step on each bank;
  14. five steps of each bank, the launch counts zeroed just before each:
      at 2.4 MS/s K1, K7, K8 and K12 launched and K11 not, at 10 MS/s K11,
-     K7, K8 and K12 and K1 not; on step 5 (the AGC's 4 800-sample start
+     K7, K8 and K12 and K1 not (K7's count is its CUDA launches); on step 5 (the AGC's 4 800-sample start
      ramp long over) the 1 kHz tone SNR of every VFO against the same
      five steps of the port's plain path on the host CPU, less 3 dB;
  15. each bank's step on bench-style noise, as in 5 (``step_rate``);
@@ -123,6 +131,7 @@ package beside it, the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -165,6 +174,9 @@ CHZ_FFT = 1024
 
 HBM_BPS = 3.35e12            # H100 SXM HBM3, bytes/s
 FP32_FLOPS = 67e12           # H100 SXM non-tensor FP32, flop/s
+# K12's dependent chain a sample: a multiply and an add (4 cycles each)
+# and two selects (csrc/agc.cu); its floor is T of these at the SM clock
+CHAIN_CYCLES = 10
 
 
 def fail(msg: str):
@@ -922,16 +934,23 @@ def drive_scanner(dev, card: str) -> dict:
         report[tag] = check_scanner_kernel(tag, captured[tag][-1], card,
                                            100.0 if tag == "K5" else 80.0,
                                            timed=True)
+    k7_per_call = k7_launches(captured["K7"][-1], "scanner128, float32")
+    check_outputs("K7", captured["K7"][-1], "scanner128, float32 handoff",
+                  80.0)
+    tails_exact("K7", captured["K7"][-1], "scanner128, float32 handoff")
 
     # ---- 7. the scanner main path, production bf16 handoff ---------------
+    # K5 and K6 count a call, K7 each of its CUDA launches
+    per_call = {"K5": 1, "K6": 1, "K7": k7_per_call}
     reset_counts()
     outs = run3("bf16")
     for tag in tags:
         mod, name = kernel_fn(tag, "_kernel")
         n = getattr(mod, name).launches
         report[tag]["launches"] = n
-        if n != 3:
-            fail(f"{tag}: {n} launches in 3 scanner steps, expected 3")
+        if n != 3 * per_call[tag]:
+            fail(f"{tag}: {n} launches in 3 scanner steps, expected "
+                 f"{3 * per_call[tag]}")
     for b, audio in enumerate(outs):
         if audio.shape != (SCAN_C, T // 50) or not torch.isfinite(audio).all():
             fail(f"scanner step {b}: shape {tuple(audio.shape)} or "
@@ -950,30 +969,36 @@ def drive_scanner(dev, card: str) -> dict:
             if min(snrs) < 40.0:
                 fail(f"scanner step {b}: tone SNR {min(snrs):.1f} dB")
     print("scanner path: launches "
-          + ", ".join(f"{t}={report[t]['launches']}" for t in tags))
+          + ", ".join(f"{t}={report[t]['launches']}" for t in tags)
+          + f" (K7 counted at each CUDA launch: {k7_per_call} a step)")
 
     # ---- 8. scanner256: one step, one launch each ------------------------
     reset_counts()
     _, cap256 = capture(tags, lambda: run3("bf16", C=SCAN_WIDE_C, n=1))
     for tag in tags:
         mod, name = kernel_fn(tag, "_kernel")
-        if getattr(mod, name).launches != 1:
+        if getattr(mod, name).launches != per_call[tag]:
             fail(f"{tag}: {getattr(mod, name).launches} launches in one "
-                 f"scanner256 step")
+                 f"scanner256 step, expected {per_call[tag]}")
         # bf16 storage: a float32 difference that crosses a bf16 rounding
         # boundary moves a value by a bf16 ulp (2^-8)
         check_scanner_kernel(tag, cap256[tag][-1], card,
                              60.0 if tag == "K5" else 45.0, timed=False)
+    k7_launches(cap256["K7"][-1], "scanner256, bf16")
+    tails_exact("K7", cap256["K7"][-1], "scanner256, bf16 handoff")
 
     # ---- 9. the scanner128 step (bench.py's: raw mono audio) -------------
     precision.set_handoff_dtype("bf16")
     xn = noise_planes(T, dev)
     params = radio.make_params_channelized(SCAN_OFFSETS,
                                            squelch_level=SQUELCH_DB)
-    step_rate(f"scanner128 (C={SCAN_C}, raw audio, bf16 handoff)",
-              lambda st: radio.apply_channelized(params, st, xn, mono_out=True,
-                                                 raw_audio=True)[1],
-              radio.init_state_channelized(SCAN_C), T, card)
+    n = step_rate(f"scanner128 (C={SCAN_C}, raw audio, bf16 handoff)",
+                  lambda st: radio.apply_channelized(params, st, xn,
+                                                     mono_out=True,
+                                                     raw_audio=True)[1],
+                  radio.init_state_channelized(SCAN_C), T, card)
+    print(f"scanner128: {n:.1f} kernel launches a step (K7 {k7_per_call} of "
+          f"them; before K7 ran on the FIR tile: 54, K7 one)")
     return report
 
 
@@ -1432,6 +1457,7 @@ def drive_bank(dev, card: str, report: dict) -> dict:
     precision.set_handoff_dtype("float32")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    k7_per = {}         # K7's CUDA launches a call on each bank
     caps = {fs: capture(BANK_TAGS, lambda fs=fs: run(fs, dev, 2))[1]
             for fs in BANK_FS}
     # K1 and K7 at the bank's own shapes: at 2.4 MS/s K1 takes the NFM
@@ -1450,6 +1476,10 @@ def drive_bank(dev, card: str, report: dict) -> dict:
                         f"handoff")
         check_outputs("K7", caps[fs]["K7"][-1],
                       f"{bank_label(fs)}, float32 handoff", 100.0)
+        tails_exact("K7", caps[fs]["K7"][-1],
+                    f"{bank_label(fs)}, float32 handoff")
+        k7_per[fs] = k7_launches(caps[fs]["K7"][-1],
+                                 f"{bank_label(fs)}, float32")
     precision.set_handoff_dtype("bf16")
     for fs in BANK_FS:
         cap16 = capture(("K1", "K7"), lambda fs=fs: run(fs, dev, 2))[1]
@@ -1462,6 +1492,8 @@ def drive_bank(dev, card: str, report: dict) -> dict:
                         f"handoff")
         check_outputs("K7", cap16["K7"][-1],
                       f"{bank_label(fs)}, bf16 handoff", BF16_DB)
+        tails_exact("K7", cap16["K7"][-1], f"{bank_label(fs)}, bf16 handoff")
+        k7_launches(cap16["K7"][-1], f"{bank_label(fs)}, bf16")
     if len(caps[BANK_FS[0]].get("K1", [])) != 2 * n24 or \
             caps[BANK_FS[1]].get("K1"):
         fail("K1: not one call per group and step at 2.4 MS/s only")
@@ -1499,6 +1531,7 @@ def drive_bank(dev, card: str, report: dict) -> dict:
                                           plain_reps=2)
         else:
             check_app_kernel("K12", call, card, what, timed=False)
+        k12_floor(call, what, card)
     stages = {}
     for fs in BANK_FS:
         for call in caps[fs]["K8"]:
@@ -1525,7 +1558,8 @@ def drive_bank(dev, card: str, report: dict) -> dict:
         outs = run(fs, dev, BANK_STEPS)
         n = {t: kernel_count(t) for t in BANK_TAGS}
         print(f"{label}: launches in {BANK_STEPS} steps "
-              + ", ".join(f"{t}={v}" for t, v in n.items()))
+              + ", ".join(f"{t}={v}" for t, v in n.items())
+              + f" (K7 counted at each CUDA launch, {k7_per[fs]} a call)")
         on, off = expect[fs]
         if min(n[on], n["K7"], n["K8"], n["K12"]) < 1 or n[off]:
             fail(f"{label}: launch pattern {n}")
@@ -1734,13 +1768,16 @@ def check_outputs(tag: str, args, what: str, bound_db: float) -> None:
 
 
 def tails_exact(tag: str, args, what: str) -> None:
-    """K1's or K2's new carried state on ``args``, each tensor exactly the
-    plain version's rule (concat the carried tail, rounded to the tail
-    dtype, with the stage's input, keep the last samples, round) applied
-    to the kernels' own stage inputs: K1's stage 0 and each chained
-    stage's output, K2's discriminator output (the first launch's probe)
-    and halfband outputs.  Fails on any difference."""
+    """K1's, K2's or K7's new carried state on ``args``, each tensor
+    exactly the plain version's rule (concat the carried tail, rounded to
+    the tail dtype, with the stage's input, keep the last samples, round)
+    applied to the kernels' own stage inputs: K1's stage 0 and each
+    chained stage's output, K2's discriminator output (the first launch's
+    probe) and halfband outputs, K7's discriminator output d (its FIR
+    tile's staging probe) and audio FIR output u, and K7's quad sample,
+    the gated IF's last.  Fails on any difference."""
     import torch
+    from sdrplusplusbrown_tpu_torch.ops import demod_kernel as dk
     from sdrplusplusbrown_tpu_torch.ops import mono_frontend as mf
     from sdrplusplusbrown_tpu_torch.ops import wfm_kernel as wk
     from sdrplusplusbrown_tpu_torch.ops.precision import round_to
@@ -1751,7 +1788,16 @@ def tails_exact(tag: str, args, what: str) -> None:
     def rule(t_in, y, n, dt):
         return round_to(torch.cat([round_to(planes(t_in), dt), planes(y)],
                                   dim=1)[:, -n:], dt)
-    if tag == "K1":
+    if tag == "K7":
+        pipe, iq, m_if, gate, qprev, ftail, ptail, odt, t_dt = args
+        _, q, nf, np_, (d, u) = dk._fm_audio_launches(*args, probe=True)
+        got = [q, nf, np_]
+        want = [round_to(iq[:, m_if - 1].float()
+                         * torch.cat([gate, gate]), t_dt),
+                rule(ftail, d[:, :m_if], pipe.histF, t_dt),
+                rule(ptail, u[:, :m_if], pipe.histP, t_dt)]
+        wrapper = dk.fm_audio_kernel(*args)[1:]
+    elif tag == "K1":
         pipe, xr, xi, tail, omega, base, tails, odt, tap_dt, t_dt = args
         h0, kernels = pipe.taps(xr.device, tap_dt)
         y0 = mf.mono_mix_kernel(pipe, xr, xi, tail, omega, base, h0)
@@ -1777,6 +1823,55 @@ def tails_exact(tag: str, args, what: str) -> None:
           f"stage inputs")
     if bad or len(got) != len(want):
         fail(f"{tag} {what}: new state {bad} differs from the plain rule")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()
+    return float(out[0])
+
+
+def k12_floor(call, what: str, card: str) -> None:
+    """K12's device µs a launch on ``call`` beside its chain floor: T
+    steps of CHAIN_CYCLES dependent cycles at the SM clock."""
+    from sdrplusplusbrown_tpu_torch.ops import agc
+    us, n = call_profile(lambda: agc.agc_rows_kernel(*call))
+    T = call[1].shape[1]
+    clock = sm_clock_mhz()
+    floor = T * CHAIN_CYCLES / clock
+    print(f"K12 ({what}): {us:.1f} us a call in {n} launches; chain floor "
+          f"{floor:.1f} us ({T} x {CHAIN_CYCLES} cycles at {clock:.0f} "
+          f"MHz); {us / floor:.2f}x the floor [{card}]")
+
+
+def k7_launches(call, what: str) -> int:
+    """K7's CUDA launches a call on ``call``, as its wrapper counts them
+    (one at each launch), which must be ``fm_plan``'s and, where the
+    profiler saw the call's kernels, the profiler's; and its device time
+    by launch (profiler; "not measured" where the window saw none).
+    Returns the wrapper's count."""
+    from sdrplusplusbrown_tpu_torch.ops import demod_kernel as dk
+    n0 = dk.fm_audio_kernel.launches
+    dk.fm_audio_kernel(*call)
+    counted = dk.fm_audio_kernel.launches - n0
+    split = {}
+    us, n = call_profile(lambda: dk.fm_audio_kernel(*call), by_kernel=split)
+    pipe, iq, m_if = call[:3]
+    planned = dk.fm_plan(pipe, m_if, iq.shape[0] // 2)["launches"]
+    seen = (f"{us:.1f} us a call in {n} CUDA launches (profiler: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + ")"
+            if n else "device time and launches not measured (the "
+            "profiler saw no K7 kernel)")
+    print(f"K7 ({what}): {counted} CUDA launches a call counted by the "
+          f"wrapper, fm_plan plans {planned}; {seen}")
+    if counted != planned or (n and n != counted):
+        fail(f"K7 {what}: {counted} CUDA launches a call counted, "
+             f"{n or 'none'} seen by the profiler, fm_plan plans {planned}")
+    return counted
 
 
 def kernel_count(tag: str) -> int:

@@ -17,73 +17,157 @@
 // What bounds it on the H100: nothing the card offers.  The path's rows
 // are C = 4 channels of 1 500-2 496 samples (AM, USB): 12 flops and 8
 // bytes a sample, nanoseconds by any roofline, but one dependent chain of
-// T steps per row.  So the chain does as little as it can: one block per
-// row stages a chunk of the row in shared memory, one thread walks the
-// envelope through it (both branches' multiply-adds, a compare and a
-// select per sample, the loads from shared memory), writing each
-// sample's envelope (or -1 where it was held) beside it, and
-// then the whole block computes the gains, the ramp and y in parallel, so
-// the division never sits on the chain.  Every operation rounds on its
-// own (no fused multiply-add, an IEEE division), as the plain version's
-// torch ops do.
+// T steps per row, each a multiply, an add and a select or two.  So the
+// chain's warp does nothing else.  A block of two warps a row:
+//   * the chain warp: every lane walks the same chain (SIMT makes the
+//     copies free).  The row arrives in batches of 32 samples, one
+//     coalesced load a lane, two batches ahead; while it walks batch b
+//     the shuffles that broadcast batch b + 1 into every lane's
+//     registers run beside the chain, so the walk (unrolled, 32 steps)
+//     reads registers only.  A batch with no held sample (the warp votes)
+//     walks without the held select.  It writes the 32 envelopes into a
+//     ring of shared-memory slots and signals the slot full;
+//   * the output warp: waits for a slot, computes each lane's sample's
+//     gain (an IEEE division), ramp and y, stores them, coalesced, and
+//     signals the slot free.  Its work (the divisions' latency, the
+//     stores) then overlaps the chain's next walk instead of following
+//     it.
+// The signals are named barriers: the chain warp arrives (no wait) on a
+// slot's full barrier and waits on its free one only when it comes round
+// the ring, which the output warp, the faster, has passed by then.  A
+// partial last batch is padded with zeros, which the chain holds.  Every
+// operation rounds on its own (__fmul_rn / __fadd_rn: no fused
+// multiply-add; IEEE divisions), as the plain version's torch ops do, so
+// the output and the state are the bits of the one-thread-a-row kernel
+// this replaces.
 #include <cfloat>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int CHUNK = 2048;    // samples of a row staged at a time
-constexpr int THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int SLOTS = 2;        // ring of envelope batches in shared memory
 
-__global__ void agc_rows_kernel(const float* __restrict__ x, int T,
-                                const float* __restrict__ amp_in,
-                                const int* __restrict__ env_in, int frozen,
-                                float atk, float one_atk, float dec,
-                                float one_dec, float sp, float mg,
-                                int env_len, float* __restrict__ y,
-                                float* __restrict__ amp_out,
-                                int* __restrict__ env_out) {
-  __shared__ float sx[CHUNK];
-  __shared__ float senv[CHUNK];   // the envelope after each sample, -1: held
-  __shared__ float s_amp;
+// Named barriers 1 .. 2·SLOTS (0 is __syncthreads'): slot s full, slot s
+// free; 64 threads each, the two warps.
+__device__ __forceinline__ void arrive(int id) {
+  asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void wait(int id) {
+  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ int full_bar(int s) { return 1 + s; }
+__device__ __forceinline__ int free_bar(int s) { return 1 + SLOTS + s; }
+
+// The chain over one batch xs: the envelope after step k into h[k].  With
+// HELD false every sample of the batch updates it (no zero or subnormal
+// among them), and the step is a multiply, an add and one select.  Step
+// k also broadcasts lane k's sample of the next batch into xn[k], 32
+// steps before the walk reads it, so no shuffle's latency sits on the
+// chain.
+template <bool HELD>
+__device__ __forceinline__ float walk(float amp, const float (&xs)[32],
+                                      float (&xn)[32], float own,
+                                      float (&h)[32], float atk,
+                                      float one_atk, float dec,
+                                      float one_dec) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    xn[k] = __shfl_sync(FULL, own, k);
+    const float ia = fabsf(xs[k]);
+    const float va = __fadd_rn(__fmul_rn(amp, one_atk), __fmul_rn(ia, atk));
+    const float vd = __fadd_rn(__fmul_rn(amp, one_dec), __fmul_rn(ia, dec));
+    const float v = ia > amp ? va : vd;
+    amp = HELD && !(ia >= FLT_MIN) ? amp : v;
+    h[k] = amp;
+  }
+  return amp;
+}
+
+// grid R, 64 threads: warp 0 the chain, warp 1 the outputs.
+__global__ void __launch_bounds__(64)
+    agc_rows_kernel(const float* __restrict__ x, int T,
+                    const float* __restrict__ amp_in,
+                    const int* __restrict__ env_in, int frozen, float atk,
+                    float one_atk, float dec, float one_dec, float sp,
+                    float mg, int env_len, float* __restrict__ y,
+                    float* __restrict__ amp_out, int* __restrict__ env_out) {
+  __shared__ __align__(16) float ring[SLOTS][32];
   const int r = blockIdx.x;
+  const int lane = threadIdx.x & 31;
   const float* xr = x + static_cast<long>(r) * T;
+  const int nb = (T + 31) / 32;
+  if (threadIdx.x < 32) {
+    // ---- the chain ------------------------------------------------------
+    float amp = amp_in[r];
+    if (!frozen) {
+      // batch b: every lane's copy of its 32 samples (xs) and this lane's
+      // (xv); own and nxt, this lane's of batches b + 1 and b + 2
+      float own = lane < T ? xr[lane] : 0.f;
+      float nxt = 32 + lane < T ? xr[32 + lane] : 0.f;
+      float xs[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) xs[k] = __shfl_sync(FULL, own, k);
+      float xv = own;
+      for (int b = 0; b < nb; ++b) {
+        own = nxt;
+        nxt = 32 * b + 64 + lane < T ? xr[32 * b + 64 + lane] : 0.f;
+        float xn[32], h[32];
+        if (__all_sync(FULL, fabsf(xv) >= FLT_MIN))
+          amp = walk<false>(amp, xs, xn, own, h, atk, one_atk, dec, one_dec);
+        else
+          amp = walk<true>(amp, xs, xn, own, h, atk, one_atk, dec, one_dec);
+        const int s = b % SLOTS;
+        if (b >= SLOTS) wait(free_bar(s));
+        // every lane stores the same values to the same words: a store
+        // by lane 0 alone costs the chain a divergent branch a batch
+        float4* slot = reinterpret_cast<float4*>(ring[s]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          slot[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2],
+                                h[4 * q + 3]);
+        arrive(full_bar(s));
+#pragma unroll
+        for (int k = 0; k < 32; ++k) xs[k] = xn[k];
+        xv = own;
+      }
+      // match the output warp's last free signals: no barrier left open
+      for (int b = nb > SLOTS ? nb : SLOTS; b < nb + SLOTS; ++b)
+        wait(free_bar(b % SLOTS));
+    }
+    if (lane == 0) {
+      amp_out[r] = amp;
+      const long e = static_cast<long>(env_in[r]) + T;
+      env_out[r] = static_cast<int>(e < (1L << 30) ? e : (1L << 30));
+    }
+    return;
+  }
+  // ---- the outputs ----------------------------------------------------
   float* yr = y + static_cast<long>(r) * T;
   const int env0 = env_in[r];
   const float len = static_cast<float>(env_len);
-  if (threadIdx.x == 0) s_amp = amp_in[r];
-  for (int s0 = 0; s0 < T; s0 += CHUNK) {
-    const int n = min(CHUNK, T - s0);
-    for (int j = threadIdx.x; j < n; j += blockDim.x) sx[j] = xr[s0 + j];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float amp = s_amp;
-      for (int j = 0; j < n; ++j) {
-        const float ia = fabsf(sx[j]);
-        const float va =
-            __fadd_rn(__fmul_rn(amp, one_atk), __fmul_rn(ia, atk));
-        const float vd =
-            __fadd_rn(__fmul_rn(amp, one_dec), __fmul_rn(ia, dec));
-        const bool upd = !frozen && ia >= FLT_MIN;
-        amp = upd ? (ia > amp ? va : vd) : amp;
-        senv[j] = upd ? amp : -1.f;
-      }
-      s_amp = amp;
+  float xn = lane < T ? xr[lane] : 0.f;
+  for (int b = 0; b < nb; ++b) {
+    const int s0 = 32 * b, n = s0 + lane;
+    const float xv = xn;
+    xn = n + 32 < T ? xr[n + 32] : 0.f;
+    float a = -1.f;    // the envelope after this lane's sample, -1: held
+    if (!frozen) {
+      const int s = b % SLOTS;
+      wait(full_bar(s));
+      if (fabsf(xv) >= FLT_MIN) a = ring[s][lane];
+      arrive(free_bar(s));
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const float a = senv[j];
+    if (n < T) {
       const float gain = a < 0.f ? 1.f : fminf(__fdiv_rn(sp, a), mg);
+      // 1 from env_len on (float(n) >= len there, the quotient >= 1)
       const float ramp =
-          fminf(__fdiv_rn(__int2float_rn(env0 + s0 + j), len), 1.f);
-      yr[s0 + j] = __fmul_rn(__fmul_rn(sx[j], gain), ramp);
+          env0 + s0 >= env_len
+              ? 1.f
+              : fminf(__fdiv_rn(__int2float_rn(env0 + n), len), 1.f);
+      yr[n] = __fmul_rn(__fmul_rn(xv, gain), ramp);
     }
-    __syncthreads();   // sx and senv are refilled by the next chunk
-  }
-  if (threadIdx.x == 0) {
-    amp_out[r] = s_amp;
-    const long e = static_cast<long>(env0) + T;
-    env_out[r] = static_cast<int>(e < (1L << 30) ? e : (1L << 30));
   }
 }
 
@@ -92,15 +176,15 @@ __global__ void agc_rows_kernel(const float* __restrict__ x, int T,
 // x, y [R, T] float32; amp [R] float32; env [R] int32 (in and out).  The
 // envelope is never negative (it starts at set_point / init_gain and
 // each update is a convex sum of non-negative values), so -1 marks a held
-// sample.
+// sample.  One block of two warps a row.
 extern "C" int sdr_agc_rows(const float* x, int R, int T, const float* amp,
                             const int* env, int frozen, float atk,
                             float one_atk, float dec, float one_dec, float sp,
                             float mg, int env_len, float* y, float* amp_out,
                             int* env_out, cudaStream_t stream) {
   if (R < 1 || T < 1 || env_len < 1) return cudaErrorInvalidValue;
-  agc_rows_kernel<<<R, THREADS, 0, stream>>>(
-      x, T, amp, env, frozen, atk, one_atk, dec, one_dec, sp, mg, env_len, y,
-      amp_out, env_out);
+  agc_rows_kernel<<<R, 64, 0, stream>>>(x, T, amp, env, frozen, atk, one_atk,
+                                        dec, one_dec, sp, mg, env_len, y,
+                                        amp_out, env_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,32 +17,33 @@
 //   u[n]  = Σ_k hf[k] · [ftail | d][n + k]                 (audio FIR)
 //   a[g·I + r] = Σ_l ker[r, l] · [ptail | u][g·D + l]        (I/D polyphase)
 // audio [C, n_aud] (padded: outputs past m_aud come from zero IF), and the
-// next-call state x[m_if − 1], d[m_if − Kf + 1, m_if), u[m_if − hp, m_if),
-// rounded to the handoff dtype.  One launch covers any C: the TPU walked
-// channel chunks only for its VMEM cap.
-//
-// As in K6, each (audio tile, channel) block stages its own d and u spans
-// with the histories in front, instead of the TPU's VMEM roll; the block
-// whose tile holds index m_aud writes the tails.
+// next-call state x[m_if − 1], [ftail | d][m_if, m_if + Kf − 1) and
+// [ptail | u][m_if, m_if + hp), rounded to the handoff dtype.  d is 0 from
+// m_if on, so u is exactly 0 from n_u = m_if + Kf − 1 on (each of its
+// fused multiply-adds adds +0 to +0): u is computed on [0, n_u) only.
 //
 // What bounds it on the H100: the 304-tap audio FIR at the IF rate
-// (2·304 flops per IF sample, about 0.4 GFLOP per 0.1 s block at C = 128)
-// and the 104-tap polyphase (2·104 per audio sample): FP32 throughput; the
-// IF in (2.6 MB in bf16) and the audio out are a few µs of HBM time.
-// Splitting the tap loops across a warp, or tensor cores, is left for
-// later work.
+// (2·304 flops an IF sample, 0.4 GFLOP per 0.1 s block at C = 128, 5.8 µs
+// at the FP32 peak) and the polyphase (2·79 nonzero taps an audio
+// sample); the IF in (2.6 MB in bf16) and the audio out are a few µs of
+// HBM time.  Both stages run the polyphase FIR tile (fir_tile.cuh): the
+// discriminator in the audio FIR's staging hook (as K2 runs its own in
+// its first halfband's), the FIR on the tile's D = 1 register ring, the
+// polyphase on its nested loop over each phase row's nonzero band.  Two
+// launches on ops/demod_kernel.py:fm_plan's grids, sdr_fm_audio_fir then
+// sdr_fm_audio_poly, u through an HBM scratch [C, n_u] (1.3-2.7 MB,
+// L2-resident).
+// Every output sums its taps in ascending order, one fused multiply-add
+// each, and the discriminator keeps its expression: audio, u, d and the
+// tails are the bits of the one-thread-an-output kernel this replaces.
+// The tails are written by the block that stages them: the one whose
+// outputs hold index m_if (the FIR launch), and, for the polyphase tail,
+// each row's first block.
 #include <cfloat>
 
-#include "common.cuh"
+#include "fir_tile.cuh"
 
 namespace {
-
-constexpr int AUDIO_TILE = 768;
-constexpr int AUDIO_THREADS = 256;
-
-__device__ __forceinline__ float stored(float v, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
 
 // atan(z) = z·P(z²) on [0, 1]; the float32 values of the JAX kernel's
 // _ATAN_C, one rounding per operation.
@@ -68,146 +69,227 @@ __device__ __forceinline__ float atan2_poly(float im, float re) {
   return (re == 0.f && im == 0.f) ? 0.f : t;
 }
 
-__global__ void fm_audio_kernel(
-    const void* __restrict__ iq, int iq_bf16, int stride, int m_if,
-    const float* __restrict__ gate, const float* __restrict__ qprev,
-    const float* __restrict__ ftail, const float* __restrict__ ptail,
-    const float* __restrict__ hf, int Kf, const float* __restrict__ ker,
-    int I, int D, int kw, float inv_dev, void* __restrict__ audio,
-    int out_bf16, int n_aud, int m_aud, float* __restrict__ nq,
-    float* __restrict__ nf, float* __restrict__ np, int tail_bf16, int C,
-    int hp, int ld_max) {
-  extern __shared__ float smem[];
-  const int HF = Kf - 1;
-  const int G = AUDIO_TILE / I;
-  const int Lu = (G - 1) * D + kw;
-  float* ds = smem;
-  float* us = ds + ld_max;
-  float* gf = us + Lu;
-  float* gk = gf + Kf;
+// The launch's gated IF: what every block needs to find its channel's.
+struct Gated {
+  const void* iq;
+  int iq_bf16, stride, m_if, C;
+  const float* gate;
+  const float* qprev;     // [2C]: x[−1], re then im
+};
 
-  const int c = blockIdx.y;
-  const int a0 = blockIdx.x * AUDIO_TILE;
-  const int g0 = a0 / I;
-  const int ju0 = g0 * D - hp;                  // first u index
-  const int dlo = max(ju0, 0) - HF;             // first d index
-  const int ld = ju0 + Lu - dlo;
+// The audio FIR's staging hook: ext sample e is the carried FIR tail's
+// (e < hist) or the discriminator's output d[n], n = e − hist.
+struct DiscSrc {
+  const void* iq;
+  int iq_bf16, m_if;
+  long rr, ri;            // the channel's re and im rows in iq
+  float g, qr, qi, inv_dev;
+  const float* tail;
+  int hist;
+  float* probe;           // where non-null, d[n] is stored there too
 
-  for (int k = threadIdx.x; k < Kf; k += blockDim.x) gf[k] = hf[k];
-  for (int k = threadIdx.x; k < I * kw; k += blockDim.x) gk[k] = ker[k];
+  __device__ DiscSrc(const Gated& x, int c, float inv_dev_,
+                     const float* ftail, int hist_, float* probe_)
+      : iq(x.iq), iq_bf16(x.iq_bf16), m_if(x.m_if),
+        rr(static_cast<long>(c) * x.stride),
+        ri(static_cast<long>(x.C + c) * x.stride), g(x.gate[c]),
+        qr(x.qprev[c]), qi(x.qprev[x.C + c]), inv_dev(inv_dev_),
+        tail(ftail + static_cast<long>(c) * hist_), hist(hist_),
+        probe(probe_) {}
 
-  // ---- d: gated discriminator (old audio FIR tail for n < 0) ------------
-  const float g = gate[c];
-  const long rr = static_cast<long>(c) * stride;
-  const long ri = static_cast<long>(C + c) * stride;
-  for (int t = threadIdx.x; t < ld; t += blockDim.x) {
-    const int n = dlo + t;
-    float v;
-    if (n < 0) {
-      v = ftail[static_cast<long>(c) * HF + n + HF];
+  __device__ __forceinline__ float disc(long n) const {
+    float er = 0.f, ei = 0.f, erp, eip;
+    if (n < m_if) {
+      er = __fmul_rn(sdr::ld(iq, rr + n, iq_bf16), g);
+      ei = __fmul_rn(sdr::ld(iq, ri + n, iq_bf16), g);
+    }
+    if (n == 0) {
+      erp = qr;
+      eip = qi;
+    } else if (n - 1 < m_if) {
+      erp = __fmul_rn(sdr::ld(iq, rr + n - 1, iq_bf16), g);
+      eip = __fmul_rn(sdr::ld(iq, ri + n - 1, iq_bf16), g);
     } else {
-      float er = 0.f, ei = 0.f, erp, eip;
-      if (n < m_if) {
-        er = __fmul_rn(sdr::ld(iq, rr + n, iq_bf16), g);
-        ei = __fmul_rn(sdr::ld(iq, ri + n, iq_bf16), g);
-      }
-      if (n == 0) {
-        erp = qprev[c];
-        eip = qprev[C + c];
-      } else if (n - 1 < m_if) {
-        erp = __fmul_rn(sdr::ld(iq, rr + n - 1, iq_bf16), g);
-        eip = __fmul_rn(sdr::ld(iq, ri + n - 1, iq_bf16), g);
-      } else {
-        erp = eip = 0.f;
-      }
-      float re = __fadd_rn(__fmul_rn(er, erp), __fmul_rn(ei, eip));
-      float im = __fsub_rn(__fmul_rn(ei, erp), __fmul_rn(er, eip));
-      if (fabsf(re) < FLT_MIN) re = 0.f;
-      if (fabsf(im) < FLT_MIN) im = 0.f;
-      v = __fmul_rn(atan2_poly(im, re), inv_dev);
+      erp = eip = 0.f;
     }
-    ds[t] = v;
+    float re = __fadd_rn(__fmul_rn(er, erp), __fmul_rn(ei, eip));
+    float im = __fsub_rn(__fmul_rn(ei, erp), __fmul_rn(er, eip));
+    if (fabsf(re) < FLT_MIN) re = 0.f;
+    if (fabsf(im) < FLT_MIN) im = 0.f;
+    return __fmul_rn(atan2_poly(im, re), inv_dev);
   }
-  __syncthreads();
 
-  // ---- u: audio FIR (old polyphase tail for n < 0) ----------------------
-  for (int t = threadIdx.x; t < Lu; t += blockDim.x) {
-    const int n = ju0 + t;
-    float v = 0.f;
-    if (n < 0) {
-      v = ptail[static_cast<long>(c) * hp + n + hp];
+  __device__ __forceinline__ void operator()(float* d, long e) const {
+    if (e < hist) {
+      sdr::stage(d, tail + e);
     } else {
-      const float* w = ds + (n - HF - dlo);
-      for (int k = 0; k < Kf; ++k) v = fmaf(gf[k], w[k], v);
+      *d = disc(e - hist);
+      if (probe) probe[e - hist] = *d;
     }
-    us[t] = v;
-  }
-  __syncthreads();
-
-  // ---- audio: the I/D polyphase ------------------------------------------
-  for (int t = threadIdx.x; t < AUDIO_TILE; t += blockDim.x) {
-    const int o = a0 + t;
-    if (o >= n_aud) break;
-    const int gi = t / I;
-    const int r = t - gi * I;
-    const float* w = us + gi * D;
-    const float* kr = gk + r * kw;
-    float v = 0.f;
-    for (int l = 0; l < kw; ++l) v = fmaf(kr[l], w[l], v);
-    sdr::st(audio, static_cast<long>(c) * n_aud + o, v, out_bf16);
   }
 
-  // ---- next-call state: the block whose tile holds index m_aud ----------
-  if (a0 <= m_aud && m_aud < a0 + AUDIO_TILE) {
-    if (threadIdx.x == 0) {
-      float qr = 0.f, qi = 0.f;
-      if (m_if > 0) {
-        qr = __fmul_rn(sdr::ld(iq, rr + m_if - 1, iq_bf16), g);
-        qi = __fmul_rn(sdr::ld(iq, ri + m_if - 1, iq_bf16), g);
-      } else {
-        qr = qprev[c];
-        qi = qprev[C + c];
-      }
-      nq[c] = stored(qr, tail_bf16);
-      nq[C + c] = stored(qi, tail_bf16);
-    }
-    for (int t = threadIdx.x; t < HF; t += blockDim.x)
-      nf[static_cast<long>(c) * HF + t] =
-          stored(ds[m_if - HF + t - dlo], tail_bf16);
-    for (int t = threadIdx.x; t < hp; t += blockDim.x)
-      np[static_cast<long>(c) * hp + t] =
-          stored(us[m_if - hp + t - ju0], tail_bf16);
+  // x[m_if − 1] (m_if >= 1)
+  __device__ __forceinline__ float2 last() const {
+    return make_float2(__fmul_rn(sdr::ld(iq, rr + m_if - 1, iq_bf16), g),
+                       __fmul_rn(sdr::ld(iq, ri + m_if - 1, iq_bf16), g));
   }
+};
+
+// The polyphase's staging hook over u in HBM: ext = [ptail (hist) | u
+// (n_u) | 0 ...].
+struct ScratchSrc {
+  const float* tail;
+  int hist;
+  const float* u;
+  int n_u;
+  __device__ __forceinline__ float value(long e) const {
+    return e < hist ? tail[e] : e - hist < n_u ? u[e - hist] : 0.f;
+  }
+  __device__ __forceinline__ void operator()(float* d, long e) const {
+    if (e < hist)
+      sdr::stage(d, tail + e);
+    else if (e - hist < n_u)
+      sdr::stage(d, u + (e - hist));
+    else
+      *d = 0.f;
+  }
+};
+
+// The store hook: audio in its storage dtype.
+struct StoreAudio {
+  void* y;
+  long base;
+  int bf16;
+  __device__ __forceinline__ void operator()(long i, float v) const {
+    sdr::st(y, base + i, v, bf16);
+  }
+};
+
+// The next-call polyphase tail [C, hist]: ext_p[m_if + t], rounded.
+__device__ __forceinline__ void write_ptail(const ScratchSrc& src, int m_if,
+                                            float* np, int tail_bf16) {
+  for (int t = threadIdx.x; t < src.hist; t += blockDim.x)
+    np[t] = sdr::bf16_round_if(src.value(static_cast<long>(m_if) + t),
+                               tail_bf16);
+}
+
+// The next-call quad sample and audio FIR tail from a block whose staged
+// FIR input (sx: ext_f from index e0 on) holds [m_if, m_if + Kf − 1).
+__device__ __forceinline__ void write_ftails(const DiscSrc& src, int c, int C,
+                                             const float* sx, long e0,
+                                             float* nq, float* nf,
+                                             int tail_bf16) {
+  if (threadIdx.x == 0) {
+    const float2 q = src.last();
+    nq[c] = sdr::bf16_round_if(q.x, tail_bf16);
+    nq[C + c] = sdr::bf16_round_if(q.y, tail_bf16);
+  }
+  float* row = nf + static_cast<long>(c) * src.hist;
+  for (int t = threadIdx.x; t < src.hist; t += blockDim.x)
+    row[t] = sdr::bf16_round_if(sx[src.m_if + t - e0], tail_bf16);
+}
+
+// Launch 1 of 2, grid (chunks, 1, C): u [C, n_u] on fm_plan's "fir"
+// grid, and the quad and FIR tails (the block whose outputs hold m_if).
+template <int P>
+__global__ void fir_kernel(Gated x, const float* __restrict__ ftail,
+                           const float* __restrict__ hf, int Kf,
+                           float inv_dev, float* __restrict__ u, int n_u,
+                           float* __restrict__ nq, float* __restrict__ nf,
+                           int tail_bf16, float* __restrict__ probe, int Cc) {
+  extern __shared__ __align__(16) float smem[];
+  const int c = blockIdx.z;
+  const DiscSrc src(x, c, inv_dev, ftail, Kf - 1,
+                    probe ? probe + static_cast<long>(c) * n_u : nullptr);
+  const int per = Cc * 32 * P;
+  const int m0 = blockIdx.x * per;
+  sdr::fir_tile<P, float>(src, hf, 1, 1, Kf,
+                          sdr::StoreTo<float>{u + static_cast<long>(c) * n_u},
+                          n_u, m0, min(per, n_u - m0), 1, Cc, smem);
+  if (static_cast<int>(blockIdx.x) ==
+      min(x.m_if / per, static_cast<int>(gridDim.x) - 1)) {
+    const sdr::FirLayout f = sdr::fir_tile_layout(1, Kf, n_u, P, 1, Cc, 1);
+    write_ftails(src, c, x.C, smem + f.in, m0, nq, nf, tail_bf16);
+  }
+}
+
+// Launch 2 of 2, grid (chunks, phase groups, C): audio from [ptail | u]
+// on fm_plan's "poly" grid (fir_plan's), and the polyphase tail (each
+// row's first block).
+template <int P>
+__global__ void poly_kernel(const float* __restrict__ ptail, int hp,
+                            const float* __restrict__ u, int n_u,
+                            const float* __restrict__ ker, int I, int D,
+                            int kw, void* __restrict__ audio, int out_bf16,
+                            int n_m, int m_if, float* __restrict__ np,
+                            int tail_bf16, int G, int Cc) {
+  extern __shared__ __align__(16) float smem[];
+  const int c = blockIdx.z;
+  const ScratchSrc src{ptail + static_cast<long>(c) * hp, hp,
+                       u + static_cast<long>(c) * n_u, n_u};
+  const int per = Cc * 32 * P;
+  const int m0 = blockIdx.x * per;
+  sdr::fir_tile<P, float>(
+      src, ker, I, D, kw,
+      StoreAudio{audio, static_cast<long>(c) * n_m * I, out_bf16}, n_m, m0,
+      min(per, n_m - m0), G, Cc, smem);
+  if (blockIdx.x == 0 && blockIdx.y == 0)
+    write_ptail(src, m_if, np + static_cast<long>(c) * hp, tail_bf16);
+}
+
+bool bad_plan(int P, int C, int warps) {
+  return (P != 1 && P != 3 && P != 5) || C < 1 || warps < 1 || warps > 32;
 }
 
 }  // namespace
 
-extern "C" int sdr_fm_audio(
-    const void* iq, int iq_bf16, int stride, int m_if, const float* gate,
-    const float* qprev, const float* ftail, const float* ptail,
-    const float* hf, int Kf, const float* ker, int I, int D, int kw,
-    float inv_dev, void* audio, int out_bf16, int n_aud, int m_aud,
-    int n_tiles, float* nq, float* nf, float* np, int tail_bf16, int C,
-    cudaStream_t stream) {
-  const int hp = kw - D;                        // polyphase history
-  if (Kf < 2 || AUDIO_TILE % I || hp < 1 || m_if > stride ||
-      n_tiles * AUDIO_TILE <= m_aud || n_tiles * AUDIO_TILE < n_aud ||
-      static_cast<long>(m_aud) * D != static_cast<long>(m_if) * I)
+// The first launch.  iq [2C, stride] (iq_bf16), m_if >= 1, gate [C],
+// qprev [2C], ftail [C, Kf − 1] (float32, rounded by the caller),
+// hf [Kf]; u [C, n_u] float32, n_u = min(n_if, m_if + Kf − 1); nq [2C],
+// nf [C, Kf − 1] (tail_bf16: rounded to bf16); probe [C, n_u] or null
+// (d, for the checks).  P, Cc and warps are ops/demod_kernel.py:fm_plan's.
+extern "C" int sdr_fm_audio_fir(const void* iq, int iq_bf16, int stride,
+                                int m_if, const float* gate,
+                                const float* qprev, const float* ftail,
+                                const float* hf, int Kf, float inv_dev,
+                                float* u, int n_u, float* nq, float* nf,
+                                int tail_bf16, float* probe, int C, int P,
+                                int Cc, int warps, cudaStream_t stream) {
+  if (C < 1 || C > 65535 || Kf < 2 || m_if < 1 || m_if > stride ||
+      n_u < m_if || bad_plan(P, Cc, warps))
     return cudaErrorInvalidValue;
-  const int Lu = (AUDIO_TILE / I - 1) * D + kw;
-  const int ld_max = Lu + Kf - 1;
-  const size_t smem = (static_cast<size_t>(ld_max) + Lu + Kf +
-                       static_cast<size_t>(I) * kw) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fm_audio_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(n_tiles, C);
-  fm_audio_kernel<<<grid, AUDIO_THREADS, smem, stream>>>(
-      iq, iq_bf16, stride, m_if, gate, qprev, ftail, ptail, hf, Kf, ker, I,
-      D, kw, inv_dev, audio, out_bf16, n_aud, m_aud, nq, nf, np, tail_bf16,
-      C, hp, ld_max);
-  return static_cast<int>(cudaGetLastError());
+  const int per = Cc * 32 * P;
+  const dim3 grid((n_u + per - 1) / per, 1, C);
+  const size_t smem =
+      sdr::fir_tile_layout(1, Kf, n_u, P, 1, Cc, 1).total * sizeof(float);
+  const Gated x{iq, iq_bf16, stride, m_if, C, gate, qprev};
+  return static_cast<int>(sdr::fir_launch_p(
+      P, fir_kernel<1>, fir_kernel<3>, fir_kernel<5>, grid, warps, smem,
+      stream, x, ftail, hf, Kf, inv_dev, u, n_u, nq, nf, tail_bf16, probe,
+      Cc));
+}
+
+// The second.  ptail [C, hp], hp = kw − D (rounded by the caller); u
+// [C, n_u] (read as 0 past n_u); ker [I, kw]; audio [C, n_aud] float32 or
+// bf16 (out_bf16), n_aud a multiple of I; np [C, hp].  P, G, Cc
+// and warps are fm_plan's (fir_plan's).
+extern "C" int sdr_fm_audio_poly(const float* ptail, int hp, const float* u,
+                                 int n_u, const float* ker, int I, int D,
+                                 int kw, void* audio, int out_bf16, int n_aud,
+                                 int m_if, float* np, int tail_bf16, int C,
+                                 int P, int G, int Cc, int warps,
+                                 cudaStream_t stream) {
+  if (C < 1 || C > 65535 || I < 1 || D < 1 || hp != kw - D || hp < 1 ||
+      n_aud < I || n_aud % I || m_if > n_u || G < 1 || G > I ||
+      bad_plan(P, Cc, warps))
+    return cudaErrorInvalidValue;
+  const int n_m = n_aud / I;
+  const int per = Cc * 32 * P;
+  const dim3 grid((n_m + per - 1) / per, (I + G - 1) / G, C);
+  const size_t smem =
+      sdr::fir_tile_layout(D, kw, n_m, P, G, Cc, 1).total * sizeof(float);
+  return static_cast<int>(sdr::fir_launch_p(
+      P, poly_kernel<1>, poly_kernel<3>, poly_kernel<5>, grid, warps, smem,
+      stream, ptail, hp, u, n_u, ker, I, D, kw, audio, out_bf16, n_m, m_if,
+      np, tail_bf16, G, Cc));
 }

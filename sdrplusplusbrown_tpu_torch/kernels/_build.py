@@ -53,8 +53,10 @@ SIGNATURES = {
                      _I, _I],
     "sdr_chan_post": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                       _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I],
-    "sdr_fm_audio": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                     _F, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I],
+    "sdr_fm_audio_fir": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P, _I, _P,
+                         _P, _I, _P, _I, _I, _I, _I],
+    "sdr_fm_audio_poly": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P,
+                          _I, _I, _I, _I, _I, _I],
     "sdr_fir_rows": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _I,
                      _I, _I, _I, _I],
     "sdr_fir_cplx": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I],
@@ -163,6 +165,7 @@ def launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} "
                            f"({so.sdr_error_string(rc).decode()})")
+    _LAUNCHED[0] += 1
 
 
 def check(t: torch.Tensor, what: str, dtype, shape=None, device=None):
@@ -182,6 +185,10 @@ def check(t: torch.Tensor, what: str, dtype, shape=None, device=None):
     return t.data_ptr()
 
 
+#: launches ``launch`` made (for ``counted_launches``)
+_LAUNCHED = [0]
+
+
 def counted(fn):
     """Give a kernel wrapper a plain integer ``launches``: one per call
     that launched its kernel (a call that raises counts nothing)."""
@@ -189,6 +196,19 @@ def counted(fn):
     def wrapper(*args):
         out = fn(*args)
         wrapper.launches += 1
+        return out
+    wrapper.launches = 0
+    return wrapper
+
+
+def counted_launches(fn):
+    """``counted`` for a wrapper whose kernel is more than one launch:
+    ``launches`` counts each CUDA launch (``launch``) a call made."""
+    @functools.wraps(fn)
+    def wrapper(*args):
+        n0 = _LAUNCHED[0]
+        out = fn(*args)
+        wrapper.launches += _LAUNCHED[0] - n0
         return out
     wrapper.launches = 0
     return wrapper

@@ -20,11 +20,14 @@ Taps and carried tails are rounded to the handoff dtype where the JAX
 kernel rounds them.
 
 Dispatch follows the input: CPU tensors run ``fm_audio_ref``; CUDA
-tensors launch ``fm_audio_kernel`` (csrc/fm_audio.cu) or raise.
+tensors launch ``fm_audio_kernel`` (csrc/fm_audio.cu: the discriminator
+in the audio FIR's staging, both filters on the polyphase FIR tile, in
+``fm_plan``'s two launches) or raise.  Both need m_if >= 1.
 """
 
 from __future__ import annotations
 
+import math
 from math import gcd
 
 import numpy as np
@@ -32,7 +35,7 @@ import torch
 
 from ..kernels import _build
 from .precision import get_handoff_dtype, round_to
-from .fir_kernel import poly_rows
+from .fir_kernel import SMS, fir_plan, poly_rows, tile_smem
 
 # atan(z) = z·P(z²) on [0, 1], degree-8 P (the JAX kernel's coefficients)
 _ATAN_C = (0.9999999055480192, -0.33332657866595233, 0.19986537719204336,
@@ -42,7 +45,6 @@ _ATAN_C = (0.9999999055480192, -0.33332657866595233, 0.19986537719204336,
 
 _TINY = float(np.finfo(np.float32).tiny)
 _STORAGE = (torch.float32, torch.bfloat16)
-AUDIO_TILE = 768     # audio outputs per CUDA block (csrc/fm_audio.cu)
 
 
 def _f32(v: float) -> float:
@@ -142,6 +144,8 @@ class FMAudioPipeline:
 
 def _check_fm(pipe, iq, m_if, gate, qprev, ftail, ptail):
     C = iq.shape[0] // 2
+    if m_if < 1:
+        raise ValueError(f"IF length {m_if}: K7 needs at least one sample")
     if iq.dim() != 2 or iq.shape[0] != 2 * C or iq.shape[1] < m_if:
         raise ValueError(f"IF buffer shape {tuple(iq.shape)}, m_if {m_if}")
     if tuple(gate.shape) != (C,) or tuple(qprev.shape) != (2 * C,):
@@ -157,6 +161,14 @@ def fm_audio_ref(pipe, iq, m_if, gate, qprev, ftail, ptail, out_dtype,
     """Plain PyTorch K7: (audio [C, n_aud] ``out_dtype``, next-call
     quad sample [2C], audio FIR tail [C, histF], polyphase tail
     [C, histP]; the state rounded to ``tail_dtype``)."""
+    return _fm_audio_ref(pipe, iq, m_if, gate, qprev, ftail, ptail,
+                         out_dtype, tail_dtype)[:4]
+
+
+def _fm_audio_ref(pipe, iq, m_if, gate, qprev, ftail, ptail, out_dtype,
+                  tail_dtype):
+    """``fm_audio_ref``'s four results, then the discriminator's output
+    d [C, n_if] and the audio FIR's u [C, n_if]."""
     C, plan = _check_fm(pipe, iq, m_if, gate, qprev, ftail, ptail)
     hf, ker = pipe.taps(iq.device, tail_dtype)
     n = plan["n_if"]
@@ -178,41 +190,98 @@ def fm_audio_ref(pipe, iq, m_if, gate, qprev, ftail, ptail, out_dtype,
     nq = round_to(x[:, m_if - 1], tail_dtype)
     nf = round_to(extf[:, m_if:m_if + pipe.histF], tail_dtype)
     np_ = round_to(extp[:, m_if:m_if + pipe.histP], tail_dtype)
-    return audio.to(out_dtype).contiguous(), nq, nf, np_
+    return audio.to(out_dtype).contiguous(), nq, nf, np_, d, u
 
 
-@_build.counted
+# ---- K7's plan (csrc/fm_audio.cu) -------------------------------------------
+
+def fm_plan(pipe, m_if: int, C: int) -> dict:
+    """How K7 runs C channels of m_if IF samples in two launches, the
+    audio FIR (u through an HBM scratch) then the polyphase: ``n_u``, the
+    u samples that can be nonzero (d is 0 from m_if on); the FIR launch's
+    grid ``fir`` (P = 5 outputs a lane, 8 warps, chunks of 160 outputs
+    halved from 4 a block until the launch has 4 blocks an SM, as
+    ``wfm_kernel.demod_plan`` sizes K2's discriminator launch) and the
+    polyphase's ``poly``: all I phase rows a block on one chunk of 96
+    groups (P = 3), so that a block stages its input span once for all
+    rows, where that gives SMS blocks, else ``fir_plan``'s
+    (``scripts/demod_sweep.py --plans`` ranks both grids)."""
+    plan = pipe.plan(m_if)
+    I, D, kw, Kf = pipe.I, pipe.D, pipe.kernel.shape[1], len(pipe.hf)
+    n_u = min(plan["n_if"], m_if + Kf - 1)
+    n_aud = plan["n_aud"]
+    P = 5
+    n_c = -(-n_u // (32 * P))
+    Cc = min(4, n_c)
+    while Cc > 1 and C * -(-n_c // Cc) < 4 * SMS:
+        Cc = (Cc + 1) // 2
+    grid = (-(-n_c // Cc), 1, C)
+    fir = {"P": P, "C": Cc, "warps": 8, "grid": grid,
+           "blocks": math.prod(grid),
+           "smem": tile_smem(1, Kf, n_u, P, 1, Cc, 1)}
+    n_m = n_aud // I
+    if C * -(-n_m // 96) >= SMS:
+        grid = (-(-n_m // 96), 1, C)
+        poly = {"P": 3, "G": I, "C": 1, "warps": 8, "grid": grid,
+                "blocks": math.prod(grid),
+                "smem": tile_smem(D, kw, n_m, 3, I, 1, 1)}
+    else:
+        poly = fir_plan(I, D, kw, n_aud, C, 1)
+    return {"n_u": n_u, "m_aud": plan["m_aud"], "n_aud": n_aud,
+            "n_if": plan["n_if"], "fir": fir, "poly": poly, "launches": 2}
+
+
+@_build.counted_launches
 def fm_audio_kernel(pipe, iq, m_if, gate, qprev, ftail, ptail, out_dtype,
                     tail_dtype):
-    """K7 on the card (csrc/fm_audio.cu); same contract as
-    ``fm_audio_ref``."""
+    """K7 on the card (csrc/fm_audio.cu, ``fm_plan``'s two launches, each
+    counted in ``launches``); same contract as ``fm_audio_ref``."""
+    return _fm_audio_launches(pipe, iq, m_if, gate, qprev, ftail, ptail,
+                              out_dtype, tail_dtype)[:4]
+
+
+def _fm_audio_launches(pipe, iq, m_if, gate, qprev, ftail, ptail, out_dtype,
+                       tail_dtype, probe: bool = False,
+                       plan: dict | None = None):
+    """K7's launches on ``plan`` (``fm_plan``'s by default):
+    ``fm_audio_kernel``'s four results, then [the discriminator's output
+    d (with ``probe``, else None), u], each [C, n_u]."""
     dev = iq.device
     f32 = torch.float32
-    C, plan = _check_fm(pipe, iq, m_if, gate, qprev, ftail, ptail)
+    C, _ = _check_fm(pipe, iq, m_if, gate, qprev, ftail, ptail)
     if out_dtype not in _STORAGE or tail_dtype not in _STORAGE:
         raise ValueError(f"dtypes {out_dtype}, {tail_dtype}")
+    p = plan or fm_plan(pipe, m_if, C)
     hf, ker = pipe.taps(dev, tail_dtype)
-    m_aud, n_aud = plan["m_aud"], plan["n_aud"]
-    n_tiles = max(-(-n_aud // AUDIO_TILE), m_aud // AUDIO_TILE + 1)
+    n_u, n_aud = p["n_u"], p["n_aud"]
     audio = torch.empty((C, n_aud), dtype=out_dtype, device=dev)
     nq = torch.empty((2 * C,), dtype=f32, device=dev)
     nf = torch.empty((C, pipe.histF), dtype=f32, device=dev)
     np_ = torch.empty((C, pipe.histP), dtype=f32, device=dev)
+    d = torch.empty((C, n_u), dtype=f32, device=dev) if probe else None
+    u = torch.empty((C, n_u), dtype=f32, device=dev)
+    t_bf16 = int(tail_dtype == torch.bfloat16)
+    f, q = p["fir"], p["poly"]
     _build.launch(
-        "sdr_fm_audio", dev,
+        "sdr_fm_audio_fir", dev,
         _build.check(iq, "IF buffer", _STORAGE, device=dev),
         int(iq.dtype == torch.bfloat16), iq.shape[1], m_if,
         _build.check(gate, "gate", f32, (C,), dev),
         _build.check(qprev, "quad state", f32, (2 * C,), dev),
-        _build.check(ftail, "audio FIR tail", f32, device=dev),
-        _build.check(ptail, "polyphase tail", f32, device=dev),
+        _build.check(ftail, "audio FIR tail", f32, (C, pipe.histF), dev),
         _build.check(hf, "audio FIR taps", f32, device=dev), hf.shape[0],
+        pipe.inv_dev, u.data_ptr(), n_u, nq.data_ptr(), nf.data_ptr(),
+        t_bf16, None if d is None else d.data_ptr(), C, f["P"], f["C"],
+        f["warps"])
+    _build.launch(
+        "sdr_fm_audio_poly", dev,
+        _build.check(ptail, "polyphase tail", f32, (C, pipe.histP), dev),
+        pipe.histP, u.data_ptr(), n_u,
         _build.check(ker, "polyphase kernel", f32, device=dev), pipe.I,
-        pipe.D, ker.shape[1], pipe.inv_dev, audio.data_ptr(),
-        int(out_dtype == torch.bfloat16), n_aud, m_aud, n_tiles,
-        nq.data_ptr(), nf.data_ptr(), np_.data_ptr(),
-        int(tail_dtype == torch.bfloat16), C)
-    return audio, nq, nf, np_
+        pipe.D, ker.shape[1], audio.data_ptr(),
+        int(out_dtype == torch.bfloat16), n_aud, m_if, np_.data_ptr(),
+        t_bf16, C, q["P"], q["G"], q["C"], q["warps"])
+    return audio, nq, nf, np_, [d, u]
 
 
 def fm_audio(pipe, iq, m_if, gate, qprev, ftail, ptail, out_dtype,

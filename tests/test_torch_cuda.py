@@ -362,6 +362,13 @@ def test_post_kernel_matches_plain(gpu, handoff, C):
 
 @pytest.mark.parametrize("C", [8, 128, 256])
 def test_fm_audio_kernel_matches_plain(gpu, handoff, C):
+    """K7 against its plain version on the card, two calls: every output
+    (audio, quad sample, both tails) bit-identical, at both handoffs (the
+    kernel sums each output's taps in ascending order, one fused
+    multiply-add each, as cuDNN's conv1d does with TF32 off, and the
+    discriminator rounds as the plain version's elementwise ops); the
+    launches a call (profiler) are ``fm_plan``'s."""
+    from torch_parity import _chip_smoke
     radio = Radio(FS, DEMOD_NFM, squelch_enabled=True)
     pipe = radio.fm_audio_pipe()
     m_if = 5000
@@ -391,15 +398,23 @@ def test_fm_audio_kernel_matches_plain(gpu, handoff, C):
         assert got[0].is_cuda and got[0].shape == want[0].shape == (C, 6144)
         _close(want[0], got[0], bound, f"audio block {b}")
         assert not got[0][gate == 0].any()     # closed from the start
-        for g, w, what in zip(got[1:], want[1:], ("quad", "fir", "resamp")):
-            _close(w, g, bound, what)
+        for g, w, what in zip(got, want, ("audio", "quad", "fir", "resamp")):
+            if what != "audio":
+                _close(w, g, bound, what)
+            assert torch.equal(g, w), (what, b)
         _, dstate, astate = pipe.apply(gate, dstate, astate, iq, m_if)
-    assert demod_kernel.fm_audio_kernel.launches == n0 + 4
+    # four calls (two a block), each counted at every CUDA launch
+    per_call = demod_kernel.fm_plan(pipe, m_if, C)["launches"]
+    assert demod_kernel.fm_audio_kernel.launches == n0 + 4 * per_call
+    _, launches = _chip_smoke().call_profile(
+        lambda: demod_kernel.fm_audio(*args), reps=5)
+    assert launches == per_call
 
 
 def test_scanner_slice_matches_plain(gpu, handoff):
-    """Radio.apply_channelized on the card (K5 → K6 → K7, one launch each
-    per step) against the same Radio on the CPU, 3 blocks, a retune."""
+    """Radio.apply_channelized on the card (K5 → K6 → K7, one call each
+    per step; K7 counts each of its two CUDA launches) against the same
+    Radio on the CPU, 3 blocks, a retune."""
     C = 16
     rc = Radio(FS, DEMOD_NFM, squelch_enabled=True, device="cpu")
     rg = Radio(FS, DEMOD_NFM, squelch_enabled=True)
@@ -426,7 +441,12 @@ def test_scanner_slice_matches_plain(gpu, handoff):
         assert torch.equal(open1, open2)
         assert open1.nonzero().flatten().tolist() == list(range(0, C, 4))
         _close(a1[open1], a2.cpu()[open1], bound, f"audio block {b}")
-    assert [k.launches for k in kernels] == [n + 3 for n in n0]
+    # K5 and K6 count a call, K7 each of its CUDA launches
+    m_if = SCAN_T * 50_000 // int(FS)          # the 50 kHz IF
+    per_call = (1, 1, demod_kernel.fm_plan(rg.fm_audio_pipe(), m_if,
+                                           C)["launches"])
+    assert [k.launches for k in kernels] == \
+        [n + 3 * k for n, k in zip(n0, per_call)]
 
 
 def test_scanner_kernels_raise_instead_of_falling_back(gpu):
@@ -761,12 +781,17 @@ def test_fused_mix_kernel_matches_plain(gpu, C, K, T, span):
     _close(want, got, 100.0, "K11")
 
 
-@pytest.mark.parametrize("R,T", [(1, 37), (4, 1500), (4, 2400), (64, 2400)])
+@pytest.mark.parametrize("R,T", [(1, 37), (4, 1500), (4, 2400), (64, 2400),
+                                 (4, 1), (4, 31), (64, 33), (4, 2496),
+                                 (64, 2496)])
 def test_agc_kernel_matches_plain(gpu, R, T):
     """K12 against its plain version on the card (zero samples, frozen
-    rows aside, the ramp's end inside the block, env at its 2^30 cap):
-    the output >= 100 dB, the state exact (both round every operation on
-    its own)."""
+    rows aside, the ramp's end inside the block, env at its 2^30 cap;
+    rows shorter than a 32-sample batch and a partial last batch): the
+    output >= 100 dB, the state exact (both round every operation on its
+    own); and the output bit-identical to the plain version on the CPU,
+    whose divisions are IEEE divisions as the kernel's (on the card the
+    plain ramp multiplies by 1/4800)."""
     from sdrplusplusbrown_tpu_torch.ops import agc
     rng = np.random.default_rng(R * T)
     blk = agc.AGC(attack=50 / 24e3, decay=5 / 24e3)
@@ -776,14 +801,17 @@ def test_agc_kernel_matches_plain(gpu, R, T):
     amp = rng.uniform(0.01, 1.0, R).astype(np.float32)
     env = rng.choice(np.array([0, 4000, 4799, 1 << 30], np.int32), R)
     for frozen in (False, True):
-        args = (blk, torch.from_numpy(x).to(gpu),
-                torch.from_numpy(amp).to(gpu),
-                torch.from_numpy(env).to(gpu), frozen)
+        host = (blk, torch.from_numpy(x), torch.from_numpy(amp),
+                torch.from_numpy(env), frozen)
+        args = (blk,) + tuple(t.to(gpu) for t in host[1:4]) + (frozen,)
         y, a, e = agc.agc_rows_kernel(*args)
         yr, ar, er = agc.agc_rows_ref(*args)
         torch.cuda.synchronize()
         _close(yr, y, 100.0, f"K12 frozen={frozen}")
         assert torch.equal(a, ar) and torch.equal(e, er)
+        yc, ac, ec = agc.agc_rows_ref(*host)
+        assert torch.equal(y.cpu(), yc) and torch.equal(a.cpu(), ac)
+        assert torch.equal(e.cpu(), ec)
 
 
 def _multimode_banks(fs, device):
