@@ -47,7 +47,9 @@ Phases, each fatal on failure:
      the kernels' own stage inputs (``tails_exact``);
   4. three WFM steps with a retune before the third, in the production
      bf16 handoff, the launch counts zeroed just before: every kernel
-     launched, finite outputs, the audio oracles (tone SNR, stereo
+     launched, each wrapper's count held to its calls' planned CUDA
+     launches (``hold_launches``: K1 one for stage 0 and one a chained
+     stage, K2 three, K4 its FFT route's), finite outputs, the audio oracles (tone SNR, stereo
      separation), spectrum peaks on the carriers, and bf16 audio within
      45 dB of the float32 run;
   5. the WFM-8 step on bench-style noise input: its rate, its wall time
@@ -58,10 +60,11 @@ Phases, each fatal on failure:
      timed with CUDA events; K7's every output (bit-identical or 80 dB),
      its device time by launch (profiler) and CUDA launches a call (its
      wrapper counts each; held to ``demod_kernel.fm_plan`` and to the
-     profiler's count), its new tails as in 3;
+     profiler's count), its new tails as in 3; K5's device µs a call
+     beside its bound and the earlier design's recorded time;
   7. three scanner128 steps with a retune before the third, bf16 handoff,
      the counts zeroed just before: K5, K6 and K7 one call each per step
-     (K5 and K6 count a call, K7 each of its CUDA launches), exactly the
+     (one CUDA launch a call for K5 and K6, two for K7), exactly the
      tone channels open, their tone SNR;
   8. one scanner256 step: K5-K7 one call each, each against its plain
      version; K7's launches and tails as in 6;
@@ -80,7 +83,8 @@ Phases, each fatal on failure:
      launched, K10 not; tone SNR, stereo separation, spectrum peaks on
      the carriers), NFM at batch () (tone SNR; a second radio off the
      signal, squelch at −30 dB, gives exact zeros), WFM at batch (8,)
-     (K10 launched, K9 not; per-radio oracles);
+     (K10 launched, K9 not; per-radio oracles); each wrapper's count
+     held to its calls' planned CUDA launches (K4f its FFT route's);
  12. the app step's rate, wall time and profiler window (``step_rate``),
      WFM at batch () and at (8,), on noise, and what ``Radio.apply``'s
      discriminator costs on the card (``quad_cost``);
@@ -93,12 +97,15 @@ Phases, each fatal on failure:
      on each AM and USB shape of both rates (each with its device µs a
      launch beside its chain floor: T steps of CHAIN_CYCLES dependent
      cycles at the SM clock), timed with CUDA events (K11 beside one
-     conv1d, TF32 off); every distinct K8
+     conv1d, TF32 off; K11's device µs a call beside its bound and the
+     earlier design's recorded time); every distinct K8
      geometry of the two bank paths, each timed, with its launches a
      step on each bank;
  14. five steps of each bank, the launch counts zeroed just before each:
      at 2.4 MS/s K1, K7, K8 and K12 launched and K11 not, at 10 MS/s K11,
-     K7, K8 and K12 and K1 not (K7's count is its CUDA launches); on step 5 (the AGC's 4 800-sample start
+     K7, K8 and K12 and K1 not, each wrapper's count held to its calls'
+     planned CUDA launches (K1 one for stage 0 and one a chained stage,
+     K7 two); on step 5 (the AGC's 4 800-sample start
      ramp long over) the 1 kHz tone SNR of every VFO against the same
      five steps of the port's plain path on the host CPU, less 3 dB;
  15. each bank's step on bench-style noise, as in 5 (``step_rate``);
@@ -107,18 +114,21 @@ Phases, each fatal on failure:
      1 024), in the float32 and the bf16 handoff (100 dB, 45 dB for bf16
      bins; the spectra's dB bars), the bf16 one timed with CUDA events
      beside one torch.fft.fft call (K4r; its route and launches a call,
-     one, held to ``fft_kernel.plan``), and what K5c's direct DFT costs
-     as written;
+     one, held to ``fft_kernel.plan``), K5c's device µs a call beside
+     its bound and the earlier design's recorded time, and what K5c's
+     fold and tensor-core DFT cost as written (``k5_as_written``);
  17. three channelizer64 steps on tones at every 8th channel's centre +
      20 kHz over noise, bf16 handoff, the counts zeroed just before: K5c
-     and K4r once a step, K5, K4, K4f, K1 and K11 never; each tone peaks
+     and K4r one launch a step, K5, K4, K4f, K1 and K11 none; each tone peaks
      at its bin in its own channel, the others stay at the noise floor,
      the state is the block's last samples;
  18. the channelizer64 step on bench.py's noise (seed 1), as in 5.
 
-Beside each CUDA-event time (which, for a kernel shorter than its
-wrapper's host work, is the wrapper's time) every comparison prints the
-kernel's device time per call from a torch.profiler window.  Each
+Every ``launches`` count is of CUDA launches: each wrapper counts every
+launch it makes (``kernels/_build.py``).  Beside each CUDA-event time
+(which, for a kernel shorter than its wrapper's host work, is the
+wrapper's time) every comparison prints the kernel's device time per
+call from a torch.profiler window.  Each
 kernel's bound is the larger of the bytes its function must move
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM's
 published HBM and non-tensor FP32 rates).  The next-to-last line is a
@@ -174,6 +184,13 @@ CHZ_FFT = 1024
 
 HBM_BPS = 3.35e12            # H100 SXM HBM3, bytes/s
 FP32_FLOPS = 67e12           # H100 SXM non-tensor FP32, flop/s
+BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores, flop/s
+# the earlier designs' recorded device µs a call at the path shapes, in a
+# profiler window of the path's step (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md sections 5 and 6)
+PARENT_US = {"K5": (24.0, "scanner128 step"),
+             "K5c": (122.0, "channelizer64 step"),
+             "K11": (45.2, "10 MS/s bank, a launch of the step")}
 # K12's dependent chain a sample: a multiply and an add (4 cycles each)
 # and two selects (csrc/agc.cu); its floor is T of these at the SM clock
 CHAIN_CYCLES = 10
@@ -707,13 +724,15 @@ def drive(dev, card: str) -> dict:
 
     # ---- 4. the main path, production bf16 handoff ------------------------
     reset_counts()
-    outs = run3("bf16")
+    outs, cap4 = capture(("K1", "K2", "K3", "K4"), lambda: run3("bf16"))
     for tag in ("K1", "K2", "K3", "K4"):
         mod, name = kernel_fn(tag, "_kernel")
         n = getattr(mod, name).launches
         report[tag]["launches"] = n
         if n < 1:
             fail(f"{tag}: the main path never launched {name}")
+    hold_launches("WFM-8, 3 steps", {t: report[t]["launches"] for t in
+                                     ("K1", "K2", "K3", "K4")}, cap4)
     for b, (audio, spectra) in enumerate(outs):
         if audio.shape != (C, 2, T // 50) or spectra.shape != (
                 T // spec.reshaper.interval, FFT):
@@ -888,6 +907,7 @@ def check_scanner_kernel(tag: str, args, card: str, bound_db: float,
               f"{out['bound_ms']:.4f} ms ({out['bound_by']}), max|err| "
               f"{err:.3e}, {agree}; device time per call (profiler) "
               f"kernel {k_us:.1f} us, plain {p_us:.1f} us [{card}]")
+        vs_parent(tag, k_us, out["bound_ms"], card)
     else:
         print(f"{tag} {name} at C = {SCAN_WIDE_C}: max|err| {err:.3e}, "
               f"{agree}")
@@ -940,7 +960,7 @@ def drive_scanner(dev, card: str) -> dict:
     tails_exact("K7", captured["K7"][-1], "scanner128, float32 handoff")
 
     # ---- 7. the scanner main path, production bf16 handoff ---------------
-    # K5 and K6 count a call, K7 each of its CUDA launches
+    # CUDA launches a call: K5 and K6 one, K7 fm_plan's two
     per_call = {"K5": 1, "K6": 1, "K7": k7_per_call}
     reset_counts()
     outs = run3("bf16")
@@ -1147,6 +1167,7 @@ def check_app_kernel(tag: str, args, card: str, what: str,
           f"{us[0]:.1f} us in {n_launch:.0f} launches, plain {us[1]:.1f} us"
           + (f", library {us[2]:.1f} us" if lib is not None else "")
           + f" [{card}]")
+    vs_parent(tag, us[0], bms, card)
     if not ok:
         fail(f"{tag} {what}: kernel disagrees with its plain version: "
              f"{agree}")
@@ -1265,10 +1286,9 @@ def drive_app(dev, card: str) -> dict:
 
     def counted_run(label, xs, radios):
         before = {t: kernel_count(t) for t in APP_TAGS}
-        outs = run3(xs, radios)
+        outs, cap = capture(APP_TAGS, lambda: run3(xs, radios))
         seen[label] = {t: kernel_count(t) - before[t] for t in APP_TAGS}
-        print(f"app step, {label}: launches in 3 steps "
-              + ", ".join(f"{t}={n}" for t, n in seen[label].items()))
+        hold_launches(f"app step, {label}, 3 steps", seen[label], cap)
         for spectra, auds in outs:
             for a in auds:
                 if not torch.isfinite(a).all():
@@ -1555,11 +1575,10 @@ def drive_bank(dev, card: str, report: dict) -> dict:
     for fs in BANK_FS:
         label = bank_label(fs)
         reset_counts()
-        outs = run(fs, dev, BANK_STEPS)
+        outs, cap = capture(BANK_TAGS, lambda fs=fs: run(fs, dev, BANK_STEPS))
         n = {t: kernel_count(t) for t in BANK_TAGS}
-        print(f"{label}: launches in {BANK_STEPS} steps "
-              + ", ".join(f"{t}={v}" for t, v in n.items())
-              + f" (K7 counted at each CUDA launch, {k7_per[fs]} a call)")
+        hold_launches(f"{label}, {BANK_STEPS} steps", n, cap)
+        print(f"{label}: K7 {k7_per[fs]} CUDA launches a call")
         on, off = expect[fs]
         if min(n[on], n["K7"], n["K8"], n["K12"]) < 1 or n[off]:
             fail(f"{label}: launch pattern {n}")
@@ -1690,20 +1709,15 @@ def drive_channelizer(dev, card: str) -> dict:
             f"bins read in place", timed=not f32)
     pipe = ch.pfb()
     W = cap["K5c"][-1][5]
-    gflop = W * (2 * 2 * pipe.K0 + 4 * 2 * M * M) / 1e9
-    print(f"K5c as written (the fold and the direct DFT, 2·K0 + 4·M² "
-          f"multiply-adds a frame): "
-          f"{gflop:.3f} GFLOP a step, {gflop / FP32_FLOPS * 1e12:.4f} ms at "
-          f"the FP32 peak, against its bound {report['K5c']['bound_ms']:.4f} "
-          f"ms ({report['K5c']['bound_by']})")
+    print(k5_as_written(pipe, W, cap["K5c"][-1][6],
+                        report["K5c"]["bound_ms"], report["K5c"]["bound_by"]))
 
     # ---- 17. three channelizer64 steps, production bf16 handoff ----------
     reset_counts()
-    outs = run3()
+    outs, cap = capture(("K5c", "K4r"), run3)
     n = {t: kernel_count(t) for t in ("K5c", "K4r", "K5", "K4", "K4f",
                                       "K1", "K11")}
-    print("channelizer64: launches in 3 steps "
-          + ", ".join(f"{t}={v}" for t, v in n.items()))
+    hold_launches("channelizer64, 3 steps", n, cap)
     if n["K5c"] != 3 or n["K4r"] != 3 or any(
             n[t] for t in ("K5", "K4", "K4f", "K1", "K11")):
         fail(f"channelizer64: launch pattern {n}")
@@ -1726,6 +1740,38 @@ def drive_channelizer(dev, card: str) -> dict:
     step_rate(f"channelizer64 (M={M}, fft {CHZ_FFT}, bf16 handoff)",
               lambda st: step(st, xn)[1], ch.init_state(), T, card)
     return report
+
+
+def k5_as_written(pipe, W: int, tap_dtype, bound_ms: float,
+                  bound_by: str) -> str:
+    """What K5's design costs as written on ``W`` frames: the fold's
+    2·K0 float32 multiply-adds a frame and plane at the FP32 peak, and the
+    DFT's tensor-core work, [KP, KP] · [KP, W tiles] (KP = 2M padded to 16)
+    in bf16 once for each product of the split (3 where the matrix is one
+    bf16 part, 6 for three), at the bf16 peak."""
+    from sdrplusplusbrown_tpu_torch.ops import channelizer_kernel as ck
+    _, na = pipe.dft_parts("cpu", tap_dtype)
+    plan = ck.pfb_plan(pipe.M, pipe.tpp, pipe.h, W, na)
+    KP = -(-2 * pipe.M // 16) * 16
+    passes = 3 if na == 1 else 6
+    mma = 2.0 * KP * KP * plan["tiles"] * plan["nt"] * passes
+    fold = 2.0 * 2 * pipe.K0 * W
+    return (f"K5 as written on {W} frames (M = {pipe.M}, tpp = {pipe.tpp}): "
+            f"the fold {fold / 1e9:.3f} GFLOP float32, "
+            f"{fold / FP32_FLOPS * 1e3:.4f} ms at the FP32 peak; the DFT "
+            f"{mma / 1e9:.3f} GFLOP on the tensor cores ({na} matrix "
+            f"part(s), {passes} bf16 products), {mma / BF16_FLOPS * 1e3:.4f} "
+            f"ms at the bf16 peak; its bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def vs_parent(tag: str, us: float, bound_ms: float, card: str) -> None:
+    """A redesigned kernel's device µs a call beside its bound and the
+    earlier design's recorded time (PARENT_US)."""
+    if tag in PARENT_US:
+        was, where = PARENT_US[tag]
+        print(f"{tag}: {us:.1f} us a call on the device, bound "
+              f"{bound_ms * 1e3:.1f} us, the earlier design {was:.1f} us "
+              f"({where}) [{card}]")
 
 
 def check_outputs(tag: str, args, what: str, bound_db: float) -> None:
@@ -1877,6 +1923,48 @@ def k7_launches(call, what: str) -> int:
 def kernel_count(tag: str) -> int:
     mod, name = kernel_fn(tag, "_kernel")
     return getattr(mod, name).launches
+
+
+def planned_launches(tag: str, args) -> int:
+    """CUDA launches one call of kernel ``tag`` on ``args`` makes, each of
+    which its wrapper counts: K1 stage 0 and one a chained stage, K2
+    three, K4, K4f and K4r their FFT route's (``fft_kernel.plan``: one
+    pass or a four-step pair), K7 ``fm_plan``'s two, any other one."""
+    from sdrplusplusbrown_tpu_torch.ops import (demod_kernel, fft_kernel,
+                                                mono_frontend, wfm_kernel)
+    if tag == "K1":
+        return mono_frontend.frontend_launches(args[0])
+    if tag == "K2":
+        return wfm_kernel.WFM_DEMOD_LAUNCHES
+    if tag in ("K4", "K4f"):
+        x, keep, interval, N = (args[0], *args[2:5]) if tag == "K4" \
+            else args[:4]
+        n = len(fft_kernel.frame_starts(x.shape[0], keep, interval,
+                                        **({} if tag == "K4" else
+                                           {"align": 1})))
+        return len(fft_kernel.plan(N, n)["launches"])
+    if tag == "K4r":
+        xr, _, N = args[:3]
+        return len(fft_kernel.plan(N, xr.numel() // N)["launches"])
+    if tag == "K7":
+        pipe, iq, m_if = args[:3]
+        return demod_kernel.fm_plan(pipe, m_if, iq.shape[0] // 2)["launches"]
+    return 1
+
+
+def hold_launches(label: str, counts: dict, cap: dict) -> None:
+    """Each kernel's count in ``counts`` (its wrapper's, over a main-path
+    run) must be the CUDA launches its calls in ``cap`` (that run's
+    captured arguments) plan: ``planned_launches`` summed.  Fails
+    otherwise."""
+    want = {t: sum(planned_launches(t, a) for a in cap.get(t, []))
+            for t in counts}
+    print(f"{label}: CUDA launches counted by the wrappers "
+          + ", ".join(f"{t}={v}" for t, v in counts.items())
+          + " (each held to its calls' planned launches)")
+    bad = {t: (counts[t], want[t]) for t in counts if counts[t] != want[t]}
+    if bad:
+        fail(f"{label}: launches counted / planned {bad}")
 
 
 if __name__ == "__main__":

@@ -35,4 +35,38 @@ inline cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// 16 bytes global -> shared without a register round trip (both
+// addresses 16-byte aligned), in the current cp.async group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a . b on the tensor cores, one warp: a 16x16 bf16 tile (row major,
+// four registers of two values), b 16x8 bf16 (column major, two), d 16x8
+// float32.  Lane l holds, with g = l / 4 and t = l % 4: a {(g, 2t..2t+1),
+// (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}, b {(2t..2t+1, g), (2t+8.., g)},
+// d {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}; the lower k of a pair in
+// the lower half of its register.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 }  // namespace sdr

@@ -24,133 +24,645 @@
 // What bounds it on the H100: the bytes.  The function reads the input and
 // writes the bins; its arithmetic, the fold's 2·K0 multiply-adds per frame
 // and an M-point DFT counted as an FFT (5·M·log2 M flops), is smaller.
-// Scanner128 (oversampled, M = 48, 0.1 s at 2.4 MS/s): 1.9 MB in, 3.9 MB
-// of float32 bins out, ~1.75 µs of HBM time against ~0.4 µs at the FP32
-// peak.  Channelizer64 (critical, M = 64, tpp = 19, 2^21 samples): 16.8 MB
-// in, 8.4 MB of bf16 bins out, ~7.5 µs of HBM time.  This kernel does the
-// DFT directly, 4·M² multiply-adds per frame, so as written its own
-// arithmetic exceeds the function's bound: ~2.8 µs at the FP32 peak for
-// scanner128, ~16 µs (1.07 GFLOP) for channelizer64.  A block takes
-// PFB_FRAMES consecutive frames: it stages their overlapping input span
-// once in shared memory (78 KB at channelizer64, opted in), folds it, and
-// runs the DFT with the matrix and the folded frames in shared memory
-// (rows padded to M + 1 against bank conflicts).  An FFT, or tensor cores
-// for the DFT, and fusing K5 with K6 (as the TPU did) are left for later
-// work.
+// Scanner128 (oversampled, M = 48, tpp = 6, 0.1 s at 2.4 MS/s): 1.9 MB in,
+// 3.9 MB of float32 bins out, ~1.75 µs of HBM time.  Channelizer64
+// (critical, M = 64, tpp = 19, 2^21 samples): 16.8 MB in, 8.4 MB of bf16
+// bins out, ~7.5 µs.  The earlier design (a direct DFT in FP32 from shared
+// memory, 4 loads for 4 FMA; a fold at 3 loads for 2 FMA; every block
+// reloading the 2·M² matrix) took ~11× that.  This one:
+//   * the DFT runs on the tensor cores as one real product,
+//       [re; im] = [[C, S], [−S, C]] · [vr; vi],
+//     a [2M, 2M] matrix (padded to 16) times the tile's folded frames,
+//     with mma.sync m16n8k16 in bf16 and float32 accumulation.  The frames
+//     are split into three bf16 parts (hi + mid + lo = v exactly), the
+//     matrix into na parts on the host: one where it is exact in bf16 (the
+//     bf16 handoff rounds it so), three for float32 taps; the products
+//     a0·b0 + a0·b1 + a0·b2 (+ a1·b0 + a1·b1 + a2·b0) keep float32
+//     accuracy, ≥ 100 dB against the float32 plain version.  An FFT would
+//     compute the exact DFT, not the product with the handoff-rounded
+//     matrix that the reference and the plain version multiply by;
+//   * the fold is a sliding FIR in registers: v_F[p] is a tpp-tap FIR along
+//     F of branch p's samples (each class of F mod M/hop on its own), so a
+//     thread owns a branch and PFB_NF consecutive frames of a class, and
+//     each sample loaded serves PFB_NF multiply-adds; the taps come
+//     transposed from shared memory (consecutive branches, one word each).
+//     Each v_F[p] keeps the earlier ascending-i fmaf order, so the folded
+//     frames are bit-identical to the earlier kernel's;
+//   * persistent blocks (``pfb_plan``: two an SM where they fit) walk
+//     tiles of nt frames; each warp loads its m-tiles of the matrix into
+//     registers once; the next tile's input span arrives by cp.async (16
+//     bytes a thread) while this one works; the bins leave through a
+//     shared tile in 16-byte stores along frames, the (−1)^m sign applied
+//     there;
+//   * with a one-part matrix (the bf16 handoff) the block is warp
+//     specialised (pfb_ws_kernel): four warps fold tile i + 1 into one of
+//     two frame buffers while the other four run tile i's products (two
+//     m-tiles a warp, so each frame fragment loaded serves both) and
+//     store its bins, handing buffers over on named barriers.  The FP32
+//     fold and the tensor-core DFT then overlap in part instead of taking
+//     turns, as pfb_kernel still does for a three-part matrix (96
+//     fragment registers a warp leave no room for two m-tiles).  In both
+//     kernels, where no span fits shared memory (thousands of taps a
+//     branch), nbuf is 0 and the fold reads the spans in place from
+//     ``ext``, the stream s laid out whole in device memory by the
+//     wrapper.
+// What bounds it now (scripts/chz_mix_sweep.py --parts and --phases; PERF.md
+// has the numbers): neither pipe.  At channelizer64 a folder warp issues
+// at ~0.2 instructions a cycle and a product warp one mma.sync every ~30
+// cycles, i.e. each waits out its own latencies: two blocks an SM (128
+// registers a thread) are too few warps to hide them, and the fold and
+// the products, each ~6 µs of the ~25, still add up more than they
+// overlap.
+// ``fold_out``, when not null, also receives the folded frames v_F (float32
+// [2M, width], unsigned), for tests that hold them bit for bit.
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int PFB_FRAMES = 32;
-constexpr int PFB_THREADS = 256;
+constexpr int PFB_THREADS = 256;  // 8 warps
+constexpr int PFB_HALF = 128;     // one group of a warp-specialised block
+constexpr int PFB_NF = 8;         // frames a thread folds (one class)
 
-__global__ void pfb_kernel(const float* __restrict__ xr,
-                           const float* __restrict__ xi, int T,
-                           const float* __restrict__ hr,
-                           const float* __restrict__ hi, int nh,
-                           const float* __restrict__ br,
-                           const float* __restrict__ cm,
-                           const float* __restrict__ sm, int M, int tpp,
-                           int h, int even_sign, void* __restrict__ out,
-                           int out_bf16, int width, int span_max) {
-  extern __shared__ float smem[];
-  const int K0 = tpp * M;
-  const int vs = M + 1;
-  float* sr = smem;
-  float* si = sr + span_max;
-  float* vr = si + span_max;
-  float* vi = vr + PFB_FRAMES * vs;
-  float* cs = vi + PFB_FRAMES * vs;
-  float* sn = cs + M * M;
-  float* tb = sn + M * M;
+// One block's shared memory in floats (``pfb_plan`` sizes it the same):
+// the transposed taps, nbuf input spans, nbs frame buffers (three bf16
+// parts each), the output tile.
+struct PfbLayout {
+  int K16;    // 16-wide k-steps (and m-tiles) of the padded matrix
+  int KP;     // 16·K16
+  int SC;     // one plane of one input span: (nt − 1)·hop + K0, + slack
+  int BSW;    // words of one frame's row of one bf16 part: KP/2 + 4
+  int OS;     // output tile row: nt + 8 floats
+  int span, bs, os, total;
+};
 
-  const int F0 = blockIdx.x * PFB_FRAMES;
-  const int nf = min(PFB_FRAMES, width - F0);
-  const int span = (nf - 1) * h + K0;
-  const long n0 = static_cast<long>(F0) * h;
-  for (int t = threadIdx.x; t < span; t += blockDim.x) {
+__host__ __device__ inline PfbLayout pfb_layout(int M, int tpp, int h,
+                                                int nt, int nbuf, int nbs) {
+  PfbLayout l;
+  l.K16 = (2 * M + 15) / 16;
+  l.KP = 16 * l.K16;
+  l.SC = (((nt - 1) * h + tpp * M + M + 3) & ~3) + 4;  // + M: the fold's
+                                                        // last whole chunk
+  l.BSW = l.KP / 2 + 4;
+  l.OS = nt + 8;
+  l.span = (tpp * M + 3) & ~3;       // after the transposed taps
+  l.bs = l.span + nbuf * 2 * l.SC;
+  l.os = l.bs + nbs * 3 * nt * l.BSW;
+  l.total = l.os + l.KP * l.OS;
+  return l;
+}
+
+// Offset of a span in its buffer, so that 16-byte-aligned x sits at
+// 16-byte-aligned shared addresses.
+__device__ __forceinline__ int span_off(long n0, int nh) {
+  return static_cast<int>(((n0 - nh) % 4 + 4) % 4);
+}
+
+struct PfbArgs {
+  const float* xr;
+  const float* xi;
+  const float* hr;
+  const float* hi;
+  const float* ext_r;   // nbuf 0: s whole, re and im
+  const float* ext_i;
+  int T, nh, M, tpp, h, nt;
+};
+
+// s[n0 .. n0 + span) of both planes into dr/di (dr[t] = s[n0 + t]), by
+// threads t, t + nthr, ...
+__device__ __forceinline__ void stage_span(const PfbArgs& g, long n0, int span,
+                                           float* dr, float* di, int t0,
+                                           int nthr) {
+  const long i0 = n0 - g.nh;  // x index of dr[0]
+  long a0 = (max(i0, 0L) + 3) & ~3L;
+  long a1 = min(i0 + span, static_cast<long>(g.T)) & ~3L;
+  if (a1 <= a0 || ((reinterpret_cast<uintptr_t>(g.xr) |
+                    reinterpret_cast<uintptr_t>(g.xi)) & 15))
+    a0 = a1 = i0 + span;
+  auto one = [&](int t) {
     const long n = n0 + t;
     float a = 0.f, b = 0.f;
-    if (n < nh) {
-      a = hr[n];
-      b = hi[n];
-    } else if (n - nh < T) {
-      a = xr[n - nh];
-      b = xi[n - nh];
+    if (n < g.nh) {
+      a = g.hr[n];
+      b = g.hi[n];
+    } else if (n - g.nh < g.T) {
+      a = g.xr[n - g.nh];
+      b = g.xi[n - g.nh];
     }
-    sr[t] = a;
-    si[t] = b;
+    dr[t] = a;
+    di[t] = b;
+  };
+  for (int t = t0; t < a0 - i0; t += nthr) one(t);
+  for (int t = static_cast<int>(a1 - i0) + t0; t < span; t += nthr) one(t);
+  const int nv = static_cast<int>((a1 - a0) >> 2);
+  const int d0 = static_cast<int>(a0 - i0);
+  for (int u = t0; u < nv; u += nthr) {
+    sdr::cp_async16(dr + d0 + 4 * u, g.xr + a0 + 4 * u);
+    sdr::cp_async16(di + d0 + 4 * u, g.xi + a0 + 4 * u);
   }
-  for (int t = threadIdx.x; t < M * M; t += blockDim.x) {
-    cs[t] = cm[t];
-    sn[t] = sm[t];
+}
+
+__device__ __forceinline__ void put_parts(__nv_bfloat16* bs, int part_stride,
+                                          float v) {
+  // v = b0 + b1 + b2 exactly: each residual is exact in float32 and the
+  // last fits bf16's 8 bits
+  const __nv_bfloat16 b0 = __float2bfloat16_rn(v);
+  const float r1 = v - __bfloat162float(b0);
+  const __nv_bfloat16 b1 = __float2bfloat16_rn(r1);
+  const __nv_bfloat16 b2 = __float2bfloat16_rn(r1 - __bfloat162float(b1));
+  bs[0] = b0;
+  bs[part_stride] = b1;
+  bs[2 * part_stride] = b2;
+}
+
+// The fold of the tile at frame F0 into the frame buffer ``bh`` (three bf16
+// parts, [nt, BSW words] each, rows k = p (vr) and M + p (vi)), by threads
+// t0, t0 + nthr, ...: branch p, class c, PFB_NF consecutive frames of it.
+__device__ __forceinline__ void fold_tile(const PfbArgs& g, const float* sr,
+                                          const float* si, const float* brT,
+                                          __nv_bfloat16* bh, int BSW,
+                                          int part, int F0, int width,
+                                          float* fold_out, int t0, int nthr) {
+  const int M = g.M, h = g.h, tpp = g.tpp, Rt = M / h;
+  const int runs = g.nt / Rt / PFB_NF;
+  for (int item = t0; item < M * Rt * runs; item += nthr) {
+    const int p = item % M, rest = item / M;
+    const int c = rest % Rt, Gl = (rest / Rt) * PFB_NF;
+    const int base = Gl * M + c * h + p;
+    float wr[PFB_NF], wi[PFB_NF], vr[PFB_NF], vi[PFB_NF];
+#pragma unroll
+    for (int f = 0; f < PFB_NF; ++f) {
+      wr[f] = sr[base + f * M];
+      wi[f] = si[base + f * M];
+      vr[f] = vi[f] = 0.f;
+    }
+    // slot x holds sample n of the run with n % PFB_NF == x; at tap i
+    // frame f takes n = f + i.  Whole chunks of PFB_NF taps run without a
+    // branch, so their loads issue ahead of the multiply-adds (a sample
+    // loaded past the last one used lands in the span's slack).
+    int i0 = 0;
+    for (; i0 + PFB_NF <= tpp; i0 += PFB_NF) {
+      float tap[PFB_NF];
+#pragma unroll
+      for (int ii = 0; ii < PFB_NF; ++ii) tap[ii] = brT[(i0 + ii) * M + p];
+#pragma unroll
+      for (int ii = 0; ii < PFB_NF; ++ii) {
+#pragma unroll
+        for (int f = 0; f < PFB_NF; ++f) {
+          vr[f] = fmaf(tap[ii], wr[(f + ii) % PFB_NF], vr[f]);
+          vi[f] = fmaf(tap[ii], wi[(f + ii) % PFB_NF], vi[f]);
+        }
+        wr[ii] = sr[base + (i0 + ii + PFB_NF) * M];
+        wi[ii] = si[base + (i0 + ii + PFB_NF) * M];
+      }
+    }
+#pragma unroll
+    for (int ii = 0; ii < PFB_NF; ++ii) {
+      if (i0 + ii >= tpp) break;
+      const float tap = brT[(i0 + ii) * M + p];
+#pragma unroll
+      for (int f = 0; f < PFB_NF; ++f) {
+        vr[f] = fmaf(tap, wr[(f + ii) % PFB_NF], vr[f]);
+        vi[f] = fmaf(tap, wi[(f + ii) % PFB_NF], vi[f]);
+      }
+      if (i0 + ii + 1 < tpp) {
+        wr[ii] = sr[base + (i0 + ii + PFB_NF) * M];
+        wi[ii] = si[base + (i0 + ii + PFB_NF) * M];
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < PFB_NF; ++f) {
+      const int fl = Rt * (Gl + f) + c;
+      __nv_bfloat16* row = bh + fl * 2 * BSW;
+      put_parts(row + p, 2 * part, vr[f]);
+      put_parts(row + M + p, 2 * part, vi[f]);
+      if (fold_out && F0 + fl < width) {
+        fold_out[static_cast<long>(p) * width + F0 + fl] = vr[f];
+        fold_out[static_cast<long>(M + p) * width + F0 + fl] = vi[f];
+      }
+    }
   }
-  for (int t = threadIdx.x; t < M * tpp; t += blockDim.x) tb[t] = br[t];
+}
+
+// fold_tile on the tile at frame F0, its span in shared memory (the buffer
+// at ``spans``) or, with nbuf 0, in place in ext.  Two calls, so that the
+// staged route's loads stay shared-memory loads (one pointer for both
+// would be generic, ~7 % slower at channelizer64).
+__device__ __forceinline__ void fold_at(const PfbArgs& g, const float* spans,
+                                        int SC, int nbuf, const float* brT,
+                                        __nv_bfloat16* bh, int BSW, int part,
+                                        int F0, int width, float* fold_out,
+                                        int t0, int nthr) {
+  const long n0 = static_cast<long>(F0) * g.h;
+  if (nbuf) {
+    const float* sr = spans + span_off(n0, g.nh);
+    fold_tile(g, sr, sr + SC, brT, bh, BSW, part, F0, width, fold_out, t0,
+              nthr);
+  } else {
+    fold_tile(g, g.ext_r + n0, g.ext_i + n0, brT, bh, BSW, part, F0, width,
+              fold_out, t0, nthr);
+  }
+}
+
+// Matrix part a's m-tile mt, every k-step, as mma.sync A fragments.
+__device__ __forceinline__ void load_a(unsigned (&A)[8][4],
+                                       const unsigned* __restrict__ ap,
+                                       int a, int KP, int K16, int mt,
+                                       int lane) {
+  const int KW = KP / 2;
+  const unsigned* w = ap + (static_cast<long>(a) * KP + mt * 16 + (lane >> 2)) *
+                               KW + (lane & 3);
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    if (ks < K16) {
+      A[ks][0] = w[ks * 8];
+      A[ks][1] = w[8 * KW + ks * 8];
+      A[ks][2] = w[ks * 8 + 4];
+      A[ks][3] = w[8 * KW + ks * 8 + 4];
+    }
+  }
+}
+
+// Two values rounded to bf16, the first in the lower half.
+__device__ __forceinline__ unsigned bf16_pair(float a, float b) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(b)))
+             << 16;
+}
+
+// The tile's bins from the output tile Os to out [2M, width]: PER frames
+// (16 bytes: 8 bf16 or 4 float32) a thread, threads t0, t0 + nthr, ...,
+// the (−1)^m sign of the oversampled form's even frames applied on the way.
+template <int PER>
+__device__ __forceinline__ void store_tile(const float* Os, int OS, int M,
+                                           int nt, int F0, int width,
+                                           int even_sign, void* out, int t0,
+                                           int nthr) {
+  const int q_row = nt / PER;  // a power of two
+  const int qs = __ffs(q_row) - 1;
+  const bool vec = !(width & (PER - 1));
+  for (int idx = t0; idx < 2 * M * q_row; idx += nthr) {
+    const int r = idx >> qs, q = idx & (q_row - 1);
+    const int F = F0 + q * PER;
+    if (F >= width) continue;
+    float v[PER];
+    const float4* o = reinterpret_cast<const float4*>(Os + r * OS + q * PER);
+#pragma unroll
+    for (int e = 0; e < PER / 4; ++e) {
+      const float4 t = o[e];
+      v[4 * e] = t.x, v[4 * e + 1] = t.y, v[4 * e + 2] = t.z,
+      v[4 * e + 3] = t.w;
+    }
+    if (even_sign && ((r < M ? r : r - M) & 1)) {
+#pragma unroll
+      for (int e = 0; e < PER; e += 2) v[e] = -v[e];  // F0 is even
+    }
+    const long at = static_cast<long>(r) * width + F;
+    if (vec && F + PER <= width) {
+      if constexpr (PER == 8) {
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + at) =
+            make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                       bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + at) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < PER; ++e)
+        if (F + e < width) sdr::st(out, at + e, v[e], PER == 8);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_bins(int out_bf16, const float* Os,
+                                           int OS, int M, int nt, int F0,
+                                           int width, int even_sign,
+                                           void* out, int t0, int nthr) {
+  if (out_bf16)
+    store_tile<8>(Os, OS, M, nt, F0, width, even_sign, out, t0, nthr);
+  else
+    store_tile<4>(Os, OS, M, nt, F0, width, even_sign, out, t0, nthr);
+}
+
+// Named barriers of the warp-specialised block (0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Every warp in every phase, in turns: a three-part matrix (96 fragment
+// registers a warp, one m-tile each).
+__global__ void __launch_bounds__(PFB_THREADS) pfb_kernel(
+    PfbArgs g, const float* __restrict__ br, const unsigned* __restrict__ ap,
+    int even_sign, void* __restrict__ out, int out_bf16, int width, int nbuf,
+    float* __restrict__ fold_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int M = g.M, tpp = g.tpp, h = g.h, nt = g.nt;
+  const PfbLayout L = pfb_layout(M, tpp, h, nt, nbuf, 1);
+  float* brT = smem;
+  float* spans = smem + L.span;
+  unsigned* Bs = reinterpret_cast<unsigned*>(smem + L.bs);
+  float* Os = smem + L.os;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = (nt - 1) * h + tpp * M;
+  const int ntiles = (width + nt - 1) / nt;
+  const int part = nt * L.BSW;  // words of one bf16 part
+
+  // the first tile's span is on its way while the block loads its taps
+  // and its matrix fragments
+  int tile = blockIdx.x;
+  if (tile < ntiles && nbuf > 0) {
+    const long n0 = static_cast<long>(tile) * nt * h;
+    float* d = spans + span_off(n0, g.nh);
+    stage_span(g, n0, span, d, d + L.SC, tid, PFB_THREADS);
+  }
+  sdr::cp_async_commit();
+  for (int i = tid; i < tpp * M; i += PFB_THREADS) {
+    const int p = i / tpp;
+    brT[(i - p * tpp) * M + p] = br[i];
+  }
+  for (int i = tid; i < 3 * part; i += PFB_THREADS) Bs[i] = 0u;
+
+  // ---- this warp's m-tile of the matrix, every k-step, in registers -----
+  const int K16 = L.K16;
+  const int wpm = max(1, 8 / K16);  // warps on one m-tile
+  const int mt = warp / wpm, ng = warp - mt * wpm;
+  const int ntn = nt / 8;
+  const int per = (ntn + wpm - 1) / wpm;
+  const int j0 = ng * per, j1 = min(ntn, j0 + per);
+  const bool mma_on = mt < K16 && j0 < j1;
+  const int gq = lane >> 2, tq = lane & 3;
+  unsigned A[3][8][4];
+  if (mma_on) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) load_a(A[a], ap, a, L.KP, K16, mt, lane);
+  }
+
+  for (int it = 0; tile < ntiles; tile += gridDim.x, ++it) {
+    const int b = nbuf > 1 ? (it & 1) : 0;
+    const int next = tile + gridDim.x;
+    if (nbuf == 2) {
+      if (next < ntiles) {
+        const long n1 = static_cast<long>(next) * nt * h;
+        float* d = spans + (b ^ 1) * 2 * L.SC + span_off(n1, g.nh);
+        stage_span(g, n1, span, d, d + L.SC, tid, PFB_THREADS);
+      }
+      sdr::cp_async_commit();
+      sdr::cp_async_wait<1>();
+    } else {
+      sdr::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int F0 = tile * nt;
+    fold_at(g, spans + b * 2 * L.SC, L.SC, nbuf, brT,
+            reinterpret_cast<__nv_bfloat16*>(Bs), L.BSW, part, F0, width,
+            fold_out, tid, PFB_THREADS);
+    __syncthreads();
+    if (nbuf == 1 && next < ntiles) {
+      // the span is folded: the next one may land in its place
+      const long n1 = static_cast<long>(next) * nt * h;
+      float* d = spans + span_off(n1, g.nh);
+      stage_span(g, n1, span, d, d + L.SC, tid, PFB_THREADS);
+      sdr::cp_async_commit();
+    }
+
+    // ---- the DFT on the tensor cores: the warp's m-tile, its n-tiles ----
+    if (mma_on) {
+      float d[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[jj][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        if (ks >= K16) break;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (j0 + jj >= j1) break;
+          const unsigned* w = Bs + ((j0 + jj) * 8 + gq) * L.BSW + ks * 8 + tq;
+          const unsigned b00 = w[0], b01 = w[4];
+          const unsigned b10 = w[part], b11 = w[part + 4];
+          const unsigned b20 = w[2 * part], b21 = w[2 * part + 4];
+          // the small products first (ops/channelizer_kernel.py:MMA_PASSES)
+          sdr::mma_bf16_16816(d[jj], A[2][ks], b00, b01);
+          sdr::mma_bf16_16816(d[jj], A[1][ks], b10, b11);
+          sdr::mma_bf16_16816(d[jj], A[0][ks], b20, b21);
+          sdr::mma_bf16_16816(d[jj], A[1][ks], b00, b01);
+          sdr::mma_bf16_16816(d[jj], A[0][ks], b10, b11);
+          sdr::mma_bf16_16816(d[jj], A[0][ks], b00, b01);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (j0 + jj >= j1) break;
+        float* o = Os + (mt * 16 + gq) * L.OS + (j0 + jj) * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(o) = make_float2(d[jj][0], d[jj][1]);
+        *reinterpret_cast<float2*>(o + 8 * L.OS) =
+            make_float2(d[jj][2], d[jj][3]);
+      }
+    }
+    __syncthreads();
+    store_bins(out_bf16, Os, L.OS, M, nt, F0, width, even_sign, out, tid,
+               PFB_THREADS);
+  }
+}
+
+// Warp-specialised, a one-part matrix: warps 0-3 (F) fold tile i into frame
+// buffer i % 2 and stage the next span (into the other of two span
+// buffers before folding, or into the one buffer after; with nbuf 0 they
+// read it in place and stage nothing); warps 4-7 (W)
+// hold m-tiles w and w + 4 of the matrix, multiply tile i and store its
+// bins.  Barriers: 1 + b
+// buffer b full (F arrive, W wait), 3 + b buffer b free (W arrive, F wait;
+// only where F will fold into it again), 5 within F, 6 within W.
+__global__ void __launch_bounds__(PFB_THREADS) pfb_ws_kernel(
+    PfbArgs g, const float* __restrict__ br, const unsigned* __restrict__ ap,
+    int even_sign, void* __restrict__ out, int out_bf16, int width, int nbuf,
+    float* __restrict__ fold_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int M = g.M, tpp = g.tpp, h = g.h, nt = g.nt;
+  const PfbLayout L = pfb_layout(M, tpp, h, nt, nbuf, 2);
+  float* brT = smem;
+  float* spans = smem + L.span;
+  unsigned* Bs = reinterpret_cast<unsigned*>(smem + L.bs);
+  float* Os = smem + L.os;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int span = (nt - 1) * h + tpp * M;
+  const int ntiles = (width + nt - 1) / nt;
+  const int part = nt * L.BSW;
+  const int grid = gridDim.x;
+  const bool folder = tid < PFB_HALF;
+
+  if (folder && nbuf > 0 && static_cast<int>(blockIdx.x) < ntiles) {
+    const long n0 = static_cast<long>(blockIdx.x) * nt * h;
+    float* d = spans + span_off(n0, g.nh);
+    stage_span(g, n0, span, d, d + L.SC, tid, PFB_HALF);
+  }
+  sdr::cp_async_commit();
+  for (int i = tid; i < tpp * M; i += PFB_THREADS) {
+    const int p = i / tpp;
+    brT[(i - p * tpp) * M + p] = br[i];
+  }
+  for (int i = tid; i < 2 * 3 * part; i += PFB_THREADS) Bs[i] = 0u;
   __syncthreads();
 
-  // fold: one (frame, branch) per thread
-  for (int idx = threadIdx.x; idx < nf * M; idx += blockDim.x) {
-    const int f = idx / M;
-    const int p = idx - f * M;
-    const float* wr = sr + f * h + p;
-    const float* wi = si + f * h + p;
-    float ar = 0.f, ai = 0.f;
-    for (int i = 0; i < tpp; ++i) {
-      const float g = tb[p * tpp + i];
-      ar = fmaf(g, wr[i * M], ar);
-      ai = fmaf(g, wi[i * M], ai);
+  if (folder) {
+    for (int i = 0, tile = blockIdx.x; tile < ntiles; tile += grid, ++i) {
+      const int b = i & 1, sb = nbuf > 1 ? b : 0;
+      const int next = tile + grid;
+      auto stage_next = [&](int buf) {
+        if (next < ntiles) {
+          const long n1 = static_cast<long>(next) * nt * h;
+          float* d = spans + buf * 2 * L.SC + span_off(n1, g.nh);
+          stage_span(g, n1, span, d, d + L.SC, tid, PFB_HALF);
+        }
+        sdr::cp_async_commit();
+      };
+      if (nbuf > 1) {
+        // the next span goes to the buffer tile i - 1 was folded from
+        bar_sync(5, PFB_HALF);
+        stage_next(b ^ 1);
+        sdr::cp_async_wait<1>();
+      } else {
+        sdr::cp_async_wait<0>();
+      }
+      bar_sync(5, PFB_HALF);  // tile i's span has landed
+      if (i >= 2) bar_sync(3 + b, PFB_THREADS);
+      fold_at(g, spans + sb * 2 * L.SC, L.SC, nbuf, brT,
+              reinterpret_cast<__nv_bfloat16*>(Bs + b * 3 * part), L.BSW,
+              part, tile * nt, width, fold_out, tid, PFB_HALF);
+      bar_arrive(1 + b, PFB_THREADS);
+      if (nbuf == 1) {
+        bar_sync(5, PFB_HALF);  // every folder is done with the span
+        stage_next(0);
+      }
     }
-    vr[f * vs + p] = ar;
-    vi[f * vs + p] = ai;
+    return;
   }
-  __syncthreads();
 
-  // DFT: one (bin, frame) per thread, frames fastest (coalesced stores)
-  for (int idx = threadIdx.x; idx < M * nf; idx += blockDim.x) {
-    const int k = idx / nf;
-    const int f = idx - k * nf;
-    const float* c = cs + k * M;
-    const float* s = sn + k * M;
-    const float* ur = vr + f * vs;
-    const float* ui = vi + f * vs;
-    float re = 0.f, im = 0.f;
-    for (int p = 0; p < M; ++p) {
-      re = fmaf(c[p], ur[p], re);
-      re = fmaf(s[p], ui[p], re);
-      im = fmaf(c[p], ui[p], im);
-      im = fmaf(-s[p], ur[p], im);
+  // ---- W: m-tiles w and w + 4, every n-tile of the tile ------------------
+  const int w = (tid - PFB_HALF) >> 5;
+  const int K16 = L.K16, ntn = nt / 8;
+  const bool on0 = w < K16, on1 = w + 4 < K16;
+  const int gq = lane >> 2, tq = lane & 3;
+  unsigned A[2][8][4];
+  if (on0) load_a(A[0], ap, 0, L.KP, K16, w, lane);
+  // a warp without a second m-tile multiplies zeros there: no branch
+  // between the products (each would cost a WARPSYNC before every one)
+  if (on1) {
+    load_a(A[1], ap, 0, L.KP, K16, w + 4, lane);
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) A[1][ks][e] = 0u;
+  }
+  for (int i = 0, tile = blockIdx.x; tile < ntiles; tile += grid, ++i) {
+    const int b = i & 1;
+    bar_sync(1 + b, PFB_THREADS);
+    float d[2][4][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[m][jj][e] = 0.f;
+    if (on0) {
+      const unsigned* Bb = Bs + b * 3 * part;
+      __syncwarp();
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        if (ks >= K16) break;
+        // two n-tiles at a time: consecutive products go to four
+        // accumulators; the small products first
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          if (2 * jp >= ntn) break;
+          unsigned bq[2][3][2];
+#pragma unroll
+          for (int j2 = 0; j2 < 2; ++j2) {
+            const unsigned* q =
+                Bb + ((2 * jp + j2) * 8 + gq) * L.BSW + ks * 8 + tq;
+#pragma unroll
+            for (int pt = 0; pt < 3; ++pt) {
+              bq[j2][pt][0] = q[pt * part];
+              bq[j2][pt][1] = q[pt * part + 4];
+            }
+          }
+#pragma unroll
+          for (int pt = 2; pt >= 0; --pt)
+#pragma unroll
+            for (int j2 = 0; j2 < 2; ++j2) {
+              sdr::mma_bf16_16816(d[0][2 * jp + j2], A[0][ks], bq[j2][pt][0],
+                                  bq[j2][pt][1]);
+              sdr::mma_bf16_16816(d[1][2 * jp + j2], A[1][ks], bq[j2][pt][0],
+                                  bq[j2][pt][1]);
+            }
+        }
+      }
     }
-    const int F = F0 + f;
-    if (even_sign && !(F & 1) && (k & 1)) {
-      re = -re;
-      im = -im;
+    if (tile + 2 * grid < ntiles) bar_arrive(3 + b, PFB_THREADS);
+    bar_sync(6, PFB_HALF);  // the last tile's bins have left Os
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      if (!(m ? on1 : on0)) continue;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (jj >= ntn) break;
+        float* o = Os + ((w + 4 * m) * 16 + gq) * L.OS + jj * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(o) = make_float2(d[m][jj][0], d[m][jj][1]);
+        *reinterpret_cast<float2*>(o + 8 * L.OS) =
+            make_float2(d[m][jj][2], d[m][jj][3]);
+      }
     }
-    sdr::st(out, static_cast<long>(k) * width + F, re, out_bf16);
-    sdr::st(out, static_cast<long>(M + k) * width + F, im, out_bf16);
+    bar_sync(6, PFB_HALF);
+    store_bins(out_bf16, Os, L.OS, M, nt, tile * nt, width, even_sign, out,
+               tid - PFB_HALF, PFB_HALF);
   }
 }
 
 }  // namespace
 
+// br [M, tpp] float32; ap [na, KP, KP] bf16 (KP = 2M padded to 16) as the
+// host splits the DFT matrix; out [2M, width] float32 or bf16; fold_out
+// null or [2M, width] float32.  ws (1: the warp-specialised kernel, which
+// takes na 1; 0: pfb_kernel, which takes na 3), nt (16 or 32 frames a
+// tile), nbuf (0, 1 or 2 input spans in shared memory; with 0, ext_r/ext_i
+// hold s whole through the last tile's span, else they are null) and grid
+// (persistent blocks) come from ops/channelizer_kernel.py:pfb_plan.
 extern "C" int sdr_pfb_bins(const float* xr, const float* xi, int T,
                             const float* hr, const float* hi, int nh,
-                            const float* br, const float* cm, const float* sm,
-                            int M, int tpp, int hop, int even_sign,
-                            void* out, int out_bf16, int width,
-                            cudaStream_t stream) {
+                            const float* br, const void* ap, int na, int M,
+                            int tpp, int hop, int even_sign, void* out,
+                            int out_bf16, int width, int ws, int nt, int nbuf,
+                            int grid, const float* ext_r, const float* ext_i,
+                            float* fold_out, cudaStream_t stream) {
   if (M < 2 || M % 2 || M > 64 || tpp < 2 || width < 1 ||
-      (hop != M / 2 && hop != M) || nh != tpp * M - hop)
+      (hop != M / 2 && hop != M) || nh != tpp * M - hop ||
+      (na != 1 && na != 3) || (nt != 16 && nt != 32) || nbuf < 0 ||
+      nbuf > 2 || grid < 1 || (nbuf == 0 && (!ext_r || !ext_i)) ||
+      ((ws != 0) != (na == 1)))
     return cudaErrorInvalidValue;
-  const int span_max = (PFB_FRAMES - 1) * hop + tpp * M;
   const size_t smem =
-      (2 * static_cast<size_t>(span_max) + 2 * PFB_FRAMES * (M + 1) +
-       2 * static_cast<size_t>(M) * M + static_cast<size_t>(M) * tpp) *
-      sizeof(float);
-  const cudaError_t e = sdr::allow_smem(pfb_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int grid = (width + PFB_FRAMES - 1) / PFB_FRAMES;
-  pfb_kernel<<<grid, PFB_THREADS, smem, stream>>>(
-      xr, xi, T, hr, hi, nh, br, cm, sm, M, tpp, hop, even_sign, out,
-      out_bf16, width, span_max);
+      pfb_layout(M, tpp, hop, nt, nbuf, ws ? 2 : 1).total * sizeof(float);
+  const PfbArgs g{xr, xi, hr, hi, ext_r, ext_i, T, nh, M, tpp, hop, nt};
+  const unsigned* a = static_cast<const unsigned*>(ap);
+  cudaError_t e;
+  if (ws) {
+    e = sdr::allow_smem(pfb_ws_kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    pfb_ws_kernel<<<grid, PFB_THREADS, smem, stream>>>(
+        g, br, a, even_sign, out, out_bf16, width, nbuf, fold_out);
+  } else {
+    e = sdr::allow_smem(pfb_kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    pfb_kernel<<<grid, PFB_THREADS, smem, stream>>>(
+        g, br, a, even_sign, out, out_bf16, width, nbuf, fold_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

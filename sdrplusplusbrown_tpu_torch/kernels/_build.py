@@ -49,8 +49,8 @@ SIGNATURES = {
     "sdr_fft_cols": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                      _I, _I, _P, _P, _P],
     "sdr_fft_rows": [_P, _I, _I, _I, _I, _P, _F, _P],
-    "sdr_pfb_bins": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
-                     _I, _I],
+    "sdr_pfb_bins": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+                     _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "sdr_chan_post": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                       _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I],
     "sdr_fm_audio_fir": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P, _I, _P,
@@ -61,7 +61,7 @@ SIGNATURES = {
                      _I, _I, _I, _I],
     "sdr_fir_cplx": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I],
     "sdr_fused_mix": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
-                      _P, _I],
+                      _P, _I, _I, _I],
     "sdr_agc_rows": [_P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I,
                      _P, _P, _P],
 }

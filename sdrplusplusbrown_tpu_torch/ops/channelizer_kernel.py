@@ -34,10 +34,81 @@ import numpy as np
 import torch
 
 from ..kernels import _build
+from .fir_kernel import SMEM_MAX, SMS
 from .precision import get_handoff_dtype, round_to
 
 _STORAGE = (torch.float32, torch.bfloat16)
-PFB_FRAMES = 32      # frames per CUDA block (csrc/pfb_channelizer.cu)
+PFB_NF = 8           # frames a thread folds (csrc/pfb_channelizer.cu)
+# (frames a tile, input spans in shared memory; 0: read in place), in the
+# order tried: the warp-specialised kernel's, then the other's
+PFB_WS_TILES = ((32, 1), (16, 2), (16, 1), (16, 0))
+PFB_TILES = ((32, 2), (32, 1), (16, 2), (16, 1), (16, 0))
+SM_SMEM = 233_472    # shared memory of one SM (228 KB)
+
+
+def pfb_smem(M: int, tpp: int, h: int, nt: int, nbuf: int,
+             nbs: int = 1) -> int:
+    """Shared-memory bytes of one K5 block (csrc/pfb_channelizer.cu:
+    pfb_layout): the transposed taps, ``nbuf`` input spans of both planes,
+    ``nbs`` buffers of a tile's folded frames as three bf16 parts [nt, 2M
+    padded to 16 + 8] and the output tile [2M padded, nt + 8] float32."""
+    KP = -(-2 * M // 16) * 16
+    SC = (((nt - 1) * h + tpp * M + M + 3) & ~3) + 4
+    words = ((tpp * M + 3) & ~3) + nbuf * 2 * SC \
+        + nbs * 3 * nt * (KP // 2 + 4) + KP * (nt + 8)
+    return 4 * words
+
+
+def pfb_plan(M: int, tpp: int, h: int, width: int, na: int = 1) -> dict:
+    """K5's persistent grid (csrc/pfb_channelizer.cu): tiles of ``nt``
+    frames (32, or 16 where 32 does not fit).  With a one-part DFT matrix
+    (``na`` = 1, the bf16 handoff) the warp-specialised kernel (``ws``:
+    four warps fold the next tile into one of two frame buffers while four
+    multiply this one), two blocks an SM where they fit.  With three parts
+    every warp takes every phase in turn (96 registers of matrix fragments
+    a thread: one block an SM), two input spans where they fit (the next
+    tile's arrives while this one works).  Either kernel takes no span
+    (``nbuf`` 0) where not even one fits: the fold then reads the stream,
+    laid out whole, in place (thousands of taps a branch).  Every block
+    walks tiles blockIdx, blockIdx + grid, ...; raises where no tile fits
+    SMEM_MAX."""
+    ws = na == 1
+    for nt, nbuf in PFB_WS_TILES if ws else PFB_TILES:
+        smem = pfb_smem(M, tpp, h, nt, nbuf, 2 if ws else 1)
+        if smem <= SMEM_MAX:
+            break
+    else:
+        raise NotImplementedError(f"PFB kernel geometry M={M}, tpp={tpp} "
+                                  f"does not fit {SMEM_MAX} bytes")
+    tiles = -(-width // nt)
+    per_sm = min(2 if ws else 1, SM_SMEM // (smem + 1024))
+    grid = min(tiles, SMS * per_sm)
+    return {"ws": ws, "nt": nt, "nbuf": nbuf, "smem": smem, "tiles": tiles,
+            "per_sm": per_sm, "grid": grid, "launches": 1}
+
+
+#: the bf16 products the kernel sums into each bin, smallest first: (matrix
+#: part, frame part) for a matrix of one part and of three
+MMA_PASSES = {1: ((0, 2), (0, 1), (0, 0)),
+              3: ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))}
+
+
+def split_bf16(a: torch.Tensor, parts: int = 3) -> list:
+    """float32 ``a`` as ``parts`` bf16 tensors whose float32 sum is ``a``
+    (exactly, for three parts): each the round-to-nearest-even of what the
+    earlier ones leave (the kernel's split of the folded frames)."""
+    out, r = [], a.float()
+    for _ in range(parts):
+        b = r.to(torch.bfloat16)
+        out.append(b)
+        r = r - b.float()
+    return out
+
+
+def dft_matrix(cm: torch.Tensor, sm: torch.Tensor) -> torch.Tensor:
+    """[[C, S], [−S, C]] float32 [2M, 2M]: [re; im] = it · [vr; vi]."""
+    return torch.cat([torch.cat([cm, sm], dim=1),
+                      torch.cat([-sm, cm], dim=1)]).float()
 
 
 class PFBChannelizer:
@@ -65,11 +136,31 @@ class PFBChannelizer:
 
     def check_kernel_geometry(self) -> None:
         """Raise unless csrc/pfb_channelizer.cu takes this geometry: even
-        M <= 64 (the DFT matrices and the frames' span in shared memory),
-        at least two taps per branch."""
+        M <= 64 (2M rows of the matrix on 8 warps' m-tiles) and at least
+        two taps per branch (``pfb_plan`` raises where no tile fits)."""
         if self.tpp < 2 or self.M % 2 or self.M > 64:
             raise NotImplementedError(
                 f"PFB kernel geometry M={self.M}, tpp={self.tpp}")
+
+    def dft_parts(self, device, dtype):
+        """(bf16 [na, KP, KP] device tensor, na): the DFT matrix
+        ``dft_matrix`` of the ``dtype``-rounded cos and sin, zero-padded to
+        KP = 2M rounded up to 16, split into bf16 parts (``split_bf16``) for
+        the kernel's tensor cores; one part where the matrix is exact in
+        bf16 (the other parts are zero), else three."""
+        key = ("parts", str(device), dtype)
+        if key not in self._dev:
+            cm, sm = (round_to(torch.from_numpy(a), dtype)
+                      for a in (self.cos, self.sin))
+            KP = -(-2 * self.M // 16) * 16
+            A = torch.zeros((KP, KP), dtype=torch.float32)
+            A[:2 * self.M, :2 * self.M] = dft_matrix(cm, sm)
+            parts = split_bf16(A)
+            na = 1 if not (parts[1].float().any() or parts[2].float().any()) \
+                else 3
+            self._dev[key] = (torch.stack(parts[:na]).to(device).contiguous(),
+                              na)
+        return self._dev[key]
 
     def operands(self, device, dtype):
         """(branches [M, tpp], cos [M, M], sin [M, M]) float32 device
@@ -179,16 +270,28 @@ def pfb_bins_ref(pipe, xr, xi, xwr, xwi, width_out: int, tap_dtype,
 
 
 def _launch_pfb(pipe, xr, xi, xwr, xwi, width_out: int, tap_dtype,
-                out_dtype) -> torch.Tensor:
-    """One launch of csrc/pfb_channelizer.cu, either form."""
+                out_dtype, probe: bool = False, plan: dict | None = None):
+    """One launch of csrc/pfb_channelizer.cu, either form, on ``plan``
+    (default ``pfb_plan``'s): the bins, and with ``probe`` (bins, the
+    folded frames v_F float32 [2M, width_out], unsigned)."""
     dev = xr.device
     f32 = torch.float32
     T = _check_pfb(pipe, xr, xi, xwr, xwi, width_out)
     if out_dtype not in _STORAGE:
         raise ValueError(f"output dtype {out_dtype}")
     pipe.check_kernel_geometry()
-    br, cm, sm = pipe.operands(dev, tap_dtype)
+    br = pipe.operands(dev, tap_dtype)[0]
+    parts, na = pipe.dft_parts(dev, tap_dtype)
+    plan = plan or pfb_plan(pipe.M, pipe.tpp, pipe.h, width_out, na)
+    ext = (None, None)
+    if plan["nbuf"] == 0:       # s whole, through the last tile's span + M
+        need = (plan["tiles"] * plan["nt"] - 1) * pipe.h + pipe.K0 + pipe.M
+        pad = torch.zeros(max(0, need - pipe.n_hist - T), device=dev)
+        ext = tuple(torch.cat([h, x, pad]) for h, x in ((xwr, xr),
+                                                         (xwi, xi)))
     out = torch.empty((2 * pipe.M, width_out), dtype=out_dtype, device=dev)
+    fold = torch.empty((2 * pipe.M, width_out), dtype=f32, device=dev) \
+        if probe else None
     _build.launch(
         "sdr_pfb_bins", dev,
         _build.check(xr, "xr", f32, device=dev),
@@ -196,11 +299,13 @@ def _launch_pfb(pipe, xr, xi, xwr, xwi, width_out: int, tap_dtype,
         _build.check(xwr, "history re", f32, device=dev),
         _build.check(xwi, "history im", f32, device=dev), pipe.n_hist,
         _build.check(br, "branch taps", f32, device=dev),
-        _build.check(cm, "dft cos", f32, device=dev),
-        _build.check(sm, "dft sin", f32, device=dev), pipe.M, pipe.tpp,
-        pipe.h, int(not pipe.critical), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), width_out)
-    return out
+        _build.check(parts, "dft parts", torch.bfloat16, device=dev), na,
+        pipe.M, pipe.tpp, pipe.h, int(not pipe.critical), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), width_out, int(plan["ws"]),
+        plan["nt"], plan["nbuf"], plan["grid"],
+        *(None if e is None else e.data_ptr() for e in ext),
+        None if fold is None else fold.data_ptr())
+    return (out, fold) if probe else out
 
 
 @_build.counted

@@ -203,12 +203,12 @@ def spectrum_frames_db_ref(xr, xi, keep: int, interval: int, fft_size: int,
     return _frames_db(fr, fft_size, floor_db, window)
 
 
-@_build.counted
+@_build.counted_launches
 def spectrum_frames_db_kernel(xr, xi, keep: int, interval: int,
                               fft_size: int, floor_db: float,
                               window) -> torch.Tensor:
-    """K4 on the card (csrc/spectrum_fft.cu); same contract as
-    ``spectrum_frames_db_ref``."""
+    """K4 on the card (csrc/spectrum_fft.cu, ``plan``'s launches, each
+    counted in ``launches``); same contract as ``spectrum_frames_db_ref``."""
     dev = xr.device
     f32 = torch.float32
     starts = _check(xr, xi, keep, interval, fft_size, window)
@@ -245,12 +245,12 @@ def spectrum_path_db_ref(x, keep: int, interval: int, fft_size: int,
     return _frames_db(fr, fft_size, floor_db, window)
 
 
-@_build.counted
+@_build.counted_launches
 def spectrum_path_db_kernel(x, keep: int, interval: int, fft_size: int,
                             floor_db: float, window) -> torch.Tensor:
     """K4f on the card (csrc/spectrum_fft.cu, exact starts, the block's
-    re and im parts read in place); same contract as
-    ``spectrum_path_db_ref``."""
+    re and im parts read in place; ``plan``'s launches, each counted in
+    ``launches``); same contract as ``spectrum_path_db_ref``."""
     dev = x.device
     starts = _check_block(x, keep, interval, fft_size, window)
     p = _build.check(x, "spectrum block", torch.complex64, device=dev)
@@ -283,11 +283,11 @@ def fft_power_db_planes_ref(xr, xi, fft_size: int,
                       floor_db, None)
 
 
-@_build.counted
+@_build.counted_launches
 def fft_power_db_planes_kernel(xr, xi, fft_size: int,
                                floor_db: float = -300.0) -> torch.Tensor:
-    """K4r on the card (csrc/spectrum_fft.cu); same contract as
-    ``fft_power_db_planes_ref``.  The views' frames must be contiguous
+    """K4r on the card (csrc/spectrum_fft.cu, ``plan``'s launches, each
+    counted in ``launches``); same contract as ``fft_power_db_planes_ref``.  The views' frames must be contiguous
     (strides N and 1) and their leading axes one uniform row stride; xr
     and xi share dtype (float32 or bf16) and strides."""
     _check_framed(xr, xi, fft_size)

@@ -27,7 +27,64 @@ import torch.nn.functional as F
 
 from ..kernels import _build
 from ..runtime.block import Block
+from .fir_kernel import SMEM_MAX, SMS
 from .xlator import SPAN, _TWO_PI, advance_phase, fmod_floor, rotor
+
+MIX_R = 4                   # consecutive outputs a thread (csrc/fused_mix.cu)
+MIX_BLOCKS = (512, 256, 128)   # outputs a block, each dividing 1 024
+MIX_CHUNKS = (8, 4, 2, 1)      # channels a chunk
+
+
+def mix_chunks(C: int, ncm: int) -> list:
+    """[(first channel, channels)] of K11's chunks (csrc/fused_mix.cu:
+    chunk_of): C // ncm chunks of ncm, then the rest in descending powers
+    of two."""
+    out = [(i * ncm, ncm) for i in range(C // ncm)]
+    c0 = len(out) * ncm
+    b = ncm // 2
+    while b:
+        if (C - c0) & b:
+            out.append((c0, b))
+            c0 += b
+        b //= 2
+    return out
+
+
+def mix_smem(B: int, K: int, D: int, ncm: int) -> int:
+    """Shared-memory bytes of one K11 block (csrc/fused_mix.cu:mix_layout):
+    D phase planes of the re and the im window, each B + ceil(K/D) +
+    MIX_R samples padded by a word every MIX_R, the chunk's taps for both
+    passes and four phase parameters a channel."""
+    L = B + -(-K // D) + MIX_R
+    PS = L + L // MIX_R + 1
+    return 4 * (((2 * D * PS + 3) & ~3) + 4 * K * ncm + 4 * ncm)
+
+
+def fused_plan(T: int, K: int, D: int, C: int) -> dict:
+    """K11's grid (csrc/fused_mix.cu): B outputs a block, MIX_R a thread,
+    inside one 1 024-output rotor group; grid.y walks the channel chunks
+    (at most ``ncm`` channels each, the largest power of two <= min(C, 8)).
+    B is the largest of MIX_BLOCKS that still gives 2 blocks an SM (else
+    128); a window or tap table that would not fit SMEM_MAX halves ncm,
+    then B."""
+    M = T // D
+    ncm = next(n for n in MIX_CHUNKS if n <= C)
+    n_y = len(mix_chunks(C, ncm))
+    B = next((b for b in MIX_BLOCKS if -(-M // b) * n_y >= 2 * SMS),
+             MIX_BLOCKS[-1])
+    while mix_smem(B, K, D, ncm) > SMEM_MAX:
+        if ncm > 1:
+            ncm //= 2
+        elif B > MIX_BLOCKS[-1]:
+            B //= 2
+        else:
+            raise ValueError(f"K11 geometry K={K}, D={D} does not fit "
+                             f"{SMEM_MAX} bytes")
+    chunks = mix_chunks(C, ncm)
+    grid = (-(-M // B), len(chunks))
+    return {"M": M, "B": B, "R": MIX_R, "threads": B // MIX_R, "ncm": ncm,
+            "chunks": chunks, "grid": grid, "blocks": grid[0] * grid[1],
+            "smem": mix_smem(B, K, D, ncm)}
 
 
 def fused_params(offset_hz, samplerate: float, decim: int) -> dict:
@@ -91,13 +148,22 @@ def fused_mix_ref(xr, xi, tail_r, tail_i, h, D: int, omega, phase,
 @_build.counted
 def fused_mix_kernel(xr, xi, tail_r, tail_i, h, D: int, omega, phase,
                      omega_dec, omega_dec_span):
-    """K11 on the card (csrc/fused_mix.cu); same contract as
-    ``fused_mix_ref``."""
+    """K11 on the card (csrc/fused_mix.cu, ``fused_plan``'s grid, one
+    launch); same contract as ``fused_mix_ref``."""
+    return _launch_mix(xr, xi, tail_r, tail_i, h, D, omega, phase,
+                       omega_dec, omega_dec_span)
+
+
+def _launch_mix(xr, xi, tail_r, tail_i, h, D: int, omega, phase, omega_dec,
+                omega_dec_span, plan: dict | None = None):
+    """One launch of csrc/fused_mix.cu on ``plan`` (default
+    ``fused_plan``'s)."""
     dev = xr.device
     f32 = torch.float32
     T, C, M = _check(xr, xi, tail_r, tail_i, h, D, omega, phase, omega_dec,
                      omega_dec_span)
     K = h.shape[-1]
+    plan = plan or fused_plan(T, K, D, C)
     y = torch.empty((2 * C, M), dtype=f32, device=dev)
     _build.launch(
         "sdr_fused_mix", dev, _build.check(xr, "xr", f32, device=dev),
@@ -109,7 +175,7 @@ def fused_mix_kernel(xr, xi, tail_r, tail_i, h, D: int, omega, phase,
         _build.check(phase, "phase", f32, (C,), dev),
         _build.check(omega_dec, "omega_dec", f32, (C,), dev),
         _build.check(omega_dec_span, "omega_dec_span", f32, (C,), dev),
-        C, y.data_ptr(), M)
+        C, y.data_ptr(), M, plan["B"], plan["ncm"])
     return y
 
 

@@ -387,11 +387,18 @@ def mono_stages_kernel(pipe, y, tails, kernels, out_dtype, tail_dtype):
     return y, new_tails, outs[:-1]
 
 
-@_build.counted
+def frontend_launches(pipe) -> int:
+    """CUDA launches of one ``mono_frontend_kernel`` call: stage 0 and one
+    a chained stage."""
+    return 1 + len(pipe.stages)
+
+
+@_build.counted_launches
 def mono_frontend_kernel(pipe, xr, xi, tail, omega, base, tails, out_dtype,
                          tap_dtype, tail_dtype):
     """K1 on the card (csrc/mono_frontend.cu: stage 0, then one launch a
-    chained stage); same contract as ``mono_frontend_ref``."""
+    chained stage, each launch counted in ``launches``); same contract as
+    ``mono_frontend_ref``."""
     _check_args(pipe, xr, xi, tail, omega, base, tails)
     if pipe.K0 > 1024:
         raise ValueError("front-end geometry not supported by the kernel")

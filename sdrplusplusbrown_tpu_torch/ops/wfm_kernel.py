@@ -164,10 +164,16 @@ def _stereo_ref(pipe, mpx, hist, hr, hi):
     return torch.stack([lpr * (1.0 + two), lpr * (1.0 - two)])
 
 
-@_build.counted
+#: CUDA launches of one ``wfm_demod_kernel`` call (csrc/wfm_demod.cu: the
+#: discriminator and first halfband, the second halfband, the stereo
+#: section)
+WFM_DEMOD_LAUNCHES = 3
+
+
+@_build.counted_launches
 def wfm_demod_kernel(pipe, iq, m_if, quad, hb_tails, hist, out_dtype):
-    """K2 on the card (csrc/wfm_demod.cu, three launches); same contract
-    as ``wfm_demod_ref``."""
+    """K2 on the card (csrc/wfm_demod.cu, three launches, each counted in
+    ``launches``); same contract as ``wfm_demod_ref``."""
     return _wfm_demod_launches(pipe, iq, m_if, quad, hb_tails, hist,
                                out_dtype)[:4]
 

@@ -89,7 +89,9 @@ def test_frontend_kernel_matches_plain(gpu, handoff, C, T):
         _close(s_cpu["fused"]["tail"], s_gpu["fused"]["tail"], 200.0, "tail")
         torch.testing.assert_close(s_gpu["fused"]["phase"].cpu(),
                                    s_cpu["fused"]["phase"])
-    assert mono_frontend.mono_frontend_kernel.launches == n0 + 2
+    # each CUDA launch counted: stage 0 and each chained stage, two calls
+    assert mono_frontend.mono_frontend_kernel.launches == \
+        n0 + 2 * mono_frontend.frontend_launches(bank_gpu.pipe())
 
 
 @pytest.mark.parametrize("C", [1, 4, 8])
@@ -113,7 +115,8 @@ def test_wfm_kernels_match_plain(gpu, handoff, C):
         _close(a_cpu, a_gpu, bound, f"audio block {b}")
         for key in ("quad", "mpx_hist", "audio_rs"):
             _close(sd[key], sd_gpu[key], bound, key)
-    assert wfm_kernel.wfm_demod_kernel.launches == n2 + 2
+    assert wfm_kernel.wfm_demod_kernel.launches == \
+        n2 + 2 * wfm_kernel.WFM_DEMOD_LAUNCHES
     assert wfm_kernel.mpx_audio_poly_kernel.launches == n3 + 2
 
 
@@ -135,7 +138,8 @@ def test_frontend_chains_match_plain(gpu, handoff, group):
     group's IF dtype) against its plain version on the same card tensors:
     the IF >= 100 dB (45 dB for a bf16 IF), every new stage tail within
     the same bar of the plain version's and exactly the plain version's
-    rule on the kernels' own stage inputs; one counted launch a call."""
+    rule on the kernels' own stage inputs; a counted launch for stage 0
+    and each chained stage."""
     from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
     bank = rb.RadioBank(2.4e6, rb.multimode8_vfos(), device=gpu)
     d, r = next((d, r) for d, r in bank.radios.items()
@@ -159,7 +163,8 @@ def test_frontend_chains_match_plain(gpu, handoff, group):
     args = (pipe, xr, xi, tail, p["omega"], base, tails, out_dt, h_dt, t_dt)
     n0 = mono_frontend.mono_frontend_kernel.launches
     got = mono_frontend.mono_frontend_kernel(*args)
-    assert mono_frontend.mono_frontend_kernel.launches == n0 + 1
+    assert mono_frontend.mono_frontend_kernel.launches == \
+        n0 + mono_frontend.frontend_launches(pipe)
     want = mono_frontend.mono_frontend_ref(*args)
     bound = 45.0 if out_dt == torch.bfloat16 else 100.0
     assert got[0].dtype == out_dt
@@ -204,7 +209,8 @@ def test_wfm_demod_state_matches_plain(gpu, handoff, C):
     args = (pipe, iq, 50_000, quad, hbt, hist, dt)
     n0 = wfm_kernel.wfm_demod_kernel.launches
     got = wfm_kernel.wfm_demod_kernel(*args)
-    assert wfm_kernel.wfm_demod_kernel.launches == n0 + 1
+    assert wfm_kernel.wfm_demod_kernel.launches == \
+        n0 + wfm_kernel.WFM_DEMOD_LAUNCHES
     want = wfm_kernel.wfm_demod_ref(*args)
     bound = 70.0 if dt == torch.float32 else 50.0
     _close(want[0], got[0], bound, "L/R")
@@ -243,7 +249,9 @@ def test_spectrum_kernel_matches_plain(gpu, fft_size, interval, n):
     got = fft_kernel.spectrum_frames_db(*_planes(x, gpu), keep, interval,
                                         fft_size, -300.0, win.to(gpu))
     assert got.is_cuda and got.shape == want.shape
-    assert fft_kernel.spectrum_frames_db_kernel.launches == n0 + 1
+    # each CUDA launch counted: the route's (one pass or four-step)
+    assert fft_kernel.spectrum_frames_db_kernel.launches == n0 + len(
+        fft_kernel.plan(fft_size, got.shape[0])["launches"])
     assert_spectra_close(want.numpy(), got.cpu().numpy())
 
 
@@ -621,7 +629,8 @@ def test_spectrum_path_kernel_matches_plain(gpu, fft_size, keep, interval,
                                       interval, fft_size, -300.0,
                                       win.to(gpu))
     assert got.is_cuda and got.shape == want.shape == (n, fft_size)
-    assert fft_kernel.spectrum_path_db_kernel.launches == n0 + 1
+    assert fft_kernel.spectrum_path_db_kernel.launches == n0 + len(
+        fft_kernel.plan(fft_size, n)["launches"])
     assert_spectra_close(want.numpy(), got.cpu().numpy())
 
 
@@ -753,12 +762,14 @@ def _leaves(tree, path=""):
 
 @pytest.mark.parametrize("span", [10e3, 4.9e6])
 @pytest.mark.parametrize("C,K,T", [(1, 31, 4 * 1000), (4, 31, 4 * 260_017),
-                                   (4, 320, 4 * 777), (64, 34, 2 * 4 * 9999)])
+                                   (4, 320, 4 * 777), (64, 34, 2 * 4 * 9999),
+                                   (4, 31, 1_040_000), (12, 31, 1_040_000)])
 def test_fused_mix_kernel_matches_plain(gpu, C, K, T, span):
-    """K11 against its plain version on the card: C = 1, 4, 64, K up to
-    320, output counts off the 256-output tile, the short (M <= 1024)
-    and the spanned twiddle, channels near the centre and across the
-    band: >= 100 dB."""
+    """K11 against its plain version on the card: C = 1, 4, 12, 64, K up
+    to 320, output counts off every block size, the short (M <= 1024) and
+    the spanned twiddle, channels near the centre and across the band, the
+    10 MS/s bank's shape (C = 4, T = 1 040 000) and three groups' worth of
+    channels on it (C = 12: chunks of 8 and 4): >= 100 dB."""
     from sdrplusplusbrown_tpu_torch.ops import fused_frontend as ff
     rng = np.random.default_rng(C + K)
     D = 2 if C == 64 else 4
@@ -932,6 +943,111 @@ def test_pfb_critical_kernel_matches_plain(gpu, M, trans_frac, out):
     assert channelizer_kernel.pfb_critical_bins_kernel.launches == n0 + 4
 
 
+def _identity_pipe(pipe):
+    """A copy of a PFB configuration whose DFT matrix is the identity: its
+    plain version's bins are then the folded frames (signed)."""
+    import copy
+    p = copy.copy(pipe)
+    p.cos = np.eye(pipe.M, dtype=np.float32)
+    p.sin = np.zeros((pipe.M, pipe.M), np.float32)
+    p._dev = {}
+    return p
+
+
+def _pfb_path_case(form, dev):
+    """(pipe, (xr, xi, xwr, xwi), width) at a path's full width: the
+    scanner's PFB (scanner128 and scanner256 share it; 0.1 s at 2.4 MS/s,
+    10 240 frames) or channelizer64's (2^21 samples at 10 MS/s, 32 768)."""
+    from sdrplusplusbrown_tpu_torch.ops.channelizer import \
+        PolyphaseChannelizer
+    if form == "scanner128":
+        bank = Radio(FS, DEMOD_NFM)._build_vfo_channelized()
+        pipe, post = bank.pipes()
+        T = 240_000
+        W = post.plan(T // pipe.h)["Tb_pad"]
+    else:
+        pipe = PolyphaseChannelizer(10e6, 64).pfb()
+        T = 1 << 21
+        W = T // 64
+    rng = np.random.default_rng(T)
+    x = tuple(torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
+        np.float32)).to(dev) for n in (T, T, pipe.n_hist, pipe.n_hist))
+    return pipe, x, W
+
+
+@pytest.mark.parametrize("form", ["scanner128", "channelizer64"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["float32 taps", "bf16 taps"])
+def test_pfb_kernels_at_path_widths(gpu, form, tdt):
+    """K5 (scanner128/256's 10 240 frames, 2×-oversampled) and K5c
+    (channelizer64's 32 768, critical) against their plain versions at
+    the path's full width, both tap dtypes: float32 bins >= 100 dB, bf16
+    bins >= 45 dB, one launch a call; the folded frames (the kernel's
+    probe) within 120 dB of the plain version's (its bins through an
+    identity DFT matrix, the sign undone)."""
+    pipe, x, W = _pfb_path_case(form, gpu)
+    fn = channelizer_kernel.pfb_critical_bins_kernel if pipe.critical \
+        else channelizer_kernel.pfb_bins_kernel
+    for out, bound in ((torch.float32, 100.0), (torch.bfloat16, 45.0)):
+        n0 = fn.launches
+        got = fn(pipe, *x, W, tdt, out)
+        assert fn.launches == n0 + 1
+        want = channelizer_kernel.pfb_bins_ref(pipe, *x, W, tdt, out)
+        assert got.dtype == out and got.shape == (2 * pipe.M, W)
+        _close(want, got, bound, f"{form} bins {out}")
+    _, fold = channelizer_kernel._launch_pfb(pipe, *x, W, tdt,
+                                             torch.float32, probe=True)
+    plain = channelizer_kernel.pfb_bins_ref(_identity_pipe(pipe), *x, W,
+                                            tdt, torch.float32)
+    if not pipe.critical:
+        M = pipe.M
+        odd = (torch.arange(2 * M, device=gpu) % M) % 2 == 1
+        even = torch.arange(W, device=gpu) % 2 == 0
+        plain = torch.where(odd[:, None] & even[None], -plain, plain)
+    _close(plain, fold, 120.0, f"{form} folded frames")
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["float32 taps", "bf16 taps"])
+def test_pfb_in_place_route_matches_staged(gpu, tdt):
+    """``pfb_plan``'s last resort, no input span in shared memory (the fold
+    reads the stream in place), gives the staged route's bins and folded
+    frames bit for bit, both forms, in both kernels (bf16 taps: the
+    warp-specialised one; float32 taps: the three-part one); and the
+    largest tpp the earlier kernel took at M = 8, 2×-oversampled (2 381
+    taps a branch), which needs that route, launches and holds 100 dB
+    against the plain version."""
+    from sdrplusplusbrown_tpu_torch.ops.channelizer import \
+        OversampledChannelizer
+    for form in ("scanner128", "channelizer64"):
+        pipe, x, _ = _pfb_path_case(form, gpu)
+        T = pipe.M * 256
+        x, W = (x[0][:T], x[1][:T]) + x[2:], T // pipe.h
+        na = pipe.dft_parts(gpu, tdt)[1]
+        p = channelizer_kernel.pfb_plan(pipe.M, pipe.tpp, pipe.h, W, na)
+        assert p["ws"] == (tdt == torch.bfloat16) and p["nbuf"] > 0
+        a = channelizer_kernel._launch_pfb(pipe, *x, W, tdt, torch.float32,
+                                           probe=True)
+        b = channelizer_kernel._launch_pfb(
+            pipe, *x, W, tdt, torch.float32, probe=True,
+            plan=dict(p, nt=16, nbuf=0, tiles=-(-W // 16)))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), form
+    rng = np.random.default_rng(8)
+    proto = np.hanning(8 * 2381 + 2)[1:-1] * (
+        1 + 0.1 * rng.standard_normal(8 * 2381))
+    pipe = OversampledChannelizer(1e6, 8, proto).pfb()
+    assert pipe.tpp == 2381
+    na = pipe.dft_parts(gpu, tdt)[1]
+    assert channelizer_kernel.pfb_plan(8, 2381, 4, 300, na)["nbuf"] == 0
+    x = tuple(torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
+        np.float32)).to(gpu) for n in (8 * 150, 8 * 150, pipe.n_hist,
+                                       pipe.n_hist))
+    got = channelizer_kernel.pfb_bins(pipe, *x, 300, tdt, torch.float32)
+    want = channelizer_kernel.pfb_bins_ref(pipe, *x, 300, tdt,
+                                           torch.float32)
+    _close(want, got, 100.0, "M = 8, tpp = 2381")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fft_rows_kernel_matches_plain(gpu, dtype):
     """K4r on [M, F, 1024] views of a [2M, W] stack, W past the valid
@@ -947,7 +1063,8 @@ def test_fft_rows_kernel_matches_plain(gpu, dtype):
     got = fft_kernel.fft_power_db_planes(xr, xi, 1024)
     want = fft_kernel.fft_power_db_planes_ref(xr.cpu(), xi.cpu(), 1024)
     assert got.is_cuda and got.shape == (M, F, 1024)
-    assert fft_kernel.fft_power_db_planes_kernel.launches == n0 + 1
+    assert fft_kernel.fft_power_db_planes_kernel.launches == n0 + len(
+        fft_kernel.plan(1024, M * F)["launches"])
     assert_spectra_close(want.numpy(), got.cpu().numpy())
     # one row, and rows given as contiguous frames
     one = fft_kernel.fft_power_db_planes(xr[5], xi[5], 1024)
@@ -973,7 +1090,8 @@ def test_fft_planes_routes_match_plain(gpu, dtype, N, M, F):
     got = fft_kernel.fft_power_db_planes(xr, xi, N)
     want = fft_kernel.fft_power_db_planes_ref(xr.cpu(), xi.cpu(), N)
     assert got.is_cuda and got.shape == (M, F, N)
-    assert fft_kernel.fft_power_db_planes_kernel.launches == n0 + 1
+    assert fft_kernel.fft_power_db_planes_kernel.launches == n0 + len(
+        fft_kernel.plan(N, M * F)["launches"])
     assert_spectra_close(want.numpy(), got.cpu().numpy())
 
 

@@ -1,0 +1,285 @@
+"""K5's plan, its fold's index arithmetic and its split-precision DFT, on
+the CPU (csrc/pfb_channelizer.cu runs only on the card).
+
+``channelizer_kernel.pfb_plan`` must cover every frame exactly once
+(persistent blocks walking tiles; the warp-specialised kernel for a
+one-part matrix), fit the H100's 227 KB of shared memory
+a block (and its blocks an SM in the SM's 228 KB), launch >= 132 blocks
+wherever the call has 132 tiles, at scanner128/256's and channelizer64's
+shapes and every shape the card tests use, and take every geometry the
+earlier kernel took.
+
+``fold_model`` runs the kernel's fold loop in numpy: items (branch p,
+class c, run of PFB_NF frames), a ring of PFB_NF window registers, taps
+in ascending i, whole chunks of PFB_NF taps without a branch; every
+(frame, branch, tap) must read s[F·hop + i·M + p] in ascending i, and
+every load stay inside the span and its slack.
+
+``split_model`` is the kernel's DFT in torch: the folded frames (the
+plain version's, read through an identity matrix) split into three bf16
+parts, the host's bf16 parts of [[C, S], [−S, C]], each product of
+``MMA_PASSES`` rounded to bf16 operands and summed in float32.  It must
+hold >= 100 dB against ``pfb_bins_ref``'s float32 bins at M = 8, 16, 48
+and 64, tpp = 19 and 2, both forms, float32 and bf16 taps; where the
+matrix is exact in bf16 its host split has one part.
+
+Every patch that ``scripts/chz_mix_sweep.py`` builds on the card
+(``--parts`` variants, ``--phases`` stamps) must find its sites in the
+committed sources."""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from sdrplusplusbrown_tpu_torch.models.radio import Radio, DEMOD_NFM
+from sdrplusplusbrown_tpu_torch.ops import channelizer_kernel as ck
+from sdrplusplusbrown_tpu_torch.ops.channelizer import (
+    OversampledChannelizer, PolyphaseChannelizer)
+
+from torch_parity import snr_db
+
+SMS, SMEM = 132, 232_448
+
+
+def scanner_pfb():
+    bank = Radio(2.4e6, DEMOD_NFM, squelch_enabled=True,
+                 device="cpu")._build_vfo_channelized()
+    return bank.pipes()
+
+
+def path_shapes():
+    """[(M, tpp, hop, width)] of the paths and the card tests."""
+    pfb, post = scanner_pfb()
+    out = [(pfb.M, pfb.tpp, pfb.h, post.plan(240_000 // pfb.h)["Tb_pad"]),
+           (pfb.M, pfb.tpp, pfb.h, post.plan(2 * 384 * 30 // 48)["Tb_pad"]),
+           (64, 19, 64, (1 << 21) // 64)]
+    for M, tf in ((8, 0.2), (16, 2.0), (48, 0.2), (64, 0.2), (64, 2.0)):
+        pipe = PolyphaseChannelizer(10e6, M, trans_frac=tf,
+                                    device="cpu").pfb()
+        out.append((M, pipe.tpp, M, 1000))
+    return out
+
+
+@pytest.mark.parametrize("na", [1, 3])
+def test_pfb_plan_covers_fits_and_fills(na):
+    for M, tpp, h, W in path_shapes():
+        p = ck.pfb_plan(M, tpp, h, W, na)
+        assert p["smem"] == ck.pfb_smem(M, tpp, h, p["nt"], p["nbuf"],
+                                        2 if p["ws"] else 1)
+        assert p["ws"] == (na == 1)
+        assert p["smem"] <= SMEM
+        assert p["per_sm"] * (p["smem"] + 1024) <= ck.SM_SMEM
+        assert p["nt"] % 8 == 0 and p["nt"] // (M // h) % ck.PFB_NF == 0
+        count = np.zeros(W, np.int64)
+        for b in range(p["grid"]):
+            for tile in range(b, p["tiles"], p["grid"]):
+                count[tile * p["nt"]:(tile + 1) * p["nt"]] += 1
+        assert (count == 1).all(), (M, tpp, h, W)
+        assert p["grid"] >= min(SMS, p["tiles"]), (M, tpp, h, W, p)
+        assert p["launches"] == 1
+
+
+def test_pfb_plan_at_the_paths():
+    """channelizer64 and scanner128/256: with the bf16 matrix (the bench's
+    handoff) the warp-specialised kernel, 32-frame tiles, one span, two
+    frame buffers, two blocks an SM; with float32 taps every warp in
+    every phase, two spans, one block an SM (96 fragment registers)."""
+    for M, tpp, h, W in path_shapes()[:3]:
+        p = ck.pfb_plan(M, tpp, h, W, 1)
+        assert (p["ws"], p["nt"], p["nbuf"], p["per_sm"]) == (True, 32, 1, 2)
+        assert p["grid"] == min(p["tiles"], 2 * SMS)
+        p = ck.pfb_plan(M, tpp, h, W, 3)
+        assert (p["ws"], p["nt"], p["nbuf"], p["per_sm"]) == (False, 32, 2, 1)
+
+
+@pytest.mark.parametrize("na", [1, 3])
+def test_pfb_plan_reads_in_place_where_no_span_fits(na):
+    """M = 8, tpp = 2 381, 2×-oversampled (the largest tpp the earlier
+    kernel took there): no input span fits, so either kernel (bf16 taps:
+    the warp-specialised one) reads the stream in place, 16 frames a
+    tile."""
+    p = ck.pfb_plan(8, 2381, 4, 300, na)
+    assert (p["ws"], p["nt"], p["nbuf"]) == (na == 1, 16, 0)
+    assert p["smem"] <= SMEM
+    assert ck.pfb_smem(8, 2381, 4, 16, 1, 2 if na == 1 else 1) > SMEM
+
+
+def earlier_smem(M, tpp, hop):
+    """Shared-memory bytes of the earlier direct-DFT kernel (32 frames a
+    block, the span, the frames padded to M + 1, cos, sin and the taps)."""
+    span = 31 * hop + tpp * M
+    return 4 * (2 * span + 2 * 32 * (M + 1) + 2 * M * M + M * tpp)
+
+
+def test_pfb_plan_takes_every_geometry_the_earlier_kernel_took():
+    for M in range(2, 65, 2):
+        for hop in (M // 2, M):
+            tpp = 2
+            while earlier_smem(M, tpp + 1, hop) <= SMEM:
+                tpp += 1
+            for t in (2, 3, tpp // 2, tpp):
+                for na in (1, 3):
+                    if t >= 2:
+                        assert ck.pfb_plan(M, t, hop, 1000, na)["smem"] \
+                            <= SMEM
+
+
+def fold_model(M, tpp, h, nt):
+    """({(local frame, branch): [(i, span index)]}, the largest span index
+    loaded) of the kernel's fold on one tile of ``nt`` frames: whole
+    chunks of PFB_NF taps (every slot reloaded), then the rest."""
+    Rt, NF = M // h, ck.PFB_NF
+    runs = nt // Rt // NF
+    out, top = {}, 0
+    for item in range(M * Rt * runs):
+        p, rest = item % M, item // M
+        c, Gl = rest % Rt, (rest // Rt) * NF
+        base = Gl * M + c * h + p
+        w = [base + f * M for f in range(NF)]
+        top = max(top, *w)
+
+        def tap(i, ii, reload):
+            for f in range(NF):
+                out.setdefault((Rt * (Gl + f) + c, p), []).append(
+                    (i, w[(f + ii) % NF]))
+            if reload:
+                w[ii] = base + (i + NF) * M
+        i0 = 0
+        while i0 + NF <= tpp:
+            for ii in range(NF):
+                tap(i0 + ii, ii, True)
+            i0 += NF
+        for ii in range(NF):
+            if i0 + ii >= tpp:
+                break
+            tap(i0 + ii, ii, i0 + ii + 1 < tpp)
+        top = max(top, *w)
+    return out, top
+
+
+@pytest.mark.parametrize("M,tpp,h", [(48, 6, 24), (64, 19, 64), (8, 19, 8),
+                                     (16, 2, 16), (16, 5, 8), (8, 3, 4)])
+@pytest.mark.parametrize("nt", [16, 32])
+def test_fold_model_reads_each_tap_in_order(M, tpp, h, nt):
+    reads, top = fold_model(M, tpp, h, nt)
+    assert sorted(reads) == [(f, p) for f in range(nt) for p in range(M)]
+    span = (nt - 1) * h + tpp * M
+    for (f, p), seq in reads.items():
+        assert [i for i, _ in seq] == list(range(tpp))
+        assert [s for _, s in seq] == [f * h + i * M + p
+                                       for i in range(tpp)]
+        assert max(s for _, s in seq) < span
+    # loads past the span (a whole chunk's last reloads) stay in its slack
+    SC = (((nt - 1) * h + tpp * M + M + 3) & ~3) + 4
+    assert top < span + M and 3 + top < SC
+
+
+def identity_pipe(pipe):
+    p = copy.copy(pipe)
+    p.cos = np.eye(pipe.M, dtype=np.float32)
+    p.sin = np.zeros((pipe.M, pipe.M), np.float32)
+    p._dev = {}
+    return p
+
+
+def split_model(pipe, xr, xi, xwr, xwi, W, tdt):
+    """The kernel's bins [2M, W] float32 (see the module docstring)."""
+    M = pipe.M
+    v = ck.pfb_bins_ref(identity_pipe(pipe), xr, xi, xwr, xwi, W, tdt,
+                        torch.float32)
+    sign = torch.ones(2 * M, W)
+    if not pipe.critical:       # (−1)^m on even frames, undone and redone
+        odd = (torch.arange(2 * M) % M) % 2 == 1
+        sign[odd[:, None] & (torch.arange(W) % 2 == 0)[None]] = -1.0
+    v = v * sign
+    parts, na = pipe.dft_parts("cpu", tdt)
+    KP = parts.shape[-1]
+    vp = torch.zeros(KP, W)
+    vp[:2 * M] = v
+    b = ck.split_bf16(vp)
+    out = torch.zeros(KP, W)
+    for ia, ib in ck.MMA_PASSES[na]:
+        out = out + parts[ia].float() @ b[ib].float()
+    return out[:2 * M] * sign
+
+
+def pipes():
+    out = []
+    rng = np.random.default_rng(5)
+    for M in (8, 16, 48, 64):
+        for tf, tpp in ((0.2, 19), (2.0, 2)):
+            crit = PolyphaseChannelizer(10e6, M, trans_frac=tf,
+                                        device="cpu").pfb()
+            assert crit.tpp == tpp
+            out.append((f"critical M={M} tpp={tpp}", crit))
+            proto = np.hanning(tpp * M + 2)[1:-1] * (
+                1 + 0.1 * rng.standard_normal(tpp * M))
+            over = OversampledChannelizer(1e6, M, proto).pfb()
+            assert over.tpp == tpp
+            out.append((f"oversampled M={M} tpp={tpp}", over))
+    return out
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["float32 taps", "bf16 taps"])
+@pytest.mark.parametrize("label,pipe", pipes(), ids=lambda v: v
+                         if isinstance(v, str) else "")
+def test_split_dft_holds_100db(label, pipe, tdt):
+    M = pipe.M
+    rng = np.random.default_rng(M + pipe.tpp)
+    T = M * 40
+    xr, xi, xwr, xwi = (torch.from_numpy(
+        (0.1 * rng.standard_normal(n)).astype(np.float32))
+        for n in (T, T, pipe.n_hist, pipe.n_hist))
+    W = T // pipe.h + 3
+    want = ck.pfb_bins_ref(pipe, xr, xi, xwr, xwi, W, tdt, torch.float32)
+    got = split_model(pipe, xr, xi, xwr, xwi, W, tdt)
+    db = snr_db(want.numpy(), got.numpy())
+    assert db >= 100.0, (label, db)
+
+
+@pytest.mark.parametrize("M", [8, 16, 48, 64])
+def test_host_split_of_the_dft_matrix(M):
+    """bf16 taps: the matrix is exact in bf16, its split one part (the lo
+    parts zero); float32 taps: three parts summing to it exactly."""
+    pipe = PolyphaseChannelizer(10e6, M, device="cpu").pfb()
+    KP = -(-2 * M // 16) * 16
+    for tdt, want_na in ((torch.bfloat16, 1), (torch.float32, 3)):
+        parts, na = pipe.dft_parts("cpu", tdt)
+        assert na == want_na and parts.shape == (na, KP, KP)
+        assert parts.dtype == torch.bfloat16
+        _, cm, sm = pipe.operands("cpu", tdt)
+        A = torch.zeros(KP, KP, dtype=torch.float64)
+        A[:2 * M, :2 * M] = ck.dft_matrix(cm, sm).double()
+        full = ck.split_bf16(A.float())
+        if na == 1:
+            assert not full[1].float().any() and not full[2].float().any()
+        assert torch.equal(parts.double().sum(0), A)
+
+
+def sweep_module():
+    """scripts/chz_mix_sweep.py as a module (it imports no torch at the
+    top)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "chz_mix_sweep.py")
+    spec = importlib.util.spec_from_file_location("chz_mix_sweep", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", [n for _, n, _ in sweep_module().patch_sets()])
+def test_sweep_patch_sites_are_in_the_sources(name):
+    """Every patch that ``chz_mix_sweep.py --parts`` and ``--phases`` build
+    on the card finds its sites in the committed K11 and K5 sources."""
+    import os
+    from sdrplusplusbrown_tpu_torch.kernels import _build
+    sweep = sweep_module()
+    (src, subs), = [(f, s) for f, n, s in sweep.patch_sets() if n == name]
+    with open(os.path.join(_build.CSRC, src)) as fh:
+        text = fh.read()
+    assert sweep.patched(text, subs, name) != text
