@@ -57,19 +57,22 @@ Phases, each fatal on failure:
      step beside the 87 before K1 and K2 ran on the FIR tile;
   6. K5-K7 each against its plain version at the scanner128 shapes on an
      NFM signal (a 1 kHz tone on every 8th channel), float32 handoff,
-     timed with CUDA events; K7's every output (bit-identical or 80 dB),
-     its device time by launch (profiler) and CUDA launches a call (its
-     wrapper counts each; held to ``demod_kernel.fm_plan`` and to the
-     profiler's count), its new tails as in 3; K5's device µs a call
-     beside its bound and the earlier design's recorded time;
+     timed with CUDA events; K7's every output (bit-identical or 80 dB);
+     K6's and K7's device time by launch (profiler) and CUDA launches a
+     call (their wrappers count each; held to
+     ``chan_frontend.chan_post_plan`` and ``demod_kernel.fm_plan`` and to
+     the profiler's count), their new tails as in 3; one conv1d (TF32
+     off) of K6's 304-tap stage alone beside K6's bandwidth launch, as a
+     yardstick; K5's and K6's device µs a call beside the bound and the
+     earlier design's recorded time;
   7. three scanner128 steps with a retune before the third, bf16 handoff,
      the counts zeroed just before: K5, K6 and K7 one call each per step
-     (one CUDA launch a call for K5 and K6, two for K7), exactly the
-     tone channels open, their tone SNR;
+     (one CUDA launch a call for K5, two for K6 and K7, each held to its
+     plan), exactly the tone channels open, their tone SNR;
   8. one scanner256 step: K5-K7 one call each, each against its plain
-     version; K7's launches and tails as in 6;
+     version; K6's and K7's launches and tails as in 6;
   9. the scanner128 step (bf16, raw audio) on the same noise, as in 5,
-     its launches a step beside the 54 before K7 ran on the FIR tile;
+     its launches a step beside the 55 before K6 ran on the FIR tile;
  10. K8, K9, K10 and K4f each against its plain version at the app
      step's shapes (K8 on every distinct geometry the three runs of 11
      give it, each timed, with its launches a step on each path; K9
@@ -77,7 +80,8 @@ Phases, each fatal on failure:
      points), float32, timed with CUDA events beside one PyTorch library
      call computing the same function (conv1d, TF32 off; torch.fft.fft);
      each K4f call's route, launches and per-kernel device time, the
-     launches held to ``fft_kernel.plan``;
+     launches held to ``fft_kernel.plan``; K9's device µs a call beside
+     its bound and the earlier design's recorded time;
  11. the app step, three steps with a retune before the third, the
      launch counts zeroed just before: WFM at batch () (K4f, K8, K9
      launched, K10 not; tone SNR, stereo separation, spectrum peaks on
@@ -190,7 +194,9 @@ BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores, flop/s
 # PERF.md sections 5 and 6)
 PARENT_US = {"K5": (24.0, "scanner128 step"),
              "K5c": (122.0, "channelizer64 step"),
-             "K11": (45.2, "10 MS/s bank, a launch of the step")}
+             "K11": (45.2, "10 MS/s bank, a launch of the step"),
+             "K6": (96.4, "scanner128 step"),
+             "K9": (8.2, "app WFM () step")}
 # K12's dependent chain a sample: a multiply and an add (4 cycles each)
 # and two selects (csrc/agc.cu); its floor is T of these at the SM clock
 CHAIN_CYCLES = 10
@@ -425,7 +431,8 @@ def event_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def call_profile(fn, reps: int = 20, by_kernel: dict | None = None) -> tuple:
+def call_profile(fn, reps: int = 20, by_kernel: dict | None = None,
+                 counts: dict | None = None) -> tuple:
     """(device µs, kernel launches) per call of ``fn`` from a torch.profiler
     window of ``reps`` calls: the time of the kernels and copies the window
     saw on the card over ``reps`` (the wrapper's host time, which CUDA
@@ -433,7 +440,8 @@ def call_profile(fn, reps: int = 20, by_kernel: dict | None = None) -> tuple:
     count over ``reps``, rounded, at least 1, so that an event the
     profiler drops now and then does not count as a missing launch.  A
     window that saw no device activity at all is taken again, twice at
-    most; ``by_kernel`` gets µs per call by kernel."""
+    most; ``by_kernel`` gets µs per call by kernel, ``counts`` launches
+    per call by kernel (rounded, at least 1)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     seen = {}
@@ -456,10 +464,12 @@ def call_profile(fn, reps: int = 20, by_kernel: dict | None = None) -> tuple:
         print("profiler window saw no device activity; taken again")
     launches = sum(max(1, round(count / reps)) for key, (_, count)
                    in seen.items() if not key.startswith(("Memcpy", "Memset")))
-    if by_kernel is not None:
-        for key, (total, _) in seen.items():
-            k = short_kernel(key)
+    for key, (total, count) in seen.items():
+        k = short_kernel(key)
+        if by_kernel is not None:
             by_kernel[k] = by_kernel.get(k, 0.0) + total / reps
+        if counts is not None and not key.startswith(("Memcpy", "Memset")):
+            counts[k] = counts.get(k, 0) + max(1, round(count / reps))
     return sum(total for total, _ in seen.values()) / reps, launches
 
 
@@ -954,14 +964,17 @@ def drive_scanner(dev, card: str) -> dict:
         report[tag] = check_scanner_kernel(tag, captured[tag][-1], card,
                                            100.0 if tag == "K5" else 80.0,
                                            timed=True)
-    k7_per_call = k7_launches(captured["K7"][-1], "scanner128, float32")
+    per_call = {"K5": 1}
+    for tag in ("K6", "K7"):
+        per_call[tag] = call_launches(tag, captured[tag][-1],
+                                      "scanner128, float32")
+        tails_exact(tag, captured[tag][-1], "scanner128, float32 handoff")
     check_outputs("K7", captured["K7"][-1], "scanner128, float32 handoff",
                   80.0)
-    tails_exact("K7", captured["K7"][-1], "scanner128, float32 handoff")
+    k6_yardstick(captured["K6"][-1], card)
 
     # ---- 7. the scanner main path, production bf16 handoff ---------------
-    # CUDA launches a call: K5 and K6 one, K7 fm_plan's two
-    per_call = {"K5": 1, "K6": 1, "K7": k7_per_call}
+    # CUDA launches a call: K5 one, K6 chan_post_plan's two, K7 fm_plan's
     reset_counts()
     outs = run3("bf16")
     for tag in tags:
@@ -990,7 +1003,8 @@ def drive_scanner(dev, card: str) -> dict:
                 fail(f"scanner step {b}: tone SNR {min(snrs):.1f} dB")
     print("scanner path: launches "
           + ", ".join(f"{t}={report[t]['launches']}" for t in tags)
-          + f" (K7 counted at each CUDA launch: {k7_per_call} a step)")
+          + f" (K6 and K7 counted at each CUDA launch: {per_call['K6']} "
+          f"and {per_call['K7']} a step)")
 
     # ---- 8. scanner256: one step, one launch each ------------------------
     reset_counts()
@@ -1004,8 +1018,9 @@ def drive_scanner(dev, card: str) -> dict:
         # boundary moves a value by a bf16 ulp (2^-8)
         check_scanner_kernel(tag, cap256[tag][-1], card,
                              60.0 if tag == "K5" else 45.0, timed=False)
-    k7_launches(cap256["K7"][-1], "scanner256, bf16")
-    tails_exact("K7", cap256["K7"][-1], "scanner256, bf16 handoff")
+    for tag in ("K6", "K7"):
+        call_launches(tag, cap256[tag][-1], "scanner256, bf16")
+        tails_exact(tag, cap256[tag][-1], "scanner256, bf16 handoff")
 
     # ---- 9. the scanner128 step (bench.py's: raw mono audio) -------------
     precision.set_handoff_dtype("bf16")
@@ -1017,8 +1032,9 @@ def drive_scanner(dev, card: str) -> dict:
                                                      mono_out=True,
                                                      raw_audio=True)[1],
                   radio.init_state_channelized(SCAN_C), T, card)
-    print(f"scanner128: {n:.1f} kernel launches a step (K7 {k7_per_call} of "
-          f"them; before K7 ran on the FIR tile: 54, K7 one)")
+    print(f"scanner128: {n:.1f} kernel launches a step (K6 {per_call['K6']} "
+          f"and K7 {per_call['K7']} of them; 55 before K6 ran on the FIR "
+          f"tile, K6 one)")
     return report
 
 
@@ -1498,8 +1514,8 @@ def drive_bank(dev, card: str, report: dict) -> dict:
                       f"{bank_label(fs)}, float32 handoff", 100.0)
         tails_exact("K7", caps[fs]["K7"][-1],
                     f"{bank_label(fs)}, float32 handoff")
-        k7_per[fs] = k7_launches(caps[fs]["K7"][-1],
-                                 f"{bank_label(fs)}, float32")
+        k7_per[fs] = call_launches("K7", caps[fs]["K7"][-1],
+                                   f"{bank_label(fs)}, float32")
     precision.set_handoff_dtype("bf16")
     for fs in BANK_FS:
         cap16 = capture(("K1", "K7"), lambda fs=fs: run(fs, dev, 2))[1]
@@ -1513,7 +1529,7 @@ def drive_bank(dev, card: str, report: dict) -> dict:
         check_outputs("K7", cap16["K7"][-1],
                       f"{bank_label(fs)}, bf16 handoff", BF16_DB)
         tails_exact("K7", cap16["K7"][-1], f"{bank_label(fs)}, bf16 handoff")
-        k7_launches(cap16["K7"][-1], f"{bank_label(fs)}, bf16")
+        call_launches("K7", cap16["K7"][-1], f"{bank_label(fs)}, bf16")
     if len(caps[BANK_FS[0]].get("K1", [])) != 2 * n24 or \
             caps[BANK_FS[1]].get("K1"):
         fail("K1: not one call per group and step at 2.4 MS/s only")
@@ -1814,15 +1830,17 @@ def check_outputs(tag: str, args, what: str, bound_db: float) -> None:
 
 
 def tails_exact(tag: str, args, what: str) -> None:
-    """K1's, K2's or K7's new carried state on ``args``, each tensor
+    """K1's, K2's, K6's or K7's new carried state on ``args``, each tensor
     exactly the plain version's rule (concat the carried tail, rounded to
     the tail dtype, with the stage's input, keep the last samples, round)
     applied to the kernels' own stage inputs: K1's stage 0 and each
     chained stage's output, K2's discriminator output (the first launch's
-    probe) and halfband outputs, K7's discriminator output d (its FIR
-    tile's staging probe) and audio FIR output u, and K7's quad sample,
-    the gated IF's last.  Fails on any difference."""
+    probe) and halfband outputs, K6's rotated bins z (its d2 launch's
+    staging probe) and 2:1 FIR output y1, K7's discriminator output d
+    (its FIR tile's staging probe) and audio FIR output u, and K7's quad
+    sample, the gated IF's last.  Fails on any difference."""
     import torch
+    from sdrplusplusbrown_tpu_torch.ops import chan_frontend as cf
     from sdrplusplusbrown_tpu_torch.ops import demod_kernel as dk
     from sdrplusplusbrown_tpu_torch.ops import mono_frontend as mf
     from sdrplusplusbrown_tpu_torch.ops import wfm_kernel as wk
@@ -1843,6 +1861,12 @@ def tails_exact(tag: str, args, what: str) -> None:
                 rule(ftail, d[:, :m_if], pipe.histF, t_dt),
                 rule(ptail, u[:, :m_if], pipe.histP, t_dt)]
         wrapper = dk.fm_audio_kernel(*args)[1:]
+    elif tag == "K6":
+        pipe, Tb, tails, t_dt = args[0], args[8], args[7], args[10]
+        _, _, got, (z, y1) = cf._chan_post_launches(*args, probe=True)
+        want = [rule(tails[0], z[:, :Tb], pipe.hists[0], t_dt),
+                rule(tails[1], y1[:, :Tb // 2], pipe.hists[1], t_dt)]
+        wrapper = cf.chan_post_kernel(*args)[2]
     elif tag == "K1":
         pipe, xr, xi, tail, omega, base, tails, odt, tap_dt, t_dt = args
         h0, kernels = pipe.taps(xr.device, tap_dt)
@@ -1894,30 +1918,64 @@ def k12_floor(call, what: str, card: str) -> None:
           f"MHz); {us / floor:.2f}x the floor [{card}]")
 
 
-def k7_launches(call, what: str) -> int:
-    """K7's CUDA launches a call on ``call``, as its wrapper counts them
-    (one at each launch), which must be ``fm_plan``'s and, where the
-    profiler saw the call's kernels, the profiler's; and its device time
-    by launch (profiler; "not measured" where the window saw none).
-    Returns the wrapper's count."""
-    from sdrplusplusbrown_tpu_torch.ops import demod_kernel as dk
-    n0 = dk.fm_audio_kernel.launches
-    dk.fm_audio_kernel(*call)
-    counted = dk.fm_audio_kernel.launches - n0
-    split = {}
-    us, n = call_profile(lambda: dk.fm_audio_kernel(*call), by_kernel=split)
-    pipe, iq, m_if = call[:3]
-    planned = dk.fm_plan(pipe, m_if, iq.shape[0] // 2)["launches"]
-    seen = (f"{us:.1f} us a call in {n} CUDA launches (profiler: "
+#: the plan that fixes each multi-launch scanner kernel's CUDA launches,
+#: and the kernels it launches (K6's wrapper also sums its squelch
+#: partials with one torch reduction)
+PLANNERS = {"K6": ("chan_post_plan", ("post_d2_kernel", "post_fir_kernel")),
+            "K7": ("fm_plan", ("fir_kernel", "poly_kernel"))}
+
+
+def call_launches(tag: str, call, what: str) -> int:
+    """K6's or K7's CUDA launches a call on ``call``, as its wrapper
+    counts them (one at each launch), which must be its plan's
+    (``planned_launches``) and, where the profiler saw the call's kernels,
+    the profiler's count of them; and its device time by launch (profiler;
+    "not measured" where the window saw none).  Returns the wrapper's
+    count."""
+    mod, name = kernel_fn(tag, "_kernel")
+    fn = getattr(mod, name)
+    n0 = fn.launches
+    fn(*call)
+    counted = fn.launches - n0
+    split, counts = {}, {}
+    us, _ = call_profile(lambda: fn(*call), by_kernel=split, counts=counts)
+    planner, own = PLANNERS[tag]
+    n = sum(v for k, v in counts.items() if k in own)
+    planned = planned_launches(tag, call)
+    seen = (f"{us:.1f} us a call, {n} CUDA launches of its own (profiler: "
             + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + ")"
-            if n else "device time and launches not measured (the "
-            "profiler saw no K7 kernel)")
-    print(f"K7 ({what}): {counted} CUDA launches a call counted by the "
-          f"wrapper, fm_plan plans {planned}; {seen}")
+            if n else f"device time and launches not measured (the "
+            f"profiler saw no {tag} kernel)")
+    print(f"{tag} ({what}): {counted} CUDA launches a call counted by the "
+          f"wrapper, {planner} plans {planned}; {seen}")
     if counted != planned or (n and n != counted):
-        fail(f"K7 {what}: {counted} CUDA launches a call counted, "
-             f"{n or 'none'} seen by the profiler, fm_plan plans {planned}")
+        fail(f"{tag} {what}: {counted} CUDA launches a call counted, "
+             f"{n or 'none'} seen by the profiler, {planner} plans "
+             f"{planned}")
     return counted
+
+
+def k6_yardstick(call, card: str) -> None:
+    """One conv1d (TF32 off) of K6's 304-tap stage alone, on the same
+    [fir tail | y1] rows (the kernel's own y1, its probe) as planes
+    [2C, n]: a yardstick beside K6's bandwidth launch (no single library
+    call computes K6)."""
+    import torch
+    import torch.nn.functional as F
+    from sdrplusplusbrown_tpu_torch.ops import chan_frontend as cf
+    pipe, tails, t_dt = call[0], call[7], call[10]
+    y1 = cf._chan_post_launches(*call, probe=True)[3][1]
+    ext = torch.cat([tails[1], torch.cat([y1.real, y1.imag])], dim=1)[:, None]
+    taps = pipe.dev_taps(ext.device, t_dt)[1][None, None]
+    ms = event_ms(lambda: F.conv1d(ext, taps))
+    split = {}
+    call_profile(lambda: cf.chan_post_kernel(*call), by_kernel=split)
+    print(f"K6 yardstick: one conv1d of the {taps.shape[-1]}-tap stage "
+          f"alone on {ext.shape[0]} x {ext.shape[-1]} rows, {ms:.4f} ms "
+          f"(device {device_us(lambda: F.conv1d(ext, taps)):.1f} us), "
+          f"beside K6's bandwidth launch "
+          f"{split.get('post_fir_kernel', 0.0):.1f} us and its d2 launch "
+          f"{split.get('post_d2_kernel', 0.0):.1f} us [{card}]")
 
 
 def kernel_count(tag: str) -> int:
@@ -1929,9 +1987,11 @@ def planned_launches(tag: str, args) -> int:
     """CUDA launches one call of kernel ``tag`` on ``args`` makes, each of
     which its wrapper counts: K1 stage 0 and one a chained stage, K2
     three, K4, K4f and K4r their FFT route's (``fft_kernel.plan``: one
-    pass or a four-step pair), K7 ``fm_plan``'s two, any other one."""
-    from sdrplusplusbrown_tpu_torch.ops import (demod_kernel, fft_kernel,
-                                                mono_frontend, wfm_kernel)
+    pass or a four-step pair), K6 ``chan_post_plan``'s two, K7
+    ``fm_plan``'s two, any other one."""
+    from sdrplusplusbrown_tpu_torch.ops import (chan_frontend, demod_kernel,
+                                                fft_kernel, mono_frontend,
+                                                wfm_kernel)
     if tag == "K1":
         return mono_frontend.frontend_launches(args[0])
     if tag == "K2":
@@ -1946,6 +2006,10 @@ def planned_launches(tag: str, args) -> int:
     if tag == "K4r":
         xr, _, N = args[:3]
         return len(fft_kernel.plan(N, xr.numel() // N)["launches"])
+    if tag == "K6":
+        pipe, Tb, om = args[0], args[8], args[3]
+        return chan_frontend.chan_post_plan(pipe, Tb,
+                                            om.shape[0])["launches"]
     if tag == "K7":
         pipe, iq, m_if = args[:3]
         return demod_kernel.fm_plan(pipe, m_if, iq.shape[0] // 2)["launches"]

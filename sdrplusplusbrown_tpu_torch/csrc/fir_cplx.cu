@@ -15,48 +15,38 @@
 // What bounds it on the H100: on the path it is the WFM 19 kHz pilot
 // band-pass, 159 complex taps on the 12 500-sample MPX of one radio per
 // 0.1 s block: 8·159·12 500 = 16 Mflop and 0.2 MB, a fraction of a
-// microsecond either way; the time is the launch and each thread's serial
-// 159-tap loop.  A block stages its tile's complex input span (255·D + K
-// samples) in shared memory; the taps come through the read-only cache.
-#include "common.cuh"
+// microsecond either way; the time is the launch and latency.  The design
+// is the polyphase FIR tile (fir_tile.cuh, point 8) with a complex tap:
+// the taps staged in shared memory as float2 and read as warp-uniform
+// broadcasts, the span de-interleaved by input phase, P consecutive
+// outputs a lane through the register ring at D = 1, 2 and 4, four
+// accumulators an output (rr, ii, ri, ir), each summed in ascending tap
+// order with one fused multiply-add a tap, then (rr − ii, ri + ir): the
+// bits of the one-thread-an-output kernel this replaces.  The grid is
+// ops/fir_kernel.py:fir_plan's, which gives the pilot's one row of 12 500
+// outputs 196 blocks, so that every SM takes a share of the latency.
+#include "fir_tile.cuh"
 
 namespace {
 
-constexpr int CPLX_TILE = 256;
-
+// grid (chunks, 1, rows): outputs blockIdx.x·Cc·32·P ... of row
+// blockIdx.z; each row's first block also writes its new tail.
+template <int P>
 __global__ void fir_cplx_kernel(const float2* __restrict__ tail, int hist,
                                 const float2* __restrict__ x, int T,
-                                const float* __restrict__ hr,
-                                const float* __restrict__ hi, int K, int D,
+                                const float* __restrict__ taps, int K, int D,
                                 float2* __restrict__ y, int n_out,
-                                float2* __restrict__ new_tail) {
-  extern __shared__ float2 sxc[];
-  const long b = blockIdx.y;
+                                float2* __restrict__ new_tail, int Cc) {
+  extern __shared__ __align__(16) float smem[];
+  const long b = blockIdx.z;
   const float2* tb = tail + b * hist;
   const float2* xb = x + b * T;
-  const int m0 = blockIdx.x * CPLX_TILE;
-  const int m_last = min(m0 + CPLX_TILE, n_out) - 1;
-  const long e0 = static_cast<long>(m0) * D;
-  const int span = (m_last - m0) * D + K;
-  for (int t = threadIdx.x; t < span; t += blockDim.x) {
-    const long e = e0 + t;
-    sxc[t] = e < hist ? tb[e] : xb[e - hist];
-  }
-  __syncthreads();
-  const int m = m0 + threadIdx.x;
-  if (m <= m_last) {
-    const float2* w = sxc + threadIdx.x * D;
-    float rr = 0.f, ii = 0.f, ri = 0.f, ir = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float2 v = w[k];
-      const float a = __ldg(hr + k), bb = __ldg(hi + k);
-      rr = fmaf(v.x, a, rr);
-      ii = fmaf(v.y, bb, ii);
-      ri = fmaf(v.x, bb, ri);
-      ir = fmaf(v.y, a, ir);
-    }
-    y[b * n_out + m] = make_float2(rr - ii, ri + ir);
-  }
+  const int per = Cc * 32 * P;
+  const int m0 = blockIdx.x * per;
+  sdr::fir_tile<P, float2, float2, float4>(
+      sdr::TailThen<float2, float2>{tb, hist, xb}, taps, 1, D, K,
+      sdr::StoreTo<float2>{y + b * n_out}, n_out, m0, min(per, n_out - m0),
+      1, Cc, smem);
   if (blockIdx.x == 0) {
     for (int e = threadIdx.x; e < hist; e += blockDim.x) {
       const long s = static_cast<long>(T) + e;      // ext index
@@ -69,21 +59,22 @@ __global__ void fir_cplx_kernel(const float2* __restrict__ tail, int hist,
 
 // tail [rows, hist], x [rows, T], y [rows, n_out], new_tail [rows, hist]
 // complex64; taps [2, K] float32 (hr then hi); n_out = (hist + T − K)/D + 1.
+// P, Cc and warps are ops/fir_kernel.py:fir_plan's (one phase row).
 extern "C" int sdr_fir_cplx(const void* tail, int hist, const void* x, int T,
                             const float* taps, int K, int D, void* y,
-                            int n_out, void* new_tail, int rows,
-                            cudaStream_t stream) {
+                            int n_out, void* new_tail, int rows, int P,
+                            int Cc, int warps, cudaStream_t stream) {
   if (n_out < 1 || K < 1 || D < 1 || hist < 0 || rows < 1 || rows > 65535 ||
+      Cc < 1 || warps < 1 || warps > 32 ||
       static_cast<long>(n_out - 1) * D + K > static_cast<long>(hist) + T)
     return cudaErrorInvalidValue;
+  const int per = Cc * 32 * P;
+  const dim3 grid((n_out + per - 1) / per, 1, rows);
   const size_t smem =
-      (static_cast<size_t>(CPLX_TILE - 1) * D + K) * sizeof(float2);
-  const cudaError_t e = sdr::allow_smem(fir_cplx_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((n_out + CPLX_TILE - 1) / CPLX_TILE, rows);
-  fir_cplx_kernel<<<grid, CPLX_TILE, smem, stream>>>(
-      static_cast<const float2*>(tail), hist, static_cast<const float2*>(x),
-      T, taps, taps + K, K, D, static_cast<float2*>(y), n_out,
-      static_cast<float2*>(new_tail));
-  return static_cast<int>(cudaGetLastError());
+      sdr::fir_tile_layout(D, K, n_out, P, 1, Cc, 2, 2).total * sizeof(float);
+  return static_cast<int>(sdr::fir_launch_p(
+      P, fir_cplx_kernel<1>, fir_cplx_kernel<3>, fir_cplx_kernel<5>, grid,
+      warps, smem, stream, static_cast<const float2*>(tail), hist,
+      static_cast<const float2*>(x), T, taps, K, D, static_cast<float2*>(y),
+      n_out, static_cast<float2*>(new_tail), Cc));
 }

@@ -6,8 +6,9 @@
 // with kern [I, kw] float32: a stride-1 FIR (I = D = 1), a decimating FIR
 // (I = 1) or the widened L/M polyphase kernel of ops/resampler.py.
 //
-// K1's stages (mono_frontend.cu) and K2's halfbands (wfm_demod.cu) run it
-// too, with their own staging and store hooks (point 7).
+// K1's stages (mono_frontend.cu), K2's halfbands (wfm_demod.cu) and K6's
+// two stages (chan_post.cu) run it too, with their own staging and store
+// hooks (point 7); K9 (fir_cplx.cu) on complex taps (point 8).
 //
 // What bounds it on the H100: the path's geometries do 26-2 604 taps an
 // output on a few MB a call, so the operations bound (non-tensor float32)
@@ -33,7 +34,8 @@
 //     staged with cp.async (4 or 8 bytes a sample, no register round
 //     trip), in the same commit group as the taps; bf16 data (K3 in the
 //     bf16 handoff) is upcast once, on staging.
-//  4. A register tile.  Lane t of a warp computes P (odd: 1, 3 or 5)
+//  4. A register tile.  Lane t of a warp computes P (odd: 1, 3, 5; 7 in
+//     K6's bandwidth launch)
 //     consecutive outputs m0 + t·P + j with independent accumulators, and
 //     one broadcast tap read feeds all P.  At D = 1, 2 and 4 (the
 //     decimators and stride-1 FIRs, the dense stages) the inputs slide
@@ -62,6 +64,12 @@
 //     the handoff).  The tap loops take any accumulator
 //     and tap type that fma_e pairs with the sample: K2's stereo section
 //     sums two real tap rows (a float2 tap) on one real input.
+//  8. Complex taps.  With a float2 tap type the kernel is two planes,
+//     [2, I, kw] (re, then im), staged interleaved; a tap is in a row's
+//     band where either part is nonzero.  K9 sums them into a float4
+//     accumulator, its four real sums apart (rr, ii, ri, ir), each in
+//     ascending tap order, and an output is (rr − ii, ri + ir): the
+//     one-thread-an-output kernel's sums and combine, so the same bits.
 //
 // Outputs go through a shared-memory tile, so that a block writes its
 // [m, r] outputs in order of y.  No tensor cores, on purpose: taps and
@@ -82,20 +90,21 @@ __host__ __device__ inline int fir_r4(int n) { return (n + 3) & ~3; }
 
 __host__ __device__ inline int fir_imin(int a, int b) { return a < b ? a : b; }
 
-// Float offsets of a block's shared memory: the G phase rows' taps, their
-// bands (lo[G], hi[G] as ints), the output tile [m][G | 1] and the
-// de-interleaved input [min(D, kw)][S]; ``total`` floats in all.
-// ops/fir_kernel.py:tile_smem mirrors it.
+// Float offsets of a block's shared memory: the G phase rows' taps (of
+// tcomps floats each), their bands (lo[G], hi[G] as ints), the output tile
+// [m][G | 1] and the de-interleaved input [min(D, kw)][S]; ``total`` floats
+// in all.  ops/fir_kernel.py:tile_smem mirrors it.
 struct FirLayout {
   int band, out, in, stride, total;
 };
 
 __host__ __device__ inline FirLayout fir_tile_layout(int D, int kw, int n_m,
                                                      int P, int G, int C,
-                                                     int comps) {
+                                                     int comps,
+                                                     int tcomps = 1) {
   const int mb = fir_imin(C * 32 * P, n_m);
   FirLayout f;
-  f.band = fir_r4(G * kw);
+  f.band = fir_r4(G * kw * tcomps);
   f.out = f.band + fir_r4(2 * G);
   f.in = f.out + fir_r4(mb * (G | 1) * comps);
   // odd, so that consecutive input phases of one j fall in distinct banks
@@ -140,6 +149,30 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 __device__ __forceinline__ float2 bf16_round(float2 v) {
   return make_float2(bf16_round(v.x), bf16_round(v.y));
+}
+
+// One tap into shared memory: a real tap, or a complex one from its two
+// planes ``plane`` floats apart (re, then im).
+__device__ __forceinline__ void stage_tap(float* d, const float* k, long) {
+  cp_async(d, k);
+}
+__device__ __forceinline__ void stage_tap(float2* d, const float* k,
+                                          long plane) {
+  cp_async(&d->x, k);
+  cp_async(&d->y, k + plane);
+}
+
+__device__ __forceinline__ bool tap_nonzero(float k) { return k != 0.f; }
+__device__ __forceinline__ bool tap_nonzero(float2 k) {
+  return k.x != 0.f || k.y != 0.f;
+}
+
+// An accumulator as the output it sums to: itself, or K9's four real sums
+// (rr, ii, ri, ir) as (rr − ii, ri + ir).
+__device__ __forceinline__ float acc_value(float a) { return a; }
+__device__ __forceinline__ float2 acc_value(float2 a) { return a; }
+__device__ __forceinline__ float2 acc_value(float4 a) {
+  return make_float2(a.x - a.y, a.z + a.w);
 }
 
 // Staging hook of a plain FIR: ext = concat(tail (hist samples), x).
@@ -207,15 +240,23 @@ __device__ __forceinline__ void fma_e(float2& acc, float2 k, float v) {
   acc.x = fmaf(k.x, v, acc.x);
   acc.y = fmaf(k.y, v, acc.y);
 }
+// a complex tap (hr, hi) on a complex sample (xr, xi), K9's four sums
+// apart: acc = (Σ xr·hr, Σ xi·hi, Σ xr·hi, Σ xi·hr)
+__device__ __forceinline__ void fma_e(float4& acc, float2 k, float2 v) {
+  acc.x = fmaf(v.x, k.x, acc.x);
+  acc.y = fmaf(v.y, k.y, acc.y);
+  acc.z = fmaf(v.x, k.y, acc.z);
+  acc.w = fmaf(v.y, k.x, acc.w);
+}
 
 // Taps [lo, hi) of a phase row, in ascending order, on P consecutive
 // outputs, the first of which reads xs = sx + mm0: ext[(mm0 + j)·D + l] =
 // xs[(l mod D)·S + l div D + j].  Any D: tap l = a·D + p, a outer and the
 // input phase p inner, so that the inner loop is a plain stride-S walk;
 // each tap costs one broadcast tap read and P input reads.
-template <int P, typename A, typename E>
+template <int P, typename A, typename E, typename T>
 __device__ __forceinline__ void taps_any_d(A (&acc)[P], const E* xs,
-                                           const float* kr, int S, int D,
+                                           const T* kr, int S, int D,
                                            int lo, int hi) {
   int a = lo / D, p = lo - a * D;
   for (int base = a * D; base < hi; base += D, ++a, p = 0) {
@@ -223,7 +264,7 @@ __device__ __forceinline__ void taps_any_d(A (&acc)[P], const E* xs,
     const E* x = xs + a + p * S;
 #pragma unroll 4
     for (; p < pe; ++p, x += S) {
-      const float k = kr[base + p];
+      const T k = kr[base + p];
 #pragma unroll
       for (int j = 0; j < P; ++j) fma_e(acc[j], k, x[j]);
     }
@@ -271,14 +312,17 @@ __device__ __forceinline__ void taps_ring(A (&acc)[P], const E* xs,
 // One block: phase rows r0 = blockIdx.y·G ... (at most G), outputs m0
 // ... m0 + mb − 1 (mb <= C·32·P) of the row whose staging hook ``src``
 // (src(d, e) puts ext sample e at d) and store hook ``dst`` (dst(i, v)
-// stores y[i]) the caller gives.  E is the sample, float or float2.
-template <int P, typename E, typename Src, typename Dst>
+// stores y[i]) the caller gives.  E is the sample, float or float2; T the
+// tap, float or float2 (point 8); A the accumulator an output sums into.
+template <int P, typename E, typename T = float, typename A = E,
+          typename Src, typename Dst>
 __device__ __forceinline__ void fir_tile(
     const Src& src, const float* __restrict__ kern, int I, int D, int kw,
     const Dst& dst, int n_m, int m0, int mb, int G, int C, float* smem) {
   constexpr int comps = sizeof(E) / sizeof(float);
-  const FirLayout f = fir_tile_layout(D, kw, n_m, P, G, C, comps);
-  float* taps = smem;
+  constexpr int tcomps = sizeof(T) / sizeof(float);
+  const FirLayout f = fir_tile_layout(D, kw, n_m, P, G, C, comps, tcomps);
+  T* taps = reinterpret_cast<T*>(smem);
   int* band = reinterpret_cast<int*>(smem + f.band);
   E* out = reinterpret_cast<E*>(smem + f.out);
   E* sx = reinterpret_cast<E*>(smem + f.in);
@@ -290,7 +334,8 @@ __device__ __forceinline__ void fir_tile(
   // 1. the group's taps and the block's input span, one commit group;
   // a two-pass hook then finishes, in place, each sample it staged
   const float* kg = kern + static_cast<long>(r0) * kw;
-  for (int i = tid; i < gn * kw; i += nth) cp_async(taps + i, kg + i);
+  for (int i = tid; i < gn * kw; i += nth)
+    stage_tap(taps + i, kg + i, static_cast<long>(I) * kw);
   const auto each_sample = [&](auto&& fn) {
     const int J = mb + (kw - 1) / D;          // samples a row holds
     const int need = (mb - 1) * D + kw;       // ext samples the block reads
@@ -320,7 +365,7 @@ __device__ __forceinline__ void fir_tile(
   for (int g = warp; g < gn; g += nw) {
     int lo = kw, hi = 0;
     for (int l = lane; l < kw; l += 32) {
-      if (taps[g * kw + l] != 0.f) {
+      if (tap_nonzero(taps[g * kw + l])) {
         lo = fir_imin(lo, l);
         hi = l + 1;
       }
@@ -340,11 +385,11 @@ __device__ __forceinline__ void fir_tile(
     const int g = u % gn;
     const int mm0 = (u / gn) * 32 * P + lane * P;
     if (mm0 >= mb) continue;
-    E acc[P] = {};
+    A acc[P] = {};
     const int lo = band[g], hi = band[G + g];
     if (hi > lo) {
       const E* xs = sx + mm0;
-      const float* kr = taps + g * kw;
+      const T* kr = taps + g * kw;
       if (D == 1)
         taps_ring<P, 1>(acc, xs, kr, S, lo, hi);
       else if (D == 2 && kw >= 2)
@@ -356,7 +401,7 @@ __device__ __forceinline__ void fir_tile(
     }
 #pragma unroll
     for (int j = 0; j < P; ++j)
-      if (mm0 + j < mb) out[(mm0 + j) * Gp + g] = acc[j];
+      if (mm0 + j < mb) out[(mm0 + j) * Gp + g] = acc_value(acc[j]);
   }
   __syncthreads();
 
@@ -392,14 +437,23 @@ inline cudaError_t fir_launch(Kernel* kernel, dim3 grid, int warps,
   return cudaGetLastError();
 }
 
-// fir_launch of the instance for P outputs a lane (k1, k3, k5: P = 1, 3, 5).
+// fir_launch of the instance for P outputs a lane, ks[i] that of P =
+// 2i + 1 (P odd: a warp's stride-P reads hit 32 banks).
+template <typename Kernel, int N, typename... Args>
+inline cudaError_t fir_launch_p(int P, Kernel* const (&ks)[N], dim3 grid,
+                                int warps, size_t smem, cudaStream_t stream,
+                                Args... args) {
+  if (P < 1 || P % 2 == 0 || P / 2 >= N) return cudaErrorInvalidValue;
+  return fir_launch(ks[P / 2], grid, warps, smem, stream, args...);
+}
+
+// The same for P = 1, 3 or 5 (k1, k3, k5).
 template <typename Kernel, typename... Args>
 inline cudaError_t fir_launch_p(int P, Kernel* k1, Kernel* k3, Kernel* k5,
                                 dim3 grid, int warps, size_t smem,
                                 cudaStream_t stream, Args... args) {
-  Kernel* k = P == 1 ? k1 : P == 3 ? k3 : P == 5 ? k5 : nullptr;
-  if (!k) return cudaErrorInvalidValue;
-  return fir_launch(k, grid, warps, smem, stream, args...);
+  Kernel* const ks[] = {k1, k3, k5};
+  return fir_launch_p(P, ks, grid, warps, smem, stream, args...);
 }
 
 }  // namespace sdr

@@ -51,15 +51,18 @@ SIGNATURES = {
     "sdr_fft_rows": [_P, _I, _I, _I, _I, _P, _F, _P],
     "sdr_pfb_bins": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
                      _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "sdr_chan_post": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                      _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I],
+    "sdr_chan_post_d2": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                         _I, _P, _I, _P, _I, _P, _I, _I, _I, _I],
+    "sdr_chan_post_fir": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I, _P,
+                          _I, _I, _I, _I, _I],
     "sdr_fm_audio_fir": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P, _I, _P,
                          _P, _I, _P, _I, _I, _I, _I],
     "sdr_fm_audio_poly": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P,
                           _I, _I, _I, _I, _I, _I],
     "sdr_fir_rows": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _I,
                      _I, _I, _I, _I],
-    "sdr_fir_cplx": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I],
+    "sdr_fir_cplx": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _I,
+                     _I],
     "sdr_fused_mix": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                       _P, _I, _I, _I],
     "sdr_agc_rows": [_P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I,

@@ -20,11 +20,14 @@ im rows) plus its valid width; taps and carried tails are rounded to the
 handoff storage dtype where the JAX kernel rounds them.
 
 Dispatch follows the input: CPU tensors run ``chan_post_ref``; CUDA
-tensors launch ``chan_post_kernel`` (csrc/chan_post.cu) or raise.
+tensors launch ``chan_post_kernel`` (csrc/chan_post.cu: the gather and
+NCO in the 2:1 FIR's staging, both FIRs on the polyphase FIR tile, in
+``chan_post_plan``'s two launches) or raise.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List
 
 import numpy as np
@@ -32,12 +35,16 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import _build
+from .fir_kernel import SMS, tile_smem
 from .precision import get_handoff_dtype, round_to
 from .xlator import advance_phase
 
 BS = 128          # NCO block (the TPU kernel's lane width)
 SPAN = 2048       # baked span of the ``xl_sup`` param (bin-rate samples)
-POST_TILE = 512   # final outputs per CUDA block (csrc/chan_post.cu)
+# outputs a lane each launch may take, first choice first
+# (csrc/chan_post.cu instantiates these)
+D2_OUTS_PER_LANE = (5, 3, 1)
+FIR_OUTS_PER_LANE = (7, 5, 3, 1)
 
 _STORAGE = (torch.float32, torch.bfloat16)
 
@@ -161,6 +168,15 @@ def chan_post_ref(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
     """Plain PyTorch K6: (out [2C, n_out] ``out_dtype``, Σ|y| over the
     valid outputs [C] float32, next-call tails [[2C, hist] float32
     rounded to ``tail_dtype``])."""
+    return _chan_post_ref(pipe, bins, bin_idx, om, ph0, span_adv, sbs,
+                          tails, Tb, out_dtype, tail_dtype)[:3]
+
+
+def _chan_post_ref(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
+                   out_dtype, tail_dtype):
+    """``chan_post_ref``'s three results, then the rotated bins z
+    complex64 [C, Tb_pad] and the 2:1 FIR's output y1 complex64
+    [C, n_out]."""
     C, plan = _check_post(pipe, bins, bin_idx, om, tails, Tb)
     taps = pipe.dev_taps(bins.device, tail_dtype)
     n = plan["Tb_pad"]
@@ -169,8 +185,9 @@ def chan_post_ref(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
     ang = nco_phase(pipe, om, ph0, span_adv, sbs, n)
     co, si = torch.cos(ang), torch.sin(ang)
     y = torch.cat([zr * co - zi * si, zr * si + zi * co])      # [2C, n]
-    new_tails = []
+    new_tails, ins = [], []
     for s, (h, t, tp) in enumerate(zip(pipe.hists, tails, taps)):
+        ins.append(torch.complex(y[:C], y[C:]))
         ext = torch.cat([t, y], dim=1)
         m_in = plan["m"][s]
         new_tails.append(round_to(ext[:, m_in:m_in + h], tail_dtype))
@@ -178,45 +195,104 @@ def chan_post_ref(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
     m_out = plan["m"][-1]
     mag = torch.sqrt(y[:C, :m_out] ** 2 + y[C:, :m_out] ** 2)
     return (y[:, :plan["n_out"]].to(out_dtype).contiguous(), mag.sum(-1),
-            new_tails)
+            new_tails, *ins)
 
 
-@_build.counted
+# ---- K6's plan (csrc/chan_post.cu) ------------------------------------------
+
+def _post_grid(n: int, C: int, D: int, kw: int, Ps: tuple) -> dict:
+    """One launch's FIR-tile grid over C rows of n complex outputs: 8
+    warps a block, ``P`` outputs a lane, the first of ``Ps`` that still
+    gives SMS blocks, and ``C`` chunks of 32·P outputs a block (a warp
+    each), halved from 8 until the launch has 2 blocks an SM (or C = 1):
+    larger blocks stage less halo (K2 − 1 samples a block)."""
+    for P in Ps:
+        n_c = -(-n // (32 * P))
+        Cc = min(8, n_c)
+        while Cc > 1 and C * -(-n_c // Cc) < 2 * SMS:
+            Cc = (Cc + 1) // 2
+        if C * -(-n_c // Cc) >= SMS:
+            break
+    grid = (-(-n_c // Cc), 1, C)
+    return {"P": P, "G": 1, "C": Cc, "warps": 8, "grid": grid,
+            "blocks": math.prod(grid), "n_m": n,
+            "smem": tile_smem(D, kw, n, P, 1, Cc, 2)}
+
+
+def chan_post_plan(pipe, Tb: int, C: int) -> dict:
+    """How K6 runs C channels of ``Tb`` bin frames in two launches on the
+    FIR tile, each over the n_out outputs of its stage (y1 [C, n_out]
+    through an HBM scratch, the IF [2C, n_out]): the 2:1 FIR's grid
+    ``d2`` (P up to 5) and the bandwidth FIR's ``fir`` (P up to 7: its
+    304 taps take 2P multiply-adds a tap read; the d2 launch's staging
+    gains nothing from 7, the bandwidth launch loses at 9), each
+    ``_post_grid``'s; ``n_tiles``, the fir launch's chunks of a row (one
+    squelch partial each).
+    ``scripts/chan_post_sweep.py --plans`` ranks both grids."""
+    n_out = pipe.plan(Tb)["n_out"]
+    d2 = _post_grid(n_out, C, 2, len(pipe.taps[0]), D2_OUTS_PER_LANE)
+    fir = _post_grid(n_out, C, 1, len(pipe.taps[1]), FIR_OUTS_PER_LANE)
+    return {"n1": n_out, "d2": d2, "fir": fir, "n_tiles": fir["grid"][0],
+            "launches": 2}
+
+
+@_build.counted_launches
 def chan_post_kernel(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
                      out_dtype, tail_dtype):
-    """K6 on the card (csrc/chan_post.cu); same contract as
+    """K6 on the card (csrc/chan_post.cu, ``chan_post_plan``'s two
+    launches, each counted in ``launches``); same contract as
     ``chan_post_ref``.  The squelch sums come back per output tile and
     are summed over the tiles by one torch reduction on the device (no
     atomics, no host copy)."""
+    return _chan_post_launches(pipe, bins, bin_idx, om, ph0, span_adv, sbs,
+                               tails, Tb, out_dtype, tail_dtype)[:3]
+
+
+def _chan_post_launches(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails,
+                        Tb, out_dtype, tail_dtype, probe: bool = False,
+                        plan: dict | None = None):
+    """K6's launches on ``plan`` (``chan_post_plan``'s by default):
+    ``chan_post_kernel``'s three results, then [z (with ``probe``, else
+    None) complex64 [C, Tb_pad], y1 complex64 [C, n_out]]."""
     dev = bins.device
     f32 = torch.float32
-    C, plan = _check_post(pipe, bins, bin_idx, om, tails, Tb)
+    C, geo = _check_post(pipe, bins, bin_idx, om, tails, Tb)
     if out_dtype not in _STORAGE or tail_dtype not in _STORAGE:
         raise ValueError(f"dtypes {out_dtype}, {tail_dtype}")
+    p = plan or chan_post_plan(pipe, Tb, C)
     taps = pipe.dev_taps(dev, tail_dtype)
-    m1, m_out, n_out = plan["m"][1], plan["m"][-1], plan["n_out"]
-    n_tiles = max(-(-n_out // POST_TILE), m1 // POST_TILE + 1)
+    m1, m_out, n_out = geo["m"][1], geo["m"][-1], geo["n_out"]
+    n1 = p["n1"]
     out = torch.empty((2 * C, n_out), dtype=out_dtype, device=dev)
-    sq = torch.empty((C, n_tiles), dtype=f32, device=dev)
+    sq = torch.empty((C, p["n_tiles"]), dtype=f32, device=dev)
     t_d2 = torch.empty((2 * C, pipe.hists[0]), dtype=f32, device=dev)
     t_fir = torch.empty((2 * C, pipe.hists[1]), dtype=f32, device=dev)
+    y1 = torch.empty((C, n1), dtype=torch.complex64, device=dev)
+    z = torch.empty((C, geo["Tb_pad"]), dtype=torch.complex64,
+                    device=dev) if probe else None
+    t_bf16 = int(tail_dtype == torch.bfloat16)
+    a, b = p["d2"], p["fir"]
     _build.launch(
-        "sdr_chan_post", dev,
+        "sdr_chan_post_d2", dev,
         _build.check(bins, "bins", _STORAGE, device=dev),
-        int(bins.dtype == torch.bfloat16), pipe.M, plan["Tb_pad"], Tb,
+        int(bins.dtype == torch.bfloat16), pipe.M, geo["Tb_pad"], Tb,
         _build.check(bin_idx, "bin index", torch.int32, (C,), dev),
         _build.check(om, "omega", f32, (C,), dev),
         _build.check(ph0, "phase", f32, (C,), dev),
         _build.check(span_adv, "span", f32, (C,), dev),
         _build.check(sbs, "block span", f32, (C,), dev), pipe.adv0,
         _build.check(tails[0], "d2 tail", f32, device=dev),
-        _build.check(tails[1], "fir tail", f32, device=dev),
         _build.check(taps[0], "d2 taps", f32, device=dev), taps[0].shape[0],
-        _build.check(taps[1], "fir taps", f32, device=dev), taps[1].shape[0],
-        out.data_ptr(), int(out_dtype == torch.bfloat16), n_out, m_out,
-        sq.data_ptr(), n_tiles, t_d2.data_ptr(), t_fir.data_ptr(),
-        int(tail_dtype == torch.bfloat16), C)
-    return out, sq.sum(-1), [t_d2, t_fir]
+        y1.data_ptr(), n1, t_d2.data_ptr(), t_bf16,
+        None if z is None else z.data_ptr(), C, a["P"], a["C"], a["warps"])
+    _build.launch(
+        "sdr_chan_post_fir", dev,
+        _build.check(tails[1], "fir tail", f32, device=dev), y1.data_ptr(),
+        n1, _build.check(taps[1], "fir taps", f32, device=dev),
+        taps[1].shape[0], out.data_ptr(), int(out_dtype == torch.bfloat16),
+        n_out, m_out, sq.data_ptr(), p["n_tiles"], m1, t_fir.data_ptr(),
+        t_bf16, C, b["P"], b["C"], b["warps"])
+    return out, sq.sum(-1), [t_d2, t_fir], [z, y1]
 
 
 def chan_post(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,

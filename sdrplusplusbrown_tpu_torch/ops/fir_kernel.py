@@ -20,8 +20,8 @@ state of the next block.  Dispatch follows the input: CPU tensors run the
 and the block through separate pointers and write the new tail
 themselves: no concat, split or recombine pass on the card.
 
-``fir_plan`` sizes the polyphase FIR tile (csrc/fir_tile.cuh) that K8 and
-K3 (ops/wfm_kernel.py) launch: outputs per lane, phase rows and output
+``fir_plan`` sizes the polyphase FIR tile (csrc/fir_tile.cuh) that K8, K9
+and K3 (ops/wfm_kernel.py) launch: outputs per lane, phase rows and output
 chunks per block, warps and grid.
 """
 
@@ -85,21 +85,24 @@ def _r4(n: int) -> int:
 
 
 def tile_smem(D: int, kw: int, n_m: int, P: int, G: int, C: int,
-              comps: int) -> int:
+              comps: int, tcomps: int = 1) -> int:
     """Shared-memory bytes of one block (csrc/fir_tile.cuh:fir_tile_layout):
-    G phase rows of taps, their bands, the output tile [m, G | 1] and the
-    input staged de-interleaved by input phase, [min(D, kw), S] samples
-    with S = (m + (kw − 1) // D) | 1, m = min(C·32·P, n_m), plus P."""
+    G phase rows of taps (``tcomps`` floats a tap: 2 for complex taps),
+    their bands, the output tile [m, G | 1] and the input staged
+    de-interleaved by input phase, [min(D, kw), S] samples with S = (m +
+    (kw − 1) // D) | 1, m = min(C·32·P, n_m), plus P."""
     mb = min(C * 32 * P, n_m)
     stride = (mb + (kw - 1) // D) | 1
-    return 4 * (_r4(G * kw) + _r4(2 * G) + _r4(mb * (G | 1) * comps)
+    return 4 * (_r4(G * kw * tcomps) + _r4(2 * G)
+                + _r4(mb * (G | 1) * comps)
                 + _r4((min(D, kw) * stride + P) * comps))
 
 
 @functools.lru_cache(maxsize=None)
 def fir_plan(I: int, D: int, kw: int, n_out: int, rows: int,
-             comps: int) -> dict:
-    """How the tile computes ``rows`` rows of n_out = n_m·I outputs:
+             comps: int, tcomps: int = 1) -> dict:
+    """How the tile computes ``rows`` rows of n_out = n_m·I outputs (of
+    ``comps`` floats, with taps of ``tcomps``):
     ``P`` outputs per lane (consecutive m), ``G`` phase rows and ``C``
     chunks of 32·P outputs per block, ``warps`` per block (each takes one
     (phase row, chunk) unit at a time), the ``grid`` (m tiles, phase
@@ -114,9 +117,9 @@ def fir_plan(I: int, D: int, kw: int, n_out: int, rows: int,
     while the launch has fewer than SMS blocks, chunks, then phase rows.
     (scripts/fir_rows_sweep.py --plans times the alternatives.)"""
     if I < 1 or D < 1 or kw < 1 or rows < 1 or comps not in (1, 2) or \
-            n_out < I or n_out % I:
+            tcomps not in (1, 2) or n_out < I or n_out % I:
         raise ValueError(f"FIR tile: I={I} D={D} kw={kw} n_out={n_out} "
-                         f"rows={rows} comps={comps}")
+                         f"rows={rows} comps={comps} tcomps={tcomps}")
     n_m = n_out // I
 
     def chunks(P):
@@ -133,9 +136,9 @@ def fir_plan(I: int, D: int, kw: int, n_out: int, rows: int,
         return rows * -(-I // G) * -(-n_c // C)
 
     while True:
-        smem = tile_smem(D, kw, n_m, P, G, C, comps)
+        smem = tile_smem(D, kw, n_m, P, G, C, comps, tcomps)
         if smem > SMEM_MAX:
-            if G > 1 and 4 * G * kw >= smem // 2:
+            if G > 1 and 4 * G * kw * tcomps >= smem // 2:
                 G = (G + 1) // 2
             elif C > 1:
                 C = (C + 1) // 2
@@ -225,22 +228,36 @@ def fir_cplx_ref(x, tail, taps, D: int):
         ext[..., W - tail.shape[-1]:]
 
 
+def cplx_plan(D: int, K: int, n_out: int, rows: int) -> dict:
+    """K9's grid: ``fir_plan``'s for one phase row of complex outputs and
+    complex taps (196 blocks of P = 1 for the pilot's one row of 12 500
+    outputs)."""
+    return fir_plan(1, D, K, n_out, rows, 2, 2)
+
+
 @_build.counted
 def fir_cplx_kernel(x, tail, taps, D: int):
-    """K9 on the card (csrc/fir_cplx.cu); same contract as
-    ``fir_cplx_ref``."""
+    """K9 on the card (csrc/fir_cplx.cu, one launch of ``cplx_plan``'s
+    grid on the FIR tile); same contract as ``fir_cplx_ref``."""
+    return _fir_cplx_launch(x, tail, taps, D)
+
+
+def _fir_cplx_launch(x, tail, taps, D: int, plan: dict | None = None):
+    """K9's launch on ``plan`` (``cplx_plan``'s by default)."""
     dev = x.device
     c64 = torch.complex64
     n_out = _check(x, tail, taps, 1, D, 2)
     lead, T, hist = x.shape[:-1], x.shape[-1], tail.shape[-1]
+    rows = math.prod(lead)
+    p = plan or cplx_plan(D, taps.shape[1], n_out, rows)
     y = torch.empty(lead + (n_out,), dtype=c64, device=dev)
     new_tail = torch.empty_like(tail)
     _build.launch(
         "sdr_fir_cplx", dev, _build.check(tail, "FIR tail", c64, device=dev),
         hist, _build.check(x, "FIR block", c64, device=dev), T,
         _build.check(taps, "FIR taps", torch.float32, device=dev),
-        taps.shape[1], D, y.data_ptr(), n_out, new_tail.data_ptr(),
-        math.prod(lead))
+        taps.shape[1], D, y.data_ptr(), n_out, new_tail.data_ptr(), rows,
+        p["P"], p["C"], p["warps"])
     return y, new_tail
 
 

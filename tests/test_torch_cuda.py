@@ -332,8 +332,11 @@ def test_pfb_kernel_matches_plain(gpu, handoff, T):
     assert channelizer_kernel.pfb_bins_kernel.launches == n0 + 4
 
 
-@pytest.mark.parametrize("C", [8, 128, 256])
+@pytest.mark.parametrize("C", [8, 128, 256, 5])
 def test_post_kernel_matches_plain(gpu, handoff, C):
+    """K6 against its plain version, two blocks (each called directly and
+    through ``apply``); its two CUDA launches a call, each counted, are
+    ``chan_post_plan``'s."""
     bank = Radio(FS, DEMOD_NFM)._build_vfo_channelized()
     _, post = bank.pipes()
     params = bank.make_params(_scan_offsets(C))
@@ -365,7 +368,60 @@ def test_post_kernel_matches_plain(gpu, handoff, C):
         for t, t0 in zip(nt, nt0):
             _close(t0, t, bound, "tail")
         _, _, state = post.apply(params, state, bins, Tb, raw=True)
-    assert chan_frontend.chan_post_kernel.launches == n0 + 4
+    # four calls (two a block), each counted at every CUDA launch
+    per_call = chan_frontend.chan_post_plan(post, Tb, C)["launches"]
+    assert chan_frontend.chan_post_kernel.launches == n0 + 4 * per_call
+
+
+def _post_args(gpu, C, seed):
+    """K6's arguments at the scanner block: seeded bins, phases and tails
+    in the handoff dtype, bench.py's offsets."""
+    bank = Radio(FS, DEMOD_NFM)._build_vfo_channelized()
+    _, post = bank.pipes()
+    params = bank.make_params(_scan_offsets(C))
+    Tb = 2 * SCAN_T // 48
+    rng = np.random.default_rng(seed)
+    h_dt = precision.get_handoff_dtype()
+    bins = torch.from_numpy(rng.standard_normal(
+        (96, post.plan(Tb)["Tb_pad"])).astype(np.float32)).to(gpu).to(h_dt)
+    ph0 = torch.from_numpy(rng.uniform(-np.pi, np.pi, C).astype(np.float32)
+                           ).to(gpu)
+    span = params["xl_sup"] * 0 + params["xl_bs"] * (post.adv0 // 128)
+    tails = [precision.round_to(torch.from_numpy(rng.standard_normal(
+        (2 * C, h)).astype(np.float32)), h_dt).to(gpu).contiguous()
+        for h in post.hists]
+    return post, (post, bins, params["bin"], params["xl"]["omega"], ph0,
+                  span, params["xl_bs"], tails, Tb, h_dt, h_dt)
+
+
+@pytest.mark.parametrize("C", [128, 256, 5])
+def test_post_kernel_tails_are_exact(gpu, handoff, C):
+    """K6's next-call tails hold intermediate values (z and y1): each is
+    exactly the plain version's rule (concat the carried tail with the
+    stage's input, keep the last samples, round to the tail dtype) on the
+    kernel's own z and y1 (its probe), and the wrapper returns the same;
+    the kernel's y1 is the 2:1 FIR of its z within 100 dB."""
+    post, args = _post_args(gpu, C, C + 1)
+    t_dt = args[-1]
+    m1 = args[8] // 2
+    _, _, tails, (z, y1) = chan_frontend._chan_post_launches(*args,
+                                                             probe=True)
+    _, _, wrapper = chan_frontend.chan_post_kernel(*args)
+
+    def planes(t):
+        return torch.cat([t.real, t.imag]).float()
+    want = [precision.round_to(torch.cat([args[7][0], planes(z[:, :args[8]])],
+                                         dim=1)[:, -post.hists[0]:], t_dt),
+            precision.round_to(torch.cat([args[7][1], planes(y1[:, :m1])],
+                                         dim=1)[:, -post.hists[1]:], t_dt)]
+    for got, w, v, what in zip(tails, want, wrapper, ("d2", "fir")):
+        assert torch.equal(got, w), what
+        assert torch.equal(got, v), what
+    taps = post.dev_taps(gpu, t_dt)[0]
+    ext = torch.cat([args[7][0], planes(z)], dim=1)
+    y1_plain = torch.nn.functional.conv1d(ext[:, None], taps[None, None],
+                                          stride=2)[:, 0]
+    _close(y1_plain[:, :y1.shape[1]], planes(y1), 100.0, "y1")
 
 
 @pytest.mark.parametrize("C", [8, 128, 256])
@@ -421,8 +477,8 @@ def test_fm_audio_kernel_matches_plain(gpu, handoff, C):
 
 def test_scanner_slice_matches_plain(gpu, handoff):
     """Radio.apply_channelized on the card (K5 → K6 → K7, one call each
-    per step; K7 counts each of its two CUDA launches) against the same
-    Radio on the CPU, 3 blocks, a retune."""
+    per step; K6 and K7 count each of their two CUDA launches) against the
+    same Radio on the CPU, 3 blocks, a retune."""
     C = 16
     rc = Radio(FS, DEMOD_NFM, squelch_enabled=True, device="cpu")
     rg = Radio(FS, DEMOD_NFM, squelch_enabled=True)
@@ -449,10 +505,13 @@ def test_scanner_slice_matches_plain(gpu, handoff):
         assert torch.equal(open1, open2)
         assert open1.nonzero().flatten().tolist() == list(range(0, C, 4))
         _close(a1[open1], a2.cpu()[open1], bound, f"audio block {b}")
-    # K5 and K6 count a call, K7 each of its CUDA launches
+    # K5 counts a call, K6 and K7 each of their CUDA launches
     m_if = SCAN_T * 50_000 // int(FS)          # the 50 kHz IF
-    per_call = (1, 1, demod_kernel.fm_plan(rg.fm_audio_pipe(), m_if,
-                                           C)["launches"])
+    post = rg._build_vfo_channelized().pipes()[1]
+    per_call = (1, chan_frontend.chan_post_plan(post, 2 * SCAN_T // 48,
+                                                C)["launches"],
+                demod_kernel.fm_plan(rg.fm_audio_pipe(), m_if,
+                                     C)["launches"])
     assert [k.launches for k in kernels] == \
         [n + 3 * k for n, k in zip(n0, per_call)]
 
@@ -590,6 +649,36 @@ def test_fir_cplx_kernel_matches_plain(gpu, lead, K, D):
         want, wt = fir_kernel.fir_cplx_ref(x, tail, taps, D)
         assert got.is_cuda and got.shape == want.shape
         _close(want, got, 100.0, f"K9 T={T}")
+        assert torch.equal(gt, wt.contiguous())
+        tail = gt
+
+
+@pytest.mark.parametrize("lead", [(), (17,)])
+@pytest.mark.parametrize("K,D", [(159, 1), (159, 2), (600, 4), (3, 1),
+                                 (40, 3)])
+def test_fir_cplx_kernel_is_exact_on_integers(gpu, lead, K, D):
+    """K9 on integer taps and samples, where every float32 sum is exact in
+    any order: the kernel equals the plain version bit for bit (each
+    output, the new tail), whatever its plan (the pilot's 12 500 outputs
+    and a short block), a band whose ends differ between hr and hi."""
+    from sdrplusplusbrown_tpu_torch.ops import fir_kernel
+    rng = np.random.default_rng(K + 10 * D)
+
+    def ints(shape, lo, hi, cplx=False):
+        v = rng.integers(lo, hi, shape).astype(np.float32)
+        if cplx:
+            v = v + 1j * rng.integers(lo, hi, shape)
+        return torch.from_numpy(v.astype(np.complex64 if cplx
+                                         else np.float32)).to(gpu)
+    taps = ints((2, K), -3, 4)
+    taps[:, :K // 5] = 0.0
+    taps[0, K // 5:K // 4] = 0.0
+    tail = ints(lead + (K - 1,), -7, 8, True)
+    for T in (D * 12_500, D * 5):
+        x = ints(lead + (T,), -7, 8, True)
+        got, gt = fir_kernel.fir_cplx(x, tail, taps, D)
+        want, wt = fir_kernel.fir_cplx_ref(x, tail, taps, D)
+        assert torch.equal(got, want), (K, D, T)
         assert torch.equal(gt, wt.contiguous())
         tail = gt
 

@@ -190,11 +190,14 @@ def taps_ring(sx, xs, kr, S, D, P, lo, hi):
     return acc
 
 
-def tile_model(ext, kern, I: int, D: int, plan: dict) -> np.ndarray:
+def tile_model(ext, kern, I: int, D: int, plan: dict,
+               bands=None) -> np.ndarray:
     """The tile's schedule on rows ``ext`` [rows, W] (float64 or
     complex128, a complex sample the float2 of one row) with ``kern`` [I,
     kw] → y [rows, n_m·I].  Raises if a read leaves the block's layout or
-    an output's read finds a slot that was not staged."""
+    an output's read finds a slot that was not staged.  ``bands`` (lo,
+    hi), each [I], replaces the rows' own (a complex tap's band is where
+    either of its parts is nonzero)."""
     rows = ext.shape[0]
     kw = kern.shape[1]
     P, G, C, n_m = plan["P"], plan["G"], plan["C"], plan["n_m"]
@@ -206,7 +209,8 @@ def tile_model(ext, kern, I: int, D: int, plan: dict) -> np.ndarray:
             r0 = by * G
             gn = min(G, I - r0)
             taps = kern[r0:r0 + gn].astype(np.float64)
-            lo, hi = row_bands(taps)
+            lo, hi = row_bands(taps) if bands is None else (
+                bands[0][r0:r0 + gn], bands[1][r0:r0 + gn])
             for bx in range(gx):
                 m0 = bx * C * 32 * P
                 mb = min(C * 32 * P, n_m - m0)
@@ -336,3 +340,98 @@ def test_path_kernels_have_the_measured_bands():
         band = hi - lo
         assert band.min() == lo_band and band.max() == hi_band
         assert abs(band.sum() / k.size - share) < 0.005
+
+
+# ---- K9: complex taps on the tile (csrc/fir_cplx.cu) -----------------------
+
+def cplx_geometries() -> list:
+    """(D, K, n_out, rows) of K9: the WFM pilot band-pass (159 complex
+    taps, one row of 12 500 outputs), and the shapes of
+    ``test_fir_cplx_kernel_matches_plain`` (tests/test_torch_cuda.py)."""
+    out = [(1, 159, 12_500, 1)]
+    for K, D in [(159, 1), (159, 2), (600, 4), (3, 1)]:
+        for T in (D * 12_500, D * 5):
+            n = (K - 1 + T - K) // D + 1
+            out += [(D, K, n, rows) for rows in (1, 17)]
+    return out
+
+
+@pytest.mark.parametrize("geom", cplx_geometries(),
+                         ids=lambda g: "D{}-K{}-n{}-r{}".format(*g))
+def test_cplx_plan_covers_every_output_once_and_fits(geom):
+    D, K, n, rows = geom
+    p = fir_kernel.cplx_plan(*geom)
+    assert p == fir_kernel.fir_plan(1, D, K, n, rows, 2, 2)
+    P, C = p["P"], p["C"]
+    assert p["G"] == 1 and p["grid"][1:] == (1, rows)
+    assert p["smem"] == fir_kernel.tile_smem(D, K, n, P, 1, C, 2, 2) <= SMEM
+    # the taps take two floats each: twice the real-tap layout's
+    assert p["smem"] - fir_kernel.tile_smem(D, K, n, P, 1, C, 2) == \
+        4 * (fir_kernel._r4(2 * K) - fir_kernel._r4(K))
+    hits = np.zeros(n, int)
+    for bx in range(p["grid"][0]):
+        m0 = bx * C * 32 * P
+        units = [u for w in range(p["warps"]) for u in range(w, C,
+                                                             p["warps"])]
+        for u in units:
+            mm = m0 + u * 32 * P + np.arange(32 * P)
+            hits[mm[mm < min(m0 + C * 32 * P, n)]] += 1
+    assert (hits == 1).all()
+
+
+def test_cplx_plan_fills_the_card_for_the_pilot():
+    """The pilot's one row of 12 500 outputs takes >= 132 blocks (the
+    one-thread-an-output kernel gave it 49)."""
+    p = fir_kernel.cplx_plan(1, 159, 12_500, 1)
+    assert p["blocks"] >= SMS, p
+
+
+def four_sum_model(ext, taps, D: int, plan: dict) -> np.ndarray:
+    """K9 on the tile: the four real sums (rr, ii, ri, ir), each on the
+    tile's schedule over the complex taps' band (where hr or hi is
+    nonzero) in ascending tap order, then (rr − ii) + j(ri + ir)."""
+    hr, hi = taps[:1].astype(np.float64), taps[1:].astype(np.float64)
+    nz = np.flatnonzero((taps[0] != 0) | (taps[1] != 0))
+    bands = (np.array([nz[0]]), np.array([nz[-1] + 1]))
+
+    def run(x, k):
+        return tile_model(np.ascontiguousarray(x), k, 1, D, plan, bands)
+    rr, ii = run(ext.real, hr), run(ext.imag, hi)
+    ri, ir = run(ext.real, hi), run(ext.imag, hr)
+    return (rr - ii) + 1j * (ri + ir)
+
+
+@pytest.mark.parametrize("P", [1, 3, 5])
+@pytest.mark.parametrize("D,K,n_m,rows,C", [(1, 159, 700, 1, 2),
+                                            (2, 159, 300, 2, 1),
+                                            (4, 600, 90, 1, 1),
+                                            (1, 3, 50, 3, 4),
+                                            (3, 40, 100, 2, 2)])
+def test_four_sum_model_equals_fir_cplx_ref_exactly_on_integers(
+        P, D, K, n_m, rows, C):
+    """Integer taps and samples (float32 sums exact): the four-sum model
+    on each P the plan may pick, partial chunks, a band whose ends differ
+    between hr and hi, equals ``fir_cplx_ref`` bit for bit, and at the
+    plan's own P too."""
+    rng = np.random.default_rng(P * 1000 + K + D)
+    taps = rng.integers(-3, 4, (2, K)).astype(np.float32)
+    taps[:, :K // 5] = 0.0
+    taps[0, K // 5:K // 4] = 0.0          # hr starts later than hi
+    taps[1, K - K // 6:] = 0.0            # hi ends earlier than hr
+    taps[:, -1] = 0.0
+    hist = K - 1
+    T = (n_m - 1) * D + K - hist
+    x = (rng.integers(-7, 8, (rows, T))
+         + 1j * rng.integers(-7, 8, (rows, T))).astype(np.complex64)
+    tail = (rng.integers(-7, 8, (rows, hist))
+            + 1j * rng.integers(-7, 8, (rows, hist))).astype(np.complex64)
+    want, _ = fir_kernel.fir_cplx_ref(torch.from_numpy(x),
+                                      torch.from_numpy(tail),
+                                      torch.from_numpy(taps), D)
+    ext = np.concatenate([tail, x], axis=1).astype(np.complex128)
+    n_c = -(-n_m // (32 * P))
+    for plan in ({"P": P, "G": 1, "C": C, "n_m": n_m,
+                  "grid": (-(-n_c // C), 1, rows)},
+                 fir_kernel.cplx_plan(D, K, n_m, rows)):
+        np.testing.assert_array_equal(four_sum_model(ext, taps, D, plan),
+                                      want.numpy())
