@@ -26,6 +26,13 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     .apply_planes`` (K5's critically sampled form, K5c) and every
     channel's 1024-bin dB spectra through ``fft_power_db_planes`` (K4's
     one-pass route batched over rows, K4r), 2^21-sample steps;
+  * the served app — ``SDRApp`` (and ``python -m
+    sdrplusplusbrown_tpu_torch``) on a 2.4 MS/s WAV capture through a
+    file source: ``IQFrontEnd`` with the DC blocker (fft 65 536 at 20
+    fps), then ``Radio.apply`` for a WFM, an NFM and a squelched NFM
+    radio on ~120 000-sample blocks, audio through the sink layer to a
+    recorder, driven in manual pump mode in process and over HTTP, and
+    with its pump thread in real time: K4f, K8, K9;
   * the multi-mode bank — ``RadioBank.apply(..., mono_out=True)`` on
     multimode8 (bench.py:build_multimode8, BASELINE config 2: 4 NFM, 2 AM
     and 2 USB VFOs on one 2.4 MS/s wideband, 240 000-sample steps) and on
@@ -128,6 +135,34 @@ Phases, each fatal on failure:
      the state is the block's last samples;
  18. the channelizer64 step on bench.py's noise (seed 1), as in 5.
 
+ 19. the served app in process: a 2.4 MS/s capture (the APP_WFM stations,
+     the APP_NFM carriers, a DC offset of 0.1) written under a temp dir,
+     ``SDRApp(root, run_pump=False, device=cuda)`` in manual pump mode
+     with the DC blocker, fft 65 536, a WFM, an NFM and a squelched
+     (−30 dB) NFM radio off the signal, a recorder on the WFM stream;
+     the launch counts zeroed, six blocks, a retune (``set_vfo_offset``)
+     and a ``set_demod`` round trip (NFM → USB → NFM) between blocks 3
+     and 4: K4f, K8 and K9 launched and held to their calls' planned
+     launches, every other kernel not; the WFM tone SNR and separation
+     and the NFM tone SNR (phase 11's bounds) on blocks 3 and 6, the
+     squelched radio exactly zero, ``get_snr`` finite and over 20 dB on
+     the carriers, spectrum peaks on them; the baseband's DC bin at least
+     30 dB under the same run's without the blocker; the recording read
+     back equals the audio events as 16-bit PCM;
+ 20. ``python -m sdrplusplusbrown_tpu_torch --root --http --autostart``
+     (the default device, cuda) as a subprocess on the same capture,
+     manual pump: /status, /pump/step, /sdr/status progress, set_demod,
+     get_demod, set_vfo_bandwidth, get_snr, get_spectrum, /sink/select
+     with a recorder, /exit; exit code 0 and the log's start line names
+     the CUDA device;
+ 21. the same app with its pump thread on the looping capture for 10 s:
+     blocks processed, /status's rtFactor and secondsBehind, each
+     block's wall time through a sync (percentiles), then a profiler
+     window of 20 blocks (device µs and launches a block, idle share,
+     host↔device copies a block), and the DC blocker alone on one
+     block's baseband (device µs and launches); fails unless rtFactor <
+     1 and the p99 block is within the block's duration.
+
 Every ``launches`` count is of CUDA launches: each wrapper counts every
 launch it makes (``kernels/_build.py``).  Beside each CUDA-event time
 (which, for a kernel shorter than its wrapper's host work, is the
@@ -137,7 +172,8 @@ kernel's bound is the larger of the bytes its function must move
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM's
 published HBM and non-tensor FP32 rates).  The next-to-last line is a
 JSON report of the kernels (an app-step kernel's ``launches`` are those
-of the path it was timed on, with every path's count beside them); the
+of the path it was timed on, with every path's count beside them, the
+served app's among them); the
 last line, printed only when every phase
 passed, is the device JSON.  Without a CUDA device, or without the
 package beside it, the script exits nonzero and prints no result.
@@ -600,6 +636,7 @@ def main() -> int:
     report.update(drive_app(dev, card))
     report.update(drive_bank(dev, card, report))
     report.update(drive_channelizer(dev, card))
+    drive_served(dev, card, report)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2029,6 +2066,388 @@ def hold_launches(label: str, counts: dict, cap: dict) -> None:
     bad = {t: (counts[t], want[t]) for t in counts if counts[t] != want[t]}
     if bad:
         fail(f"{label}: launches counted / planned {bad}")
+
+
+# ---- the served app (phases 19-21) -----------------------------------
+SERVED_SECONDS = 0.5          # the capture, looped by the file source
+SERVED_BLOCKS = 6
+SERVED_DC = 0.1               # the DC offset added to the capture's IQ
+SERVED_RT_SECONDS = 10.0      # phase 21's run of the threaded pump
+SERVED_TAGS = ("K4f", "K8", "K9")
+
+
+def served_capture(path: str) -> None:
+    """A 2.4 MS/s WAV capture (float32 IQ): the stereo FM stations of
+    APP_WFM, the NFM carriers of APP_NFM (1 kHz tone) and a DC offset."""
+    from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+    n = int(FS * SERVED_SECONDS)
+    x = (stereo_wideband(n, APP_WFM)
+         + nfm_wideband(n, APP_NFM, range(len(APP_NFM))) + SERVED_DC)
+    write_wav(path, x.astype(np.complex64), FS, bits=32)
+
+
+def served_config(capture: str, pump: str, dc_blocking: bool = True,
+                  squelched: bool = True) -> dict:
+    """The served app's config.json: the capture through a file source,
+    fftSize 65 536 at 20 fps, a WFM radio and an NFM radio on their
+    first carriers and, with ``squelched``, a second NFM radio off the
+    signal (its squelch set to SQUELCH_DB over the control plane)."""
+    mods = {"W": {"type": "radio", "demod": "WFM", "offset": APP_WFM[0]},
+            "N": {"type": "radio", "demod": "NFM", "offset": APP_NFM[0]}}
+    if squelched:
+        mods["Q"] = {"type": "radio", "demod": "NFM",
+                     "offset": APP_NFM_OFF[0]}
+    return {"source": {"type": "file", "path": capture, "loop": True},
+            "fftSize": FFT, "fftRate": 20, "pump": pump,
+            "dcBlocking": dc_blocking, "modules": mods}
+
+
+def new_app(root: str, config: dict, dev, run_pump: bool = False):
+    from sdrplusplusbrown_tpu_torch.app import SDRApp
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(config, f)
+    return SDRApp(root, run_pump=run_pump, device=dev)
+
+
+def http_call(base: str, path: str, body: dict | None = None,
+              timeout: float = 120.0) -> dict:
+    """GET (or POST ``body`` as JSON) on the app's control plane."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read().decode())
+
+
+def drive_served(dev, card: str, report: dict) -> None:
+    """Phases 19-21 on ``dev``; raises on the first failure.  Adds the
+    served app's launches to the K4f, K8 and K9 entries."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_served_") as tmp:
+        cap = os.path.join(tmp, "baseband_100000000Hz_10-00-00_01-01-2024"
+                                ".wav")
+        served_capture(cap)
+        served_in_process(dev, card, report, tmp, cap)
+        served_over_http(card, tmp, cap)
+        served_in_real_time(dev, card, tmp, cap)
+
+
+def served_in_process(dev, card: str, report: dict, tmp: str,
+                      cap: str) -> None:
+    """Phase 19: SDRApp in manual pump mode on the card, six blocks with
+    a retune and a set_demod round trip between blocks 3 and 4."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.io.wav import read_wav_iq
+    app = new_app(os.path.join(tmp, "p19"), served_config(cap, "manual"),
+                  dev)
+    app.start()
+    app.modules["Q"].handle_debug_command("set_squelch", f"{SQUELCH_DB}")
+    if not app.select_sink("W", "recorder"):
+        fail("phase 19: cannot attach the recorder")
+    got = {n: [] for n in app.modules}
+    for n, m in app.modules.items():
+        m.audio_event.bind(lambda blk, n=n: got[n].append(blk))
+    blocks = {n: [] for n in app.modules}
+    snrs = []
+
+    def run():
+        for b in range(SERVED_BLOCKS):
+            if b == 3:
+                app.set_vfo_offset("W", APP_WFM[1])
+                for d in ("USB", "NFM"):
+                    r = app.modules["N"].handle_debug_command("set_demod", d)
+                    if r.get("demod") != d:
+                        fail(f"phase 19: set_demod {d}: {r}")
+            if app.pump_step(1) != 1:
+                fail("phase 19: the pump stopped")
+            for n in app.modules:
+                blocks[n].append(np.concatenate(got[n], axis=-1))
+                got[n].clear()
+            snrs.append({n: app.modules[n].handle_debug_command(
+                "get_snr", "")["snr"] for n in app.modules})
+        torch.cuda.synchronize()
+
+    reset_counts()
+    _, cap19 = capture(tuple(KERNELS), run)
+    counts = {t: kernel_count(t) for t in KERNELS}
+    hold_launches(f"phase 19, served app, {SERVED_BLOCKS} blocks",
+                  {t: counts[t] for t in SERVED_TAGS}, cap19)
+    others = {t: n for t, n in counts.items() if n and t not in SERVED_TAGS}
+    if min(counts[t] for t in SERVED_TAGS) < 1 or others:
+        fail(f"phase 19: launch pattern {counts}")
+    for t in SERVED_TAGS:
+        report[t].setdefault("launches_by_path", {})["served app"] = \
+            counts[t]
+    # each kernel against its plain version at the shapes the served path
+    # gave it: every distinct K8 geometry on its last call with data (the
+    # squelched radio's rows are all zero), K9 and K4f on their last calls
+    stages = {}
+    for call in cap19["K8"]:
+        if app_stage(call) not in stages or bool(call[0].any()):
+            stages[app_stage(call)] = call
+    served = [("K8", call, key) for key, call in sorted(stages.items())]
+    served += [("K9", cap19["K9"][-1], "pilot band-pass"),
+               ("K4f", cap19["K4f"][-1], f"{FFT} points")]
+    for tag, call, what in served:
+        err = check_app_kernel(tag, call, card, f"served app, {what}",
+                               timed=False)["max_abs_err"]
+        report[tag]["max_abs_err"] = max(report[tag]["max_abs_err"], err)
+    print(f"phase 19: {len(stages)} distinct K8 geometries, K9 and K4f "
+          f"held against their plain versions at the served app's shapes")
+    block_len = app.pump_block_len
+    line_on = app.last_spectrum.copy()
+    app.shutdown()
+    print(f"phase 19: served app on {dev} ({block_len}-sample blocks, fft "
+          f"{FFT}, DC blocker on): {SERVED_BLOCKS} blocks, launches "
+          + ", ".join(f"{t}={counts[t]}" for t in SERVED_TAGS)
+          + ", every other kernel 0")
+    # the oracles: WFM before (block 3) and after the retune (block 6), NFM
+    # before and after its set_demod round trip, the squelched radio silent
+    for b in (2, 5):
+        aud = blocks["W"][b].astype(np.float64)
+        snr, sep = stereo_oracle(aud[None])
+        nfm = tone_snr_db(blocks["N"][b][0].astype(np.float64))
+        print(f"phase 19 block {b + 1}: WFM tone SNR {snr:.1f} dB (bound "
+              f"35), L/R separation {sep:.1f} dB (bound 25); NFM tone SNR "
+              f"{nfm:.1f} dB (bound 40); get_snr "
+              + ", ".join(f"{n} {v:.1f}" for n, v in snrs[b].items())
+              + " dB")
+        if snr <= 35.0 or sep <= 25.0 or nfm <= 40.0:
+            fail(f"phase 19 block {b + 1}: audio oracle failed")
+    for b in range(SERVED_BLOCKS):
+        if blocks["Q"][b].any() or blocks["Q"][b].shape != (2, block_len
+                                                              // 50):
+            fail(f"phase 19 block {b + 1}: the squelched radio is not "
+                 f"exactly silent")
+        if not all(np.isfinite(v) for v in snrs[b].values()):
+            fail(f"phase 19 block {b + 1}: get_snr {snrs[b]}")
+    if min(snrs[-1]["W"], snrs[-1]["N"]) <= 20.0:
+        fail(f"phase 19: get_snr on the carriers {snrs[-1]}")
+    floor = np.percentile(line_on, 2)
+    w = int(75e3 / FS * FFT)
+    for o in (APP_WFM[1], APP_NFM[0]):
+        k = int((o / FS + 0.5) * FFT)
+        if line_on[k - w:k + w].max() < floor + 30.0:
+            fail(f"phase 19: no spectrum peak at {o:.0f} Hz")
+    # the recording is what the audio events carried, as 16-bit PCM
+    rec, = [os.path.join(dp, f) for dp, _, fs in os.walk(
+        os.path.join(tmp, "p19", "recordings")) for f in fs]
+    iq, rate = read_wav_iq(rec)
+    want = np.concatenate(blocks["W"], axis=-1)
+    want = np.clip(want * 32768.0, -32768, 32767).astype(np.int16) / 32768.0
+    if rate != 48_000 or not (np.array_equal(iq.real, want[0].astype(
+            np.float32)) and np.array_equal(iq.imag, want[1].astype(
+            np.float32))):
+        fail("phase 19: the recording differs from the audio events")
+    # the DC blocker: the baseband's DC bin against the same run without it
+    off = new_app(os.path.join(tmp, "p19off"), served_config(
+        cap, "manual", dc_blocking=False), dev)
+    off.start()
+    off.pump_step(SERVED_BLOCKS)
+    line_off = off.last_spectrum.copy()
+    off.shutdown()
+    dc_on, dc_off = line_on[FFT // 2], line_off[FFT // 2]
+    print(f"phase 19: baseband DC bin {dc_on:.1f} dB with the DC blocker, "
+          f"{dc_off:.1f} dB without (bound: 30 dB lower); the recording "
+          f"({want.shape[1]} frames) equals the audio events")
+    if dc_off - dc_on < 30.0:
+        fail("phase 19: the DC blocker left the DC bin")
+
+
+def served_over_http(card: str, tmp: str, cap: str) -> None:
+    """Phase 20: ``python -m sdrplusplusbrown_tpu_torch`` in a subprocess
+    (the default device, cuda), manual pump, driven over HTTP."""
+    import socket
+    root = os.path.join(tmp, "p20")
+    os.makedirs(root)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(served_config(cap, "manual", squelched=False), f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(tmp, "p20.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sdrplusplusbrown_tpu_torch", "--root",
+             root, "--http", str(port), "--autostart"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 180
+        while True:
+            if proc.poll() is not None or time.time() > deadline:
+                fail("phase 20: the app did not come up")
+            try:
+                if http_call(base, "/status", timeout=1)["mainLoopStarted"]:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        up = time.perf_counter() - t0
+        r = http_call(base, "/pump/step", {"blocks": 3})
+        st = http_call(base, "/sdr/status")
+        if r["stepped"] != 3 or st["blocks"] != 3 or not st["running"]:
+            fail(f"phase 20: pump {r}, status {st}")
+
+        def cmd(name, c, args=""):
+            return http_call(base, f"/module/{name}/command",
+                             {"cmd": c, "args": args})
+        out = [cmd("N", "set_demod", "USB"), cmd("N", "get_demod"),
+               cmd("N", "set_demod", "NFM"),
+               cmd("N", "set_vfo_bandwidth", "10000"),
+               cmd("W", "get_demod")]
+        want = [{"status": "ok", "demod": "USB", "id": 4},
+                {"demod": "USB", "id": 4},
+                {"status": "ok", "demod": "NFM", "id": 0},
+                {"status": "ok", "bandwidth": 10000.0},
+                {"demod": "WFM", "id": 1}]
+        if out != want:
+            fail(f"phase 20: module commands {out}")
+        r = http_call(base, "/sink/select", {"stream": "W",
+                                             "sink": "recorder"})
+        step = http_call(base, "/pump/step", {"blocks": 2})
+        snr = {n: cmd(n, "get_snr")["snr"] for n in ("W", "N")}
+        spec = cmd("W", "get_spectrum", ",128")
+        st = http_call(base, "/sdr/status")
+        if (r.get("status") != "ok" or step["stepped"] != 2
+                or st["blocks"] != 5 or min(snr.values()) <= 20.0
+                or len(spec["spectrum"]) != 128
+                or not all(np.isfinite(spec["spectrum"]))):
+            fail(f"phase 20: sink {r}, step {step}, status {st}, "
+                 f"snr {snr}")
+        http_call(base, "/exit")
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    with open(log_path) as f:
+        log = f.read()
+    recs = os.listdir(os.path.join(root, "recordings"))
+    print(f"phase 20: python -m sdrplusplusbrown_tpu_torch served HTTP "
+          f"{up:.1f} s after the start; 5 blocks over /pump/step, "
+          f"get_snr W {snr['W']:.1f} dB N {snr['N']:.1f} dB, recording "
+          f"{recs}, exit code {rc} [{card}]")
+    dev_line = [ln for ln in log.splitlines() if "SDRApp started" in ln]
+    print("phase 20 log: " + (dev_line[0] if dev_line else "(no start line)"))
+    if rc != 0 or not dev_line or "device cuda:" not in dev_line[0] \
+            or len(recs) != 1:
+        fail(f"phase 20: exit code {rc}; log tail:\n{log[-3000:]}")
+
+
+def window_stats(prof, nb: int) -> tuple:
+    """A profiler window of ``nb`` blocks → ({kernel: device us a block},
+    kernel launches, host-to-device copies, device-to-host copies)."""
+    by_kernel, launches, h2d, d2h = {}, 0, 0, 0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us <= 0 or evt.key.startswith(("aten::", "cuda")):
+            continue
+        by_kernel[short_kernel(evt.key)] = by_kernel.get(
+            short_kernel(evt.key), 0.0) + us / nb
+        if "Memcpy HtoD" in evt.key:
+            h2d += evt.count
+        elif "Memcpy DtoH" in evt.key:
+            d2h += evt.count
+        elif not evt.key.startswith(("Memcpy", "Memset")):
+            launches += evt.count
+    return by_kernel, launches, h2d, d2h
+
+
+def served_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
+    """Phase 21: the app with its pump thread on the looping capture for
+    SERVED_RT_SECONDS of wall time; /status's real-time factor, each
+    block's wall time through a sync, a profiler window of 20 blocks and
+    the DC blocker alone.  On CUDA rtFactor is the front end's host
+    enqueue time over the block (IQFrontEnd.apply only queues its
+    launches; the radios are outside the clock, as in the JAX app), so
+    the real-time check is each block's synced wall time: p99 within the
+    block's duration.  rtFactor < 1 is held as well."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sdrplusplusbrown_tpu_torch.server.http_server import HttpDebugServer
+    app = new_app(os.path.join(tmp, "p21"), served_config(cap, "thread"),
+                  dev, run_pump=True)
+    app.modules["Q"].handle_debug_command("set_squelch", f"{SQUELCH_DB}")
+    walls = []
+
+    def timed_loop():
+        """The pump thread's loop, each block's end synced and timed."""
+        t = time.perf_counter()
+        for _ in app._pump_iter():
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            walls.append(now - t)
+            t = now
+    app._pump_loop = timed_loop
+    http = HttpDebugServer(app, port=0)
+    http.start()
+    base = f"http://127.0.0.1:{http.port}"
+    try:
+        t0 = time.perf_counter()
+        app.start()
+        time.sleep(SERVED_RT_SECONDS)
+        st = http_call(base, "/status")
+        blocks, seconds = app.blocks_processed, time.perf_counter() - t0
+        walls_rt = list(walls)
+        block_len = app.pump_block_len
+        # then a profiler window of 20 blocks while the pump thread runs
+        # (last: the profiler slows the launches of the blocks after it);
+        # a window whose trace holds copies but no kernel is taken again
+        for window in range(1, 4):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                b0, w0 = app.blocks_processed, time.perf_counter()
+                while app.blocks_processed < b0 + 20:
+                    time.sleep(0.005)
+                nb, window_us = app.blocks_processed - b0, (
+                    time.perf_counter() - w0) * 1e6
+            by_kernel, launches, h2d, d2h = window_stats(prof, nb)
+            if launches:
+                break
+    finally:
+        app.shutdown()
+        http.stop()
+    busy = sum(by_kernel.values())
+    dur_ms = block_len / FS * 1e3
+    w = np.array(walls_rt[3:]) * 1e3     # past the first blocks' warm-up
+    pct = " / ".join(f"{np.percentile(w, q):.4f}" for q in (50, 10, 90, 99))
+    print(f"phase 21: threaded pump, {blocks} blocks of {block_len} "
+          f"samples ({dur_ms:.0f} ms each) in {seconds:.1f} s, "
+          f"{blocks * block_len / seconds / 1e6:.2f} MS/s; /status "
+          f"rtFactor {st['rtFactor']}, secondsBehind {st['secondsBehind']} "
+          f"[{card}]")
+    print(f"phase 21: block wall time through torch.cuda.synchronize() "
+          f"median / p10 / p90 / p99 {pct} ms over {len(w)} blocks "
+          f"[{card}]")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    if launches:
+        print(f"phase 21: profiler window {window} of {nb} blocks: device "
+              f"{busy:.1f} us a block, idle share "
+              f"{1.0 - busy * nb / window_us:.3f}, {launches / nb:.1f} "
+              f"kernel launches, {h2d / nb:.1f} host-to-device and "
+              f"{d2h / nb:.1f} device-to-host copies a block; us a block "
+              f"by kernel: " + ", ".join(f"{k} {v:.1f}" for k, v in top)
+              + f" [{card}]")
+    else:
+        print(f"phase 21: device time, launches and copies a block not "
+              f"measured (the profiler saw no kernel in {window} windows)")
+    # the DC blocker alone on one block's baseband
+    fe = app.frontend
+    bb = torch.complex(*noise_planes(block_len, dev))
+    st0 = fe.dc.init_state().to(dev)
+    us, n = call_profile(lambda: fe.dc.apply(None, st0, bb))
+    print(f"phase 21: the DC blocker (torch doubling scan, "
+          f"{int(np.ceil(np.log2(block_len)))} levels) on {block_len} "
+          f"samples: {us:.1f} us device and {n} launches a block "
+          f"[{card}]")
+    if st["rtFactor"] >= 1.0 or np.percentile(w, 99) >= dur_ms:
+        fail(f"phase 21: not real time: rtFactor {st['rtFactor']}, p99 "
+             f"block {np.percentile(w, 99):.2f} ms of {dur_ms:.0f}")
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ kernel-backed stage launches its hand-written Hopper kernel
 (``csrc/*.cu``, built at first use by ``kernels/_build.py``) or raises; on a
 CPU tensor it runs the plain PyTorch version beside the kernel.
 
-Ported so far: the broadcast-FM receive chain ``models.radio.Radio``
-(``DEMOD_WFM``) through ``apply_shared`` with the wideband spectrum.
+Ported so far: ``models.radio.Radio`` (WFM, NFM, AM, SSB, DSB, CW) through
+``apply``, ``apply_shared`` and ``apply_channelized``, ``RadioBank``,
+``PolyphaseChannelizer``, and the headless app served over HTTP:
+``python -m sdrplusplusbrown_tpu_torch`` (``app.SDRApp``).
 """

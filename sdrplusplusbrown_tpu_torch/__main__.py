@@ -1,0 +1,87 @@
+"""Headless entry point (counterpart of sdrplusplusbrown_tpu/__main__.py):
+
+    python -m sdrplusplusbrown_tpu_torch --root DIR --http PORT [--autostart]
+                                         [--device cuda|cpu]
+
+reference: core/src/command_args.cpp:4-40 (--root, --http, --server,
+--autostart).  Everything is driven through the HTTP control plane.  The
+app runs on the card (``--device cuda``, the default) unless ``--device
+cpu`` asks for the host; without a CUDA device it exits nonzero.  The IQ
+streaming server (``--server``) and the rigctl server (``--rigctl``) are
+not ported: either exits nonzero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="sdrplusplusbrown_tpu_torch")
+    p.add_argument("--root", default="./sdrpp_tpu_root",
+                   help="config root directory")
+    p.add_argument("--http", type=int, default=8080,
+                   help="HTTP debug/automation server port")
+    p.add_argument("--autostart", action="store_true",
+                   help="start the DSP immediately")
+    p.add_argument("--server", action="store_true",
+                   help="run the IQ streaming server (not ported yet)")
+    p.add_argument("--rigctl", type=int, default=0,
+                   help="run a hamlib rigctl server on this port (not "
+                        "ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the DSP (default cuda; cpu runs "
+                        "the plain versions on the host)")
+    args = p.parse_args(argv)
+
+    if args.server or args.rigctl:
+        what = "--server (the IQ streaming server)" if args.server \
+            else "--rigctl (the rigctl server)"
+        print(f"sdrplusplusbrown_tpu_torch: {what} is not ported yet",
+              file=sys.stderr)
+        return 2
+
+    from .runtime.block import entry_device
+    try:
+        entry_device(args.device)
+    except RuntimeError as e:
+        print(f"sdrplusplusbrown_tpu_torch: {e} (--device {args.device}; "
+              f"pass --device cpu to run on the host)", file=sys.stderr)
+        return 2
+
+    from .app import SDRApp
+    from .server.http_server import HttpDebugServer
+    from .utils.flog import flog
+
+    done = threading.Event()
+    app = SDRApp(args.root, device=args.device)
+    http = HttpDebugServer(app, port=args.http, on_exit=done.set)
+    http.start()
+
+    if args.autostart:
+        app.start()
+
+    def _sig(_s, _f):
+        done.set()
+
+    signal.signal(signal.SIGINT, _sig)
+    signal.signal(signal.SIGTERM, _sig)
+    flog.info("ready: http on {}", http.port)
+    try:
+        done.wait()
+    finally:
+        app.shutdown()
+        http.stop()
+    # skip interpreter teardown: a daemon thread (the pump, an HTTP
+    # handler) may still be inside a torch call
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,686 @@
+"""Application shell: config, the source, radio module instances, sinks
+and the streaming loop (counterpart of sdrplusplusbrown_tpu/app.py; the
+headless analog of the reference's core.cpp/MainWindow wiring,
+reference core/src/core.cpp:437-912, gui/main_window.cpp:104-248),
+driven through the HTTP control plane (server/http_server.py).
+
+The app runs on ``device`` (CUDA unless the caller asks for the CPU):
+the front end and every radio keep their params and state there; each
+block goes to the card once, and the baseband stays there between the
+radios.  Host copies are the JAX app's: the baseband (the IF spectrum
+ring), the spectrum lines and each radio's audio.
+
+Ported: the ``none`` and ``file`` sources, ``radio`` modules and the
+``recorder`` sink.  What the JAX app has beyond that is refused by name:
+its other source types, module types, sinks, the transmitter and the IF
+noise reduction raise ``NotImplementedError`` when configured, and the
+radio commands for audio NR, RDS, the noise blanker and the FM IF filter
+answer ``{"error": "... not ported yet"}``.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import threading
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .utils.config import ConfigManager
+from .utils.flog import flog
+from .utils.event import Event
+from .utils.metrics import PeakLevelMeter, StreamTracker
+from .models.iq_frontend import IQFrontEnd
+from .models.radio import Radio, DEMOD_NAMES, DEMOD_IDS
+from .models.waterfall import Waterfall
+from .ops.spectrum import calculate_vfo_signal_info
+from .io.file_source import FileSource
+from .io.recorder import WavRecorder
+from .runtime.block import entry_device
+from .runtime.migrate import migrate_state
+from .runtime.pump import Rechunker, RealTimeGuard
+from .runtime.sink import (PRIO_DEMOD, StreamHook, StreamRegistry,
+                           get_secondary_stream_index)
+
+# reference demodulators/*.h getMinBandwidth/getMaxBandwidth
+DEMOD_BW_LIMITS = {
+    0: (1000.0, 50_000.0),     # NFM: max = IF rate
+    1: (50_000.0, 500_000.0),  # WFM
+    2: (1000.0, 15_000.0),     # AM
+    3: (1000.0, 12_000.0),     # DSB: IF/2
+    4: (500.0, 12_000.0),      # USB
+    5: (50.0, 500.0),          # CW
+    6: (500.0, 12_000.0),      # LSB
+    7: (48_000.0, 48_000.0),   # RAW
+}
+
+DEFAULT_CONFIG = {
+    "version": 1,
+    "frequency": 100_000_000.0,
+    "source": {"type": "none", "path": "", "samplerate": 1_000_000.0},
+    "fftSize": 65536,
+    "fftRate": 20,
+    "fftWindow": "nuttall",
+    "decimation": 1,
+    "dcBlocking": False,
+    "invertIQ": False,
+    "modules": {},
+    "sinks": {},
+    "streamVolumes": {},
+}
+
+SPECTRUM_BUF_SIZE = 16384  # IF spectrum ring (reference radio_module.h:78)
+
+#: what the JAX app serves and the port does not yet: refused by name
+UNPORTED_SOURCES = ("network", "rtl_tcp", "spyserver", "kiwisdr", "hl2",
+                    "sdrpp_server")
+UNPORTED_MODULES = (
+    "scanner", "frequency_manager", "recorder", "ft8_decoder",
+    "iq_exporter", "scheduler", "vor_receiver", "ch_tetra_demodulator",
+    "ch_extravhf_decoder", "meteor_demodulator", "m17_decoder",
+    "tci_server", "weather_sat_decoder", "ryfi_decoder", "atv_decoder",
+    "falcon9_decoder", "dab_decoder", "kg_sstv_decoder", "websdr_view",
+    "reports_monitor", "discord_integration", "signal_detector")
+UNPORTED_SINKS = ("network", "mpeg")
+
+
+def describe_device(dev: torch.device) -> str:
+    """'cuda:0 (<card name>)' or 'cpu', for the log."""
+    if dev.type == "cuda":
+        idx = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        return f"cuda:{idx} ({torch.cuda.get_device_name(idx)})"
+    return str(dev)
+
+
+class ModuleComManager:
+    """String-keyed cross-module interface registry
+    (reference: core/src/module_com.h:13-25 — modules publish duck-typed
+    interfaces other modules look up by name)."""
+
+    def __init__(self):
+        self._interfaces: Dict[str, object] = {}
+
+    def register_interface(self, name: str, obj) -> bool:
+        if name in self._interfaces:
+            return False
+        self._interfaces[name] = obj
+        return True
+
+    def unregister_interface(self, name: str):
+        self._interfaces.pop(name, None)
+
+    def interface_exists(self, name: str) -> bool:
+        return name in self._interfaces
+
+    def get_interface(self, name: str):
+        return self._interfaces.get(name)
+
+
+class ModuleInstance:
+    """reference: ModuleManager::Instance (core/src/module.h:35-52)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._enabled = True
+
+    def post_init(self):
+        pass
+
+    def enable(self):
+        self._enabled = True
+
+    def disable(self):
+        self._enabled = False
+
+    def is_enabled(self) -> bool:
+        return self._enabled
+
+    def module_type(self) -> str:
+        return "unknown"
+
+    def shutdown(self):
+        pass
+
+    def handle_debug_command(self, cmd: str, args: str) -> dict:
+        return {"error": f"unknown command: {cmd}"}
+
+
+class RadioModuleInstance(ModuleInstance):
+    """The demodulation app module (reference decoder_modules/radio): one
+    ``Radio`` built with the squelch on, stepped once a block by the
+    pump on the shared baseband."""
+
+    def __init__(self, name: str, app: "SDRApp", demod: str = "WFM",
+                 offset_hz: float = 0.0, bandwidth: Optional[float] = None,
+                 rds: bool = False):
+        super().__init__(name)
+        if rds:
+            raise NotImplementedError(f"radio '{name}': RDS is not ported "
+                                      f"yet")
+        self.app = app
+        self._mtx = threading.RLock()
+        self.squelch_level = -100.0
+        self.volume = 1.0
+        self.muted = False
+        self.level_meter = PeakLevelMeter()
+        self.offset_hz = float(offset_hz)
+        self.radio: Optional[Radio] = None
+        self.state = None
+        self.spectrum_ring = np.zeros(SPECTRUM_BUF_SIZE, np.complex64)
+        self.audio_event: Event = Event()
+        self._build(DEMOD_IDS.get(demod.upper(), demod)
+                    if isinstance(demod, str) else int(demod), bandwidth)
+
+    def module_type(self) -> str:
+        return "radio"
+
+    def _build(self, demod_id, bandwidth: Optional[float],
+               migrate: bool = False):
+        """(Re)build the pipeline on the app's device for ``demod_id`` at
+        ``bandwidth`` (None: the demod's default).  A demod or bandwidth
+        the port cannot build raises and leaves the module as it was.
+        With ``migrate=True`` the carried DSP state (filter tails,
+        NCO/PLL/AGC) survives the reconfiguration via runtime.migrate
+        resize rules — the reference's click-free retune (fir.h:33-54,
+        radio_module.h:655-774)."""
+        t0 = time.perf_counter()
+        with self._mtx:
+            radio = Radio(self.app.samplerate, demod_id,
+                          bandwidth=bandwidth, offset_hz=self.offset_hz,
+                          squelch_enabled=True,
+                          squelch_level=self.squelch_level,
+                          device=self.app.device)
+            self.state = migrate_state(self.state if migrate else None,
+                                       radio.init_state(()))
+            self.radio, self.demod_id = radio, demod_id
+            self.params = radio.make_params(self.offset_hz)
+            self.bandwidth = radio.bandwidth
+        self.last_switch_us = (time.perf_counter() - t0) * 1e6
+        # reference logs demod-switch latency in µs (radio_module.h:474)
+        flog.info("Radio[{}]: demod {} ready in {:.0f} us", self.name,
+                  self.radio.demod_name, self.last_switch_us)
+
+    def set_offset(self, offset_hz: float):
+        self.offset_hz = float(offset_hz)
+        # keep the runtime squelch level across retunes
+        self.params = self.radio.make_params(
+            self.offset_hz, squelch_level=self.squelch_level)
+
+    def set_bandwidth(self, bandwidth_hz: float):
+        self._build(self.demod_id, float(bandwidth_hz), migrate=True)
+
+    def select_demod(self, demod_id: int):
+        """Switch to demod ``demod_id`` at its default bandwidth, carrying
+        the state over."""
+        self._build(int(demod_id), None, migrate=True)
+
+    def push_if_spectrum(self, iq_block: np.ndarray):
+        n = min(len(iq_block), SPECTRUM_BUF_SIZE)
+        self.spectrum_ring = np.roll(self.spectrum_ring, -n)
+        self.spectrum_ring[-n:] = iq_block[-n:]
+
+    # ------------------------------------------------------------------
+    def handle_debug_command(self, cmd: str, args: str) -> dict:
+        if cmd in ("set_demod", "set_demodulator"):
+            name = args.strip().upper()
+            try:
+                did = DEMOD_IDS[name] if name in DEMOD_IDS else int(args)
+                self.select_demod(did)
+                return {"status": "ok", "demod": DEMOD_NAMES[did],
+                        "id": did}
+            except NotImplementedError as e:
+                return {"error": str(e)}
+            except (ValueError, IndexError, KeyError):
+                return {"error": f"unknown demod '{args}'"}
+        if cmd == "set_vfo_bandwidth":
+            try:
+                self.set_bandwidth(float(args))
+                return {"status": "ok", "bandwidth": self.bandwidth}
+            except ValueError:
+                return {"error": f"bad bandwidth '{args}'"}
+        if cmd == "get_demod":
+            return {"demod": self.radio.demod_name, "id": self.demod_id}
+        if cmd == "list_demods":
+            return {"radio": self.name,
+                    "demods": [{"name": n, "id": i}
+                               for i, n in enumerate(DEMOD_NAMES)]}
+        if cmd == "get_vfo_bandwidth":
+            lo, hi = DEMOD_BW_LIMITS.get(
+                self.demod_id, (0.0, self.radio.if_rate))
+            return {"vfo_bandwidth": self.bandwidth,
+                    "lower_offset": self.offset_hz - self.bandwidth / 2,
+                    "upper_offset": self.offset_hz + self.bandwidth / 2,
+                    "module_bandwidth": self.bandwidth,
+                    "min_bandwidth": lo, "max_bandwidth": hi}
+        if cmd == "set_freq":
+            try:
+                freq = float(args)
+            except ValueError:
+                return {"error": f"invalid frequency: '{args}'"}
+            self.app.tune(freq)
+            return {"status": "ok", "frequency": freq}
+        if cmd == "set_squelch":
+            try:
+                self.squelch_level = float(args)
+            except ValueError:
+                return {"error": f"bad level '{args}'"}
+            self.params = self.radio.make_params(
+                self.offset_hz, squelch_level=self.squelch_level)
+            return {"status": "ok", "level": self.squelch_level}
+        if cmd in ("set_nb", "set_fmif", "set_rds"):
+            on = args.strip().lower() in ("1", "true", "on")
+            what = {"set_nb": "the noise blanker",
+                    "set_fmif": "the FM IF filter", "set_rds": "RDS"}[cmd]
+            if on:
+                return {"error": f"{what} is not ported yet"}
+            return {"status": "ok", cmd[4:]: False}
+        if cmd == "set_volume":
+            try:
+                self.volume = float(args)
+                return {"status": "ok", "volume": self.volume}
+            except ValueError:
+                return {"error": f"bad volume '{args}'"}
+        if cmd == "get_level":
+            return {"level_db": round(self.level_meter.level_db(), 2)}
+        if cmd == "set_afnr":
+            mode = args.strip().lower() or "off"
+            if mode not in ("off", "logmmse", "omlsa"):
+                return {"error": f"unknown afnr mode '{args}'"}
+            if mode != "off":
+                return {"error": f"audio noise reduction ({mode}) is not "
+                                 f"ported yet"}
+            return {"status": "ok", "afnr": mode}
+        if cmd == "get_afnr":
+            return {"afnr": "off"}
+        if cmd == "get_rds":
+            return {"error": "rds not enabled"}
+        if cmd == "get_snr":
+            snr = self.app.vfo_snr(self.name)
+            return {"snr": snr if snr is not None else -1.0}
+        if cmd == "get_spectrum":
+            num_buckets = 256
+            if "," in args:
+                try:
+                    num_buckets = int(args.split(",")[1])
+                except ValueError:
+                    pass
+            num_buckets = max(8, min(2048, num_buckets))
+            snap = self.spectrum_ring
+            n = len(snap)
+            win = 0.5 * (1 - np.cos(2 * np.pi * np.arange(n) / (n - 1)))
+            power = np.abs(np.fft.fftshift(np.fft.fft(snap * win))) ** 2
+            # the ring holds wideband baseband; slice this VFO's passband
+            # (the reference rings post-VFO IF samples — same product:
+            # "what's inside my passband", radio_module.h:78-89)
+            sr = self.app.frontend.effective_sr
+            half_span = max(self.bandwidth, sr / num_buckets * 8)
+            lo = int((max(self.offset_hz - half_span, -sr / 2) / sr + 0.5)
+                     * n)
+            hi = int((min(self.offset_hz + half_span, sr / 2) / sr + 0.5)
+                     * n)
+            seg = power[max(lo, 0):max(hi, 1)]
+            if len(seg) < num_buckets:
+                seg = np.pad(seg, (0, num_buckets - len(seg)),
+                             constant_values=seg.min() if len(seg) else 1e-30)
+            maxp = max(float(seg.max()), 1e-30)
+            bpb = len(seg) // num_buckets
+            avg = seg[:bpb * num_buckets].reshape(num_buckets, bpb).mean(1)
+            db = 10 * np.log10(avg / maxp + 1e-10)
+            return {"spectrum": [round(float(v), 3) for v in db],
+                    "num_buckets": num_buckets, "fft_size": n,
+                    "span_hz": 2 * half_span, "max_bin": maxp}
+        return super().handle_debug_command(cmd, args)
+
+
+class SDRApp:
+    def __init__(self, root: str, run_pump: bool = True, device="cuda"):
+        self.device = entry_device(device)
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self.config = ConfigManager()
+        self.config.set_path(os.path.join(root, "config.json"))
+        self.config.load(DEFAULT_CONFIG)
+
+        with self.config.acquire(False) as conf:
+            src = dict(conf["source"])
+            self.samplerate = float(src.get("samplerate", 1_000_000.0))
+            self.frequency = float(conf.get("frequency", 100e6))
+            self._fft_size = int(conf.get("fftSize", 65536))
+            self._fft_rate = float(conf.get("fftRate", 20))
+            self._fft_window = conf.get("fftWindow", "nuttall")
+            self._decim = int(conf.get("decimation", 1))
+            self._dc = bool(conf.get("dcBlocking", False))
+            self._inv = bool(conf.get("invertIQ", False))
+            mod_conf = dict(conf.get("modules", {}))
+            self.sink_sel = dict(conf.get("sinks", {}))
+            # IF noise reduction and a transmitter have no port yet
+            if conf.get("ifnr", False):
+                raise NotImplementedError("the IF noise reduction (ifnr) is "
+                                          "not ported yet")
+            if conf.get("transmitter", {}).get("type"):
+                raise NotImplementedError("the transmitter is not ported "
+                                          "yet")
+            self.pump_manual = (conf.get("pump", "thread") == "manual")
+
+        self.source = None
+        stype = src.get("type")
+        if stype == "file" and src.get("path"):
+            self.source = FileSource(src["path"],
+                                     loop=bool(src.get("loop", True)))
+            self.samplerate = self.source.samplerate
+            if self.source.center_freq:
+                self.frequency = self.source.center_freq
+        elif stype in UNPORTED_SOURCES:
+            raise NotImplementedError(f"source type '{stype}' is not "
+                                      f"ported yet")
+
+        self.frontend = IQFrontEnd(
+            self.samplerate, decim_ratio=self._decim, dc_blocking=self._dc,
+            invert_iq=self._inv, fft_size=self._fft_size,
+            fft_rate=self._fft_rate, fft_window=self._fft_window,
+            device=self.device)
+        self.ifnr_enabled = False
+        self.ifnr_stop_reason = ""
+
+        self.baseband_event: Event = Event()
+        self.spectrum_event: Event = Event()
+        self.module_com = ModuleComManager()
+        # sink layer: per-module streams with priority merger + secondary
+        # substreams + the StreamHook bus (reference SinkManager, sink.h)
+        self.stream_registry = StreamRegistry()
+
+        self.modules: Dict[str, ModuleInstance] = {}
+        for name, mc in mod_conf.items():
+            mtype = mc.get("type", "radio")
+            if mtype == "radio":
+                self.modules[name] = RadioModuleInstance(
+                    name, self, demod=mc.get("demod", "WFM"),
+                    offset_hz=mc.get("offset", 0.0),
+                    bandwidth=mc.get("bandwidth"),
+                    rds=mc.get("rds", False))
+            elif mtype in UNPORTED_MODULES:
+                raise NotImplementedError(f"module type '{mtype}' (module "
+                                          f"'{name}') is not ported yet")
+            else:
+                flog.warn("unknown module type '{}' for '{}'", mtype, name)
+
+        self.sinks: Dict[str, object] = {}   # stream name -> recorder
+        self.input_tracker = StreamTracker()
+        self.waterfall = Waterfall(self._fft_size)
+        self.last_spectrum: Optional[np.ndarray] = None
+        self.rt_guard = RealTimeGuard()
+        self._clock = time.perf_counter   # injectable for pacing tests
+        self.running = False
+        self.main_loop_started = False
+        self._pump_thread: Optional[threading.Thread] = None
+        # pump mode "manual": no pump thread — the control plane steps
+        # the pipeline synchronously via /pump/step (progress is counted
+        # in processed blocks, never in sleeps)
+        self._pump_gen = None
+        self._pump_step_lock = threading.Lock()
+        self._stop_evt = threading.Event()
+        self._lock = threading.RLock()
+        self.run_pump = run_pump
+        self.blocks_processed = 0
+        # last: a config the port refuses above leaves no thread behind
+        self.config.enable_autosave()
+
+    # ------------------------------------------------------------------
+    def _granularity(self) -> int:
+        g = self.frontend.in_multiple
+        for m in self.modules.values():
+            if isinstance(m, RadioModuleInstance) and m.is_enabled():
+                need = int(m.radio.in_multiple / self.frontend.ratio)
+                g = math.lcm(g, need)
+        return g
+
+    def tune(self, freq: float):
+        self.frequency = float(freq)
+        with self.config.acquire() as conf:
+            conf["frequency"] = freq
+
+    def set_vfo_offset(self, name: str, offset_hz: float) -> bool:
+        m = self.modules.get(name)
+        if not isinstance(m, RadioModuleInstance):
+            return False
+        m.set_offset(offset_hz)
+        return True
+
+    def select_sink(self, stream: str, sink: str, **sink_conf) -> bool:
+        """Attach a sink to a module's audio stream (or a secondary
+        substream 'Name__##N'): 'recorder' records to WAV,
+        'null_audio_sink'/'None' discards (reference
+        SinkManager::setStreamSink, sink.h).  The network and MPEG sinks
+        are not ported and raise ``NotImplementedError``."""
+        if sink in UNPORTED_SINKS:
+            raise NotImplementedError(f"the {sink} sink is not ported yet")
+        base, idx = get_secondary_stream_index(stream)
+        m = self.modules.get(base)
+        if not isinstance(m, RadioModuleInstance):
+            return False
+        if idx > 0 and self.stream_registry.get(stream) is None:
+            return False
+        old = self.sinks.pop(stream, None)
+        if hasattr(old, "close"):
+            old.close()
+        if sink == "recorder":
+            rec_dir = os.path.join(self.root, "recordings")
+            os.makedirs(rec_dir, exist_ok=True)
+            path = os.path.join(rec_dir, WavRecorder.capture_name(
+                f"sink_{stream}", self.frequency))
+            # capture_name has 1 s resolution: two selects inside the
+            # same second must not overwrite the first recording
+            stem, ext = os.path.splitext(path)
+            k = 1
+            while os.path.exists(path):
+                path = f"{stem}_{k}{ext}"
+                k += 1
+            rec = WavRecorder(path, m.radio.audio_samplerate, channels=2)
+            self.sinks[stream] = rec
+            if idx > 0:
+                # substream sinks consume via the registry fan-out (the
+                # pump only writes base-stream sinks directly)
+                self.stream_registry.get(stream).bind(
+                    lambda blk, _r=rec: _r.write(blk))
+        self.sink_sel[stream] = sink
+        with self.config.acquire() as conf:
+            conf.setdefault("sinks", {})[stream] = sink
+        return True
+
+    def add_substream(self, base: str):
+        """Create 'base__##N' (reference sink.h:117-135)."""
+        if self.stream_registry.get(base) is None:
+            m = self.modules.get(base)
+            if not isinstance(m, RadioModuleInstance):
+                return None
+            self.stream_registry.register(base, m.radio.audio_samplerate)
+        return self.stream_registry.add_substream(base)
+
+    def set_ifnr_enabled(self, enabled: bool):
+        """The IF NR preprocessor is not ported: enabling it raises."""
+        if enabled:
+            raise NotImplementedError("the IF noise reduction (ifnr) is "
+                                      "not ported yet")
+
+    def vfo_snr(self, name: str):
+        m = self.modules.get(name)
+        if self.last_spectrum is None or not isinstance(
+                m, RadioModuleInstance):
+            return None
+        out = calculate_vfo_signal_info(
+            self.last_spectrum, m.offset_hz, m.bandwidth,
+            self.frontend.effective_sr)
+        if out is None:
+            return None
+        return float(out[1])
+
+    # ------------------------------------------------------------------
+    def start(self):
+        with self._lock:
+            if self.running:
+                return
+            self.running = True
+            self._stop_evt.clear()
+            if self.pump_manual:
+                # synchronous mode: ready immediately; blocks flow only
+                # through explicit pump_step() calls
+                self.main_loop_started = True
+            elif self.run_pump and self.source is not None:
+                self._pump_thread = threading.Thread(
+                    target=self._pump_loop, daemon=True)
+                self._pump_thread.start()
+            flog.info("SDRApp started (SR={} Hz, device {})",
+                      self.samplerate, describe_device(self.device))
+
+    def stop(self):
+        with self._lock:
+            if not self.running:
+                return
+            self.running = False
+        self._stop_evt.set()
+        if self._pump_thread:
+            # long timeout: the pump's first block builds the kernels
+            self._pump_thread.join(timeout=60)
+            if self._pump_thread.is_alive():
+                flog.warn("pump thread still busy at stop")
+            self._pump_thread = None
+        flog.info("SDRApp stopped")
+
+    def _source_iter(self):
+        """Source blocks with failure fallback: a dead source degrades to
+        a null source so the pipeline keeps running (reference
+        source.cpp:60-75 nullSource fallback)."""
+        try:
+            yield from self.source.blocks()
+        except Exception as e:  # noqa: BLE001 — any source fault
+            flog.error("source failed: {} — falling back to null source",
+                       repr(e))
+            B = max(int(self.samplerate // 200), 1024)
+            while not self._stop_evt.is_set():
+                time.sleep(B / self.samplerate)
+                yield np.zeros(B, np.complex64)
+
+    def _pump_loop(self):
+        for _ in self._pump_iter():
+            pass
+
+    def pump_step(self, n: int = 1) -> int:
+        """Synchronously process up to ``n`` pipeline blocks (manual pump
+        mode).  Returns the number actually processed (< n only at end of
+        a non-looping source).  Serialized: concurrent HTTP calls queue
+        on the step lock."""
+        with self._pump_step_lock:
+            if self._pump_gen is None:
+                self._pump_gen = self._pump_iter()
+            done = 0
+            for _ in range(int(n)):
+                try:
+                    next(self._pump_gen)
+                except StopIteration:
+                    break
+                done += 1
+            return done
+
+    def _pump_iter(self):
+        """The pump as a generator: yields once per processed block so it
+        can be driven by the pump thread (free-running) or stepped
+        synchronously from the control plane (manual mode)."""
+        fstate = self.frontend.init_state(())
+        # real-time pacing guard (reference if_nr.h:117-139 analog):
+        # rt_factor/blocks-behind exposed at /status
+        self.rt_guard = RealTimeGuard()
+        rc: Optional[Rechunker] = None
+        gran = None
+        self.main_loop_started = True
+        for blk in self._source_iter():
+            if self._stop_evt.is_set():
+                break
+            g = self._granularity()
+            if rc is None or g != gran:
+                gran = g
+                block_len = ((max(g, int(self.samplerate // 20)) + g - 1)
+                             // g) * g
+                self.pump_block_len = block_len
+                rc = Rechunker(block_len)
+            for chunk in rc.push(blk):
+                t_start = self._clock()
+                (bb, spectra), fstate = self.frontend.apply(
+                    None, fstate, torch.from_numpy(chunk))
+                budget = len(chunk) / self.samplerate
+                if self.rt_guard.report(self._clock() - t_start, budget):
+                    # nothing to shed: re-arm so the guard keeps
+                    # reporting rt_factor/blocks-behind
+                    self.rt_guard.reset_policy()
+                bb_np = bb.cpu().numpy()
+                lines = spectra.cpu().numpy()
+                for ln in lines:
+                    self.waterfall.push_fft(ln)
+                self.last_spectrum = lines[-1]
+                self.baseband_event.emit(bb_np)
+                self.spectrum_event.emit(self.last_spectrum)
+                with self._lock:
+                    mods = [m for m in self.modules.values()
+                            if isinstance(m, RadioModuleInstance)
+                            and m.is_enabled()]
+                for m in mods:
+                    with m._mtx:
+                        if bb.shape[-1] % m.radio.in_multiple:
+                            # demod switched mid-block; samples drop until
+                            # the rechunker realigns (the analog of the
+                            # reference's tempStop re-splice gap)
+                            continue
+                        # the baseband stays on the device between radios
+                        y, m.state = m.radio.apply(m.params, m.state, bb)
+                    audio = y.cpu().numpy()
+                    m.level_meter.push(audio)
+                    m.push_if_spectrum(bb_np)
+                    # route through the sink layer: priority merger (TX
+                    # inject preempts) → volume/mute → fan-out (reference
+                    # SinkManager::Stream, sink.h:30-92)
+                    stream = self.stream_registry.get(m.name)
+                    if stream is None:
+                        stream = self.stream_registry.register(
+                            m.name, m.radio.audio_samplerate)
+                    stream.volume = m.volume
+                    stream.muted = m.muted
+                    sink = self.sinks.get(m.name)
+                    for out in stream.push_demod(audio):
+                        m.audio_event.emit(out)
+                        if hasattr(sink, "write"):
+                            sink.write(out)
+                    self.stream_registry.publish(StreamHook(
+                        source=m.name,
+                        source_type=StreamHook.SOURCE_DEMOD_OUTPUT,
+                        priority=PRIO_DEMOD,
+                        samplerate=m.radio.audio_samplerate,
+                        stereo_data=audio))
+                self.input_tracker.add(len(chunk))
+                self.blocks_processed += 1
+                yield self.blocks_processed
+
+    # ------------------------------------------------------------------
+    def status(self) -> dict:
+        return {"ready": True, "httpListening": True,
+                "mainLoopStarted": bool(self.main_loop_started
+                                        or not self.run_pump
+                                        or self.source is None),
+                # real-time pacing observability (runtime/pump.py
+                # RealTimeGuard; reference if_nr.h:117-139 analog)
+                "rtFactor": round(self.rt_guard.rt_factor, 4),
+                "secondsBehind": round(self.rt_guard.seconds_behind, 4),
+                "ifnrEnabled": bool(self.ifnr_enabled),
+                "ifnrStopReason": self.ifnr_stop_reason}
+
+    def shutdown(self):
+        self.stop()
+        for m in self.modules.values():
+            m.shutdown()
+        # popped as closed: /exit shuts the app down before the entry
+        # point's own shutdown does
+        while self.sinks:
+            self.sinks.popitem()[1].close()
+        self.config.disable_autosave()

@@ -31,8 +31,12 @@ A Radio runs on its ``device`` (CUDA unless the caller asks for the
 CPU): its params and state are created there and only the wideband input
 is moved to it.  Without a CUDA device a default Radio raises at first
 use.  The squelch with WFM through ``apply_shared``, the noise blanker,
-the FM IF filter, RDS, the scan-mode PLL, de-emphasis on a mono demod,
-the RAW and plugin demodulators raise ``NotImplementedError``.
+the FM IF filter, RDS, the scan-mode PLL, de-emphasis on a mono demod
+and the RAW demodulator raise ``NotImplementedError``.  There is no
+registry of plugin demodulators yet: a provider's name raises
+``ValueError("unknown demodulator")`` like any other unknown name (the
+app's ``set_demod`` answers it with ``{"error": "unknown demod ..."}``,
+as the JAX app does).
 """
 
 from __future__ import annotations

@@ -62,7 +62,9 @@ def linear_recurrence(a, b: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
 
 
 class DCBlocker(Block):
-    """Running-mean DC removal at ``rate`` (the AM demod's 100/IF)."""
+    """Running-mean DC removal at ``rate``: the AM demod's 100/IF on its
+    IF, and the IQ front end's 50/SR on the complex64 baseband (state
+    complex64 in both)."""
 
     def __init__(self, rate: float):
         self.rate = float(rate)

@@ -11,6 +11,8 @@ of sdrplusplusbrown_tpu/ops/spectrum.py).
 exactly f·interval (kernel K4f, the JAX package's ``spectrum_path_db``
 route), and (xr, xi) float32 planes as the TPU front-end kernel path
 does, at rup(f·interval, 1024) (kernel K4); ops/fft_kernel.py.
+``calculate_vfo_signal_info`` is the app's per-VFO SNR estimate on one
+dB line, on the host.
 """
 
 from __future__ import annotations
@@ -84,3 +86,46 @@ class SpectrumPath(Block):
             return spectrum_path_db(x, *args), state
         xr, xi = (p.to(dev, torch.float32).contiguous() for p in x)
         return spectrum_frames_db(xr, xi, *args), state
+
+
+# ----------------------------------------------------------------------
+# Host-side per-VFO SNR estimator (the JAX package's, numpy on one dB
+# line; it runs at fft_rate on tiny data, on the host like the
+# reference's GUI-thread implementation).
+
+def raw_fft_index(freq: float, samplerate: float, fft_size: int) -> int:
+    """Bin index of ``freq`` (Hz, relative to center) in a DC-centered
+    spectrum — truncating and clamped like the reference's rawFFTIndex
+    (waterfall.cpp)."""
+    idx = int((freq / samplerate + 0.5) * fft_size)
+    return max(0, min(idx, fft_size))
+
+
+def calculate_vfo_signal_info(fft_line_db: np.ndarray, center_offset: float,
+                              bandwidth: float, samplerate: float):
+    """(strength, snr) in dB — reference waterfall.cpp:688-756."""
+    fft_line_db = np.asarray(fft_line_db)
+    n = fft_line_db.shape[-1]
+    lo_side = raw_fft_index(center_offset - bandwidth, samplerate, n)
+    lo = raw_fft_index(center_offset - bandwidth / 2.0, samplerate, n)
+    hi = raw_fft_index(center_offset + bandwidth / 2.0, samplerate, n)
+    hi_side = raw_fft_index(center_offset + bandwidth, samplerate, n)
+    if min(lo_side, lo, hi, hi_side) < 0 or hi_side >= n:
+        return None
+    side = np.concatenate([fft_line_db[..., lo_side:lo],
+                           fft_line_db[..., hi + 1:hi_side]], axis=-1)
+    if side.shape[-1] == 0:
+        return None
+    avg = side.mean(axis=-1)
+    svals = np.sort(side, axis=-1)
+    lower = side.shape[-1] // 4
+    if lower <= 0:
+        return None
+    kth = svals[..., lower:lower + 1]
+    mask = side <= kth
+    qavg = np.sum(np.where(mask, side, 0.0), axis=-1) / lower
+    avgdiff = avg - qavg
+    mx = fft_line_db[..., lo:hi + 1].max(axis=-1)
+    strength = mx - avgdiff
+    snr = mx - avg - avgdiff
+    return strength, snr

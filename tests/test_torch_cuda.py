@@ -1311,3 +1311,54 @@ def test_channelizer64_kernels_raise_instead_of_falling_back(gpu):
         with pytest.raises(ValueError):
             fn()
             pytest.fail(f"call {i} did not raise")
+
+
+def test_served_app_matches_cpu(gpu, handoff, tmp_path, monkeypatch):
+    """The served app (tests/test_torch_app.py's session: a WFM, an NFM
+    and a squelched NFM radio, the DC blocker on, a retune and an
+    NFM → USB switch before block 3) on the card against the port's own
+    app on the CPU, four blocks: each radio's audio >= 80 dB (45 dB in
+    the bf16 handoff), the squelched radio exactly zero on both, the
+    spectra by ``assert_spectra_close``; K4f, K8 and K9 launched, each
+    wrapper's count its calls' planned CUDA launches."""
+    import json
+    import os
+    from sdrplusplusbrown_tpu_torch.app import SDRApp
+    from sdrplusplusbrown_tpu_torch.ops import fir_kernel
+    from torch_parity import (SERVED_BLOCKS, SERVED_RADIOS, _chip_smoke,
+                              run_served, served_capture, served_config)
+    cap = str(tmp_path / "baseband_100000000Hz_10-00-00_01-01-2024.wav")
+    served_capture(cap)
+    wrappers = {"K4f": (fft_kernel, "spectrum_path_db_kernel"),
+                "K8": (fir_kernel, "fir_rows_kernel"),
+                "K9": (fir_kernel, "fir_cplx_kernel")}
+    runs, calls = {}, {t: [] for t in wrappers}
+    for dev in ("cpu", gpu):
+        root = str(tmp_path / str(dev))
+        os.makedirs(root)
+        with open(os.path.join(root, "config.json"), "w") as f:
+            json.dump(served_config(cap), f)
+        app = SDRApp(root, run_pump=False, device=dev)
+        if dev == gpu:
+            n0 = {t: getattr(*w).launches for t, w in wrappers.items()}
+            for t, (mod, name) in wrappers.items():
+                orig = getattr(mod, name)
+                monkeypatch.setattr(
+                    mod, name, lambda *a, _o=orig, _t=t: (
+                        calls[_t].append(a), _o(*a))[1])
+        runs[dev] = run_served(app, root, True)
+        monkeypatch.undo()
+    for t, (mod, name) in wrappers.items():
+        n = getattr(mod, name).launches - n0[t]
+        planned = sum(_chip_smoke().planned_launches(t, a) for a in calls[t])
+        assert n >= 1 and n == planned, (t, n, planned)
+    bar = 80.0 if handoff == "float32" else 45.0
+    for b in range(SERVED_BLOCKS):
+        for r in SERVED_RADIOS:
+            want, got = runs["cpu"]["audio"][b][r], runs[gpu]["audio"][b][r]
+            assert got.shape == want.shape, (b, r)
+            if r == "Q":
+                assert not want.any() and not got.any(), b
+            else:
+                assert snr_db(want, got) >= bar, (b, r, snr_db(want, got))
+        assert_spectra_close(runs["cpu"]["lines"][b], runs[gpu]["lines"][b])

@@ -1,0 +1,396 @@
+"""The port's entry point over HTTP on the CPU: ``python -m
+sdrplusplusbrown_tpu_torch --device cpu`` spawned with a temp config root
+and a file source, driven over its control plane as tests/test_e2e_http.py
+drives the JAX package's.  The manual pump (``/pump/step``) makes progress
+a count of blocks, not of seconds; one app runs the threaded pump.
+
+Mirrored from tests/test_e2e_http.py: the status shape, list_demods,
+get/set demod and bandwidth, the VFO offset and the SNR oracle (> 20 dB on
+the carrier, < 20 dB off it), get_spectrum, modules/streams/sinks,
+/sdr/status progress, two radios at once, and a recording through the
+sink select.  And the refusals: what the port lacks answers "not ported
+yet" (audio NR, RDS, the noise blanker, the FM IF filter, the RAW demod,
+the network sink, --server, --rigctl, and in the config the IF NR, a
+transmitter, the other sources and module types), and without a CUDA
+device the entry point exits nonzero naming CUDA unless it is given
+``--device cpu``."""
+
+import glob
+import json
+import os
+import subprocess
+import sys
+import time
+import urllib.error
+
+import numpy as np
+import pytest
+
+from e2e_harness import free_port, http_get, http_post
+from sdrplusplusbrown_tpu_torch.app import SDRApp
+from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def make_capture(tmp_path, fs=240_000.0, seconds=2.0):
+    """NFM carrier at +50 kHz with a 1 kHz tone in light noise (the
+    capture of tests/test_e2e_http.py)."""
+    rng = np.random.default_rng(9)
+    T = int(fs * seconds)
+    n = np.arange(T)
+    audio = 0.8 * np.sin(2 * np.pi * 1000 * n / fs)
+    phase = 2 * np.pi * np.cumsum(2500 * audio) / fs
+    x = (0.6 * np.exp(1j * (2 * np.pi * 50e3 * n / fs + phase))
+         + 0.01 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+         ).astype(np.complex64)
+    p = str(tmp_path / "baseband_14000000Hz_10-00-00_01-01-2024.wav")
+    write_wav(p, x, fs, bits=32)
+    return p
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "JAX_PLATFORMS")}
+    env.update(extra)
+    return env
+
+
+class TorchAppContext:
+    """The port's headless app in a subprocess (the counterpart of
+    tests/e2e_harness.py:AppContext): a config.json under ``root``,
+    ``--http`` on a free port, ``--device cpu``."""
+
+    def __init__(self, root: str, config: dict, autostart: bool = True):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        with open(os.path.join(root, "config.json"), "w") as f:
+            json.dump(config, f)
+        self.port = free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        args = [sys.executable, "-m", "sdrplusplusbrown_tpu_torch",
+                "--root", root, "--http", str(self.port), "--device", "cpu"]
+        if autostart:
+            args.append("--autostart")
+        self.log_path = os.path.join(root, "app.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(args, stdout=self._log,
+                                     stderr=subprocess.STDOUT, env=_env(),
+                                     cwd=REPO)
+
+    def wait_ready(self, timeout: float = 60.0) -> bool:
+        t0 = time.time()
+        while time.time() - t0 < timeout:
+            if self.proc.poll() is not None:
+                return False
+            try:
+                if self.get("/status", timeout=0.5).get("mainLoopStarted"):
+                    return True
+            except OSError:
+                pass
+            time.sleep(0.2)
+        return False
+
+    def get(self, path: str, timeout: float = 10.0) -> dict:
+        return http_get(self.base, path, timeout=timeout)
+
+    def post(self, path: str, obj: dict, timeout: float = 10.0) -> dict:
+        return http_post(self.base, path, obj, timeout=timeout)
+
+    def module_cmd(self, inst: str, cmd: str, args: str = "") -> dict:
+        return self.post(f"/module/{inst}/command",
+                         {"cmd": cmd, "args": args}, timeout=60.0)
+
+    def pump_step(self, blocks: int) -> dict:
+        return self.post("/pump/step", {"blocks": blocks}, timeout=300.0)
+
+    def close(self) -> int:
+        """/exit, then the process's exit code."""
+        try:
+            self.get("/exit", timeout=5)
+        except OSError:
+            pass
+        try:
+            rc = self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(timeout=5)
+        self._log.close()
+        return rc
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+
+def config_for(cap: str, pump: str) -> dict:
+    return {"source": {"type": "file", "path": cap, "loop": True},
+            "fftSize": 4096, "fftRate": 20, "pump": pump,
+            "modules": {
+                "Radio": {"type": "radio", "demod": "NFM", "offset": 50e3},
+                "Radio2": {"type": "radio", "demod": "NFM",
+                           "offset": -80e3}}}
+
+
+@pytest.fixture(scope="module")
+def app(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_e2e")
+    ctx = TorchAppContext(str(tmp / "root"),
+                          config_for(make_capture(tmp), "manual"))
+    ok = ctx.wait_ready(timeout=120)
+    assert ok, ctx.log()[-3000:]
+    yield ctx
+    assert ctx.close() == 0, ctx.log()[-3000:]
+
+
+def test_status_shape(app):
+    st = app.get("/status")
+    assert st["ready"] and st["mainLoopStarted"]
+    assert set(st) == {"ready", "httpListening", "mainLoopStarted",
+                       "rtFactor", "secondsBehind", "ifnrEnabled",
+                       "ifnrStopReason"}
+
+
+def test_list_demods(app):
+    r = app.module_cmd("Radio", "list_demods")
+    ids = {d["name"]: d["id"] for d in r["demods"]}
+    # reference radio_module_interface.h:6-16 enum order
+    assert ids == {"NFM": 0, "WFM": 1, "AM": 2, "DSB": 3, "USB": 4,
+                   "CW": 5, "LSB": 6, "RAW": 7}
+
+
+def test_get_set_demod_and_bandwidth(app):
+    assert app.module_cmd("Radio", "get_demod")["demod"] == "NFM"
+    # reference test_lsb_startup.py: LSB default bandwidth ≈ 2.7-2.8 kHz
+    r = app.module_cmd("Radio", "set_demod", "LSB")
+    assert r["status"] == "ok" and r["demod"] == "LSB"
+    assert app.pump_step(1)["stepped"] == 1        # the LSB chain runs
+    bw = app.module_cmd("Radio", "get_vfo_bandwidth")
+    assert 2000.0 <= bw["vfo_bandwidth"] <= 3500.0
+    assert bw["min_bandwidth"] == 500.0
+    r = app.module_cmd("Radio", "set_vfo_bandwidth", "3000")
+    assert r == {"status": "ok", "bandwidth": 3000.0}
+    assert app.module_cmd("Radio", "get_vfo_bandwidth")[
+        "vfo_bandwidth"] == 3000.0
+    assert "error" in app.module_cmd("Radio", "set_vfo_bandwidth", "wide")
+    r = app.module_cmd("Radio", "set_demod", "0")
+    assert r["demod"] == "NFM" and r["id"] == 0
+    assert app.module_cmd("Radio", "get_demod") == {"demod": "NFM", "id": 0}
+    assert app.pump_step(1)["stepped"] == 1
+
+
+def _snr_after(app, name, blocks=2):
+    app.pump_step(blocks)
+    return app.module_cmd(name, "get_snr")["snr"]
+
+
+def test_vfo_offset_and_snr_oracle(app):
+    r = app.get("/vfo/set_offset?name=Radio&offset=50000")
+    assert r == {"status": "ok", "vfo": "Radio", "offset_hz": 50000.0}
+    snr_on = _snr_after(app, "Radio")
+    app.get("/vfo/set_offset?name=Radio&offset=-80000")
+    snr_off = _snr_after(app, "Radio")
+    app.get("/vfo/set_offset?name=Radio&offset=50000")
+    assert snr_on > 20.0 and snr_off < 20.0, (snr_on, snr_off)
+    assert "error" in app.get("/vfo/set_offset?name=Nope&offset=1")
+
+
+def test_get_spectrum(app):
+    app.pump_step(1)
+    r = app.module_cmd("Radio", "get_spectrum", ",128")
+    assert r["num_buckets"] == 128 and len(r["spectrum"]) == 128
+    assert max(r["spectrum"]) <= 0.0 + 1e-6
+    assert r["fft_size"] == 16384
+
+
+def test_modules_streams_sinks(app):
+    mods = app.get("/modules")
+    assert mods == {"Radio": {"module": "radio", "enabled": True},
+                    "Radio2": {"module": "radio", "enabled": True}}
+    streams = app.get("/streams")
+    assert streams["streams"][0]["name"] == "Radio"
+    assert app.get("/sinks") == {"sinks": ["null_audio_sink", "recorder"]}
+    r = app.post("/sink/select", {"stream": "Radio",
+                                  "sink": "null_audio_sink"})
+    assert r["status"] == "ok"
+    assert "error" in app.post("/sink/select", {"stream": "Nope",
+                                                "sink": "x"})
+    r = app.post("/stream/add_substream", {"stream": "Radio"})
+    assert r == {"status": "ok", "name": "Radio__##1"}
+
+
+def test_proc_and_log(app):
+    ls = app.get("/ls")
+    assert {"path": "source/samplerate", "type": "string",
+            "writable": False} in ls["entries"]
+    assert app.get("/proc/source/samplerate")["value"] == "240000.0"
+    log = app.get("/log")["log"]
+    assert "SDRApp started" in log and "device cpu" in log
+
+
+def test_sdr_status_progress(app):
+    b0 = app.get("/sdr/status")["blocks"]
+    r = app.pump_step(3)
+    assert r["stepped"] == 3 and r["blocks"] == b0 + 3
+    st = app.get("/sdr/status")
+    assert st["blocks"] == b0 + 3 and st["samplerate"] == 240000.0
+    assert st["blockLen"] >= 12_000 and st["running"]
+
+
+def test_two_radios_simultaneously(app):
+    """Two radio instances demodulate one baseband: the on-carrier one
+    hears the signal, the other does not."""
+    app.pump_step(2)
+    snr1 = app.module_cmd("Radio", "get_snr")["snr"]
+    snr2 = app.module_cmd("Radio2", "get_snr")["snr"]
+    assert snr1 > 20.0 and snr2 < 20.0, (snr1, snr2)
+    assert set(app.module_cmd("Radio2", "get_level")) == {"level_db"}
+
+
+def test_sink_select_records(app):
+    r = app.post("/sink/select", {"stream": "Radio", "sink": "recorder"})
+    assert r["status"] == "ok"
+    r = app.pump_step(4)
+    n, block_len = r["stepped"], r["blockLen"]
+    r = app.post("/sink/select", {"stream": "Radio",
+                                  "sink": "null_audio_sink"})
+    assert r["status"] == "ok"
+    recs = glob.glob(os.path.join(app.root, "recordings", "sink_Radio_*"))
+    assert len(recs) == 1
+    # 48 kHz stereo int16: a fifth of the 240 kS/s input samples
+    assert os.path.getsize(recs[0]) == 44 + n * (block_len // 5) * 2 * 2
+
+
+@pytest.mark.parametrize("cmd,args,error", [
+    ("set_afnr", "logmmse", "not ported yet"),
+    ("set_afnr", "omlsa", "not ported yet"),
+    ("set_afnr", "bogus", "unknown afnr mode"),
+    ("set_rds", "1", "not ported yet"),
+    ("set_nb", "on", "not ported yet"),
+    ("set_fmif", "on", "not ported yet"),
+    ("set_demod", "RAW", "not ported yet"),
+    ("set_demod", "DMR", "unknown demod"),
+    ("set_demod", "99", "unknown demod"),
+])
+def test_unported_commands_refused(app, cmd, args, error):
+    before = app.module_cmd("Radio", "get_demod")
+    r = app.module_cmd("Radio", cmd, args)
+    assert error in r.get("error", ""), r
+    assert app.module_cmd("Radio", "get_demod") == before
+    assert app.pump_step(1)["stepped"] == 1        # the radio still runs
+
+
+def test_off_switches_and_levels(app):
+    for cmd in ("set_afnr", "set_rds", "set_nb", "set_fmif"):
+        assert app.module_cmd("Radio", cmd, "off")["status"] == "ok"
+    assert app.module_cmd("Radio", "get_afnr") == {"afnr": "off"}
+    r = app.module_cmd("Radio", "set_squelch", "-80")
+    assert r == {"status": "ok", "level": -80.0}
+    assert app.module_cmd("Radio", "set_volume", "0.5")["volume"] == 0.5
+    assert app.module_cmd("Radio", "set_volume", "1")["volume"] == 1.0
+    # the control plane answers what raises with 500 and the error
+    with pytest.raises(urllib.error.HTTPError) as e:
+        app.post("/sink/select", {"stream": "Radio", "sink": "network"})
+    assert e.value.code == 500
+    assert "not ported yet" in json.loads(e.value.read())["error"]
+
+
+def test_threaded_pump_over_http(tmp_path):
+    """The free-running pump thread: blocks flow without /pump/step, the
+    status reports the real-time factor, /exit stops the process with
+    exit code 0."""
+    cfg = config_for(make_capture(tmp_path, seconds=0.5), "thread")
+    ctx = TorchAppContext(str(tmp_path / "root"), cfg)
+    try:
+        assert ctx.wait_ready(timeout=120), ctx.log()[-3000:]
+        assert "error" in ctx.pump_step(1)           # not in manual mode
+        deadline = time.time() + 60
+        blocks = 0
+        while time.time() < deadline and blocks < 5:
+            blocks = ctx.get("/sdr/status")["blocks"]
+            time.sleep(0.2)
+        assert blocks >= 5, ctx.log()[-3000:]
+        st = ctx.get("/status")
+        assert st["rtFactor"] > 0.0 and st["secondsBehind"] >= 0.0
+        assert ctx.module_cmd("Radio", "get_snr")["snr"] > 20.0
+        # exit with a recorder attached: the recording is closed once
+        r = ctx.post("/sink/select", {"stream": "Radio", "sink": "recorder"})
+        assert r["status"] == "ok"
+    finally:
+        rc = ctx.close()
+    assert rc == 0, ctx.log()[-3000:]
+    rec, = glob.glob(str(tmp_path / "root" / "recordings" / "sink_Radio_*"))
+    with open(rec, "rb") as f:
+        head = f.read(44)
+    assert int.from_bytes(head[40:44], "little") == os.path.getsize(rec) - 44
+
+
+@pytest.mark.parametrize("flags", [["--server"], ["--rigctl", "4532"]])
+def test_unported_servers_exit_nonzero(tmp_path, flags):
+    res = subprocess.run(
+        [sys.executable, "-m", "sdrplusplusbrown_tpu_torch", "--root",
+         str(tmp_path), "--device", "cpu", *flags], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and "not ported yet" in res.stderr, res
+
+
+def test_no_cuda_device_exits_naming_cuda(tmp_path):
+    """Without a card and without --device cpu the app does not fall back
+    to the host: it exits nonzero and says why."""
+    res = subprocess.run(
+        [sys.executable, "-m", "sdrplusplusbrown_tpu_torch", "--root",
+         str(tmp_path), "--http", str(free_port())], cwd=REPO,
+        env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True,
+        timeout=120)
+    assert res.returncode != 0 and "CUDA" in res.stderr, res
+    assert not os.path.exists(tmp_path / "config.json")
+
+
+@pytest.mark.parametrize("conf,what", [
+    ({"ifnr": True}, "IF noise reduction"),
+    ({"transmitter": {"type": "loopback"}}, "transmitter"),
+    ({"source": {"type": "rtl_tcp"}}, "rtl_tcp"),
+    ({"source": {"type": "spyserver"}}, "spyserver"),
+    ({"modules": {"S": {"type": "scanner"}}}, "scanner"),
+    ({"modules": {"F": {"type": "ft8_decoder"}}}, "ft8_decoder"),
+    ({"modules": {"R": {"type": "radio", "rds": True}}}, "RDS"),
+])
+def test_unported_config_refused(tmp_path, conf, what):
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(conf, f)
+    with pytest.raises(NotImplementedError, match=what):
+        SDRApp(str(tmp_path), run_pump=False, device="cpu").shutdown()
+
+
+def test_unknown_module_type_warns(tmp_path):
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump({"modules": {"X": {"type": "no_such_module"}}}, f)
+    app = SDRApp(str(tmp_path), run_pump=False, device="cpu")
+    try:
+        assert app.modules == {} and app.source is None
+        assert app.status()["mainLoopStarted"]
+    finally:
+        app.shutdown()
+
+
+def test_refused_switch_leaves_radio_untouched(tmp_path):
+    """A demod the port cannot build leaves the radio object, its state
+    and its settings as they were; a good switch migrates the state."""
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump({"source": {"type": "none", "samplerate": 240_000.0},
+                   "modules": {"R": {"type": "radio", "demod": "NFM",
+                                     "offset": 5e3}}}, f)
+    app = SDRApp(str(tmp_path), run_pump=False, device="cpu")
+    try:
+        m = app.modules["R"]
+        r0, s0 = m.radio, m.state
+        for args in ("RAW", "99"):
+            assert "error" in m.handle_debug_command("set_demod", args)
+            assert m.radio is r0 and m.state is s0
+            assert (m.demod_id, m.bandwidth) == (0, 12_500.0)
+        r = m.handle_debug_command("set_demod", "USB")
+        assert r == {"status": "ok", "demod": "USB", "id": 4}
+        assert m.radio is not r0 and m.bandwidth == 2_800.0
+        assert m.state["vfo"].keys() == s0["vfo"].keys()
+    finally:
+        app.shutdown()

@@ -35,9 +35,11 @@ def test_import_loads_no_jax():
     assert n_modules >= len(PY_FILES) - 1, res.stdout
 
 
-# the modules of the app's per-radio step, of the multi-mode bank and of
-# channelizer64, imported with jax, jaxlib and the JAX package blocked (an
-# import of any of them raises ImportError)
+# the modules of the app's per-radio step, of the multi-mode bank, of
+# channelizer64 and of the serving path (the app, its entry point, the
+# control plane, the pump and the sink layer), imported with jax, jaxlib
+# and the JAX package blocked (an import of any of them raises
+# ImportError)
 _STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
                  "ops.wfm", "ops.wfm_kernel", "ops.fft_kernel",
                  "ops.spectrum", "models.radio", "models.iq_frontend",
@@ -45,7 +47,11 @@ _STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
                  "ops.fused_frontend", "ops.plane_frontend",
                  "models.radio_bank", "ops.channelizer",
                  "ops.channelizer_kernel", "models.rx_vfo",
-                 "ops.demod_kernel"]
+                 "ops.demod_kernel", "app", "__main__",
+                 "server.http_server", "runtime.pump", "runtime.sink",
+                 "runtime.routing", "runtime.migrate", "models.waterfall",
+                 "io.wav", "io.file_source", "io.recorder", "utils.config",
+                 "utils.flog", "utils.event", "utils.metrics"]
 _BLOCKED = """
 import importlib, sys
 for name in ("jax", "jaxlib", "sdrplusplusbrown_tpu"):

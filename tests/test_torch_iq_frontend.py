@@ -40,8 +40,12 @@ def test_frontend_matches_jax(decim, invert):
 
 
 def test_frontend_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="DCBlocker"):
-        IQFrontEnd(FS, dc_blocking=True, device="cpu")
+    # the DC blocker is ported (tests/test_torch_serving_units.py); the
+    # pluggable preprocessors (the IF noise reduction) are not
+    with pytest.raises(NotImplementedError, match="preprocessors"):
+        IQFrontEnd(FS, preprocessors=[("ifnr", None)], device="cpu")
+    assert set(IQFrontEnd(FS, dc_blocking=True, device="cpu")
+               .init_state()) == {"dc"}
     if not torch.cuda.is_available():   # a default front end needs a card
         with pytest.raises(RuntimeError):
             IQFrontEnd(FS).init_state()

@@ -6,7 +6,9 @@ PyTorch versions (its CUDA kernels need the card and are checked against
 those same plain versions by chip_smoke.py).
 """
 
+import glob
 import importlib.util
+import os
 from pathlib import Path
 
 import numpy as np
@@ -152,6 +154,100 @@ def multimode_iq(T: int, fs: float, carriers, seed: int = 0) -> np.ndarray:
     """chip_smoke.py's multi-mode bank signal (``multimode_wideband``):
     one carrier per (demod id, offset) pair, plus a little noise."""
     return _chip_smoke().multimode_wideband(T, fs, carriers, seed)
+
+
+# ---------------------------------------------------------------------
+# the served app (tests/test_torch_app.py against the JAX app on the CPU,
+# tests/test_torch_cuda.py on the card against the CPU)
+
+SERVED_FS = 1_000_000.0
+SERVED_RADIOS = ("W", "N", "Q")
+SERVED_BLOCKS = 4
+SERVED_SWITCH_BEFORE = 2       # the retune and the demod switch, before block 3
+
+
+def served_config(capture: str) -> dict:
+    """A WFM radio on the station, an NFM radio on the carrier and a
+    second NFM radio off the signal; manual pump, the DC blocker on."""
+    return {"source": {"type": "file", "path": capture, "loop": True},
+            "fftSize": 4096, "fftRate": 20, "pump": "manual",
+            "dcBlocking": True,
+            "modules": {
+                "W": {"type": "radio", "demod": "WFM", "offset": -200e3},
+                "N": {"type": "radio", "demod": "NFM", "offset": 300e3},
+                "Q": {"type": "radio", "demod": "NFM", "offset": 450e3}}}
+
+
+def served_capture(path: str):
+    """A 1 s WAV capture (float32 IQ at SERVED_FS) of a stereo FM station
+    (1 kHz tone in L, 19 kHz pilot) at −200 kHz, an NFM carrier (1 kHz
+    tone, 2 kHz deviation) at +300 kHz, a little noise and a DC offset of
+    0.1 + 0.05j."""
+    from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+    fs = SERVED_FS
+    T = int(fs)
+    t = np.arange(T) / fs
+    tone = np.sin(2 * np.pi * 1000.0 * t)
+    mpx = (0.45 * tone + 0.1 * np.sin(2 * np.pi * 19_000.0 * t)
+           + 0.45 * tone * -np.cos(2 * np.pi * 38_000.0 * t))
+    x = 0.3 * np.exp(2j * np.pi * (-200e3 * t + 75_000.0 * np.cumsum(mpx)
+                                   / fs))
+    x = x + 0.3 * np.exp(2j * np.pi * (300e3 * t + 2000.0 * np.cumsum(tone)
+                                       / fs))
+    rng = np.random.default_rng(5)
+    x = x + 1e-3 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+    write_wav(path, (x + (0.1 + 0.05j)).astype(np.complex64), fs, bits=32)
+
+
+def _served_snapshot(app, port: bool):
+    """Every radio's carried state and the front end's (the pump's own
+    ``fstate``); the port's copied to the CPU."""
+    st = {n: app.modules[n].state for n in SERVED_RADIOS}
+    st["frontend"] = app._pump_gen.gi_frame.f_locals["fstate"]
+    if not port:
+        return st
+    return convert.state_from_jax(convert.state_to_jax(st), device="cpu")
+
+
+def run_served(app, root: str, port: bool) -> dict:
+    """The scripted session on one app (either package's): the squelched
+    radio at −30 dB, a recorder on W, four blocks with a retune of W and
+    N's switch NFM → USB before the third.  Returns per block each
+    radio's audio, the waterfall lines pushed, the last spectrum line,
+    each radio's vfo_snr and the state snapshots; the state right after
+    the switch, the status and the recording's bytes."""
+    app.start()
+    app.modules["Q"].handle_debug_command("set_squelch", "-30")
+    assert app.select_sink("W", "recorder")
+    got = {n: [] for n in SERVED_RADIOS}
+    for n in SERVED_RADIOS:
+        app.modules[n].audio_event.bind(
+            lambda blk, n=n: got[n].append(np.asarray(blk)))
+    out = {"audio": [], "lines": [], "last": [], "snr": [], "state": []}
+    seen = 0
+    for b in range(SERVED_BLOCKS):
+        if b == SERVED_SWITCH_BEFORE:
+            assert app.set_vfo_offset("W", -180e3)
+            r = app.modules["N"].handle_debug_command("set_demod", "USB")
+            assert r == {"status": "ok", "demod": "USB", "id": 4}, r
+            out["switched"] = _served_snapshot(app, port)
+        assert app.pump_step(1) == 1
+        out["audio"].append({n: np.concatenate(got[n], axis=-1)
+                             for n in SERVED_RADIOS})
+        for n in SERVED_RADIOS:
+            got[n].clear()
+        k = app.waterfall._count - seen
+        out["lines"].append(app.waterfall.lines(k))
+        seen += k
+        out["last"].append(app.last_spectrum.copy())
+        out["snr"].append({n: app.vfo_snr(n) for n in SERVED_RADIOS})
+        out["state"].append(_served_snapshot(app, port))
+    out["status"] = app.status()
+    app.shutdown()
+    rec, = glob.glob(os.path.join(root, "recordings", "sink_W_*.wav"))
+    with open(rec, "rb") as f:
+        out["recording"] = f.read()
+    return out
 
 
 def _chip_smoke():
