@@ -33,6 +33,13 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     radio on ~120 000-sample blocks, audio through the sink layer to a
     recorder, driven in manual pump mode in process and over HTTP, and
     with its pump thread in real time: K4f, K8, K9;
+  * the noise path — BASELINE config 3 (tests/test_e2e_ssb_nr.py's HF
+    voice capture at 96 kS/s through the served app, a USB radio at +10
+    kHz with ``set_afnr logmmse`` then ``omlsa``), the IF NR
+    (``IFNRLogMMSE``) on the served 2.4 MS/s capture with ``ifnr: true``,
+    the noise blanker on a WFM radio and the FM IF filter on an NFM
+    radio: K4f, K8 (the AF NR's moving average among its calls), K9,
+    K12;
   * the multi-mode bank — ``RadioBank.apply(..., mono_out=True)`` on
     multimode8 (bench.py:build_multimode8, BASELINE config 2: 4 NFM, 2 AM
     and 2 USB VFOs on one 2.4 MS/s wideband, 240 000-sample steps) and on
@@ -162,6 +169,29 @@ Phases, each fatal on failure:
      host↔device copies a block), and the DC blocker alone on one
      block's baseband (device µs and launches); fails unless rtFactor <
      1 and the p99 block is within the block's duration.
+ 22. BASELINE config 3 in process: the HF voice capture (USB voice at +10
+     kHz, 6 dB SNR, 96 kS/s) through ``SDRApp`` on the card, manual pump,
+     a USB radio and a recorder; recordings with the AF NR off (5 s of
+     audio), then ``set_afnr logmmse`` and ``set_afnr omlsa`` (4 s
+     each), each held to tests/test_e2e_ssb_nr.py's bars (S/N up by more
+     than 5 dB, the speech band down by no more than 6 dB), the launch
+     counts zeroed before each NR recording (K4f, K8 and K12 launched and
+     held to their calls' plans, every other kernel not); K8 against its
+     plain version at the AF NR's moving-average shapes, timed; each
+     mode alone on one block of audio (device µs, launches); ``get_afnr``
+     reports the mode at the end and the log has no ``afnr error``; then
+     ``IFNRLogMMSE`` on the card on tests/test_logmmse.py's wideband
+     signal: carrier gain 12 ± 1.5 dB, SNR gain over 10 dB;
+ 23. the noise path at full width: the capture of phases 19-21 with
+     ``ifnr: true``, ``set_nb on`` on the WFM radio and ``set_fmif on``
+     on the NFM radio, six blocks on the card and on the host CPU (float32
+     handoff, the real-time guard held still): the baseband and each
+     radio's audio agree to 80 dB in every block, the WFM and NFM tone
+     SNRs reported, K4f, K8 and K9 launched and held to their plans; then
+     the threaded pump for 10 s as in 21 (block wall percentiles once
+     the IF NR is primed, the profiler window), and the IF NR alone on
+     one block (device µs, launches); fails if the guard shed the IF NR
+     or the p99 block exceeds its duration.
 
 Every ``launches`` count is of CUDA launches: each wrapper counts every
 launch it makes (``kernels/_build.py``).  Beside each CUDA-event time
@@ -637,6 +667,7 @@ def main() -> int:
     report.update(drive_bank(dev, card, report))
     report.update(drive_channelizer(dev, card))
     drive_served(dev, card, report)
+    drive_noise(dev, card, report)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2448,6 +2479,446 @@ def served_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     if st["rtFactor"] >= 1.0 or np.percentile(w, 99) >= dur_ms:
         fail(f"phase 21: not real time: rtFactor {st['rtFactor']}, p99 "
              f"block {np.percentile(w, 99):.2f} ms of {dur_ms:.0f}")
+
+
+
+# ---- the noise path (phases 22-23) ------------------------------------
+NR_FS = 96_000.0              # BASELINE config 3: HF voice at 96 kS/s
+NR_OFFSET = 10_000.0          # USB voice at +10 kHz
+NR_AF = 48_000.0
+NR_OFF_SECONDS = 5.0          # recorded audio with the AF NR off
+NR_ON_SECONDS = 4.0           # and with each mode on
+NR_MODES = ("logmmse", "omlsa")
+NR_BLOCKS = 6                 # phase 23's blocks held against the CPU
+NR_MIN_DB = 80.0              # tests/test_torch_noise.py's bound
+NR_RT_SECONDS = 10.0          # phase 23's run of the threaded pump
+
+
+def ssb_voice(t: np.ndarray) -> np.ndarray:
+    """Formant-swept tone bursts, 0.25 s on / 0.25 s off, after a 1.5 s
+    noise-only lead-in (tests/test_e2e_ssb_nr.py's voice)."""
+    sweep = 700.0 + 500.0 * np.sin(2 * np.pi * 0.7 * t)
+    carrier = np.sin(2 * np.pi * np.cumsum(sweep) / NR_FS)
+    second = 0.5 * np.sin(2 * np.pi * np.cumsum(2.2 * sweep) / NR_FS)
+    gate = ((np.floor(t * 2.0) % 2) == 0) & (t > 1.5)
+    return (carrier + second) * gate
+
+
+def ssb_capture(path: str, seconds: float = 12.0,
+                snr_db: float = 6.0) -> None:
+    """BASELINE config 3's HF capture (tests/test_e2e_ssb_nr.py's
+    make_ssb_capture): the voice as an analytic (USB) signal at +10 kHz,
+    complex noise at ``snr_db`` under the voice, float32 WAV at 96 kS/s."""
+    from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+    rng = np.random.default_rng(21)
+    T = int(NR_FS * seconds)
+    t = np.arange(T) / NR_FS
+    V = np.fft.fft(ssb_voice(t))
+    V[T // 2 + 1:] = 0.0
+    V[1:T // 2] *= 2.0
+    x = 0.5 * np.fft.ifft(V) * np.exp(2j * np.pi * NR_OFFSET * t)
+    sig_pow = np.mean(np.abs(x[int(2 * NR_FS):int(2.2 * NR_FS)]) ** 2)
+    noise_pow = sig_pow / (10 ** (snr_db / 10.0))
+    x = x + np.sqrt(noise_pow / 2) * (rng.standard_normal(T)
+                                      + 1j * rng.standard_normal(T))
+    write_wav(path, x.astype(np.complex64), NR_FS, bits=32)
+
+
+def speech_noise_db(path: str) -> tuple:
+    """(speech, noise floor) in dB of a recording: p90 and p10 of its
+    50 ms speech-band (300-2 700 Hz) energies (tests/test_e2e_ssb_nr.py)."""
+    from sdrplusplusbrown_tpu_torch.io.wav import read_wav_iq
+    y, rate = read_wav_iq(path)
+    if rate != NR_AF:
+        fail(f"phase 22: recording at {rate} Hz")
+    mono = np.real(y)
+    win = 2400
+    n = (len(mono) // win) * win
+    F = np.fft.rfft(mono[:n].reshape(-1, win), axis=-1)
+    freqs = np.fft.rfftfreq(win, 1.0 / NR_AF)
+    band = (freqs >= 300) & (freqs <= 2700)
+    e = np.mean(np.abs(F[:, band]) ** 2, axis=-1)
+    if len(e) <= 20:
+        fail(f"phase 22: recording of {len(e)} frames")
+    return (10 * np.log10(max(np.percentile(e, 90), 1e-20)),
+            10 * np.log10(max(np.percentile(e, 10), 1e-20)))
+
+
+def drive_noise(dev, card: str, report: dict) -> None:
+    """Phases 22-23 on ``dev``; raises on the first failure.  Adds each
+    path's K4f, K8, K9 and K12 launches to their entries."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_noise_") as tmp:
+        noise_config3(dev, card, report, tmp)
+        ifnr_bars(dev, card)
+        cap = os.path.join(tmp, "baseband_100000000Hz_10-00-00_01-01-2024"
+                                ".wav")
+        served_capture(cap)
+        noise_full_width(dev, card, report, tmp, cap)
+        noise_in_real_time(dev, card, tmp, cap)
+
+
+def noise_config3(dev, card: str, report: dict, tmp: str) -> None:
+    """Phase 22: BASELINE config 3 through the served app on the card: the
+    HF capture, a USB radio at +10 kHz, a recorder; the AF NR off, then
+    ``set_afnr logmmse``, then ``set_afnr omlsa``, each recording held to
+    tests/test_e2e_ssb_nr.py's bars; every K8 geometry, K12 and K4f of
+    each recording against its plain version at that path's shapes, the
+    AF NR's moving average timed."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.utils.flog import flog
+    cap = os.path.join(tmp, "baseband_7100000Hz_09-00-00_02-02-2024.wav")
+    ssb_capture(cap)
+    config = {"source": {"type": "file", "path": cap, "loop": True},
+              "pump": "manual", "fftSize": 4096, "fftRate": 20,
+              "modules": {"Radio": {"type": "radio", "demod": "USB",
+                                    "offset": NR_OFFSET}}}
+    app = new_app(os.path.join(tmp, "p22"), config, dev)
+    app.start()
+    m = app.modules["Radio"]
+    out = [0]
+    m.audio_event.bind(lambda blk: out.__setitem__(0, out[0] + blk.shape[-1]))
+
+    def record(seconds: float) -> tuple:
+        """Record until the file holds ``seconds`` of audio: (path,
+        blocks stepped)."""
+        if not app.select_sink("Radio", "recorder"):
+            fail("phase 22: cannot attach the recorder")
+        path = app.sinks["Radio"].path
+        out[0], n = 0, 0
+        while out[0] < seconds * NR_AF:
+            if app.pump_step(1) != 1:
+                fail("phase 22: the pump stopped")
+            n += 1
+        torch.cuda.synchronize()
+        app.select_sink("Radio", "null_audio_sink")
+        return path, n
+
+    sp_off, nf_off = speech_noise_db(record(NR_OFF_SECONDS)[0])
+    print(f"phase 22: BASELINE config 3 (USB voice at +10 kHz, 6 dB SNR, "
+          f"96 kS/s) on {dev}, {app.pump_block_len}-sample blocks: AF NR "
+          f"off S/N {sp_off - nf_off:.2f} dB (speech {sp_off:.2f} dB)")
+    if sp_off - nf_off <= 3.0:
+        fail("phase 22: no speech over the noise with the NR off")
+    for mode in NR_MODES:
+        r = m.handle_debug_command("set_afnr", mode)
+        if r != {"status": "ok", "afnr": mode}:
+            fail(f"phase 22: set_afnr {mode}: {r}")
+        reset_counts()
+        (wav, n), calls = capture(tuple(KERNELS),
+                                  lambda: record(NR_ON_SECONDS))
+        counts = {t: kernel_count(t) for t in KERNELS}
+        tags = ("K4f", "K8", "K12")
+        hold_launches(f"phase 22, {mode}, {n} blocks",
+                      {t: counts[t] for t in tags}, calls)
+        others = {t: c for t, c in counts.items() if c and t not in tags}
+        if min(counts[t] for t in tags) < 1 or others:
+            fail(f"phase 22: launch pattern {counts}")
+        sp, nf = speech_noise_db(wav)
+        gain = (sp - nf) - (sp_off - nf_off)
+        print(f"phase 22: set_afnr {mode}: S/N {sp - nf:.2f} dB, gain "
+              f"{gain:.2f} dB (bound > 5), speech {sp:.2f} dB, "
+              f"{sp - sp_off:+.2f} dB against NR off (bound > -6); "
+              f"{n} blocks, launches " + ", ".join(
+                  f"{t}={counts[t]}" for t in tags) + f" [{card}]")
+        if gain <= 5.0 or sp <= sp_off - 6.0:
+            fail(f"phase 22: {mode} misses BASELINE config 3's bars")
+        label = f"BASELINE config 3 ({mode}, {n} blocks)"
+        for t in tags:
+            report[t].setdefault("launches_by_path", {})[label] = counts[t]
+        # each kernel against its plain version at the shapes this path
+        # gave it: every distinct K8 geometry (VFO, AF resampler, the AF
+        # NR's moving average) on its last call with data, K12 on the USB
+        # AGC's rows, K4f at fftSize 4096; the moving average is timed
+        sma = [c for c in calls["K8"] if c[2].shape == (1, 5)]
+        if mode == "logmmse" and not sma:
+            fail("phase 22: the AF NR's moving average never ran K8")
+        stages = {}
+        for call in calls["K8"]:
+            if app_stage(call) not in stages or bool(call[0].any()):
+                stages[app_stage(call)] = call
+        held = [("K8", call, key) for key, call in sorted(stages.items())
+                if not sma or key != app_stage(sma[-1])]
+        held += [("K12", calls["K12"][-1], "USB AGC"),
+                 ("K4f", calls["K4f"][-1], "4096 points")]
+        for tag, call, what in held:
+            err = check_app_kernel(tag, call, card, f"config 3, {what}",
+                                   timed=False)["max_abs_err"]
+            report[tag]["max_abs_err"] = max(report[tag]["max_abs_err"], err)
+        print(f"phase 22: {mode}: {len(stages)} distinct K8 geometries, K12 "
+              f"and K4f held against their plain versions at config 3's "
+              f"shapes")
+        if sma:
+            report["K8"]["launches_by_path"][
+                f"AF NR moving average ({n} blocks)"] = sum(
+                    planned_launches("K8", c) for c in sma)
+            err = check_app_kernel("K8", sma[-1], card,
+                                   "AF NR moving average, complex rows 2")
+            report["K8"]["max_abs_err"] = max(report["K8"]["max_abs_err"],
+                                              err["max_abs_err"])
+            print(f"phase 22: the AF NR's moving average ran K8 {len(sma)} "
+                  f"times in {n} blocks, at {tuple(sma[-1][0].shape)}")
+        nr, st = m.afnr, m.afnr_state
+        x = torch.complex(*noise_planes(2 * 2400, dev)).reshape(2, 2400)
+        x = x[..., :2400 // nr.in_multiple * nr.in_multiple]
+        if mode == "omlsa":
+            x = x.real.contiguous()
+        us, launches = call_profile(lambda: nr.apply(None, st, x))
+        print(f"phase 22: {mode} alone on [2, {x.shape[-1]}] audio "
+              f"samples (one block's): {us:.1f} us device and {launches} "
+              f"launches a call [{card}]")
+    final = m.handle_debug_command("get_afnr", "")
+    log = flog.dump()
+    app.shutdown()
+    if final != {"afnr": NR_MODES[-1]} or "afnr error" in log:
+        fail(f"phase 22: get_afnr {final}, 'afnr error' in the log: "
+             f"{'afnr error' in log}")
+
+
+def ifnr_bars(dev, card: str) -> None:
+    """Phase 22, the IF NR on the card on tests/test_logmmse.py's
+    wideband signal (a 10 kHz carrier in complex noise at 96 kS/s, 3 s):
+    the carrier's gain 12 ± 1.5 dB (the ×4 makeup), the SNR gain over
+    10 dB."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.ops.logmmse import IFNRLogMMSE
+    from sdrplusplusbrown_tpu_torch.runtime.block import to_device
+    rng = np.random.default_rng(12345)
+    fs = NR_FS
+    nr = IFNRLogMMSE(fs)
+    core = nr.core
+    T = int(fs * 3)
+    t = np.arange(T) / fs
+    x = (0.5 * np.exp(2j * np.pi * 10000 * t)
+         + 0.2 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+         ).astype(np.complex64)
+    xd = torch.from_numpy(x).to(dev)
+    st = nr.prime(to_device(nr.init_state(()), dev),
+                  xd[:core.NOISE_FRAMES * core.Slen])
+    B = core.len2 * 20
+    outs = []
+    for i in range(T // B):
+        y, st = nr.apply(None, st, xd[i * B:(i + 1) * B])
+        outs.append(y)
+    y = torch.cat(outs).cpu().numpy()
+    half = slice(T // 2, T)
+    rot = np.exp(-2j * np.pi * 10000 * np.arange(T)[half] / fs)
+
+    def cpow(sig):
+        return 20 * np.log10(np.abs(np.mean(sig[half] * rot)))
+
+    n_in = 10 * np.log10(np.median(np.abs(np.fft.fft(x[half])) ** 2))
+    n_out = 10 * np.log10(np.median(np.abs(np.fft.fft(y[half])) ** 2))
+    gain = cpow(y) - cpow(x)
+    snr_gain = gain - (n_out - n_in)
+    print(f"phase 22: IFNRLogMMSE on {dev} at 96 kS/s (Slen {core.Slen}): "
+          f"carrier gain {gain:.2f} dB (bound 12 +- 1.5), SNR gain "
+          f"{snr_gain:.2f} dB (bound > 10) [{card}]")
+    if not (np.isfinite(y).all() and abs(gain - 12.0) < 1.5
+            and snr_gain > 10.0):
+        fail("phase 22: the IF NR misses tests/test_logmmse.py's bars")
+
+
+def noise_session(app, blocks: int, kernels: bool) -> dict:
+    """The noise path's session on one served app (manual pump): the IF NR
+    from the config, the noise blanker on the WFM radio, the FM IF
+    filter on the NFM radio, the real-time guard on a clock that does
+    not move, ``blocks`` blocks.  Returns each block's baseband and
+    audio, the launch counts and the captured calls (``kernels``)."""
+    import torch
+    app._clock = lambda: 0.0
+    app.start()
+    for name, cmd in (("W", "set_nb"), ("N", "set_fmif")):
+        r = app.modules[name].handle_debug_command(cmd, "on")
+        if r != {"status": "ok", cmd[4:]: True}:
+            fail(f"phase 23: {cmd} on {name}: {r}")
+    got = {n: [] for n in app.modules}
+    for n, m in app.modules.items():
+        m.audio_event.bind(lambda blk, n=n: got[n].append(blk))
+    bbs = []
+    app.baseband_event.bind(bbs.append)
+    out = {"bb": [], "audio": [], "primed": []}
+
+    def run():
+        for _ in range(blocks):
+            if app.pump_step(1) != 1:
+                fail("phase 23: the pump stopped")
+            out["bb"].append(bbs.pop())
+            out["audio"].append({n: np.concatenate(a, axis=-1)
+                                 for n, a in got.items()})
+            for a in got.values():
+                a.clear()
+            out["primed"].append(app.ifnr_primed)
+        if app.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    if kernels:
+        reset_counts()
+        _, out["calls"] = capture(tuple(KERNELS), run)
+        out["counts"] = {t: kernel_count(t) for t in KERNELS}
+    else:
+        run()
+    out["status"] = app.status()
+    out["block_len"] = app.pump_block_len
+    app.shutdown()
+    return out
+
+
+def noise_full_width(dev, card: str, report: dict, tmp: str,
+                     cap: str) -> None:
+    """Phase 23: the served capture at 2.4 MS/s with ``ifnr: true``, the
+    noise blanker on the WFM radio and the FM IF filter on the NFM radio,
+    six blocks on the card against the same on the host CPU, float32
+    handoff: baseband and audio to NR_MIN_DB, the tone SNRs beside it."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.ops import precision
+    config = served_config(cap, "manual", squelched=False)
+    config["ifnr"] = True
+    prev = precision.get_handoff_name()
+    precision.set_handoff_dtype("float32")
+    try:
+        runs = {d: noise_session(new_app(os.path.join(tmp, f"p23_{d}"),
+                                         config, torch.device(d)),
+                                 NR_BLOCKS, d == "cuda")
+                for d in ("cuda", "cpu")}
+    finally:
+        precision.set_handoff_dtype(prev)
+    card_run, host = runs["cuda"], runs["cpu"]
+    if card_run["primed"] != host["primed"] or not card_run["primed"][-1]:
+        fail(f"phase 23: IF NR primed {card_run['primed']} on the card, "
+             f"{host['primed']} on the CPU")
+    counts = card_run["counts"]
+    tags = ("K4f", "K8", "K9")
+    hold_launches(f"phase 23, {NR_BLOCKS} blocks", {t: counts[t]
+                                                    for t in tags},
+                  card_run["calls"])
+    others = {t: c for t, c in counts.items() if c and t not in tags}
+    if min(counts[t] for t in tags) < 1 or others:
+        fail(f"phase 23: launch pattern {counts}")
+    for t in tags:
+        report[t].setdefault("launches_by_path", {})[
+            f"noise path ({NR_BLOCKS} blocks)"] = counts[t]
+    first_nr = card_run["primed"].index(True)
+
+    def agree(want, got) -> float:
+        if got.shape != want.shape:
+            fail(f"phase 23: shape {got.shape}, the CPU's {want.shape}")
+        if np.iscomplexobj(want):
+            want = np.stack([want.real, want.imag])
+            got = np.stack([got.real, got.imag])
+        return snr_db(torch.from_numpy(want), torch.from_numpy(got))
+
+    worst = {}
+    for b in range(NR_BLOCKS):
+        for what in ("baseband", "W", "N"):
+            want, got = ((host["bb"][b], card_run["bb"][b])
+                         if what == "baseband" else
+                         (host["audio"][b][what], card_run["audio"][b][what]))
+            worst[what] = min(worst.get(what, np.inf), agree(want, got))
+    aud = card_run["audio"][-1]
+    snr, sep = stereo_oracle(aud["W"].astype(np.float64)[None])
+    nfm = tone_snr_db(aud["N"][0].astype(np.float64))
+    print(f"phase 23: ifnr on, NB on W, FMIF on N, {NR_BLOCKS} blocks of "
+          f"{card_run['block_len']} samples, the IF NR primed from block "
+          f"{first_nr + 1}: card against the host CPU, worst block "
+          + ", ".join(f"{k} {v:.1f} dB" for k, v in worst.items())
+          + f" (bound {NR_MIN_DB:.0f}); block {NR_BLOCKS}: WFM tone SNR "
+          f"{snr:.1f} dB, L/R separation {sep:.1f} dB, NFM tone SNR "
+          f"{nfm:.1f} dB; launches " + ", ".join(f"{t}={counts[t]}"
+                                                 for t in tags)
+          + f" [{card}]")
+    if min(worst.values()) < NR_MIN_DB:
+        fail(f"phase 23: the card disagrees with the host CPU: {worst}")
+
+
+def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
+    """Phase 23: the app with ``ifnr: true`` (NB on W, FMIF on N) and its
+    pump thread on the looping capture for NR_RT_SECONDS: blocks
+    processed, rtFactor, each block's wall time through a sync, a
+    profiler window of 20 blocks, and the IF NR alone on one block's
+    baseband.  Fails if the guard shed the IF NR."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    config = served_config(cap, "thread", squelched=False)
+    config["ifnr"] = True
+    app = new_app(os.path.join(tmp, "p23rt"), config, dev, run_pump=True)
+    for name, cmd in (("W", "set_nb"), ("N", "set_fmif")):
+        app.modules[name].handle_debug_command(cmd, "on")
+    walls = []
+
+    def timed_loop():
+        t = time.perf_counter()
+        for _ in app._pump_iter():
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            walls.append((now - t, app.ifnr_primed))
+            t = now
+    app._pump_loop = timed_loop
+    try:
+        t0 = time.perf_counter()
+        app.start()
+        time.sleep(NR_RT_SECONDS)
+        st = app.status()
+        blocks, seconds = app.blocks_processed, time.perf_counter() - t0
+        walls_rt = list(walls)
+        block_len = app.pump_block_len
+        for window in range(1, 4):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                b0, w0 = app.blocks_processed, time.perf_counter()
+                while app.blocks_processed < b0 + 20:
+                    time.sleep(0.005)
+                nb, window_us = app.blocks_processed - b0, (
+                    time.perf_counter() - w0) * 1e6
+            by_kernel, launches, h2d, d2h = window_stats(prof, nb)
+            if launches:
+                break
+        st_end = app.status()
+    finally:
+        app.shutdown()
+    dur_ms = block_len / FS * 1e3
+    w = np.array([x for x, primed in walls_rt if primed][3:]) * 1e3
+    if not len(w):
+        fail("phase 23: the IF NR never primed")
+    pct = " / ".join(f"{np.percentile(w, q):.4f}" for q in (50, 10, 90, 99))
+    print(f"phase 23: threaded pump with the IF NR, {blocks} blocks of "
+          f"{block_len} samples in {seconds:.1f} s, "
+          f"{blocks * block_len / seconds / 1e6:.2f} MS/s; rtFactor "
+          f"{st['rtFactor']}, secondsBehind {st['secondsBehind']}, "
+          f"ifnrEnabled {st_end['ifnrEnabled']} [{card}]")
+    print(f"phase 23: block wall time through torch.cuda.synchronize(), "
+          f"IF NR on, median / p10 / p90 / p99 {pct} ms over {len(w)} "
+          f"blocks [{card}]")
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    if launches:
+        print(f"phase 23: profiler window {window} of {nb} blocks: device "
+              f"{busy:.1f} us a block, idle share "
+              f"{1.0 - busy * nb / window_us:.3f}, {launches / nb:.1f} "
+              f"kernel launches, {h2d / nb:.1f} host-to-device and "
+              f"{d2h / nb:.1f} device-to-host copies a block; us a block "
+              f"by kernel: " + ", ".join(f"{k} {v:.1f}" for k, v in top)
+              + f" [{card}]")
+    else:
+        print("phase 23: device time, launches and copies a block not "
+              f"measured (the profiler saw no kernel in {window} windows)")
+    # the IF NR alone on one block's baseband, from a primed state
+    from sdrplusplusbrown_tpu_torch.runtime.block import to_device
+    nr = app.ifnr
+    bb = torch.complex(*noise_planes(block_len, dev))
+    st0 = nr.prime(to_device(nr.init_state(()), dev), bb.repeat(
+        -(-nr.core.NOISE_FRAMES * nr.core.Slen // block_len)))
+    us, n = call_profile(lambda: nr.apply(None, st0, bb), reps=10)
+    print(f"phase 23: the IF NR alone (Slen {nr.core.Slen}, nFFT "
+          f"{nr.core.nFFT}, H {nr.core.H}, {block_len // nr.core.len2} "
+          f"frames) on {block_len} samples: {us:.1f} us device and {n} "
+          f"launches a block [{card}]")
+    if not st_end["ifnrEnabled"]:
+        fail(f"phase 23: the guard shed the IF NR: "
+             f"{st_end['ifnrStopReason']}")
+    if np.percentile(w, 99) >= dur_ms:
+        fail(f"phase 23: not real time: p99 block "
+             f"{np.percentile(w, 99):.2f} ms of {dur_ms:.0f}")
 
 
 if __name__ == "__main__":

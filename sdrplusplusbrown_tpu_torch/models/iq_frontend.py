@@ -11,12 +11,15 @@ no Pallas body: here the torch doubling scan of ``ops/recurrence.py``
 (⌈log2 T⌉ levels of torch ops), its faithful counterpart.  An entry
 point: it runs on ``device`` (CUDA unless the caller asks for the CPU),
 keeps its state there and moves only the input to it.  The pluggable
-baseband preprocessors (the IF noise reduction) are not ported: a
-non-empty ``preprocessors`` raises ``NotImplementedError``.
+baseband preprocessors (``preprocessors``: (name, block) pairs, such as
+the IF noise reduction ``ops/logmmse.py:IFNRLogMMSE``) run in order after
+the DC blocker and the conjugate, before the spectrum, each with its
+state under ``pre_<name>``.
 """
 
 from __future__ import annotations
 
+import math
 from fractions import Fraction
 
 import torch
@@ -46,10 +49,6 @@ class IQFrontEnd(Block):
                  fft_size: int = 65536, fft_rate: float = 20.0,
                  fft_window: str = "nuttall", preprocessors=(),
                  device="cuda"):
-        if preprocessors:
-            raise NotImplementedError("IQFrontEnd: the pluggable "
-                                      "preprocessors (the IF noise "
-                                      "reduction) are not ported yet")
         self.device = torch.device(device)
         self.samplerate = float(samplerate)
         self.decim_ratio = int(decim_ratio)
@@ -60,9 +59,13 @@ class IQFrontEnd(Block):
         # complex baseband after the decimator
         self.dc = DCBlocker(50.0 / self.effective_sr) if dc_blocking else None
         self.conj = Conjugate() if invert_iq else None
+        self.preprocessors = list(preprocessors)
         self.spectrum = SpectrumPath(self.effective_sr, fft_size, fft_rate,
                                      fft_window, device=device)
-        self.in_multiple = self.spectrum.in_multiple * self.decim_ratio
+        need = self.spectrum.in_multiple * self.decim_ratio
+        for _, p in self.preprocessors:
+            need = math.lcm(need, p.in_multiple * self.decim_ratio)
+        self.in_multiple = need
         self.ratio = Fraction(1, self.decim_ratio)
 
     def init_state(self, batch_shape=()):
@@ -71,6 +74,8 @@ class IQFrontEnd(Block):
             st["decim"] = self.decim.init_state(batch_shape)
         if self.dc is not None:
             st["dc"] = self.dc.init_state(batch_shape)
+        for name, p in self.preprocessors:
+            st[f"pre_{name}"] = p.init_state(batch_shape)
         return to_device(st, entry_device(self.device))
 
     def apply(self, params, state, x):
@@ -88,5 +93,7 @@ class IQFrontEnd(Block):
             x, st["dc"] = self.dc.apply(None, state["dc"], x)
         if self.conj is not None:
             x, _ = self.conj.apply(None, None, x)
+        for name, p in self.preprocessors:
+            x, st[f"pre_{name}"] = p.apply(None, state[f"pre_{name}"], x)
         spectra, _ = self.spectrum.apply(None, None, x)
         return (x, spectra), st

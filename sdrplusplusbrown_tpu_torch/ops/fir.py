@@ -19,7 +19,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..runtime.block import Block
+from ..runtime.block import Block, device_const
 from .fir_kernel import fir_cplx, fir_rows
 
 
@@ -27,13 +27,11 @@ def device_taps(owner, taps: np.ndarray, device) -> torch.Tensor:
     """``taps`` as the kernels take them, made once per device and kept on
     ``owner``: real [K] → [1, K] and real [I, kw] as it is, float32;
     complex [K] → [2, K] (re row, im row)."""
-    cache = owner.__dict__.setdefault("_dev_taps", {})
-    key = str(device)
-    if key not in cache:
-        rows = np.stack([np.real(taps), np.imag(taps)]) \
+    def rows():
+        r = np.stack([np.real(taps), np.imag(taps)]) \
             if np.iscomplexobj(taps) else np.atleast_2d(taps)
-        cache[key] = torch.tensor(rows.astype(np.float32), device=device)
-    return cache[key]
+        return r.astype(np.float32)
+    return device_const(owner, "taps", rows, device)
 
 
 def _as_rows(x: torch.Tensor, complex_taps: bool) -> torch.Tensor:

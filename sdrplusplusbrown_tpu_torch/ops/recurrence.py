@@ -7,6 +7,9 @@ sdrplusplusbrown_tpu/ops/recurrence.py).
     step, so every float32 rounding agrees with it;
   * ``DCBlocker`` — out[n] = x[n] − o[n−1], o[n] = (1−r)·o[n−1] + r·x[n]
     (reference correction/dc_blocker.h), on that recurrence;
+  * ``NoiseBlanker`` — the IF chain's amplitude-ratio limiter against a
+    running-average envelope (reference noise_reduction/noise_blanker.h),
+    on that recurrence;
   * ``Deemphasis`` — the 1-pole de-emphasis in its truncated-exponential
     FIR form, which ``Radio`` folds into the WFM audio polyphase
     resampler (ops/resampler.py:fold_output_fir).  The standalone
@@ -81,6 +84,39 @@ class DCBlocker(Block):
                                  state)
         prev = torch.cat([state.unsqueeze(-1), offs[..., :-1]], dim=-1)
         return x - prev, offs[..., -1]
+
+
+class NoiseBlanker(Block):
+    """Amplitude-ratio limiter against a running average envelope:
+    amp[n] = (1−rate)·amp[n−1] + rate·|x[n]| (held over zero samples),
+    gain 1/excess where excess = |x|/amp > level, else 1 (reference
+    noise_blanker.h:38-58; the radio's rate 500/24000, level 10,
+    radio_module.h:92)."""
+
+    def __init__(self, rate: float = 500.0 / 24000.0, level: float = 10.0):
+        self.rate = float(rate)
+        self.default_level = float(level)
+
+    def init_state(self, batch_shape=()):
+        return torch.ones(batch_shape, dtype=torch.float32)
+
+    def init_params(self):
+        return {"level": torch.tensor(self.default_level,
+                                      dtype=torch.float32)}
+
+    def apply(self, params, state, x):
+        level = params["level"].to(x.device) if params \
+            else float(np.float32(self.default_level))
+        amp_in = x.abs().float()
+        nz = amp_in != 0.0
+        r = np.float32(self.rate)
+        one = torch.ones_like(amp_in)
+        a = torch.where(nz, float(np.float32(1.0) - r), one)
+        b = torch.where(nz, amp_in * float(r), torch.zeros_like(amp_in))
+        amp = linear_recurrence(a, b, state.to(x.device))
+        excess = torch.where(nz, amp_in / amp, one)
+        gain = torch.where(excess > level, 1.0 / excess, one)
+        return x * gain, amp[..., -1]
 
 
 class Deemphasis(Block):

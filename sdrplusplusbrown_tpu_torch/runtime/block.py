@@ -27,6 +27,7 @@ import math
 from fractions import Fraction
 from typing import Any, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -69,6 +70,19 @@ def to_device(tree, device: torch.device):
     if isinstance(tree, (list, tuple)):
         return [to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+def device_const(owner, name: str, array, device) -> torch.Tensor:
+    """The design-time numpy ``array`` (or what the function ``array``
+    returns, called only when ``device`` has no copy yet) as a tensor on
+    ``device``, made once and kept on ``owner`` under ``name`` (a copy
+    from the host on every call would stall the stream)."""
+    cache = owner.__dict__.setdefault("_dev_consts", {})
+    key = (name, str(device))
+    if key not in cache:
+        a = array() if callable(array) else array
+        cache[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return cache[key]
 
 
 def lcm_fraction(a: Fraction, b: Fraction) -> Fraction:

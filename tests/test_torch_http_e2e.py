@@ -8,9 +8,12 @@ Mirrored from tests/test_e2e_http.py: the status shape, list_demods,
 get/set demod and bandwidth, the VFO offset and the SNR oracle (> 20 dB on
 the carrier, < 20 dB off it), get_spectrum, modules/streams/sinks,
 /sdr/status progress, two radios at once, and a recording through the
-sink select.  And the refusals: what the port lacks answers "not ported
-yet" (audio NR, RDS, the noise blanker, the FM IF filter, the RAW demod,
-the network sink, --server, --rigctl, and in the config the IF NR, a
+sink select.  The noise path is served: the audio NR (logmmse, omlsa),
+the noise blanker and the FM IF filter are accepted over the control
+plane and the radio still steps, and so is the IF NR from the config
+(``ifnr``) and through the ``ifnr/enabled`` proc entry.  And the
+refusals: what the port lacks answers "not ported yet" (RDS, the RAW
+demod, the network sink, --server, --rigctl, and in the config a
 transmitter, the other sources and module types), and without a CUDA
 device the entry point exits nonzero naming CUDA unless it is given
 ``--device cpu``."""
@@ -262,12 +265,8 @@ def test_sink_select_records(app):
 
 
 @pytest.mark.parametrize("cmd,args,error", [
-    ("set_afnr", "logmmse", "not ported yet"),
-    ("set_afnr", "omlsa", "not ported yet"),
     ("set_afnr", "bogus", "unknown afnr mode"),
     ("set_rds", "1", "not ported yet"),
-    ("set_nb", "on", "not ported yet"),
-    ("set_fmif", "on", "not ported yet"),
     ("set_demod", "RAW", "not ported yet"),
     ("set_demod", "DMR", "unknown demod"),
     ("set_demod", "99", "unknown demod"),
@@ -278,6 +277,71 @@ def test_unported_commands_refused(app, cmd, args, error):
     assert error in r.get("error", ""), r
     assert app.module_cmd("Radio", "get_demod") == before
     assert app.pump_step(1)["stepped"] == 1        # the radio still runs
+
+
+@pytest.mark.parametrize("feature", [
+    ("set_afnr", "logmmse"), ("set_afnr", "omlsa"), ("set_nb", "on"),
+    ("set_fmif", "on"), ("config", "ifnr")])
+def test_noise_features_accepted(app, tmp_path, feature):
+    """What this slice serves: each is accepted and the radio still
+    steps.  The module commands over HTTP (switched off again after), the
+    IF NR from a config with ``ifnr: true`` (in process: primed after
+    five blocks, its proc entry read and written)."""
+    cmd, arg = feature
+    if cmd == "config":
+        cfg = config_for(make_capture(tmp_path, seconds=0.5), "manual")
+        cfg["ifnr"] = True
+        with open(tmp_path / "config.json", "w") as f:
+            json.dump(cfg, f)
+        a = SDRApp(str(tmp_path), run_pump=False, device="cpu")
+        a._clock = lambda: 0.0     # a busy host must not shed the IF NR
+        got = []
+        a.modules["Radio"].audio_event.bind(got.append)
+        try:
+            a.start()
+            assert a.pump_step(6) == 6 and a.ifnr_primed
+            assert a.status()["ifnrEnabled"] and got
+            assert np.abs(np.concatenate(got, axis=-1)).max() > 0
+            a.set_ifnr_enabled(False)
+            assert a.pump_step(1) == 1 and not a.status()["ifnrEnabled"]
+        finally:
+            a.shutdown()
+        return
+    r = app.module_cmd("Radio", cmd, arg)
+    key = cmd[4:]
+    assert r == {"status": "ok", key: arg if cmd == "set_afnr" else True}, r
+    if cmd == "set_afnr":
+        assert app.module_cmd("Radio", "get_afnr") == {"afnr": arg}
+    # the AF NR primes on its first 12 frames (0.24 s of audio) and
+    # then lags by its remainder: the radio steps throughout
+    assert app.pump_step(6)["stepped"] == 6
+    assert app.module_cmd("Radio", "get_demod")["demod"] == "NFM"
+    assert app.module_cmd("Radio", "get_snr")["snr"] > 20.0
+    assert "afnr error" not in app.get("/log")["log"]
+    off = app.module_cmd("Radio", cmd, "off")
+    assert off["status"] == "ok", off
+
+
+def test_ifnr_proc_entry(app):
+    """``ifnr/enabled`` sets and reads the app's IF NR switch (built on
+    first use); ``ifnr/stop_reason`` is empty while it runs, and names
+    the cause if the real-time guard shed it (a busy host can be too
+    slow for it on the CPU)."""
+    assert app.get("/proc/ifnr/enabled")["value"] == "false"
+    r = app.get("/proc/ifnr/enabled?value=true")
+    assert r["status"] == "ok", r
+    try:
+        assert app.get("/proc/ifnr/enabled")["value"] == "true"
+        assert app.get("/status")["ifnrEnabled"]
+        assert app.pump_step(6)["stepped"] == 6
+        on = app.get("/status")["ifnrEnabled"]
+        assert app.get("/proc/ifnr/enabled")["value"] == str(on).lower()
+        assert app.get("/proc/ifnr/stop_reason")["value"] == (
+            "" if on else "Slow processing. Reduce sample rate.")
+        assert "IF NR primed" in app.get("/log")["log"]
+    finally:
+        app.get("/proc/ifnr/enabled?value=false")
+    assert not app.get("/status")["ifnrEnabled"]
 
 
 def test_off_switches_and_levels(app):
@@ -347,7 +411,6 @@ def test_no_cuda_device_exits_naming_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("conf,what", [
-    ({"ifnr": True}, "IF noise reduction"),
     ({"transmitter": {"type": "loopback"}}, "transmitter"),
     ({"source": {"type": "rtl_tcp"}}, "rtl_tcp"),
     ({"source": {"type": "spyserver"}}, "spyserver"),

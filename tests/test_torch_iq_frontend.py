@@ -12,6 +12,7 @@ import jax.numpy as jnp
 from sdrplusplusbrown_tpu.models.iq_frontend import IQFrontEnd as JaxFrontEnd
 from sdrplusplusbrown_tpu_torch import convert
 from sdrplusplusbrown_tpu_torch.models.iq_frontend import IQFrontEnd
+from sdrplusplusbrown_tpu_torch.ops.logmmse import IFNRLogMMSE
 
 from torch_parity import (FS, assert_spectra_close, assert_state_close,
                           port_f32_handoff, snr_db, wfm_iq)  # noqa: F401
@@ -40,10 +41,17 @@ def test_frontend_matches_jax(decim, invert):
 
 
 def test_frontend_unported_options_raise():
-    # the DC blocker is ported (tests/test_torch_serving_units.py); the
-    # pluggable preprocessors (the IF noise reduction) are not
-    with pytest.raises(NotImplementedError, match="preprocessors"):
-        IQFrontEnd(FS, preprocessors=[("ifnr", None)], device="cpu")
+    # the DC blocker is ported (tests/test_torch_serving_units.py) and so
+    # are the pluggable preprocessors (the IF noise reduction, against
+    # the JAX package in tests/test_torch_noise_chain.py): state under
+    # pre_<name>, the granularity the lcm with each one's
+    fs = FS / 10
+    nr = IFNRLogMMSE(fs)
+    pre = IQFrontEnd(fs, dc_blocking=True, preprocessors=[("ifnr", nr)],
+                     device="cpu")
+    assert set(pre.init_state()) == {"dc", "pre_ifnr"}
+    assert pre.in_multiple == np.lcm(IQFrontEnd(fs, device="cpu")
+                                     .in_multiple, nr.in_multiple)
     assert set(IQFrontEnd(FS, dc_blocking=True, device="cpu")
                .init_state()) == {"dc"}
     if not torch.cuda.is_available():   # a default front end needs a card

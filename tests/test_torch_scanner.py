@@ -150,10 +150,14 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         Radio(FS, DEMOD_WFM, squelch_enabled=True, device="cpu").apply_shared(
             None, None, planes(nfm_iq(T, OFFSETS, [1])))
-    with pytest.raises(NotImplementedError):
-        Radio(FS, DEMOD_NFM, nb_enabled=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Radio(FS, DEMOD_NFM, fmif_enabled=True, device="cpu")
+    # the noise blanker and the FM IF filter leave the fused routes
+    # (tests/test_torch_noise_chain.py); raw audio has no such route
+    nb = Radio(FS, DEMOD_NFM, nb_enabled=True, fmif_enabled=True,
+               device="cpu")
+    with pytest.raises(NotImplementedError, match="raw_audio"):
+        nb.apply_channelized(nb.make_params_channelized(OFFSETS),
+                             nb.init_state_channelized(C),
+                             planes(nfm_iq(T, OFFSETS, [1])), raw_audio=True)
     with pytest.raises(NotImplementedError):
         Radio(FS, "RAW", device="cpu")
     with pytest.raises(NotImplementedError):

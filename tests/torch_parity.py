@@ -157,6 +157,49 @@ def multimode_iq(T: int, fs: float, carriers, seed: int = 0) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------
+# the noise path (tests/test_torch_noise*.py, tests/test_torch_app.py)
+
+def _np(a):
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def assert_close(want, got, what="", min_db: float = 80.0):
+    """Equal, or within ``min_db`` of the JAX package's output (arrays
+    or tensors)."""
+    want, got = _np(want), _np(got)
+    assert want.shape == got.shape, (what, want.shape, got.shape)
+    if not np.array_equal(want, got):
+        assert snr_db(want, got) >= min_db, (what, snr_db(want, got))
+
+
+def assert_nr_state(jax_state, port_state):
+    """Same leaves (of two trees, either side's arrays or tensors); float
+    leaves within 80 dB (or equal), integer and bool leaves equal."""
+    j = list(leaves(jax_state))
+    p = list(leaves(port_state))
+    assert [k for k, _ in j] == [k for k, _ in p]
+    for (path, a), (_, b) in zip(j, p):
+        a, b = _np(a), _np(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, \
+            (path, a.shape, b.shape, a.dtype, b.dtype)
+        if a.dtype.kind in "biu" or not np.any(a):
+            np.testing.assert_array_equal(a, b, err_msg=path)
+        else:
+            assert_close(a, b, path)
+
+
+def speech_like(T: int, fs: float, seed: int) -> np.ndarray:
+    """A tone at fs/20 gated at 1.5 Hz (0.3 amplitude) in complex noise
+    (0.2 per component)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / fs
+    x = 0.3 * np.exp(2j * np.pi * 0.05 * fs * t) * (np.sin(2 * np.pi * 1.5
+                                                            * t) > 0)
+    x = x + 0.2 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+    return x.astype(np.complex64)
+
+
+# ---------------------------------------------------------------------
 # the served app (tests/test_torch_app.py against the JAX app on the CPU,
 # tests/test_torch_cuda.py on the card against the CPU)
 
@@ -247,6 +290,121 @@ def run_served(app, root: str, port: bool) -> dict:
     rec, = glob.glob(os.path.join(root, "recordings", "sink_W_*.wav"))
     with open(rec, "rb") as f:
         out["recording"] = f.read()
+    return out
+
+
+# ---------------------------------------------------------------------
+# the served app's noise path (tests/test_torch_app.py)
+
+NOISE_FS = 240_000.0
+NOISE_RADIOS = ("U", "N")
+NOISE_BLOCKS = 9
+
+
+def noise_capture(path: str):
+    """A 1 s WAV capture at NOISE_FS: USB voice-like tone bursts (700 and
+    1 540 Hz, 4 Hz on/off) at −40 kHz, an NFM carrier (1 kHz tone) at
+    +50 kHz, an impulse of 5 every 3 001 samples, complex noise 0.02 per
+    component and a DC offset of 0.05."""
+    from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+    fs = NOISE_FS
+    T = int(fs)
+    t = np.arange(T) / fs
+    gate = (np.floor(t * 8.0) % 2) == 0
+    voice = gate * (np.exp(2j * np.pi * 700.0 * t)
+                    + 0.5 * np.exp(2j * np.pi * 1540.0 * t))
+    x = 0.2 * voice * np.exp(-2j * np.pi * 40e3 * t)
+    tone = np.sin(2 * np.pi * 1000.0 * t)
+    x = x + 0.3 * np.exp(2j * np.pi * (50e3 * t + 2000.0 * np.cumsum(tone)
+                                       / fs))
+    rng = np.random.default_rng(17)
+    x = x + 0.02 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+    x[::3001] += 5.0
+    write_wav(path, (x + 0.05).astype(np.complex64), fs, bits=32)
+
+
+def noise_config(capture: str, ifnr: bool) -> dict:
+    """A USB radio on the voice and an NFM radio on the carrier; manual
+    pump, the DC blocker on, the IF NR from the config when ``ifnr``."""
+    return {"source": {"type": "file", "path": capture, "loop": True},
+            "fftSize": 4096, "fftRate": 20, "pump": "manual",
+            "dcBlocking": True, "ifnr": ifnr,
+            "modules": {
+                "U": {"type": "radio", "demod": "USB", "offset": -40e3},
+                "N": {"type": "radio", "demod": "NFM", "offset": 50e3}}}
+
+
+def _noise_snapshot(app, port: bool) -> dict:
+    """The radios' states, their AF NR states, the pump's two front-end
+    states (where they exist), as numpy trees."""
+    f = app._pump_gen.gi_frame.f_locals
+    st = {n: app.modules[n].state for n in NOISE_RADIOS}
+    for n in NOISE_RADIOS:
+        if app.modules[n].afnr_state is not None:
+            st[f"afnr_{n}"] = app.modules[n].afnr_state
+    for k in ("fstate", "fstate_nr"):
+        if f.get(k) is not None:
+            st[k] = f[k]
+    return convert.state_to_jax(st) if port else st
+
+
+def run_noise(app, script: str, port: bool) -> dict:
+    """A scripted noise-path session on one app (either package's), the
+    real-time guard on a clock that only the script moves:
+
+      * "config": the IF NR from the config, ``set_afnr logmmse`` on U,
+        ``set_nb`` and ``set_fmif`` on N before block 1;
+      * "midrun": no IF NR in the config; before block 3
+        ``set_ifnr_enabled(True)`` and ``set_afnr logmmse`` on U, from a
+        fresh state mid-run;
+      * "shed": the IF NR from the config on a clock that takes a second
+        a block once it is primed, so the guard sheds it.
+
+    Returns per block each radio's audio, the baseband, the state
+    snapshot, the status and whether the IF NR is primed; and each
+    radio's last Radio and params."""
+    clock = [0.0]
+
+    def tick():
+        if script == "shed" and app.ifnr_primed:
+            clock[0] += 1.0
+        return clock[0]
+    app._clock = tick
+    app.start()
+    if script == "config":
+        assert app.modules["U"].handle_debug_command(
+            "set_afnr", "logmmse") == {"status": "ok", "afnr": "logmmse"}
+        for cmd in ("set_nb", "set_fmif"):
+            r = app.modules["N"].handle_debug_command(cmd, "on")
+            assert r == {"status": "ok", cmd[4:]: True}, r
+    got = {n: [] for n in NOISE_RADIOS}
+    for n in NOISE_RADIOS:
+        app.modules[n].audio_event.bind(
+            lambda blk, n=n: got[n].append(np.asarray(blk)))
+    bbs = []
+    app.baseband_event.bind(lambda bb: bbs.append(np.asarray(bb)))
+    out = {"audio": [], "bb": [], "state": [], "status": [], "primed": []}
+    for b in range(NOISE_BLOCKS):
+        if script == "midrun" and b == 2:
+            app.set_ifnr_enabled(True)
+            assert app.modules["U"].handle_debug_command(
+                "set_afnr", "logmmse") == {"status": "ok",
+                                           "afnr": "logmmse"}
+        assert app.pump_step(1) == 1
+        out["audio"].append({n: np.concatenate(got[n], axis=-1) if got[n]
+                             else np.zeros((2, 0), np.float32)
+                             for n in NOISE_RADIOS})
+        for n in NOISE_RADIOS:
+            got[n].clear()
+        out["bb"].append(bbs.pop())
+        out["state"].append(_noise_snapshot(app, port))
+        out["status"].append(app.status())
+        out["primed"].append(app.ifnr_primed)
+    out["afnr"] = {n: app.modules[n].handle_debug_command("get_afnr", "")
+                   for n in NOISE_RADIOS}
+    out["radio"] = {n: (app.modules[n].radio, app.modules[n].params)
+                    for n in NOISE_RADIOS}
+    app.shutdown()
     return out
 
 
