@@ -40,6 +40,12 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     the noise blanker on a WFM radio and the FM IF filter on an NFM
     radio: K4f, K8 (the AF NR's moving average among its calls), K9,
     K12;
+  * RDS and the Radio's other forms — a WFM radio with the scan PLL
+    (``Radio(pll_mode="scan")``: K13's PLL form), the served app on a
+    2.4 MS/s capture of a stereo station carrying RDS with two WFM radios
+    decoding it (``rds: true`` in the config, ``set_rds 1`` over HTTP):
+    the RDS tap (K8), ``RDSDemod`` (K12's complex form, K13's Costas and
+    M&M forms, K9) and the host ``RDSDecoder``, with K4f, K8 and K9;
   * the multi-mode bank — ``RadioBank.apply(..., mono_out=True)`` on
     multimode8 (bench.py:build_multimode8, BASELINE config 2: 4 NFM, 2 AM
     and 2 USB VFOs on one 2.4 MS/s wideband, 240 000-sample steps) and on
@@ -189,9 +195,42 @@ Phases, each fatal on failure:
      radio's audio agree to 80 dB in every block, the WFM and NFM tone
      SNRs reported, K4f, K8 and K9 launched and held to their plans; then
      the threaded pump for 10 s as in 21 (block wall percentiles once
-     the IF NR is primed, the profiler window), and the IF NR alone on
-     one block (device µs, launches); fails if the guard shed the IF NR
-     or the p99 block exceeds its duration.
+     the IF NR is primed, the profiler window, the guard's clock held
+     still while it is open and its trace is processed), and the IF NR
+     alone on one block (device
+     µs, launches); fails if the guard shed the IF NR, read at the end
+     of the 10 s and after the profiler window, or the p99 block exceeds
+     its duration.
+ 24. RDS's loops and the Radio's forms: K13's PLL form on the scan-PLL
+     radio's 6 250-sample MPX block (``Radio(pll_mode="scan")`` at 2.4
+     MS/s, four 50 ms blocks, the counts zeroed before: K13p one launch
+     a block, K2 and K10 none; tone SNR > 35 dB, separation > 25 dB),
+     K12's complex form and K13's Costas and M&M forms on ``RDSDemod``
+     at the served block's RDS shapes (a WFM radio with ``rds`` on the
+     RDS station), each against its plain version (bit-identical; K12c
+     within 100 dB with its state exact), timed with CUDA events (the
+     kernel's median and range over LOOP_RUNS runs, the plain loop over
+     2 calls) beside its chain floor (the steps at the fewest cycles a
+     step that the chain, clocked on the kernel, took in any run, at the
+     fastest SM clock: the card's maximum or the fastest measured);
+     mono WFM, RAW and NFM with 50 µs de-emphasis through
+     ``Radio.apply``, and ``AMDemod(carrier_agc=True)``, three blocks
+     each on the card against the host CPU, >= 80 dB;
+ 25. the served app with RDS: a 3.6 s capture at 2.4 MS/s of a stereo
+     station carrying RDS (PI 0xABCD, PS "TESTFM  ", RT "HELLO RADIO
+     TEXT"), two WFM radios on it, W with ``rds: true`` in config.json,
+     V switched on by ``set_rds 1`` over HTTP before block 3, manual
+     pump (blocks of the RDS granularity), ``get_rds`` over HTTP after
+     each block: each radio synced with PI, PS and RT exact within 3 s
+     of signal from its switch-on; the counts zeroed before: K4f, K8,
+     K9, K12c, K13c and K13m launched and held to their calls' planned
+     launches, every other kernel not; K12c, K13c and K13m against their
+     plain versions at the served shapes; both radios' tone SNR and
+     separation (phase 19's bars); then the threaded pump with RDS on
+     both for 10 s as in 21 (``pump_in_real_time``: rtFactor, the block
+     wall percentiles, the profiler window's device µs, launches and
+     device-to-host copies a block); fails unless the p99 block wall
+     time is under 50 ms.
 
 Every ``launches`` count is of CUDA launches: each wrapper counts every
 launch it makes (``kernels/_build.py``).  Beside each CUDA-event time
@@ -266,6 +305,12 @@ PARENT_US = {"K5": (24.0, "scanner128 step"),
 # K12's dependent chain a sample: a multiply and an add (4 cycles each)
 # and two selects (csrc/agc.cu); its floor is T of these at the SM clock
 CHAIN_CYCLES = 10
+# K13's and K12c's chains are clocked on the kernel itself (the ``clk``
+# argument, csrc/common.cuh:ChainClock) over LOOP_RUNS runs: the floor is
+# the steps at the fewest cycles a step any run took, at the fastest SM
+# clock (the card's maximum, or the fastest the runs measured, where the
+# card ran above it), which no run of the kernel can beat
+LOOP_RUNS = 7
 
 
 def fail(msg: str):
@@ -454,6 +499,23 @@ def work(tag: str, args) -> tuple:
         R, T = x.shape
         # |x|, compare, 2 mul + add, divide, min; ramp 3; 2 mul
         return 8 * R * T + 16 * R, 12 * R * T
+    if tag == "K12c":   # complex rows: |x| a hypot (3), the gain on 2 planes
+        x = args[1]
+        R, T = x.shape
+        return 16 * R * T + 16 * R, 15 * R * T
+    if tag in ("K13p", "K13c"):    # complex rows in and out, 2 state words
+        x = args[1]
+        R, T = x.shape
+        # the loop update (2 mul, 4 add, 2 clamps, 2 wraps) and, for
+        # Costas, the rotate (4 mul, 2 add) and its detector (1-5)
+        return 16 * R * T + 16 * R, (12 if tag == "K13p" else 20) * R * T
+    if tag == "K13m":   # x and its tail in, symbols and flags out
+        mm, x = args[:2]
+        R, T = x.shape
+        n, w = mm.max_out(T), 2 if x.is_complex() else 1
+        b = 4 * w * R * (T + 2 * (mm.K - 1)) + R * n * (4 * w + 1) \
+            + 4 * mm.P * mm.K
+        return b, R * n * (2 * w * mm.K + 20)
     raise KeyError(tag)
 
 
@@ -498,7 +560,8 @@ def event_ms(fn, reps: int = 20) -> float:
 
 
 def call_profile(fn, reps: int = 20, by_kernel: dict | None = None,
-                 counts: dict | None = None) -> tuple:
+                 counts: dict | None = None,
+                 events: dict | None = None) -> tuple:
     """(device µs, kernel launches) per call of ``fn`` from a torch.profiler
     window of ``reps`` calls: the time of the kernels and copies the window
     saw on the card over ``reps`` (the wrapper's host time, which CUDA
@@ -507,7 +570,8 @@ def call_profile(fn, reps: int = 20, by_kernel: dict | None = None,
     profiler drops now and then does not count as a missing launch.  A
     window that saw no device activity at all is taken again, twice at
     most; ``by_kernel`` gets µs per call by kernel, ``counts`` launches
-    per call by kernel (rounded, at least 1)."""
+    per call by kernel (rounded, at least 1), ``events`` each kernel's
+    (device µs, launches) as the window saw them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     seen = {}
@@ -532,6 +596,9 @@ def call_profile(fn, reps: int = 20, by_kernel: dict | None = None,
                    in seen.items() if not key.startswith(("Memcpy", "Memset")))
     for key, (total, count) in seen.items():
         k = short_kernel(key)
+        if events is not None:
+            t0, n0 = events.get(k, (0.0, 0))
+            events[k] = (t0 + total, n0 + count)
         if by_kernel is not None:
             by_kernel[k] = by_kernel.get(k, 0.0) + total / reps
         if counts is not None and not key.startswith(("Memcpy", "Memset")):
@@ -668,6 +735,8 @@ def main() -> int:
     report.update(drive_channelizer(dev, card))
     drive_served(dev, card, report)
     drive_noise(dev, card, report)
+    drive_loops(dev, card, report)
+    drive_rds(dev, card, report)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -906,13 +975,29 @@ KERNELS = {
     "K4r": ("fft_kernel", "fft_power_db_planes",
             "sdrplusplusbrown_tpu_torch/csrc/spectrum_fft.cu",
             "sdrplusplusbrown_tpu/ops/pallas_fft.py:64"),
+    "K13p": ("pll", "pll_rows",
+             "sdrplusplusbrown_tpu_torch/csrc/loops.cu",
+             "sdrplusplusbrown_tpu/ops/pll.py:69"),
+    "K13c": ("costas", "costas_rows",
+             "sdrplusplusbrown_tpu_torch/csrc/loops.cu",
+             "sdrplusplusbrown_tpu/ops/costas.py:61"),
+    "K13m": ("clock_recovery", "mm_rows",
+             "sdrplusplusbrown_tpu_torch/csrc/loops.cu",
+             "sdrplusplusbrown_tpu/ops/clock_recovery.py:69"),
+    "K12c": ("agc", "agc_cplx_rows",
+             "sdrplusplusbrown_tpu_torch/csrc/agc.cu",
+             "sdrplusplusbrown_tpu/ops/agc.py:56"),
 }
 
 
 def kernel_fn(tag: str, suffix: str):
+    """(module, name + suffix) of a kernel's wrapper; K12c's plain version
+    is K12's (``agc_rows_ref`` takes complex rows)."""
     import importlib
     mod = importlib.import_module("sdrplusplusbrown_tpu_torch.ops."
                                   + KERNELS[tag][0])
+    if tag == "K12c" and suffix == "_ref":
+        return mod, "agc_rows_ref"
     return mod, KERNELS[tag][1] + suffix
 
 
@@ -1997,18 +2082,27 @@ def call_launches(tag: str, call, what: str) -> int:
     """K6's or K7's CUDA launches a call on ``call``, as its wrapper
     counts them (one at each launch), which must be its plan's
     (``planned_launches``) and, where the profiler saw the call's kernels,
-    the profiler's count of them; and its device time by launch (profiler;
-    "not measured" where the window saw none).  Returns the wrapper's
-    count."""
+    the profiler's count of them (a window that missed a kernel is taken
+    again, twice at most); and its device time by launch (profiler; "not
+    measured" where the window saw none).  Returns the wrapper's count."""
     mod, name = kernel_fn(tag, "_kernel")
     fn = getattr(mod, name)
     n0 = fn.launches
     fn(*call)
     counted = fn.launches - n0
-    split, counts = {}, {}
-    us, _ = call_profile(lambda: fn(*call), by_kernel=split, counts=counts)
     planner, own = PLANNERS[tag]
-    n = sum(v for k, v in counts.items() if k in own)
+    # a window in which the profiler dropped all the launches of one of
+    # the call's kernels (it can: one saw 1 of 40) is taken again, twice
+    # at most, before its count is held to the wrapper's
+    for _ in range(3):
+        split, counts = {}, {}
+        us, _ = call_profile(lambda: fn(*call), by_kernel=split,
+                             counts=counts)
+        n = sum(v for k, v in counts.items() if k in own)
+        if n in (0, counted):
+            break
+        print(f"{tag} ({what}): the profiler saw {n} of the {counted} "
+              f"launches a call; window taken again")
     planned = planned_launches(tag, call)
     seen = (f"{us:.1f} us a call, {n} CUDA launches of its own (profiler: "
             + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + ")"
@@ -2391,19 +2485,55 @@ def window_stats(prof, nb: int) -> tuple:
 
 def served_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     """Phase 21: the app with its pump thread on the looping capture for
-    SERVED_RT_SECONDS of wall time; /status's real-time factor, each
-    block's wall time through a sync, a profiler window of 20 blocks and
-    the DC blocker alone.  On CUDA rtFactor is the front end's host
-    enqueue time over the block (IQFrontEnd.apply only queues its
-    launches; the radios are outside the clock, as in the JAX app), so
-    the real-time check is each block's synced wall time: p99 within the
-    block's duration.  rtFactor < 1 is held as well."""
+    SERVED_RT_SECONDS of wall time (``pump_in_real_time``), then the DC
+    blocker alone.  On CUDA rtFactor is the front end's host enqueue time
+    over the block (IQFrontEnd.apply only queues its launches; the radios
+    are outside the clock, as in the JAX app), so the real-time check is
+    each block's synced wall time: p99 within the block's duration.
+    rtFactor < 1 is held as well."""
+    import torch
+    run = pump_in_real_time(
+        dev, card, os.path.join(tmp, "p21"), served_config(cap, "thread"),
+        "phase 21", SERVED_RT_SECONDS,
+        prepare=lambda a: a.modules["Q"].handle_debug_command(
+            "set_squelch", f"{SQUELCH_DB}"))
+    # the DC blocker alone on one block's baseband
+    fe, block_len = run["app"].frontend, run["block_len"]
+    bb = torch.complex(*noise_planes(block_len, dev))
+    st0 = fe.dc.init_state().to(dev)
+    us, n = call_profile(lambda: fe.dc.apply(None, st0, bb))
+    print(f"phase 21: the DC blocker (torch doubling scan, "
+          f"{int(np.ceil(np.log2(block_len)))} levels) on {block_len} "
+          f"samples: {us:.1f} us device and {n} launches a block "
+          f"[{card}]")
+    real_time_bar("phase 21", run, run["dur_ms"])
+
+
+def real_time_bar(label: str, run: dict, bar_ms: float) -> None:
+    """Fails unless /status's rtFactor < 1 and the p99 block wall time is
+    under ``bar_ms``."""
+    p99 = float(np.percentile(run["w"], 99))
+    if run["status"]["rtFactor"] >= 1.0 or p99 >= bar_ms:
+        fail(f"{label}: not real time: rtFactor "
+             f"{run['status']['rtFactor']}, p99 block {p99:.2f} ms (bound "
+             f"{bar_ms:.0f})")
+
+
+def pump_in_real_time(dev, card: str, root: str, config: dict, label: str,
+                      seconds: float, prepare=None) -> dict:
+    """The app of ``config`` with its pump thread on the looping capture
+    for ``seconds`` of wall time (``prepare(app)`` first): /status's
+    real-time factor, each block's wall time through a sync (percentiles
+    past the first three blocks), then a profiler window of 20 blocks
+    (device µs, launches and host↔device copies a block, idle share).
+    Returns the app (shut down), /status, the walls (ms), the block's
+    length and duration (ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from sdrplusplusbrown_tpu_torch.server.http_server import HttpDebugServer
-    app = new_app(os.path.join(tmp, "p21"), served_config(cap, "thread"),
-                  dev, run_pump=True)
-    app.modules["Q"].handle_debug_command("set_squelch", f"{SQUELCH_DB}")
+    app = new_app(root, config, dev, run_pump=True)
+    if prepare is not None:
+        prepare(app)
     walls = []
 
     def timed_loop():
@@ -2421,9 +2551,9 @@ def served_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     try:
         t0 = time.perf_counter()
         app.start()
-        time.sleep(SERVED_RT_SECONDS)
+        time.sleep(seconds)
         st = http_call(base, "/status")
-        blocks, seconds = app.blocks_processed, time.perf_counter() - t0
+        blocks, secs = app.blocks_processed, time.perf_counter() - t0
         walls_rt = list(walls)
         block_len = app.pump_block_len
         # then a profiler window of 20 blocks while the pump thread runs
@@ -2447,17 +2577,17 @@ def served_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     dur_ms = block_len / FS * 1e3
     w = np.array(walls_rt[3:]) * 1e3     # past the first blocks' warm-up
     pct = " / ".join(f"{np.percentile(w, q):.4f}" for q in (50, 10, 90, 99))
-    print(f"phase 21: threaded pump, {blocks} blocks of {block_len} "
-          f"samples ({dur_ms:.0f} ms each) in {seconds:.1f} s, "
-          f"{blocks * block_len / seconds / 1e6:.2f} MS/s; /status "
+    print(f"{label}: threaded pump, {blocks} blocks of {block_len} "
+          f"samples ({dur_ms:.0f} ms each) in {secs:.1f} s, "
+          f"{blocks * block_len / secs / 1e6:.2f} MS/s; /status "
           f"rtFactor {st['rtFactor']}, secondsBehind {st['secondsBehind']} "
           f"[{card}]")
-    print(f"phase 21: block wall time through torch.cuda.synchronize() "
+    print(f"{label}: block wall time through torch.cuda.synchronize() "
           f"median / p10 / p90 / p99 {pct} ms over {len(w)} blocks "
           f"[{card}]")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     if launches:
-        print(f"phase 21: profiler window {window} of {nb} blocks: device "
+        print(f"{label}: profiler window {window} of {nb} blocks: device "
               f"{busy:.1f} us a block, idle share "
               f"{1.0 - busy * nb / window_us:.3f}, {launches / nb:.1f} "
               f"kernel launches, {h2d / nb:.1f} host-to-device and "
@@ -2465,21 +2595,10 @@ def served_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
               f"by kernel: " + ", ".join(f"{k} {v:.1f}" for k, v in top)
               + f" [{card}]")
     else:
-        print(f"phase 21: device time, launches and copies a block not "
+        print(f"{label}: device time, launches and copies a block not "
               f"measured (the profiler saw no kernel in {window} windows)")
-    # the DC blocker alone on one block's baseband
-    fe = app.frontend
-    bb = torch.complex(*noise_planes(block_len, dev))
-    st0 = fe.dc.init_state().to(dev)
-    us, n = call_profile(lambda: fe.dc.apply(None, st0, bb))
-    print(f"phase 21: the DC blocker (torch doubling scan, "
-          f"{int(np.ceil(np.log2(block_len)))} levels) on {block_len} "
-          f"samples: {us:.1f} us device and {n} launches a block "
-          f"[{card}]")
-    if st["rtFactor"] >= 1.0 or np.percentile(w, 99) >= dur_ms:
-        fail(f"phase 21: not real time: rtFactor {st['rtFactor']}, p99 "
-             f"block {np.percentile(w, 99):.2f} ms of {dur_ms:.0f}")
-
+    return {"app": app, "status": st, "w": w, "block_len": block_len,
+            "dur_ms": dur_ms}
 
 
 # ---- the noise path (phases 22-23) ------------------------------------
@@ -2831,12 +2950,36 @@ def noise_full_width(dev, card: str, report: dict, tmp: str,
         fail(f"phase 23: the card disagrees with the host CPU: {worst}")
 
 
+class PausableClock:
+    """A clock (the app's ``_clock``, which its real-time guard reads)
+    that stands still between ``pause()`` and ``resume()``."""
+
+    def __init__(self, clock):
+        self.clock, self.lost, self.paused_at = clock, 0.0, None
+
+    def pause(self) -> None:
+        self.paused_at = self.clock()
+
+    def resume(self) -> None:
+        self.lost += self.clock() - self.paused_at
+        self.paused_at = None
+
+    def __call__(self) -> float:
+        now = self.clock() if self.paused_at is None else self.paused_at
+        return now - self.lost
+
+
 def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     """Phase 23: the app with ``ifnr: true`` (NB on W, FMIF on N) and its
     pump thread on the looping capture for NR_RT_SECONDS: blocks
     processed, rtFactor, each block's wall time through a sync, a
     profiler window of 20 blocks, and the IF NR alone on one block's
-    baseband.  Fails if the guard shed the IF NR."""
+    baseband.  Fails if the guard shed the IF NR, read at the end of the
+    NR_RT_SECONDS and again after the profiler window; the guard's clock
+    stands still from the window's opening to the end of the trace's
+    processing, since the profiler's tracing of every torch call, and its
+    processing in this thread, which holds the interpreter lock, slow the
+    front end that the guard clocks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     config = served_config(cap, "thread", squelched=False)
@@ -2854,6 +2997,8 @@ def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
             walls.append((now - t, app.ifnr_primed))
             t = now
     app._pump_loop = timed_loop
+    guard_clock = PausableClock(app._clock)
+    app._clock = guard_clock
     try:
         t0 = time.perf_counter()
         app.start()
@@ -2863,6 +3008,7 @@ def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
         walls_rt = list(walls)
         block_len = app.pump_block_len
         for window in range(1, 4):
+            guard_clock.pause()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 b0, w0 = app.blocks_processed, time.perf_counter()
@@ -2871,8 +3017,13 @@ def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
                 nb, window_us = app.blocks_processed - b0, (
                     time.perf_counter() - w0) * 1e6
             by_kernel, launches, h2d, d2h = window_stats(prof, nb)
+            guard_clock.resume()
             if launches:
                 break
+        # three blocks after the window, on the running clock
+        b0, until = app.blocks_processed, time.perf_counter() + 5.0
+        while app.blocks_processed < b0 + 3 and time.perf_counter() < until:
+            time.sleep(0.005)
         st_end = app.status()
     finally:
         app.shutdown()
@@ -2885,7 +3036,9 @@ def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
           f"{block_len} samples in {seconds:.1f} s, "
           f"{blocks * block_len / seconds / 1e6:.2f} MS/s; rtFactor "
           f"{st['rtFactor']}, secondsBehind {st['secondsBehind']}, "
-          f"ifnrEnabled {st_end['ifnrEnabled']} [{card}]")
+          f"ifnrEnabled {st['ifnrEnabled']} (after the profiler window, "
+          f"the guard's clock paused in it: {st_end['ifnrEnabled']}) "
+          f"[{card}]")
     print(f"phase 23: block wall time through torch.cuda.synchronize(), "
           f"IF NR on, median / p10 / p90 / p99 {pct} ms over {len(w)} "
           f"blocks [{card}]")
@@ -2913,12 +3066,400 @@ def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
           f"{nr.core.nFFT}, H {nr.core.H}, {block_len // nr.core.len2} "
           f"frames) on {block_len} samples: {us:.1f} us device and {n} "
           f"launches a block [{card}]")
-    if not st_end["ifnrEnabled"]:
-        fail(f"phase 23: the guard shed the IF NR: "
-             f"{st_end['ifnrStopReason']}")
+    for when, s_ in (("in its real-time run", st),
+                     ("by the end of the profiler window", st_end)):
+        if not s_["ifnrEnabled"]:
+            fail(f"phase 23: the guard shed the IF NR {when}: "
+                 f"{s_['ifnrStopReason']}")
     if np.percentile(w, 99) >= dur_ms:
         fail(f"phase 23: not real time: p99 block "
              f"{np.percentile(w, 99):.2f} ms of {dur_ms:.0f}")
+
+
+# ---- RDS and the Radio's forms (phases 24-25) -----------------------------
+RDS_PI, RDS_PS, RDS_RT = 0xABCD, "TESTFM  ", "HELLO RADIO TEXT"
+RDS_SECONDS = 3.6             # the phase 25 capture
+RDS_DECODE_S = 3.0            # each radio decodes within this of its switch-on
+RDS_SET_BLOCK = 2             # V's set_rds 1 comes before this block
+RDS_RT_SECONDS = 10.0         # phase 25's run of the threaded pump
+LOOP_BLOCKS = 4               # phase 24's blocks a radio
+RDS_TAGS = ("K4f", "K8", "K9", "K12c", "K13c", "K13m")
+
+
+def rds_bits(repeats: int) -> np.ndarray:
+    """The PS groups (0A, addresses 0-3) then the RadioText groups (2A) of
+    RDS_PI / RDS_PS / RDS_RT, PTY 5, as bits, ``repeats`` times."""
+    from sdrplusplusbrown_tpu_torch.models.rds import (rds_encode_group,
+                                                       rds_group_bits)
+    groups = [rds_encode_group(RDS_PI, 0, False, 5, a, 0,
+                               (ord(RDS_PS[2 * a]) << 8)
+                               | ord(RDS_PS[2 * a + 1])) for a in range(4)]
+    for a in range(4):
+        c = RDS_RT[4 * a:4 * a + 4].ljust(4)
+        groups.append(rds_encode_group(RDS_PI, 2, False, 5, a,
+                                       (ord(c[0]) << 8) | ord(c[1]),
+                                       (ord(c[2]) << 8) | ord(c[3])))
+    return np.tile(np.concatenate([rds_group_bits(g) for g in groups]),
+                   repeats)
+
+
+def rds_wideband(n: int, offset: float) -> np.ndarray:
+    """A stereo FM station at ``offset`` (1 kHz tone in L, the 19 kHz
+    pilot) carrying RDS: the differentially encoded biphase at 1 187.5
+    bit/s on cos 57 kHz (0.08 of the deviation), plus a little noise."""
+    t = np.arange(n) / FS
+    bits = rds_bits(int(n / FS * 1187.5) // 832 + 1)
+    d = 1.0 - 2.0 * (np.cumsum(bits) % 2)
+    pos = t * 1187.5
+    bp = d[pos.astype(int)] * np.where(pos - np.floor(pos) < 0.5, 1.0, -1.0)
+    tone = np.sin(2 * np.pi * TONE_HZ * t)
+    mpx = (0.4 * tone + 0.1 * np.sin(2 * np.pi * 19_000 * t)
+           + 0.4 * tone * (-np.cos(2 * np.pi * 38_000 * t))
+           + 0.08 * bp * np.cos(2 * np.pi * 57_000 * t))
+    x = 0.5 * np.exp(2j * np.pi * (offset * t + np.cumsum(75_000 * mpx)
+                                   / FS))
+    rng = np.random.default_rng(13)
+    x = x + 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64)
+
+
+def flat(tree) -> list:
+    """The tensors of a kernel's result (tuples, lists and dicts)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in flat(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in flat(v)]
+    return [tree]
+
+
+def chain_clock_runs(kern, call, steps: int) -> tuple:
+    """LOOP_RUNS runs of ``kern`` on ``call`` with its chain clock: (cycles
+    a step, the SM clock in MHz during the chain) each run, from the
+    slowest row."""
+    import torch
+    R = call[1].shape[0]
+    cpi, mhz = [], []
+    for _ in range(LOOP_RUNS):
+        clk = torch.zeros(R, 2, dtype=torch.int64, device=call[1].device)
+        kern(*call, clk)
+        torch.cuda.synchronize()
+        cycles, ns = clk.cpu().numpy().T
+        r = int(np.argmax(cycles))
+        cpi.append(cycles[r] / steps)
+        mhz.append(cycles[r] / ns[r] * 1e3)
+    return np.array(cpi), np.array(mhz)
+
+
+def check_loop_kernel(tag: str, call, card: str, what: str,
+                      timed: bool) -> dict:
+    """K13 or K12c against its plain version on ``call``: every returned
+    tensor bit-identical (K12c: the output within 100 dB, the state
+    exact); with ``timed`` both timed with CUDA events (the kernel over
+    LOOP_RUNS runs of 20 calls: median and range; the plain loop, a torch
+    launch per operation a sample, over 2 calls), the kernel's device µs
+    a launch over the launches the profiler saw, and its chain clocked
+    on the kernel (``chain_clock_runs``)
+    beside the chain floor: the steps at the fewest cycles a step of any
+    run, at the fastest SM clock (see LOOP_RUNS).  Raises on
+    disagreement."""
+    import torch
+    mod, name = kernel_fn(tag, "")
+    kern = getattr(mod, name + "_kernel")
+    ref = getattr(*kernel_fn(tag, "_ref"))
+    got, want = flat(kern(*call)), flat(ref(*call))
+    torch.cuda.synchronize()
+    err, same = 0.0, True
+    for g, w in zip(got, want):
+        d = g.to(w.dtype) if g.dtype != w.dtype else g
+        if w.is_complex():
+            d, w = torch.view_as_real(d), torch.view_as_real(w)
+        err = max(err, float((d.double() - w.double()).abs().max()))
+        same = same and torch.equal(d, w)
+    if tag == "K12c":
+        sn = snr_db(torch.view_as_real(want[0]), torch.view_as_real(got[0]))
+        ok = sn >= 100.0 and all(torch.equal(g, w) for g, w in
+                                 zip(got[1:], want[1:]))
+        agree = ("bit-identical" if same else
+                 f"{sn:.1f} dB SNR (bound 100), state exact")
+    else:
+        ok, agree = same, ("bit-identical" if same else "NOT bit-identical")
+    out = {"name": name, "route": "cuda", "source": KERNELS[tag][2],
+           "replaces": KERNELS[tag][3], "max_abs_err": err}
+    steps = call[1].shape[1] if tag != "K13m" else \
+        call[0].max_out(call[1].shape[1])
+    shape = "x".join(str(d) for d in call[1].shape)
+    if timed:
+        runs = np.array([event_ms(lambda: kern(*call))
+                         for _ in range(LOOP_RUNS)])
+        out["ms"] = float(np.median(runs))
+        out["plain_ms"] = event_ms(lambda: ref(*call), 2)
+        out["bound_ms"], out["bound_by"] = bound(tag, call)
+        out["library_ms"] = None
+        # µs a launch over the launches the window saw: a launch the
+        # profiler drops now and then would lower a per-call mean
+        ev = {}
+        call_profile(lambda: kern(*call), events=ev)
+        launches = [tn for k, tn in ev.items()
+                    if not k.startswith(("Memcpy", "Memset"))]
+        seen = sum(n for _, n in launches)
+        us = (sum(t for t, _ in launches) / seen if seen
+              else float("nan"))     # nan: the profiler saw none
+        cpi, mhz = chain_clock_runs(kern, call, steps)
+        top = max(sm_clock_mhz(), float(mhz.max()))
+        floor = steps * cpi.min() / top
+        print(f"{tag} {name} ({what}, {shape}): kernel {out['ms']:.4f} ms "
+              f"(median of {LOOP_RUNS} runs, {runs.min():.4f}-"
+              f"{runs.max():.4f}), plain {out['plain_ms']:.4f} ms, library "
+              f"none, bound {out['bound_ms']:.6f} ms ({out['bound_by']}), "
+              f"max|err| {err:.3e}, {agree}; device {us:.1f} us a launch "
+              f"({seen} of 20 launches seen); chain {np.median(cpi):.2f} "
+              f"cycles a step "
+              f"({cpi.min():.2f}-{cpi.max():.2f}) at an SM clock of "
+              f"{np.median(mhz):.0f} MHz ({mhz.min():.0f}-{mhz.max():.0f}) "
+              f"over {LOOP_RUNS} runs; chain floor {floor:.1f} us ({steps} "
+              f"steps x {cpi.min():.2f} cycles at {top:.0f} MHz), "
+              f"{us / floor:.2f}x the floor [{card}]")
+    else:
+        print(f"{tag} {name} ({what}, {shape}): max|err| {err:.3e}, "
+              f"{agree}")
+    if not ok:
+        fail(f"{tag} {what}: kernel disagrees with its plain version: "
+             f"{agree} (max|err| {err:.3e})")
+    return out
+
+
+def run_radio(radio, x_np, B: int, dev, blocks: int, offset: float):
+    """``blocks`` blocks of B samples of ``x_np`` through Radio.apply on
+    ``dev``: the list of each block's outputs as host arrays."""
+    import torch
+    p, st, outs = radio.make_params(offset), radio.init_state(()), []
+    for b in range(blocks):
+        y, st = radio.apply(p, st, torch.from_numpy(x_np[b * B:(b + 1) * B])
+                            .to(dev))
+        outs.append([t.cpu() for t in (y if isinstance(y, tuple) else (y,))])
+    return outs
+
+
+def drive_loops(dev, card: str, report: dict) -> None:
+    """Phase 24: K13's three forms and K12's complex form against their
+    plain versions at the path's shapes, timed; the scan-PLL radio's
+    oracles; the Radio's other forms on the card against the host CPU."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models.radio import (
+        Radio, DEMOD_AM, DEMOD_NFM, DEMOD_RAW, DEMOD_WFM)
+    from sdrplusplusbrown_tpu_torch.models.rds import RDSDemod
+    from sdrplusplusbrown_tpu_torch.ops.demod import AMDemod
+    from sdrplusplusbrown_tpu_torch.runtime.block import to_device
+    B = int(FS // 20)             # 50 ms, the served block without RDS
+    # the scan PLL: one radio at 2.4 MS/s, 50 ms blocks (6 250 MPX samples)
+    scan = Radio(FS, DEMOD_WFM, pll_mode="scan", device=dev)
+    x = stereo_wideband(LOOP_BLOCKS * B, [APP_WFM[0]])
+    reset_counts()
+    outs, cap24 = capture(tuple(KERNELS), lambda: run_radio(
+        scan, x, B, dev, LOOP_BLOCKS, APP_WFM[0]))
+    torch.cuda.synchronize()
+    counts = {t: kernel_count(t) for t in KERNELS}
+    if counts["K13p"] != LOOP_BLOCKS or counts["K10"] or counts["K2"]:
+        fail(f"phase 24: scan-PLL radio launch pattern {counts}")
+    report["K13p"] = check_loop_kernel("K13p", cap24["K13p"][-1], card,
+                                       "the scan-PLL radio's MPX block",
+                                       timed=True)
+    report["K13p"]["launches"] = counts["K13p"]
+    report["K13p"]["launches_path"] = \
+        f"scan-PLL radio ({LOOP_BLOCKS} blocks)"
+    report["K13p"]["launches_by_path"] = {
+        "scan-PLL radio": counts["K13p"]}
+    aud = outs[-1][0].numpy().astype(np.float64)
+    snr, sep = stereo_oracle(aud[None])
+    print(f"phase 24: Radio(pll_mode=\"scan\") at {FS / 1e6:.1f} MS/s, "
+          f"{B}-sample blocks, K13p {counts['K13p']} launches: tone SNR "
+          f"{snr:.1f} dB (bound 35), separation {sep:.1f} dB (bound 25)")
+    if snr <= 35.0 or sep <= 25.0:
+        fail("phase 24: the scan-PLL radio's audio oracle failed")
+    # RDSDemod on a WFM radio's RDS tap: K12c, K13c and K13m at the shapes
+    # of phase 25's served block (480 000 samples, the lcm of the
+    # spectrum's 120 000-sample interval and the RDS granularity: 1 000
+    # RDS samples)
+    rb = 480_000
+    radio = Radio(FS, DEMOD_WFM, rds=True, device=dev)
+    xr = rds_wideband(2 * rb, APP_WFM[0])
+    demod = RDSDemod()
+    rst = to_device(demod.init_state(()), dev)
+
+    def rds_run():
+        nonlocal rst
+        for y in run_radio(radio, xr, rb, dev, 2, APP_WFM[0]):
+            _, rst = demod.apply(None, rst, y[1].to(dev))
+    _, cap_rds = capture(("K12c", "K13c", "K13m"), rds_run)
+    for tag in ("K12c", "K13c", "K13m"):
+        report[tag] = check_loop_kernel(tag, cap_rds[tag][-1], card,
+                                        "RDSDemod, the served block",
+                                        timed=True)
+    # the Radio's other forms, card against the host CPU, >= 80 dB (the
+    # first block after its first 20 ms, the filters' transient)
+    xs = stereo_wideband(3 * B, [APP_WFM[0]]) \
+        + nfm_wideband(3 * B, APP_NFM, range(len(APP_NFM)))
+    forms = [("mono WFM", dict(demod_id=DEMOD_WFM, stereo=False),
+              APP_WFM[0]),
+             ("RAW", dict(demod_id=DEMOD_RAW), APP_NFM[0]),
+             ("NFM, 50 us de-emphasis", dict(demod_id=DEMOD_NFM,
+                                             deemphasis="50us"), APP_NFM[0])]
+    for label, kw, off in forms:
+        got = {d: run_radio(Radio(FS, device=d, **kw), xs, B, d, 3, off)
+               for d in ("cpu", dev)}
+        worst = min(snr_db(w[0][..., 960 if b == 0 else 0:],
+                           g[0][..., 960 if b == 0 else 0:])
+                    for b, (w, g) in enumerate(zip(got["cpu"], got[dev])))
+        print(f"phase 24: {label} card against host CPU, 3 blocks: "
+              f"{worst:.1f} dB (bound 80)")
+        if worst < 80.0:
+            fail(f"phase 24: {label}: card and CPU disagree ({worst:.1f} dB)")
+    # AM with the carrier AGC (K12c on the IF), [4, 2 400] at 15 kS/s
+    am = AMDemod(15e3, carrier_agc=True)
+    n = np.arange(3 * 2400)
+    rng = np.random.default_rng(25)
+    aif = np.stack([(0.3 + 0.2 * r) * (1 + 0.5 * np.sin(2 * np.pi * 1e3 * n
+                                                        / 15e3))
+                    * np.exp(2j * np.pi * 300.0 * n / 15e3)
+                    for r in range(4)])
+    aif = (aif + 0.01 * (rng.standard_normal(aif.shape)
+                         + 1j * rng.standard_normal(aif.shape))
+           ).astype(np.complex64)
+    res = {}
+    for d in ("cpu", dev):
+        st, ys = to_device(am.init_state((4,)), d), []
+        for b in range(3):
+            y, st = am.apply(None, st, torch.from_numpy(
+                aif[:, b * 2400:(b + 1) * 2400]).to(d))
+            ys.append(y.cpu())
+        res[d] = ys
+    worst = min(snr_db(w, g) for w, g in zip(res["cpu"], res[dev]))
+    print(f"phase 24: AMDemod(carrier_agc=True) [4, 2400] x 3 card against "
+          f"host CPU: {worst:.1f} dB (bound 80)")
+    if worst < 80.0:
+        fail(f"phase 24: the AM carrier AGC: card and CPU disagree")
+
+
+def rds_config(capture: str, pump: str) -> dict:
+    """Phase 25's config.json: the RDS station through a file source,
+    fft 65 536 at 20 fps, the DC blocker, two WFM radios on the station,
+    W with ``rds: true``; V's RDS goes on over HTTP."""
+    return {"source": {"type": "file", "path": capture, "loop": True},
+            "fftSize": FFT, "fftRate": 20, "pump": pump, "dcBlocking": True,
+            "modules": {"W": {"type": "radio", "demod": "WFM",
+                              "offset": APP_WFM[0], "rds": True},
+                        "V": {"type": "radio", "demod": "WFM",
+                              "offset": APP_WFM[0]}}}
+
+
+def rds_complete(st: dict) -> bool:
+    return (st.get("synced") and st.get("pi") == RDS_PI
+            and st.get("ps") == RDS_PS and st.get("radiotext") == RDS_RT)
+
+
+def drive_rds(dev, card: str, report: dict) -> None:
+    """Phase 25: the served app at full width decoding RDS on two radios,
+    then the threaded pump with RDS on."""
+    import tempfile
+    import torch
+    from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+    from sdrplusplusbrown_tpu_torch.server.http_server import HttpDebugServer
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rds_") as tmp:
+        cap = os.path.join(tmp, "baseband_100000000Hz_10-00-00_01-01-2024"
+                                ".wav")
+        write_wav(cap, rds_wideband(int(FS * RDS_SECONDS), APP_WFM[0]), FS,
+                  bits=32)
+        app = new_app(os.path.join(tmp, "p25"), rds_config(cap, "manual"),
+                      dev)
+        http = HttpDebugServer(app, port=0)
+        http.start()
+        base = f"http://127.0.0.1:{http.port}"
+        got = {n: [] for n in app.modules}
+        for n, m in app.modules.items():
+            m.audio_event.bind(lambda blk, n=n: got[n].append(blk))
+        done, on_at, statuses = {}, {"W": 0}, []
+
+        def run():
+            app.start()
+            b = 0
+            while len(done) < 2:
+                if b == RDS_SET_BLOCK:
+                    r = http_call(base, "/module/V/command",
+                                  {"cmd": "set_rds", "args": "1"})
+                    if r != {"status": "ok", "rds": True}:
+                        fail(f"phase 25: set_rds over HTTP: {r}")
+                    on_at["V"] = b
+                if app.pump_step(1) != 1:
+                    fail("phase 25: the pump stopped")
+                b += 1
+                st = {n: http_call(base, f"/module/{n}/command",
+                                   {"cmd": "get_rds", "args": ""})
+                      for n in ("W", "V")}
+                statuses.append(st)
+                for n in ("W", "V"):
+                    if n not in done and rds_complete(st[n]):
+                        done[n] = b
+                secs = (b - min(on_at.values())) * app.pump_block_len / FS
+                if secs > RDS_DECODE_S + 0.2:
+                    break
+            torch.cuda.synchronize()
+        try:
+            reset_counts()
+            _, cap25 = capture(tuple(KERNELS), run)
+            counts = {t: kernel_count(t) for t in KERNELS}
+            block_len = app.pump_block_len
+        finally:
+            app.shutdown()
+            http.stop()
+        dur = block_len / FS
+        for n in ("W", "V"):
+            if n not in done:
+                fail(f"phase 25: radio {n} did not decode the station: "
+                     f"{statuses[-1][n]}")
+            s = (done[n] - on_at[n]) * dur
+            print(f"phase 25: radio {n} synced with PI {RDS_PI:#06x}, PS "
+                  f"{RDS_PS!r}, RT {RDS_RT!r} after {s:.2f} s of signal "
+                  f"from its switch-on (bound {RDS_DECODE_S}); "
+                  f"{statuses[-1][n]['groups']} groups")
+            if s > RDS_DECODE_S:
+                fail(f"phase 25: radio {n} took {s:.2f} s to decode")
+        nb = len(statuses)
+        hold_launches(f"phase 25, served app with RDS, {nb} blocks",
+                      {t: counts[t] for t in RDS_TAGS}, cap25)
+        others = {t: c for t, c in counts.items() if c and t not in RDS_TAGS}
+        if min(counts[t] for t in RDS_TAGS) < 1 or others:
+            fail(f"phase 25: launch pattern {counts}")
+        for t in RDS_TAGS:
+            report[t].setdefault("launches_by_path", {})[
+                "served app with RDS"] = counts[t]
+        for t in ("K12c", "K13c", "K13m"):
+            report[t]["launches"] = counts[t]
+            report[t]["launches_path"] = f"served app with RDS ({nb} blocks)"
+        for t in ("K12c", "K13c", "K13m"):
+            err = check_loop_kernel(t, cap25[t][-1], card,
+                                    "served app with RDS",
+                                    timed=False)["max_abs_err"]
+            report[t]["max_abs_err"] = max(report[t]["max_abs_err"], err)
+        print(f"phase 25: served app on {dev} ({block_len}-sample blocks, "
+              f"the RDS granularity; fft {FFT}, DC blocker on), two WFM "
+              f"radios with RDS, {nb} blocks: launches "
+              + ", ".join(f"{t}={counts[t]}" for t in RDS_TAGS)
+              + ", every other kernel 0")
+        for n in ("W", "V"):
+            aud = np.concatenate(got[n][-3:], axis=-1).astype(np.float64)
+            snr, sep = stereo_oracle(aud[None])
+            print(f"phase 25: radio {n} audio, last 3 blocks: tone SNR "
+                  f"{snr:.1f} dB (bound 35), separation {sep:.1f} dB "
+                  f"(bound 25)")
+            if snr <= 35.0 or sep <= 25.0:
+                fail(f"phase 25: radio {n}'s audio oracle failed")
+        run = pump_in_real_time(
+            dev, card, os.path.join(tmp, "p25rt"), rds_config(cap, "thread"),
+            "phase 25", RDS_RT_SECONDS, prepare=lambda a: a.modules["V"]
+            .handle_debug_command("set_rds", "1"))
+        # the served block is 50 ms without RDS; held to that, not to
+        # the RDS granularity's longer block
+        real_time_bar("phase 25", run, 50.0)
 
 
 if __name__ == "__main__":

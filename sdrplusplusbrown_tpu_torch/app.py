@@ -10,17 +10,22 @@ block goes to the card once, and the baseband stays there between the
 radios.  Host copies are the JAX app's: the baseband (the IF spectrum
 ring), the spectrum lines and each radio's audio.
 
-Ported: the ``none`` and ``file`` sources, ``radio`` modules with their
-noise blanker and FM IF filter (``set_nb``, ``set_fmif``) and their audio
-noise reduction (``set_afnr logmmse|omlsa``, ops/logmmse.py and
-ops/omlsa.py, on a host buffer as the JAX app runs it), the IF noise
-reduction (the ``ifnr`` config key and ``set_ifnr_enabled``: a second
-front end carrying ``IFNRLogMMSE`` as its preprocessor, primed once a
-pump session, shed by the real-time guard), and the ``recorder`` sink.
-What the JAX app has beyond that is refused by name: its other source
-types, module types, sinks and the transmitter raise
-``NotImplementedError`` when configured, and RDS answers ``{"error":
-"... not ported yet"}``.
+Ported: the ``none`` and ``file`` sources, ``radio`` modules with every
+demod (the RAW demod and plugin demods registered with
+``models.radio.register_demod_provider`` among them; ``list_demods``),
+their noise blanker and FM IF filter (``set_nb``, ``set_fmif``), their
+audio noise reduction (``set_afnr logmmse|omlsa``, ops/logmmse.py and
+ops/omlsa.py, on a host buffer as the JAX app runs it) and, on a WFM
+radio, RDS (the ``rds`` module key and ``set_rds``: the radio's 5 kS/s
+RDS tap through ``RDSDemod`` on the card after each ``Radio.apply``, its
+hard bits and valid mask read back in one copy a block into the host
+``RDSDecoder``, read by ``get_rds``), the IF noise reduction (the
+``ifnr`` config key and ``set_ifnr_enabled``: a second front end
+carrying ``IFNRLogMMSE`` as its preprocessor, primed once a pump session,
+shed by the real-time guard), and the ``recorder`` sink.  What the JAX
+app has beyond that is refused by name: its other source types, module
+types, sinks and the transmitter raise ``NotImplementedError`` when
+configured.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from .utils.flog import flog
 from .utils.event import Event
 from .utils.metrics import PeakLevelMeter, StreamTracker
 from .models.iq_frontend import IQFrontEnd
-from .models.radio import Radio, DEMOD_NAMES, DEMOD_IDS
+from .models.radio import Radio, DEMOD_NAMES, DEMOD_IDS, DEMOD_PROVIDERS
+from .models.rds import RDSDecoder, RDSDemod
 from .models.waterfall import Waterfall
 from .ops.logmmse import AFNRLogMMSE, IFNRLogMMSE
 from .ops.omlsa import OMLSA
@@ -159,18 +165,20 @@ class ModuleInstance:
 class RadioModuleInstance(ModuleInstance):
     """The demodulation app module (reference decoder_modules/radio): one
     ``Radio`` built with the squelch on (and the noise blanker and the FM
-    IF filter when set), stepped once a block by the pump on the shared
-    baseband, then the audio NR when one is selected."""
+    IF filter when set, and RDS on a WFM radio), stepped once a block by
+    the pump on the shared baseband, then the RDS demod and decoder, then
+    the audio NR when one is selected."""
 
     def __init__(self, name: str, app: "SDRApp", demod: str = "WFM",
                  offset_hz: float = 0.0, bandwidth: Optional[float] = None,
                  rds: bool = False):
         super().__init__(name)
-        if rds:
-            raise NotImplementedError(f"radio '{name}': RDS is not ported "
-                                      f"yet")
         self.app = app
         self._mtx = threading.RLock()
+        self.rds_enabled = bool(rds)
+        self.rds_demod = None
+        self.rds_state = None
+        self.rds_decoder = None
         # IF chain flags (reference radio_module.h:92-98)
         self.nb_enabled = False
         self.fmif_enabled = False
@@ -190,7 +198,7 @@ class RadioModuleInstance(ModuleInstance):
         self.state = None
         self.spectrum_ring = np.zeros(SPECTRUM_BUF_SIZE, np.complex64)
         self.audio_event: Event = Event()
-        self._build(DEMOD_IDS.get(demod.upper(), demod)
+        self._build(DEMOD_IDS.get(demod.upper(), demod.upper())
                     if isinstance(demod, str) else int(demod), bandwidth)
 
     def module_type(self) -> str:
@@ -207,18 +215,28 @@ class RadioModuleInstance(ModuleInstance):
         radio_module.h:655-774)."""
         t0 = time.perf_counter()
         with self._mtx:
+            use_rds = self.rds_enabled and demod_id == 1    # WFM only
             radio = Radio(self.app.samplerate, demod_id,
                           bandwidth=bandwidth, offset_hz=self.offset_hz,
                           squelch_enabled=True,
                           squelch_level=self.squelch_level,
                           nb_enabled=self.nb_enabled,
-                          fmif_enabled=self.fmif_enabled,
+                          fmif_enabled=self.fmif_enabled, rds=use_rds,
                           device=self.app.device)
             self.state = migrate_state(self.state if migrate else None,
                                        radio.init_state(()))
             self.radio, self.demod_id = radio, demod_id
             self.params = radio.make_params(self.offset_hz)
             self.bandwidth = radio.bandwidth
+            if use_rds:
+                self.rds_demod = RDSDemod()
+                self.rds_state = migrate_state(
+                    self.rds_state if migrate else None,
+                    to_device(self.rds_demod.init_state(()),
+                              self.app.device))
+                self.rds_decoder = RDSDecoder()
+            else:
+                self.rds_demod = self.rds_state = self.rds_decoder = None
         self.last_switch_us = (time.perf_counter() - t0) * 1e6
         # reference logs demod-switch latency in µs (radio_module.h:474)
         flog.info("Radio[{}]: demod {} ready in {:.0f} us", self.name,
@@ -233,10 +251,20 @@ class RadioModuleInstance(ModuleInstance):
     def set_bandwidth(self, bandwidth_hz: float):
         self._build(self.demod_id, float(bandwidth_hz), migrate=True)
 
-    def select_demod(self, demod_id: int):
-        """Switch to demod ``demod_id`` at its default bandwidth, carrying
-        the state over."""
-        self._build(int(demod_id), None, migrate=True)
+    def select_demod(self, demod_id):
+        """Switch to demod ``demod_id`` (an id, or a provider's name) at
+        its default bandwidth, carrying the state over."""
+        self._build(demod_id if isinstance(demod_id, str) else int(demod_id),
+                    None, migrate=True)
+
+    def rds_step(self, rds_bb: torch.Tensor) -> None:
+        """The RDS tap of one block through ``RDSDemod`` on the device,
+        then its hard bits and valid mask to the host decoder in one
+        device-to-host copy (the JAX app's ``np.asarray``)."""
+        (hard, valid), self.rds_state = self.rds_demod.apply(
+            None, self.rds_state, rds_bb)
+        hv = torch.stack([hard, valid.to(torch.uint8)]).cpu().numpy()
+        self.rds_decoder.push_bits(hv[0][hv[1].astype(bool)])
 
     def _afnr_process(self, audio: np.ndarray) -> np.ndarray:
         """Run the selected audio NR with its own block alignment: the
@@ -303,6 +331,9 @@ class RadioModuleInstance(ModuleInstance):
     def handle_debug_command(self, cmd: str, args: str) -> dict:
         if cmd in ("set_demod", "set_demodulator"):
             name = args.strip().upper()
+            if name in DEMOD_PROVIDERS:
+                self.select_demod(name)
+                return {"status": "ok", "demod": name, "id": -1}
             try:
                 did = DEMOD_IDS[name] if name in DEMOD_IDS else int(args)
                 self.select_demod(did)
@@ -321,9 +352,10 @@ class RadioModuleInstance(ModuleInstance):
         if cmd == "get_demod":
             return {"demod": self.radio.demod_name, "id": self.demod_id}
         if cmd == "list_demods":
-            return {"radio": self.name,
-                    "demods": [{"name": n, "id": i}
-                               for i, n in enumerate(DEMOD_NAMES)]}
+            demods = [{"name": n, "id": i}
+                      for i, n in enumerate(DEMOD_NAMES)]
+            demods += [{"name": n, "id": -1} for n in sorted(DEMOD_PROVIDERS)]
+            return {"radio": self.name, "demods": demods}
         if cmd == "get_vfo_bandwidth":
             lo, hi = DEMOD_BW_LIMITS.get(
                 self.demod_id, (0.0, self.radio.if_rate))
@@ -357,9 +389,10 @@ class RadioModuleInstance(ModuleInstance):
             self._build(self.demod_id, self.bandwidth)
             return {"status": "ok", cmd[4:]: on}
         if cmd == "set_rds":
-            if args.strip().lower() in ("1", "true", "on"):
-                return {"error": "RDS is not ported yet"}
-            return {"status": "ok", "rds": False}
+            # the JAX app rebuilds the radio from a fresh state
+            self.rds_enabled = args.strip().lower() in ("1", "true", "on")
+            self._build(self.demod_id, self.bandwidth)
+            return {"status": "ok", "rds": self.rds_enabled}
         if cmd == "set_volume":
             try:
                 self.volume = float(args)
@@ -373,7 +406,9 @@ class RadioModuleInstance(ModuleInstance):
         if cmd == "get_afnr":
             return {"afnr": self.afnr_mode}
         if cmd == "get_rds":
-            return {"error": "rds not enabled"}
+            if self.rds_decoder is None:
+                return {"error": "rds not enabled"}
+            return self.rds_decoder.status()
         if cmd == "get_snr":
             snr = self.app.vfo_snr(self.name)
             return {"snr": snr if snr is not None else -1.0}
@@ -769,6 +804,9 @@ class SDRApp:
                             continue
                         # the baseband stays on the device between radios
                         y, m.state = m.radio.apply(m.params, m.state, bb)
+                        if isinstance(y, tuple):
+                            y, rds_bb = y
+                            m.rds_step(rds_bb)
                     audio = y.cpu().numpy()
                     m.level_meter.push(audio)
                     if m.afnr is not None:

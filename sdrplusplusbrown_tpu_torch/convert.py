@@ -22,6 +22,8 @@ import torch
 
 
 def _from(tree, device):
+    if tree is None:                 # a stateless block's state
+        return None
     if isinstance(tree, dict):
         return {k: _from(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -42,6 +44,8 @@ def state_from_jax(tree, *, device):
 def state_to_jax(tree):
     """The port's state (or params) tree → numpy arrays (what the JAX
     package's blocks take)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: state_to_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

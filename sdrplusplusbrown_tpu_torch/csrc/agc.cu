@@ -40,9 +40,20 @@
 // multiply-add; IEEE divisions), as the plain version's torch ops do, so
 // the output and the state are the bits of the one-thread-a-row kernel
 // this replaces.
+//
+// The complex form (sdr_agc_cplx_rows: the AM carrier AGC, RDSDemod's
+// AGC) is the same kernel on complex64 rows: each lane's hypotf of its
+// sample, computed where the real form loads x, is what the chain walks,
+// and the output warp scales both planes.  The real form's arithmetic is
+// unchanged.  Both forms take ``clk`` (null on the served path): the
+// chain warp's cycles and nanoseconds a row (sdr::ChainClock), the
+// chain's measured cost a step.
 #include <cfloat>
+#include <type_traits>
 
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -85,34 +96,53 @@ __device__ __forceinline__ float walk(float amp, const float (&xs)[32],
   return amp;
 }
 
-// grid R, 64 threads: warp 0 the chain, warp 1 the outputs.
+// The chain's input at sample i of a row: |x| (hypotf of the planes for
+// complex x, K12's complex form; the real form walks fabsf of x itself).
+template <bool CPLX>
+__device__ __forceinline__ float chain_in(const float* xr, int i) {
+  if constexpr (CPLX) {
+    const float2 v = reinterpret_cast<const float2*>(xr)[i];
+    return hypotf(v.x, v.y);
+  } else {
+    return xr[i];
+  }
+}
+
+// grid R, 64 threads: warp 0 the chain, warp 1 the outputs.  CPLX: x and
+// y are complex64 rows (interleaved), the chain walks |x| and the gain
+// and ramp scale both planes.
+template <bool CPLX>
 __global__ void __launch_bounds__(64)
     agc_rows_kernel(const float* __restrict__ x, int T,
                     const float* __restrict__ amp_in,
                     const int* __restrict__ env_in, int frozen, float atk,
                     float one_atk, float dec, float one_dec, float sp,
                     float mg, int env_len, float* __restrict__ y,
-                    float* __restrict__ amp_out, int* __restrict__ env_out) {
+                    float* __restrict__ amp_out, int* __restrict__ env_out,
+                    unsigned long long* __restrict__ clk) {
   __shared__ __align__(16) float ring[SLOTS][32];
   const int r = blockIdx.x;
   const int lane = threadIdx.x & 31;
-  const float* xr = x + static_cast<long>(r) * T;
+  const float* xr = x + static_cast<long>(r) * T * (CPLX ? 2 : 1);
   const int nb = (T + 31) / 32;
   if (threadIdx.x < 32) {
     // ---- the chain ------------------------------------------------------
     float amp = amp_in[r];
+    sdr::ChainClock cc(clk);
     if (!frozen) {
+      cc.start();
       // batch b: every lane's copy of its 32 samples (xs) and this lane's
       // (xv); own and nxt, this lane's of batches b + 1 and b + 2
-      float own = lane < T ? xr[lane] : 0.f;
-      float nxt = 32 + lane < T ? xr[32 + lane] : 0.f;
+      float own = lane < T ? chain_in<CPLX>(xr, lane) : 0.f;
+      float nxt = 32 + lane < T ? chain_in<CPLX>(xr, 32 + lane) : 0.f;
       float xs[32];
 #pragma unroll
       for (int k = 0; k < 32; ++k) xs[k] = __shfl_sync(FULL, own, k);
       float xv = own;
       for (int b = 0; b < nb; ++b) {
         own = nxt;
-        nxt = 32 * b + 64 + lane < T ? xr[32 * b + 64 + lane] : 0.f;
+        nxt = 32 * b + 64 + lane < T ? chain_in<CPLX>(xr, 32 * b + 64 + lane)
+                                     : 0.f;
         float xn[32], h[32];
         if (__all_sync(FULL, fabsf(xv) >= FLT_MIN))
           amp = walk<false>(amp, xs, xn, own, h, atk, one_atk, dec, one_dec);
@@ -132,11 +162,13 @@ __global__ void __launch_bounds__(64)
         for (int k = 0; k < 32; ++k) xs[k] = xn[k];
         xv = own;
       }
+      cc.stop();
       // match the output warp's last free signals: no barrier left open
       for (int b = nb > SLOTS ? nb : SLOTS; b < nb + SLOTS; ++b)
         wait(free_bar(b % SLOTS));
     }
     if (lane == 0) {
+      cc.write(r);
       amp_out[r] = amp;
       const long e = static_cast<long>(env_in[r]) + T;
       env_out[r] = static_cast<int>(e < (1L << 30) ? e : (1L << 30));
@@ -144,19 +176,28 @@ __global__ void __launch_bounds__(64)
     return;
   }
   // ---- the outputs ----------------------------------------------------
-  float* yr = y + static_cast<long>(r) * T;
+  float* yr = y + static_cast<long>(r) * T * (CPLX ? 2 : 1);
   const int env0 = env_in[r];
   const float len = static_cast<float>(env_len);
-  float xn = lane < T ? xr[lane] : 0.f;
+  using V = typename std::conditional<CPLX, float2, float>::type;
+  const V* xv_row = reinterpret_cast<const V*>(xr);
+  V* yv_row = reinterpret_cast<V*>(yr);
+  V xn = lane < T ? xv_row[lane] : V{};
   for (int b = 0; b < nb; ++b) {
     const int s0 = 32 * b, n = s0 + lane;
-    const float xv = xn;
-    xn = n + 32 < T ? xr[n + 32] : 0.f;
+    const V xv = xn;
+    xn = n + 32 < T ? xv_row[n + 32] : V{};
+    float ia;
+    if constexpr (CPLX) {
+      ia = hypotf(xv.x, xv.y);
+    } else {
+      ia = fabsf(xv);
+    }
     float a = -1.f;    // the envelope after this lane's sample, -1: held
     if (!frozen) {
       const int s = b % SLOTS;
       wait(full_bar(s));
-      if (fabsf(xv) >= FLT_MIN) a = ring[s][lane];
+      if (ia >= FLT_MIN) a = ring[s][lane];
       arrive(free_bar(s));
     }
     if (n < T) {
@@ -166,7 +207,12 @@ __global__ void __launch_bounds__(64)
           env0 + s0 >= env_len
               ? 1.f
               : fminf(__fdiv_rn(__int2float_rn(env0 + n), len), 1.f);
-      yr[n] = __fmul_rn(__fmul_rn(xv, gain), ramp);
+      if constexpr (CPLX) {
+        yv_row[n] = make_float2(__fmul_rn(__fmul_rn(xv.x, gain), ramp),
+                                __fmul_rn(__fmul_rn(xv.y, gain), ramp));
+      } else {
+        yv_row[n] = __fmul_rn(__fmul_rn(xv, gain), ramp);
+      }
     }
   }
 }
@@ -176,15 +222,34 @@ __global__ void __launch_bounds__(64)
 // x, y [R, T] float32; amp [R] float32; env [R] int32 (in and out).  The
 // envelope is never negative (it starts at set_point / init_gain and
 // each update is a convex sum of non-negative values), so -1 marks a held
-// sample.  One block of two warps a row.
+// sample.  One block of two warps a row.  clk null, or [R, 2] uint64 for
+// the chain warp's clock (sdr::ChainClock).
 extern "C" int sdr_agc_rows(const float* x, int R, int T, const float* amp,
                             const int* env, int frozen, float atk,
                             float one_atk, float dec, float one_dec, float sp,
                             float mg, int env_len, float* y, float* amp_out,
-                            int* env_out, cudaStream_t stream) {
+                            int* env_out, unsigned long long* clk,
+                            cudaStream_t stream) {
   if (R < 1 || T < 1 || env_len < 1) return cudaErrorInvalidValue;
-  agc_rows_kernel<<<R, 64, 0, stream>>>(x, T, amp, env, frozen, atk, one_atk,
-                                        dec, one_dec, sp, mg, env_len, y,
-                                        amp_out, env_out);
+  agc_rows_kernel<false><<<R, 64, 0, stream>>>(
+      x, T, amp, env, frozen, atk, one_atk, dec, one_dec, sp, mg, env_len, y,
+      amp_out, env_out, clk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12's complex form: x, y [R, T] complex64 (interleaved), the rest as
+// sdr_agc_rows.  The chain walks hypotf(re, im); both planes get the gain
+// and the ramp (the AM carrier AGC, RDSDemod's AGC).
+extern "C" int sdr_agc_cplx_rows(const float* x, int R, int T,
+                                 const float* amp, const int* env, int frozen,
+                                 float atk, float one_atk, float dec,
+                                 float one_dec, float sp, float mg,
+                                 int env_len, float* y, float* amp_out,
+                                 int* env_out, unsigned long long* clk,
+                                 cudaStream_t stream) {
+  if (R < 1 || T < 1 || env_len < 1) return cudaErrorInvalidValue;
+  agc_rows_kernel<true><<<R, 64, 0, stream>>>(
+      x, T, amp, env, frozen, atk, one_atk, dec, one_dec, sp, mg, env_len, y,
+      amp_out, env_out, clk);
   return static_cast<int>(cudaGetLastError());
 }

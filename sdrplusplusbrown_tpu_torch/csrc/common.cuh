@@ -25,6 +25,41 @@ __device__ __forceinline__ void st(void* p, long i, float v, int bf16) {
   }
 }
 
+// The global timer, nanoseconds.
+__device__ __forceinline__ unsigned long long ns_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)::"memory");
+  return t;
+}
+
+// A sequential kernel's chain clock (K12, K13): the SM cycles (clock64)
+// and nanoseconds (globaltimer) of the chain's walks between start() and
+// stop(), summed, written to clk[2 r], clk[2 r + 1] where clk is not null
+// (it is null on the served path).
+struct ChainClock {
+  unsigned long long* clk;
+  unsigned long long c0 = 0, t0 = 0, cycles = 0, ns = 0;
+  __device__ explicit ChainClock(unsigned long long* p) : clk(p) {}
+  __device__ __forceinline__ void start() {
+    if (clk) {
+      t0 = ns_now();
+      c0 = clock64();
+    }
+  }
+  __device__ __forceinline__ void stop() {
+    if (clk) {
+      cycles += clock64() - c0;
+      ns += ns_now() - t0;
+    }
+  }
+  __device__ __forceinline__ void write(int r) const {
+    if (clk) {
+      clk[2 * r] = cycles;
+      clk[2 * r + 1] = ns;
+    }
+  }
+};
+
 // Opt ``kernel`` in to ``bytes`` of dynamic shared memory: a launch above
 // the default 48 KB needs it (the H100 allows up to 227 KB a block).
 template <typename Kernel>

@@ -66,7 +66,14 @@ SIGNATURES = {
     "sdr_fused_mix": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                       _P, _I, _I, _I],
     "sdr_agc_rows": [_P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I,
-                     _P, _P, _P],
+                     _P, _P, _P, _P],
+    "sdr_agc_cplx_rows": [_P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F,
+                          _I, _P, _P, _P, _P],
+    "sdr_pll_rows": [_P, _I, _I, _P, _P, _F, _F, _F, _F, _P, _P, _P, _P],
+    "sdr_costas_rows": [_P, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _P, _P,
+                        _P, _P],
+    "sdr_mm_rows": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                    _F, _P, _P, _P, _P, _P, _P],
 }
 
 #: what the last build did (for chip_smoke.py's report)
@@ -169,6 +176,16 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} "
                            f"({so.sdr_error_string(rc).decode()})")
     _LAUNCHED[0] += 1
+
+
+def chain_clock(clk, rows: int, device) -> int | None:
+    """The ``clk`` argument of a sequential kernel (K12, K13): None (the
+    served path: the kernel reads no clock), or an int64 [rows, 2] CUDA
+    tensor that the kernel fills with its chain's SM cycles and
+    nanoseconds a row (csrc/common.cuh:ChainClock)."""
+    if clk is None:
+        return None
+    return check(clk, "chain clock", torch.int64, (rows, 2), device)
 
 
 def check(t: torch.Tensor, what: str, dtype, shape=None, device=None):

@@ -2,7 +2,9 @@
 of sdrplusplusbrown_tpu/ops/agc.py).
 
 The reference's attack/decay envelope follower (loop/agc.h:85-139), per
-row of a [..., T] float32 block:
+row of a [..., T] float32 or complex64 block (|x| is hypot(re, im) for a
+complex block — the AM carrier AGC, RDSDemod's AGC — and the gain and
+ramp scale both planes: K12's complex form):
 
     amp  ← amp·(1−attack) + |x|·attack   where |x| > amp, else the same
            with ``decay``; held where x is 0 (or subnormal) or ``frozen``
@@ -11,12 +13,13 @@ row of a [..., T] float32 block:
 
 The envelope's coefficient switches on a comparison with its own output,
 so no associative scan computes it: the JAX package runs a ``lax.scan``;
-the port runs K12 (csrc/agc.cu: a block per row, one thread walking the
-envelope, the gains computed in parallel after it) on a CUDA tensor and ``agc_rows_ref``, the same per-sample loop, on a CPU
-tensor.  Both round each operation on its own; XLA:CPU contracts the
-update into a fused multiply-add (which product it fuses depends on the
-scan's unrolled copy), so the two packages' ``amp`` differ by an ulp at
-some steps.  A subnormal sample counts as zero (the envelope is held), as
+the port runs K12 (csrc/agc.cu: a block of two warps a row, one walking
+the envelope, one computing the gains and writing the outputs) on a CUDA
+tensor and ``agc_rows_ref``, the same per-sample loop, on a CPU tensor.
+Both round each operation on its own; XLA:CPU contracts the update into
+a fused multiply-add (which product it fuses depends on the scan's
+unrolled copy), so the two packages' ``amp`` differ by an ulp at some
+steps.  A subnormal sample counts as zero (the envelope is held), as
 on the TPU and XLA:CPU, which flush subnormals: the IF of a cold start
 rises through them, and each sample held or not moves ``amp`` by a
 factor 1 − decay.
@@ -56,21 +59,22 @@ def _coefs(agc) -> tuple:
 
 
 def _check(x, amp, env):
-    if x.dtype != torch.float32 or x.dim() != 2:
+    if x.dtype not in (torch.float32, torch.complex64) or x.dim() != 2:
         raise ValueError(f"AGC rows: {tuple(x.shape)} {x.dtype}, expected "
-                         f"float32 [rows, T]")
+                         f"float32 or complex64 [rows, T]")
     if amp.shape != (x.shape[0],) or amp.dtype != torch.float32 or \
             env.shape != (x.shape[0],) or env.dtype != torch.int32:
         raise ValueError("AGC state: amp float32 [rows], env int32 [rows]")
 
 
 def agc_rows_ref(agc, x, amp, env, frozen: bool):
-    """Plain PyTorch K12: (y [R, T], amp' [R], env' [R])."""
+    """Plain PyTorch K12, both forms: (y [R, T] of x's dtype, amp' [R],
+    env' [R])."""
     _check(x, amp, env)
     atk, one_atk, dec, one_dec, sp, mg = _coefs(agc)
     T = x.shape[1]
-    ia = x.abs()
-    gains = torch.ones_like(x)
+    ia = torch.hypot(x.real, x.imag) if x.is_complex() else x.abs()
+    gains = torch.ones_like(ia)
     a = amp.clone()
     if not frozen:
         for t in range(T):
@@ -83,12 +87,14 @@ def agc_rows_ref(agc, x, amp, env, frozen: bool):
                                       torch.ones_like(a))
     n = env[:, None] + torch.arange(T, dtype=torch.int32, device=x.device)
     ramp = torch.clamp(n.float() / float(ENVELOPE_LEN), max=1.0)
-    return (x * gains) * ramp, a, torch.clamp(env + T, max=ENV_MAX)
+    env = torch.clamp(env + T, max=ENV_MAX)
+    if x.is_complex():
+        return torch.complex((x.real * gains) * ramp,
+                             (x.imag * gains) * ramp), a, env
+    return (x * gains) * ramp, a, env
 
 
-@_build.counted
-def agc_rows_kernel(agc, x, amp, env, frozen: bool):
-    """K12 on the card (csrc/agc.cu); same contract as ``agc_rows_ref``."""
+def _launch(entry, agc, x, amp, env, frozen: bool, clk):
     dev = x.device
     _check(x, amp, env)
     R, T = x.shape
@@ -97,19 +103,40 @@ def agc_rows_kernel(agc, x, amp, env, frozen: bool):
     env_out = torch.empty_like(env)
     atk, one_atk, dec, one_dec, sp, mg = _coefs(agc)
     _build.launch(
-        "sdr_agc_rows", dev, _build.check(x, "AGC input", torch.float32,
-                                          device=dev), R, T,
+        entry, dev, _build.check(x, "AGC input", x.dtype, device=dev), R, T,
         _build.check(amp, "AGC amp", torch.float32, (R,), dev),
         _build.check(env, "AGC env", torch.int32, (R,), dev),
         int(bool(frozen)), atk, one_atk, dec, one_dec, sp, mg, ENVELOPE_LEN,
-        y.data_ptr(), amp_out.data_ptr(), env_out.data_ptr())
+        y.data_ptr(), amp_out.data_ptr(), env_out.data_ptr(),
+        _build.chain_clock(clk, R, dev))
     return y, amp_out, env_out
 
 
+@_build.counted
+def agc_rows_kernel(agc, x, amp, env, frozen: bool, clk=None):
+    """K12 on the card (csrc/agc.cu), float32 rows; same contract as
+    ``agc_rows_ref``.  ``clk``: see ``_build.chain_clock``."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"K12: {x.dtype} rows, expected float32")
+    return _launch("sdr_agc_rows", agc, x, amp, env, frozen, clk)
+
+
+@_build.counted
+def agc_cplx_rows_kernel(agc, x, amp, env, frozen: bool, clk=None):
+    """K12's complex form on the card (csrc/agc.cu), complex64 rows; same
+    contract as ``agc_rows_ref``, its plain version too.  A wrapper of
+    its own so that its launches count apart from K12's real form."""
+    if x.dtype != torch.complex64:
+        raise ValueError(f"K12c: {x.dtype} rows, expected complex64")
+    return _launch("sdr_agc_cplx_rows", agc, x, amp, env, frozen, clk)
+
+
 def agc_rows(agc, x, amp, env, frozen: bool):
-    """K12 dispatch: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
-    fn = agc_rows_kernel if x.is_cuda else agc_rows_ref
+    """K12 dispatch: the kernel (its complex form for complex rows) for
+    CUDA tensors, the plain version for CPU tensors."""
+    if not x.is_cuda:
+        return agc_rows_ref(agc, x, amp, env, frozen)
+    fn = agc_cplx_rows_kernel if x.is_complex() else agc_rows_kernel
     return fn(agc, x, amp, env, frozen)
 
 
@@ -131,20 +158,18 @@ class AGC(Block):
                 "env": torch.zeros(batch_shape, dtype=torch.int32)}
 
     def apply(self, params, state, x):
-        """x: real float32 [..., T] → (y, new state).  ``frozen`` is read
-        on the host (a CUDA tensor there costs one copy per call; pass a
-        Python bool to avoid it)."""
+        """x: real or complex [..., T] → (y float32 or complex64, new
+        state).  ``frozen`` is read on the host (a CUDA tensor there costs
+        one copy per call; pass a Python bool to avoid it)."""
         if self.attack <= 0:        # reference agc.h:96-99: pass-through
             return x, state
-        if x.is_complex():
-            raise NotImplementedError("AGC on a complex block (the AM "
-                                      "carrier AGC) is not ported")
         frozen = bool(params["frozen"]) if params else False
         lead, T = x.shape[:-1], x.shape[-1]
         rows = math.prod(lead)
         dev = x.device
+        dt = torch.complex64 if x.is_complex() else torch.float32
         y, amp, env = agc_rows(
-            self, x.float().reshape(rows, T).contiguous(),
+            self, x.to(dt).reshape(rows, T).contiguous(),
             state["amp"].to(dev).reshape(rows).contiguous(),
             state["env"].to(dev).reshape(rows).contiguous(), frozen)
         return y.reshape(x.shape), {"amp": amp.reshape(lead),

@@ -1,0 +1,229 @@
+"""Mueller–Müller symbol timing recovery (counterpart of
+sdrplusplusbrown_tpu/ops/clock_recovery.py; reference
+dsp/clock_recovery/mm.h).
+
+Per output symbol an 8-tap polyphase-interpolated sample is taken at the
+loop's fractional position; the M&M timing error (real:
+step(y[n−1])·y[n] − y[n−1]·step(y[n]); complex: Re{(p0−p2)·conj(c1) −
+(c0−c2)·conj(p1)}) drives a second-order loop whose phase is the
+fractional sample position and whose frequency the samples-per-symbol
+estimate (clamped to ±omegaRelLimit).  As in the JAX package the loop
+runs a fixed ``max_out(T)`` steps and masks the tail: out (symbols,
+valid); a step past the block (offset >= T) is not valid and leaves the
+state as it was.
+
+The position advances by a floor of the loop's own output, so the loop
+is sequential: the JAX package runs a ``lax.scan``; the port runs kernel
+K13's M&M form (csrc/loops.cu: the bank and the row's [tail | x] staged
+in shared memory, one thread walking the loop) on a CUDA tensor and
+``mm_rows_ref``, the same loop vectorised over rows, on a CPU tensor.
+The interpolation sums its taps in ascending order, each product and sum
+rounded.  ``FDClockRecovery`` is not ported yet: it goes with the digital
+decoders.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from ..kernels import _build
+from ..runtime.block import Block, device_const
+from . import taps as taps_mod
+from .resampler import build_polyphase_bank
+
+_PC = ("p0", "p1", "p2", "c0", "c1", "c2")
+
+
+def _step(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x > 0.0, 1.0, -1.0)
+
+
+def _coefs(mm) -> tuple:
+    """(α, β, ω·(1 − rel), ω·(1 + rel)) as float32 values."""
+    f = np.float32
+    return tuple(float(f(v)) for v in (
+        mm.mu_gain, mm.omega_gain, mm.omega * (1.0 - mm.rel),
+        mm.omega * (1.0 + mm.rel)))
+
+
+def _check(mm, x, state):
+    want = torch.complex64 if mm.complex_data else torch.float32
+    if x.dtype != want or x.dim() != 2:
+        raise ValueError(f"M&M rows: {tuple(x.shape)} {x.dtype}, expected "
+                         f"{want} [rows, T]")
+    R = x.shape[0]
+    if state["tail"].shape != (R, mm.K - 1) or state["tail"].dtype != want:
+        raise ValueError(f"M&M tail: {tuple(state['tail'].shape)}, "
+                         f"expected [{R}, {mm.K - 1}] {want}")
+    if state["offset"].shape != (R,) or state["offset"].dtype != torch.int32:
+        raise ValueError("M&M offset: int32 [rows]")
+
+
+def _interp(win: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Σ_k win[:, k]·taps[:, k] in ascending k, each operation rounded."""
+    acc = win[:, 0] * taps[:, 0]
+    for k in range(1, win.shape[1]):
+        acc = acc + win[:, k] * taps[:, k]
+    return acc
+
+
+def mm_rows_ref(mm, x, state):
+    """Plain PyTorch K13 (M&M form): x [R, T] (float32, or complex64 for
+    ``complex_data``) and a state dict of [R] leaves (tail [R, K − 1]) →
+    ((symbols [R, n_out] of x's dtype, valid [R, n_out] bool), state')."""
+    _check(mm, x, state)
+    R, T = x.shape
+    n_out = mm.max_out(T)
+    alpha, beta, fmin, fmax = _coefs(mm)
+    bank = torch.from_numpy(mm.bank).to(x.device)
+    ext = torch.cat([state["tail"], x], dim=-1)
+    planes = (ext.real, ext.imag) if mm.complex_data else (ext,)
+    idx = torch.arange(mm.K, device=x.device)
+    st = {k: v.clone() for k, v in state.items() if k != "tail"}
+    outs = [torch.empty(R, n_out, dtype=torch.float32, device=x.device)
+            for _ in planes]
+    valids = torch.empty(R, n_out, dtype=torch.bool, device=x.device)
+    for n in range(n_out):
+        off = st["offset"]
+        valid = off < T
+        ph_idx = torch.clamp((st["phase"] * float(mm.P)).to(torch.int32),
+                             0, mm.P - 1)
+        start = torch.clamp(off, 0, T - 1)
+        gidx = (start[:, None] + idx).long()
+        taps = bank[ph_idx.long()]
+        out = [_interp(torch.gather(p, 1, gidx), taps) for p in planes]
+        for o, v in zip(outs, out):
+            o[:, n] = v
+        valids[:, n] = valid
+        upd = {}
+        if mm.complex_data:
+            p0 = torch.complex(out[0], out[1])
+            c0 = torch.complex(_step(out[0]), _step(out[1]))
+            p1, p2 = st["p0"], st["p1"]
+            c1, c2 = st["c0"], st["c1"]
+            a, c = p0 - p2, c0 - c2
+            e1 = a.real * c1.real + a.imag * c1.imag
+            e2 = c.real * p1.real + c.imag * p1.imag
+            err = e1 - e2
+            upd = {"p0": p0, "p1": p1, "p2": p2, "c0": c0, "c1": c1,
+                   "c2": c2}
+        else:
+            last = st["last_out"]
+            err = _step(last) * out[0] - last * _step(out[0])
+            upd = {"last_out": out[0]}
+        err = torch.clamp(err, -1.0, 1.0)
+        freq = torch.clamp(st["freq"] + beta * err, fmin, fmax)
+        phase = (st["phase"] + freq) + alpha * err
+        delta = torch.floor(phase).to(torch.int32)
+        upd.update(freq=freq, phase=phase - delta.float(), offset=off + delta)
+        for k, v in upd.items():
+            st[k] = torch.where(valid, v, st[k])
+    st["offset"] = st["offset"] - T
+    st["tail"] = ext[:, ext.shape[-1] - (mm.K - 1):]
+    sym = outs[0] if not mm.complex_data else torch.complex(*outs)
+    return (sym, valids), st
+
+
+def _leaves(mm) -> tuple:
+    """The float state leaves in the kernel's order (csrc/loops.cu:MMState):
+    phase, freq, then last_out or p0 … c2."""
+    return ("phase", "freq") + (_PC if mm.complex_data else ("last_out",))
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+@_build.counted
+def mm_rows_kernel(mm, x, state, clk=None):
+    """K13's M&M form on the card (csrc/loops.cu); same contract as
+    ``mm_rows_ref``.  The state leaves go to the kernel as they are, each
+    by its pointer.  ``clk``: see ``_build.chain_clock``."""
+    dev = x.device
+    _check(mm, x, state)
+    R, T = x.shape
+    n_out = mm.max_out(T)
+    dt = x.dtype
+    tail = _build.check(state["tail"], "M&M tail", dt, (R, mm.K - 1), dev)
+    keys = _leaves(mm)
+    for k in keys:
+        _build.check(state[k], f"M&M {k}",
+                     torch.complex64 if k in _PC else torch.float32, (R,), dev)
+    sym = torch.empty(R, n_out, dtype=dt, device=dev)
+    valid = torch.empty(R, n_out, dtype=torch.bool, device=dev)
+    st = {k: torch.empty_like(state[k]) for k in keys}
+    st.update(tail=torch.empty_like(state["tail"]),
+              offset=torch.empty_like(state["offset"]))
+    bank = device_const(mm, "bank", mm.bank, dev)
+    _build.launch(
+        "sdr_mm_rows", dev, _build.check(x, "M&M input", dt, device=dev), R,
+        T, int(mm.complex_data), tail, _ptrs([state[k] for k in keys]),
+        _build.check(state["offset"], "M&M offset", torch.int32, (R,), dev),
+        bank.data_ptr(), mm.P, mm.K, n_out, *_coefs(mm), sym.data_ptr(),
+        valid.data_ptr(), st["tail"].data_ptr(), _ptrs([st[k] for k in keys]),
+        st["offset"].data_ptr(), _build.chain_clock(clk, R, dev))
+    return (sym, valid), st
+
+
+def mm_rows(mm, x, state):
+    """K13 (M&M form) dispatch: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    fn = mm_rows_kernel if x.is_cuda else mm_rows_ref
+    return fn(mm, x, state)
+
+
+class MMClockRecovery(Block):
+    def __init__(self, omega: float, omega_gain: float = 1e-6,
+                 mu_gain: float = 0.01, omega_rel_limit: float = 0.01,
+                 interp_phase_count: int = 128, interp_tap_count: int = 8,
+                 complex_data: bool = True):
+        self.omega = float(omega)              # samples per symbol
+        self.omega_gain = float(omega_gain)    # beta
+        self.mu_gain = float(mu_gain)          # alpha
+        self.rel = float(omega_rel_limit)
+        self.P = int(interp_phase_count)
+        self.K = int(interp_tap_count)
+        self.complex_data = complex_data
+        # reference generateInterpTaps (mm.h:175-180)
+        bw = 0.5 / self.P
+        proto = taps_mod.windowed_sinc(self.P * self.K,
+                                       2.0 * np.pi * bw, norm=self.P)
+        self.bank = build_polyphase_bank(self.P, proto).astype(np.float32)
+
+    def max_out(self, in_len: int) -> int:
+        return int(math.ceil(in_len / (self.omega * (1.0 - self.rel)))) + 2
+
+    def init_state(self, batch_shape=()):
+        dtype = torch.complex64 if self.complex_data else torch.float32
+        st = {
+            "tail": torch.zeros(batch_shape + (self.K - 1,), dtype=dtype),
+            "phase": torch.zeros(batch_shape, dtype=torch.float32),
+            "freq": torch.full(batch_shape, self.omega, dtype=torch.float32),
+            "offset": torch.zeros(batch_shape, dtype=torch.int32),
+        }
+        if self.complex_data:
+            for k in _PC:
+                st[k] = torch.zeros(batch_shape, dtype=torch.complex64)
+        else:
+            st["last_out"] = torch.zeros(batch_shape, dtype=torch.float32)
+        return st
+
+    def apply(self, params, state, x):
+        """x [..., T] → ((symbols [..., max_out(T)], valid), state').  The
+        JAX block takes one stream (batch ()); the port also takes rows."""
+        lead, T = x.shape[:-1], x.shape[-1]
+        rows = math.prod(lead)
+        dev = x.device
+        dt = torch.complex64 if self.complex_data else torch.float32
+        st = {k: v.to(dev).reshape((rows,) + v.shape[len(lead):])
+              .contiguous() for k, v in state.items()}
+        (sym, valid), st = mm_rows(
+            self, x.to(dt).reshape(rows, T).contiguous(), st)
+        n = sym.shape[-1]
+        return ((sym.reshape(lead + (n,)), valid.reshape(lead + (n,))),
+                {k: v.reshape(lead + v.shape[1:]) for k, v in st.items()})

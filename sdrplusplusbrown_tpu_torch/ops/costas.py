@@ -1,0 +1,135 @@
+"""Costas loops — carrier recovery for PSK (counterpart of
+sdrplusplusbrown_tpu/ops/costas.py; reference dsp/loop/costas.h).
+
+A PLL whose phase error comes from the derotated constellation, per
+sample:
+    out   = x · exp(−j·phase)
+    err   = clamp(detector(out), −1, 1): order 2 re·im; order 4
+            step(re)·im − step(im)·re; order 8 the (√2 − 1)-weighted form
+    freq  = clamp(freq + β·err, minFreq, maxFreq)
+    phase = normalizePhase(phase + freq + α·err)
+
+The rotor depends on the carried phase, so the loop is sequential: the
+JAX package runs a ``lax.scan``; the port runs kernel K13's Costas form
+(csrc/loops.cu, one thread a row walking the chain) on a CUDA tensor and
+``costas_rows_ref``, the same loop vectorised over rows, on a CPU tensor.
+A custom ``error_fn`` (the Meteor "broken modulation" detector) is a
+Python function of the derotated sample: the plain loop runs it on a CPU
+tensor, and on the card it raises, since K13 has no such form.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import _build
+from ..runtime.block import Block
+from .pll import (check_loop_rows, critically_damped, loop_coefs,
+                  loop_rows, loop_update)
+
+K8 = float(np.float32(np.sqrt(2.0) - 1.0))
+
+
+def _step(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x > 0.0, 1.0, -1.0)
+
+
+def costas_error(order: int, re: torch.Tensor,
+                 im: torch.Tensor) -> torch.Tensor:
+    """The order-``order`` phase detector on the derotated (re, im),
+    clamped to [−1, 1], each operation rounded."""
+    if order == 2:
+        err = re * im
+    elif order == 4:
+        err = _step(re) * im - _step(im) * re
+    elif order == 8:
+        hi = _step(re) * im - (_step(im) * re) * K8
+        lo = (_step(re) * im) * K8 - _step(im) * re
+        err = torch.where(re.abs() >= im.abs(), hi, lo)
+    else:
+        raise ValueError(f"invalid costas order {order}")
+    return torch.clamp(err, -1.0, 1.0)
+
+
+def costas_rows_ref(costas, x, phase, freq):
+    """Plain PyTorch K13 (Costas form): x complex64 [R, T] → (out [R, T]
+    complex64, phase' [R], freq' [R])."""
+    check_loop_rows(x, phase, freq, "Costas")
+    coefs = loop_coefs(costas)
+    xr, xi = x.real, x.imag
+    out_r, out_i = torch.empty_like(xr), torch.empty_like(xi)
+    ph, fr = phase.clone(), freq.clone()
+    for t in range(x.shape[1]):
+        c, s = torch.cos(-ph), torch.sin(-ph)
+        o_r = xr[:, t] * c - xi[:, t] * s
+        o_i = xr[:, t] * s + xi[:, t] * c
+        out_r[:, t], out_i[:, t] = o_r, o_i
+        if costas.error_fn is None:
+            err = costas_error(costas.order, o_r, o_i)
+        else:
+            err = torch.clamp(costas.error_fn(torch.complex(o_r, o_i)),
+                              -1.0, 1.0)
+        ph, fr = loop_update(ph, fr, err, coefs)
+    return torch.complex(out_r, out_i), ph, fr
+
+
+@_build.counted
+def costas_rows_kernel(costas, x, phase, freq, clk=None):
+    """K13's Costas form on the card (csrc/loops.cu); same contract as
+    ``costas_rows_ref``.  ``clk``: see ``_build.chain_clock``."""
+    if costas.error_fn is not None:
+        raise NotImplementedError("a Costas loop with a custom error_fn "
+                                  "has no kernel form")
+    dev = x.device
+    check_loop_rows(x, phase, freq, "Costas")
+    R, T = x.shape
+    y = torch.empty_like(x)
+    ph_out, fr_out = torch.empty_like(phase), torch.empty_like(freq)
+    _build.launch(
+        "sdr_costas_rows", dev,
+        _build.check(x, "Costas input", torch.complex64, device=dev), R, T,
+        costas.order,
+        _build.check(phase, "Costas phase", torch.float32, (R,), dev),
+        _build.check(freq, "Costas freq", torch.float32, (R,), dev),
+        *loop_coefs(costas), K8, y.data_ptr(), ph_out.data_ptr(),
+        fr_out.data_ptr(), _build.chain_clock(clk, R, dev))
+    return y, ph_out, fr_out
+
+
+def costas_rows(costas, x, phase, freq):
+    """K13 (Costas form) dispatch: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    fn = costas_rows_kernel if x.is_cuda else costas_rows_ref
+    return fn(costas, x, phase, freq)
+
+
+class Costas(Block):
+    def __init__(self, order: int, bandwidth: float,
+                 init_phase: float = 0.0, init_freq: float = 0.0,
+                 min_freq: float = -np.pi, max_freq: float = np.pi,
+                 error_fn=None):
+        """``error_fn(v) -> err`` replaces the order's phase detector (v
+        the derotated complex sample, [rows])."""
+        if order not in (2, 4, 8):
+            raise ValueError(f"invalid costas order {order}")
+        self.order = order
+        self.error_fn = error_fn
+        self.alpha, self.beta = critically_damped(bandwidth)
+        self.init_phase = float(init_phase)
+        self.init_freq = float(init_freq)
+        self.min_freq = float(min_freq)
+        self.max_freq = float(max_freq)
+
+    def init_state(self, batch_shape=()):
+        return {"phase": torch.full(batch_shape, self.init_phase,
+                                    dtype=torch.float32),
+                "freq": torch.full(batch_shape, self.init_freq,
+                                   dtype=torch.float32)}
+
+    def apply(self, params, state, x):
+        """x: complex [..., T] → (derotated [..., T] complex64, state')."""
+        xr, ph, fr, lead = loop_rows(x, state)
+        y, ph, fr = costas_rows(self, xr, ph, fr)
+        return y.reshape(x.shape), {"phase": ph.reshape(lead),
+                                    "freq": fr.reshape(lead)}

@@ -10,10 +10,14 @@ sdrplusplusbrown_tpu/ops/recurrence.py).
   * ``NoiseBlanker`` — the IF chain's amplitude-ratio limiter against a
     running-average envelope (reference noise_reduction/noise_blanker.h),
     on that recurrence;
-  * ``Deemphasis`` — the 1-pole de-emphasis in its truncated-exponential
-    FIR form, which ``Radio`` folds into the WFM audio polyphase
-    resampler (ops/resampler.py:fold_output_fir).  The standalone
-    recurrence form is not ported.
+  * ``Deemphasis`` — the 1-pole de-emphasis y[n] = α·x[n] + (1−α)·y[n−1]
+    (reference filter/deephasis.h).  ``Radio`` folds its
+    truncated-exponential FIR form into the WFM audio polyphase resampler
+    (ops/resampler.py:fold_output_fir); standalone (a mono demod's AF
+    chain, or a WFM audio rate the resampler cannot fold into), ``apply``
+    runs that FIR on kernel K8 with the carried y[−1] as the head term
+    r^(n+1)·y[−1], or, for a pole slower than the 512-tap horizon, the
+    recurrence on ``linear_recurrence``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..runtime.block import Block
+from ..runtime.block import Block, device_const
+from .fir import RealFIR
 
 
 def _combine(left, right):
@@ -131,6 +136,9 @@ class Deemphasis(Block):
         # horizon: r^K < 2^-27 (an lsb-level tail on fp32 audio)
         K = int(np.ceil(-27.0 * np.log(2.0) / np.log(r))) if r > 0.0 else 1
         self.fir_k = K if K <= self._FIR_KMAX else 0
+        if self.fir_k:
+            # correlate() convention: out[i] = Σ_k ext[i+k]·taps[k]
+            self.fir = RealFIR(self.impulse()[::-1].astype(np.float32))
 
     def impulse(self) -> np.ndarray:
         """Causal impulse response h[j] = α·(1−α)^j, length fir_k."""
@@ -142,3 +150,28 @@ class Deemphasis(Block):
 
     def init_state(self, batch_shape=()):
         return torch.zeros(batch_shape, dtype=torch.float32)
+
+    def _head_pow(self, T: int) -> np.ndarray:
+        r = 1.0 - self.alpha
+        pw = np.zeros(T, np.float32)
+        n = min(self.fir_k, T)
+        pw[:n] = np.power(np.float64(r), np.arange(1, n + 1))
+        return pw
+
+    def apply(self, params, state, x):
+        """x: float32 [..., T] → (y, y[..., −1]).  The FIR form starts
+        from zero history and adds the carried output's decay
+        r^(n+1)·y[−1] over the first fir_k samples (the JAX package's
+        form, op for op)."""
+        state = state.to(x.device)
+        if not self.fir_k:
+            y = linear_recurrence(float(np.float32(1.0 - self.alpha)),
+                                  x * float(np.float32(self.alpha)), state)
+            return y, y[..., -1]
+        T = x.shape[-1]
+        zero = x.new_zeros(x.shape[:-1] + (self.fir_k - 1,))
+        y, _ = self.fir.apply(None, zero, x)
+        head = device_const(self, f"head{T}", lambda: self._head_pow(T),
+                            x.device)
+        y = y + head * state[..., None]
+        return y, y[..., -1]

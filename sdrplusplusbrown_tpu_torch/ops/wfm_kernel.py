@@ -50,10 +50,10 @@ class WFMDemodPipeline:
     """K2 configuration built from a BroadcastFM demod."""
 
     def __init__(self, dem):
-        if (dem.pll_mode != "normalize" or not dem.stereo or dem.rds_out
-                or not dem.mpx_stages):
+        if dem.pll_mode != "normalize" or not dem.stereo \
+                or not dem.mpx_stages:
             raise NotImplementedError(
-                "WFM kernel: stereo, normalize pilot, no RDS only")
+                "WFM kernel: stereo, normalize pilot only")
         self.inv_dev = float(dem.quad.inv_deviation)
         self.K = int(len(dem.pilot_taps))
         self.d = int(dem.lpr_delay.delay)

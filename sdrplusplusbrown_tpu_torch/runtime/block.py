@@ -64,7 +64,10 @@ def entry_device(device) -> torch.device:
 
 def to_device(tree, device: torch.device):
     """A dict/list tree of tensors moved to ``device`` (at init and
-    retune time only, never per step)."""
+    retune time only, never per step); a None leaf (a stateless block's
+    state) stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

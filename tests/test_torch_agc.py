@@ -83,11 +83,19 @@ def test_agc_matches_jax(batch):
 
 
 def test_agc_unported_forms_raise():
-    with pytest.raises(NotImplementedError):
-        agc.AGC().apply(None, agc.AGC().init_state((2,)),
-                        torch.ones(2, 8, dtype=torch.complex64))
-    with pytest.raises(NotImplementedError):
-        demod.AMDemod(15e3, carrier_agc=True)
+    """The AGC's other forms run: a complex block (K12's complex form:
+    the envelope of |x|, the gain on both planes) and the AM carrier
+    AGC; ``fast_agc`` is one rate."""
+    a = agc.AGC()
+    x = torch.ones(2, 8, dtype=torch.complex64) * (0.6 + 0.8j)
+    y, st = a.apply(None, a.init_state((2,)), x)
+    assert y.dtype == torch.complex64 and y.shape == (2, 8)
+    # |x| = 1 = the set point: gain 1, the ramp alone scales both planes
+    ramp = torch.arange(8, dtype=torch.float32) / 4800.0
+    torch.testing.assert_close(y, x * ramp, rtol=0, atol=0)
+    assert st["env"].tolist() == [8, 8]
+    am = demod.AMDemod(15e3, carrier_agc=True)
+    assert am.carrier_agc
     fa = agc.fast_agc()
     assert fa.attack == fa.decay == 0.1
 

@@ -1362,3 +1362,195 @@ def test_served_app_matches_cpu(gpu, handoff, tmp_path, monkeypatch):
             else:
                 assert snr_db(want, got) >= bar, (b, r, snr_db(want, got))
         assert_spectra_close(runs["cpu"]["lines"][b], runs[gpu]["lines"][b])
+
+
+# ---- K13 (the sequential loops) and K12's complex form --------------------
+
+def _loop_input(rng, R, T, w0=0.3, noise=0.1):
+    k = np.arange(T)
+    x = np.exp(1j * (w0 * k[None] + rng.uniform(0, 6, (R, 1))
+                     + 0.4 * np.sin(2 * np.pi * k[None] / 700.0)))
+    x = x + noise * (rng.standard_normal((R, T))
+                     + 1j * rng.standard_normal((R, T)))
+    return torch.from_numpy(x.astype(np.complex64))
+
+
+def _exact(got, want, what):
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(g, dict):
+            for k in w:
+                assert torch.equal(g[k], w[k]), (what, k)
+        elif isinstance(g, (tuple, list)):
+            _exact(g, w, f"{what}[{i}]")
+        else:
+            assert torch.equal(g, w), (what, i, (g.float() - w.float())
+                                       .abs().max() if g.shape == w.shape
+                                       else g.shape)
+
+
+@pytest.mark.parametrize("R,T", [(1, 6250), (8, 6250), (3, 37), (2, 4097)])
+def test_pll_kernel_matches_plain(gpu, R, T):
+    """K13's PLL form on the WFM pilot's shapes (one radio's 6 250-sample
+    MPX block, 8 rows; a tile and a partial one): the VCO and the state
+    bit-identical to the plain loop on the card."""
+    from sdrplusplusbrown_tpu_torch.ops import pll
+    blk = pll.PLL(0.2, init_freq=0.3, min_freq=0.296, max_freq=0.304)
+    rng = np.random.default_rng(R * T)
+    x = _loop_input(rng, R, T).to(gpu)
+    ph = torch.from_numpy(rng.uniform(-3, 3, R).astype(np.float32)).to(gpu)
+    fr = torch.full((R,), 0.3, dtype=torch.float32, device=gpu)
+    got = pll.pll_rows_kernel(blk, x, ph, fr)
+    want = pll.pll_rows_ref(blk, x, ph, fr)
+    torch.cuda.synchronize()
+    _exact(got, want, "K13 pll")
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("R,T", [(1, 250), (1, 2500), (3, 2500)])
+def test_costas_kernel_matches_plain(gpu, order, R, T):
+    """K13's Costas form at the RDS demod's block shapes (250 and 2 500
+    samples at 5 kS/s), every order: bit-identical to the plain loop."""
+    from sdrplusplusbrown_tpu_torch.ops import costas
+    blk = costas.Costas(order, 0.01, init_freq=1.49, min_freq=1.34,
+                        max_freq=1.64)
+    rng = np.random.default_rng(order * T + R)
+    x = _loop_input(rng, R, T, w0=1.5).to(gpu)
+    ph = torch.zeros(R, dtype=torch.float32, device=gpu)
+    fr = torch.full((R,), 1.49, dtype=torch.float32, device=gpu)
+    got = costas.costas_rows_kernel(blk, x, ph, fr)
+    want = costas.costas_rows_ref(blk, x, ph, fr)
+    torch.cuda.synchronize()
+    _exact(got, want, f"K13 costas {order}")
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("R,T", [(1, 250), (1, 2500), (3, 2500)])
+def test_mm_kernel_matches_plain(gpu, cplx, R, T):
+    """K13's M&M form at the RDS shapes (real; complex as well): symbols,
+    valid, the new tail, state and offset bit-identical to the plain
+    loop, from a carried state mid-stream (negative offset, history)."""
+    from sdrplusplusbrown_tpu_torch.ops import clock_recovery as cr
+    blk = cr.MMClockRecovery(5000.0 / 1187.5, 1e-6, 0.01, 0.01,
+                             complex_data=cplx)
+    rng = np.random.default_rng(T + cplx)
+    t = np.arange(T) / blk.omega
+    sym = np.sign(rng.standard_normal((R, int(t[-1]) + 2)))
+    x = np.stack([np.convolve(s[t.astype(int)], np.ones(5) / 5, "same")
+                  for s in sym]) + 0.05 * rng.standard_normal((R, T))
+    if cplx:
+        x = x + 1j * np.roll(x, 3, axis=-1)
+    dt = torch.complex64 if cplx else torch.float32
+    x = torch.from_numpy(x).to(dt).to(gpu)
+    st = _to(blk.init_state((R,)), gpu)
+    st["offset"] = torch.full((R,), -2, dtype=torch.int32, device=gpu)
+    st["phase"] = torch.full((R,), 0.37, dtype=torch.float32, device=gpu)
+    st["tail"] = (torch.randn(R, blk.K - 1, dtype=dt,
+                              generator=torch.Generator().manual_seed(T))
+                  .to(gpu))
+    got = cr.mm_rows_kernel(blk, x, st)
+    want = cr.mm_rows_ref(blk, x, st)
+    torch.cuda.synchronize()
+    assert got[0][1].sum() > T // 5
+    _exact(got, want, f"K13 mm cplx={cplx}")
+
+
+@pytest.mark.parametrize("R,T", [(1, 250), (4, 2400), (3, 33)])
+def test_agc_complex_kernel_matches_plain(gpu, R, T):
+    """K12's complex form at RDSDemod's [1, 250] and the AM carrier AGC's
+    [4, 2 400] (zeros, frozen, the ramp's end): the output >= 100 dB and
+    the state exact, as the real form."""
+    from sdrplusplusbrown_tpu_torch.ops import agc
+    rng = np.random.default_rng(R * T + 1)
+    blk = agc.AGC(attack=50 / 15e3, decay=5 / 15e3)
+    x = ((rng.standard_normal((R, T)) + 1j * rng.standard_normal((R, T)))
+         * np.linspace(0.01, 3, T)).astype(np.complex64)
+    x[:, T // 3:T // 3 + 5] = 0.0
+    amp = rng.uniform(0.01, 1.0, R).astype(np.float32)
+    env = rng.choice(np.array([0, 4000, 4799, 1 << 30], np.int32), R)
+    for frozen in (False, True):
+        args = (blk, torch.from_numpy(x).to(gpu), torch.from_numpy(amp)
+                .to(gpu), torch.from_numpy(env).to(gpu), frozen)
+        y, a, e = agc.agc_cplx_rows_kernel(*args)
+        yr, ar, er = agc.agc_rows_ref(*args)
+        torch.cuda.synchronize()
+        _close(yr, y, 100.0, f"K12c frozen={frozen}")
+        assert torch.equal(a, ar) and torch.equal(e, er)
+
+
+def test_loop_kernels_raise_instead_of_falling_back(gpu):
+    """On a CUDA tensor the loops launch K13 or raise: a custom Costas
+    detector has no kernel form, and a mistyped block is refused."""
+    from sdrplusplusbrown_tpu_torch.ops import agc, costas, pll
+    x = torch.ones(1, 16, dtype=torch.complex64, device=gpu)
+    z = torch.zeros(1, dtype=torch.float32, device=gpu)
+    blk = costas.Costas(2, 0.01, error_fn=lambda v: v.real)
+    with pytest.raises(NotImplementedError):
+        costas.costas_rows(blk, x, z, z)
+    with pytest.raises(ValueError):
+        pll.pll_rows(pll.PLL(0.1), x.real.contiguous(), z, z)
+    with pytest.raises(ValueError):
+        agc.agc_cplx_rows_kernel(agc.AGC(), x.real.contiguous(), z,
+                                 torch.zeros(1, dtype=torch.int32,
+                                             device=gpu), False)
+
+
+@pytest.mark.parametrize("form", ["pll", "costas", "mm", "agc_cplx"])
+def test_loop_kernels_chain_clock(gpu, form):
+    """With ``clk`` each sequential kernel fills every row's chain cycles
+    and nanoseconds (at least one cycle a step, at most the SM clock's
+    rate) and returns the same bits as without it."""
+    from sdrplusplusbrown_tpu_torch.ops import agc, clock_recovery, costas, pll
+    R, T = 2, 1000
+    rng = np.random.default_rng(7)
+    x = _loop_input(rng, R, T).to(gpu)
+    z = torch.zeros(R, dtype=torch.float32, device=gpu)
+    if form == "pll":
+        fn, args = pll.pll_rows_kernel, (pll.PLL(0.2, init_freq=0.3), x, z,
+                                         z + 0.3)
+    elif form == "costas":
+        fn, args = costas.costas_rows_kernel, (costas.Costas(2, 0.01), x, z,
+                                               z)
+    elif form == "mm":
+        blk = clock_recovery.MMClockRecovery(4.21, complex_data=True)
+        fn, args = (clock_recovery.mm_rows_kernel,
+                    (blk, x, _to(blk.init_state((R,)), gpu)))
+    else:
+        fn, args = agc.agc_cplx_rows_kernel, (
+            agc.AGC(), x, z + 0.5, torch.zeros(R, dtype=torch.int32,
+                                               device=gpu), False)
+    clk = torch.zeros(R, 2, dtype=torch.int64, device=gpu)
+    got, want = fn(*args, clk), fn(*args)
+    torch.cuda.synchronize()
+    _exact(got, want, f"{form} with its chain clock")
+    cycles, ns = clk[:, 0].cpu().numpy(), clk[:, 1].cpu().numpy()
+    steps = args[0].max_out(T) if form == "mm" else T
+    assert (cycles >= steps).all() and (ns > 0).all(), clk
+    assert (cycles / ns < 2.5).all(), clk       # GHz: below any SM clock
+
+
+@pytest.mark.parametrize("kw", [dict(pll_mode="scan"), dict(rds=True),
+                                dict(stereo=False)],
+                         ids=["scan", "rds", "mono"])
+def test_radio_forms_match_cpu(gpu, kw):
+    """Radio.apply in the per-stage WFM forms on the card (K13's PLL, the
+    RDS tap) against the same on the host CPU: audio (and the RDS
+    baseband) >= 80 dB after the first block's 20 ms of transient."""
+    from torch_parity import rds_fm_iq
+    fs = 2.4e6
+    radios = {d: Radio(fs, DEMOD_WFM, device=d, **kw) for d in ("cpu", gpu)}
+    B = radios["cpu"].in_multiple * max(1, round(0.05 * fs / radios[
+        "cpu"].in_multiple))
+    x = torch.from_numpy(rds_fm_iq(3 * B, fs, offset=-300e3, seed=8))
+    out = {}
+    for d, r in radios.items():
+        p, s, ys = r.make_params(-300e3), r.init_state(()), []
+        for b in range(3):
+            y, s = r.apply(p, s, x[b * B:(b + 1) * B])
+            ys.append(y if isinstance(y, tuple) else (y,))
+        out[d] = ys
+    for b in range(3):
+        for i, (want, got) in enumerate(zip(out["cpu"][b], out[gpu][b])):
+            skip = (960 if i == 0 else 100) if b == 0 else 0
+            _close(want[..., skip:], got[..., skip:], 80.0, (b, i))

@@ -11,12 +11,13 @@ the carrier, < 20 dB off it), get_spectrum, modules/streams/sinks,
 sink select.  The noise path is served: the audio NR (logmmse, omlsa),
 the noise blanker and the FM IF filter are accepted over the control
 plane and the radio still steps, and so is the IF NR from the config
-(``ifnr``) and through the ``ifnr/enabled`` proc entry.  And the
-refusals: what the port lacks answers "not ported yet" (RDS, the RAW
-demod, the network sink, --server, --rigctl, and in the config a
-transmitter, the other sources and module types), and without a CUDA
-device the entry point exits nonzero naming CUDA unless it is given
-``--device cpu``."""
+(``ifnr``) and through the ``ifnr/enabled`` proc entry.  RDS
+(``set_rds``, ``get_rds``, ``rds`` in the config) and the RAW demod are
+served.  And the refusals: what the port lacks answers "not ported yet"
+(the network sink, --server, --rigctl, and in the config a transmitter,
+the other sources and module types), and without a CUDA device the
+entry point exits nonzero naming CUDA unless it is given ``--device
+cpu``."""
 
 import glob
 import json
@@ -266,8 +267,6 @@ def test_sink_select_records(app):
 
 @pytest.mark.parametrize("cmd,args,error", [
     ("set_afnr", "bogus", "unknown afnr mode"),
-    ("set_rds", "1", "not ported yet"),
-    ("set_demod", "RAW", "not ported yet"),
     ("set_demod", "DMR", "unknown demod"),
     ("set_demod", "99", "unknown demod"),
 ])
@@ -277,6 +276,28 @@ def test_unported_commands_refused(app, cmd, args, error):
     assert error in r.get("error", ""), r
     assert app.module_cmd("Radio", "get_demod") == before
     assert app.pump_step(1)["stepped"] == 1        # the radio still runs
+
+
+@pytest.mark.parametrize("cmd,args,want", [
+    ("set_rds", "1", {"status": "ok", "rds": True}),
+    ("set_demod", "RAW", {"status": "ok", "demod": "RAW", "id": 7}),
+])
+def test_rds_and_raw_accepted(app, cmd, args, want):
+    """RDS and the RAW demod over the control plane: ``set_rds 1`` (on
+    this NFM radio the decoder stays off, as in the JAX app: RDS rides
+    WFM only) and ``set_demod RAW``; the radio steps, then goes back."""
+    assert app.module_cmd("Radio", cmd, args) == want
+    assert app.pump_step(1)["stepped"] == 1
+    if cmd == "set_rds":
+        assert app.module_cmd("Radio", "get_rds") == {
+            "error": "rds not enabled"}
+        assert app.module_cmd("Radio", "set_rds", "0") == {
+            "status": "ok", "rds": False}
+    else:
+        assert app.module_cmd("Radio", "get_demod") == {"demod": "RAW",
+                                                        "id": 7}
+        assert app.module_cmd("Radio", "set_demod", "NFM")["id"] == 0
+    assert app.pump_step(1)["stepped"] == 1
 
 
 @pytest.mark.parametrize("feature", [
@@ -416,13 +437,36 @@ def test_no_cuda_device_exits_naming_cuda(tmp_path):
     ({"source": {"type": "spyserver"}}, "spyserver"),
     ({"modules": {"S": {"type": "scanner"}}}, "scanner"),
     ({"modules": {"F": {"type": "ft8_decoder"}}}, "ft8_decoder"),
-    ({"modules": {"R": {"type": "radio", "rds": True}}}, "RDS"),
 ])
 def test_unported_config_refused(tmp_path, conf, what):
     with open(tmp_path / "config.json", "w") as f:
         json.dump(conf, f)
     with pytest.raises(NotImplementedError, match=what):
         SDRApp(str(tmp_path), run_pump=False, device="cpu").shutdown()
+
+
+@pytest.mark.parametrize("demod,decoder", [("WFM", True), ("NFM", False)])
+def test_rds_config_accepted(tmp_path, demod, decoder):
+    """``rds: true`` on a radio in the config builds the RDS demod and
+    decoder on a WFM radio (and nothing on another demod, as the JAX
+    app); get_rds answers from the decoder."""
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump({"source": {"type": "none", "samplerate": 1_000_000.0},
+                   "modules": {"R": {"type": "radio", "demod": demod,
+                                     "rds": True}}}, f)
+    app = SDRApp(str(tmp_path), run_pump=False, device="cpu")
+    try:
+        m = app.modules["R"]
+        assert m.rds_enabled and (m.rds_decoder is not None) == decoder
+        assert getattr(m.radio.demod, "rds_out", False) == decoder
+        r = m.handle_debug_command("get_rds", "")
+        if decoder:
+            assert r == {"synced": False, "pi": None, "pty": None,
+                         "ps": " " * 8, "radiotext": "", "groups": 0}
+        else:
+            assert r == {"error": "rds not enabled"}
+    finally:
+        app.shutdown()
 
 
 def test_unknown_module_type_warns(tmp_path):
@@ -447,7 +491,7 @@ def test_refused_switch_leaves_radio_untouched(tmp_path):
     try:
         m = app.modules["R"]
         r0, s0 = m.radio, m.state
-        for args in ("RAW", "99"):
+        for args in ("DMR", "99"):
             assert "error" in m.handle_debug_command("set_demod", args)
             assert m.radio is r0 and m.state is s0
             assert (m.demod_id, m.bandwidth) == (0, 12_500.0)
@@ -455,5 +499,8 @@ def test_refused_switch_leaves_radio_untouched(tmp_path):
         assert r == {"status": "ok", "demod": "USB", "id": 4}
         assert m.radio is not r0 and m.bandwidth == 2_800.0
         assert m.state["vfo"].keys() == s0["vfo"].keys()
+        r = m.handle_debug_command("set_demod", "RAW")
+        assert r == {"status": "ok", "demod": "RAW", "id": 7}
+        assert m.bandwidth == 48_000.0 and m.state["demod"] is None
     finally:
         app.shutdown()

@@ -36,8 +36,9 @@ def test_import_loads_no_jax():
 
 
 # the modules of the app's per-radio step, of the multi-mode bank, of
-# channelizer64 and of the serving path (the app, its entry point, the
-# control plane, the pump and the sink layer), imported with jax, jaxlib
+# channelizer64, of the serving path (the app, its entry point, the
+# control plane, the pump and the sink layer) and of RDS and the Radio's
+# loops (the PLL, Costas, M&M, the RDS demod), imported with jax, jaxlib
 # and the JAX package blocked (an import of any of them raises
 # ImportError)
 _STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
@@ -51,7 +52,8 @@ _STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
                  "server.http_server", "runtime.pump", "runtime.sink",
                  "runtime.routing", "runtime.migrate", "models.waterfall",
                  "io.wav", "io.file_source", "io.recorder", "utils.config",
-                 "utils.flog", "utils.event", "utils.metrics"]
+                 "utils.flog", "utils.event", "utils.metrics", "ops.pll",
+                 "ops.costas", "ops.clock_recovery", "models.rds"]
 _BLOCKED = """
 import importlib, sys
 for name in ("jax", "jaxlib", "sdrplusplusbrown_tpu"):

@@ -123,16 +123,26 @@ def test_params_and_state_round_trip(demod):
 
 def test_apply_device_rule():
     """A default Radio runs on the card: without one it raises at first
-    use, and its unported options raise at construction."""
+    use, RDS and the scan PLL among its options; on the CPU they build,
+    and WFM with the squelch runs through apply_shared (the complex IF
+    through _post_vfo, as the JAX package's route)."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError):
         Radio(FS, DEMOD_NFM, squelch_enabled=True).init_state(())
-    with pytest.raises(NotImplementedError):
-        Radio(FS, DEMOD_WFM, rds=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Radio(FS, DEMOD_WFM, pll_mode="scan", device="cpu")
+    with pytest.raises(RuntimeError):
+        Radio(FS, DEMOD_WFM, rds=True).init_state(())
+    rds = Radio(FS, DEMOD_WFM, rds=True, device="cpu")
+    assert rds.demod.rds_out and set(rds.init_state(())["demod"]) >= {
+        "rds_xl", "rds_rs"}
+    scan = Radio(FS, DEMOD_WFM, pll_mode="scan", device="cpu")
+    assert scan.demod.pll_mode == "scan"
+    assert "mpx_hist" not in scan.init_state(())["demod"]
     wfm = Radio(FS, DEMOD_WFM, squelch_enabled=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        wfm.apply_shared(None, None, torch.zeros(wfm.in_multiple,
-                                                 dtype=torch.complex64))
+    audio, st = wfm.apply_shared(
+        wfm.make_params_shared([0.0], squelch_level=0.0),
+        wfm.init_state_shared(1),
+        torch.zeros(wfm.in_multiple, dtype=torch.complex64))
+    m = wfm.in_multiple * 48_000 // int(FS)
+    assert audio.shape == (1, 2, m) and not audio.any()
+    assert set(st) == {"vfo", "demod"}

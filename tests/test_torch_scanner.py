@@ -146,10 +146,15 @@ def test_default_radio_runs_on_cuda_or_raises(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """What the channelized route still refuses: another demod than NFM,
+    raw audio beside the noise blanker and the FM IF filter, a block off
+    the granularity.  WFM with the squelch through apply_shared, the RAW
+    demod and de-emphasis on a mono demod build
+    (tests/test_torch_radio_forms.py holds them to JAX)."""
     pr = Radio(FS, DEMOD_NFM, device="cpu")
+    wfm = Radio(FS, DEMOD_WFM, squelch_enabled=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        Radio(FS, DEMOD_WFM, squelch_enabled=True, device="cpu").apply_shared(
-            None, None, planes(nfm_iq(T, OFFSETS, [1])))
+        wfm.apply_channelized(None, None, planes(nfm_iq(T, OFFSETS, [1])))
     # the noise blanker and the FM IF filter leave the fused routes
     # (tests/test_torch_noise_chain.py); raw audio has no such route
     nb = Radio(FS, DEMOD_NFM, nb_enabled=True, fmif_enabled=True,
@@ -158,10 +163,9 @@ def test_unported_paths_raise():
         nb.apply_channelized(nb.make_params_channelized(OFFSETS),
                              nb.init_state_channelized(C),
                              planes(nfm_iq(T, OFFSETS, [1])), raw_audio=True)
-    with pytest.raises(NotImplementedError):
-        Radio(FS, "RAW", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Radio(FS, "AM", deemphasis="50us", device="cpu")
+    assert Radio(FS, "RAW", device="cpu").demod_stereo
+    assert "deemp" in Radio(FS, "AM", deemphasis="50us",
+                            device="cpu").init_state(())
     with pytest.raises(ValueError):
         pr.apply_channelized(pr.make_params_channelized(OFFSETS),
                              pr.init_state_channelized(C),

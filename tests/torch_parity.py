@@ -108,6 +108,9 @@ def assert_state_close(jax_state, port_state, min_db: float):
     p = list(leaves(convert.state_to_jax(port_state)))
     assert [k for k, _ in j] == [k for k, _ in p]
     for (path, a), (_, b) in zip(j, p):
+        if a is None or b is None:       # a stateless block (RAW)
+            assert a is None and b is None, path
+            continue
         a = np.asarray(a)
         assert a.shape == b.shape and a.dtype == b.dtype, \
             (path, a.shape, b.shape, a.dtype, b.dtype)
@@ -170,6 +173,20 @@ def assert_close(want, got, what="", min_db: float = 80.0):
     assert want.shape == got.shape, (what, want.shape, got.shape)
     if not np.array_equal(want, got):
         assert snr_db(want, got) >= min_db, (what, snr_db(want, got))
+
+
+def jit_methods(block, *names: str):
+    """``block`` with its methods ``names`` (``apply`` by default) under
+    ``jax.jit``: one XLA compile serves every block of a test, where op by
+    op each operation compiles on its first shape and each ``lax.scan``
+    body again at every call.  XLA:CPU then fuses and contracts
+    multiply-adds, a last-bit difference that the tests' 80 dB bars hold;
+    a test whose comparison it breaks keeps the JAX side op by op and says
+    why."""
+    import jax
+    for name in names or ("apply",):
+        setattr(block, name, jax.jit(getattr(block, name)))
+    return block
 
 
 def assert_nr_state(jax_state, port_state):
@@ -420,3 +437,83 @@ def _chip_smoke():
 
 
 _SMOKE = None
+
+
+# ---------------------------------------------------------------------
+# RDS (tests/test_torch_rds.py, tests/test_torch_app.py)
+
+RDS_PI, RDS_PS, RDS_RT = 0xABCD, "TESTFM  ", "HELLO RADIO TEXT"
+
+
+def rds_bits(repeats: int = 1) -> np.ndarray:
+    """The PS groups (0A, addresses 0-3) then the RadioText groups (2A,
+    addresses 0-3) of RDS_PI / RDS_PS / RDS_RT, PTY 5, as bits."""
+    from sdrplusplusbrown_tpu_torch.models.rds import (rds_encode_group,
+                                                       rds_group_bits)
+    groups = []
+    for a in range(4):
+        groups.append(rds_encode_group(
+            RDS_PI, 0, False, 5, a, 0,
+            (ord(RDS_PS[2 * a]) << 8) | ord(RDS_PS[2 * a + 1])))
+    for a in range(4):
+        c = RDS_RT[4 * a:4 * a + 4].ljust(4)
+        groups.append(rds_encode_group(
+            RDS_PI, 2, False, 5, a, (ord(c[0]) << 8) | ord(c[1]),
+            (ord(c[2]) << 8) | ord(c[3])))
+    return np.tile(np.concatenate([rds_group_bits(g) for g in groups]),
+                   repeats)
+
+
+def rds_biphase(t: np.ndarray, bits: np.ndarray,
+                fbit: float = 1187.5) -> np.ndarray:
+    """The differentially encoded, biphase (Manchester) RDS data signal
+    at times ``t`` (s), bit k over [k/fbit, (k+1)/fbit)."""
+    d = 1.0 - 2.0 * (np.cumsum(bits) % 2)
+    pos = t * fbit
+    idx = np.minimum(pos.astype(int), len(bits) - 1)
+    return d[idx] * np.where(pos - np.floor(pos) < 0.5, 1.0, -1.0)
+
+
+def rds_fm_iq(T: int, fs: float, offset: float = 0.0,
+              seed: int = 0) -> np.ndarray:
+    """A stereo FM station at ``offset`` carrying RDS: the MPX is a 1 kHz
+    tone in L (0.4 L+R, 0.4 L−R on −cos 38 kHz), the 19 kHz pilot (0.1)
+    and the RDS biphase on cos 57 kHz (0.08), at 75 kHz deviation, plus
+    a little noise."""
+    t = np.arange(T) / fs
+    bits = rds_bits(int(T / fs * 1187.5) // 832 + 1)
+    tone = np.sin(2 * np.pi * 1000.0 * t)
+    mpx = (0.4 * tone + 0.4 * tone * -np.cos(2 * np.pi * 38_000.0 * t)
+           + 0.1 * np.sin(2 * np.pi * 19_000.0 * t)
+           + 0.08 * rds_biphase(t, bits) * np.cos(2 * np.pi * 57_000.0 * t))
+    x = 0.5 * np.exp(2j * np.pi * (offset * t + 75_000.0 * np.cumsum(mpx)
+                                   / fs))
+    rng = np.random.default_rng(seed)
+    x = x + 1e-3 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+    return x.astype(np.complex64)
+
+
+def assert_mm_state(jax_state, port_state):
+    """An M&M clock recovery's state (or a tree holding one under
+    ``recov``): every leaf as ``assert_nr_state``, but the fractional
+    sample position ``phase`` (in [0, 1)) within 1e-5 of a sample.  Each
+    symbol adds ω ≈ 4.2 to it and takes the floor off, so it carries the
+    rounding of ω's scale (4.8e-7) a symbol, which XLA:CPU's fused
+    multiply-adds round differently from the port's separate operations:
+    the two walk apart by ~1e-6 over a block, a fraction of a polyphase
+    step (1/128), which a phase near 0 would turn into a relative error
+    of -80 dB or worse."""
+    j, p = _np_tree(jax_state), _np_tree(port_state)
+    jph = j.get("recov", j).pop("phase")
+    pph = p.get("recov", p).pop("phase")
+    assert_nr_state(j, p)
+    assert np.abs(jph.astype(np.float64) - pph).max() <= 1e-5, (jph, pph)
+
+
+def _np_tree(tree):
+    """A copy of a dict/list tree with numpy leaves."""
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_tree(v) for v in tree]
+    return _np(tree)
