@@ -46,6 +46,13 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     decoding it (``rds: true`` in the config, ``set_rds 1`` over HTTP):
     the RDS tap (K8), ``RDSDemod`` (K12's complex form, K13's Costas and
     M&M forms, K9) and the host ``RDSDecoder``, with K4f, K8 and K9;
+  * the served app over the network — ``python -m
+    sdrplusplusbrown_tpu_torch --server --rigctl`` streaming the served
+    capture, and the app on an ``sdrpp_server`` source (the IQ stream
+    server's client) fed by an in-process ``StreamServer`` in its raw
+    float32, int8 and EFFT modes: K4f, K8, K9; beside it the device EFFT
+    (``ops/efft_device.py``) and the device feed (``io/feed.py``), which
+    are PyTorch ops;
   * the multi-mode bank — ``RadioBank.apply(..., mono_out=True)`` on
     multimode8 (bench.py:build_multimode8, BASELINE config 2: 4 NFM, 2 AM
     and 2 USB VFOs on one 2.4 MS/s wideband, 240 000-sample steps) and on
@@ -231,6 +238,27 @@ Phases, each fatal on failure:
      wall percentiles, the profiler window's device µs, launches and
      device-to-host copies a block); fails unless the p99 block wall
      time is under 50 ms.
+ 26. the network path, timed with CUDA events and the wall clock (no
+     profiler window): (a) ``python -m sdrplusplusbrown_tpu_torch
+     --server --port --rigctl --http`` on phase 19's capture: /status, a
+     client's handshake and three int8 blocks, rigctl F, f, M and m,
+     /exit and exit code 0; (b) the app of phase 19 (its WFM, NFM and
+     squelched NFM radios) on an ``sdrpp_server`` source, a fresh
+     in-process server a mode: ``none``, manual pump, six blocks, every
+     radio's audio bit-identical to the same app fed from the file, the
+     counts zeroed before (K4f, K8 and K9 launched and held to their
+     plans, every other kernel not); ``int8``, six blocks, phase 19's
+     oracles and the server's host compression time; ``int8`` with the
+     pump thread for 5 s (secondsBehind 0, each block's time from its
+     last samples' arrival to its end through a sync, p99 under the
+     block's 50 ms, the received MS/s); ``efft`` on 40 frames of 65 536,
+     not paced (the server's host EFFT rate, the zeroed share, the WFM
+     tone SNR over NET_EFFT_WFM_BAR); (c) ``EFFTCompressorDevice`` at 2.4
+     MS/s (32 frames of 65 536) on the card against the host CPU (masks
+     equal, emits >= 60 dB), its CUDA-event ms and kernel launches a
+     call (a CUDA graph captured around it), and ``DeviceFeed`` in its
+     three modes on the card against the host CPU with
+     tests/test_efft_device.py's bars.
 
 Every ``launches`` count is of CUDA launches: each wrapper counts every
 launch it makes (``kernels/_build.py``).  Beside each CUDA-event time
@@ -737,6 +765,7 @@ def main() -> int:
     drive_noise(dev, card, report)
     drive_loops(dev, card, report)
     drive_rds(dev, card, report)
+    drive_network(dev, card, report)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3460,6 +3489,515 @@ def drive_rds(dev, card: str, report: dict) -> None:
         # the served block is 50 ms without RDS; held to that, not to
         # the RDS granularity's longer block
         real_time_bar("phase 25", run, 50.0)
+
+
+# ---- the network path (phase 26) -------------------------------------
+NET_BLOCKS = 6                # the client app's manual blocks a mode
+SERVED_BLOCK = 120_000        # the served app's block (50 ms)
+NET_RT_SECONDS = 5.0          # the int8 client's threaded pump
+NET_EFFT_FRAMES = 40          # EFFT frames the client takes
+NET_EFFT_WFM_BAR = 30.0       # the WFM tone SNR bar over EFFT (dB; a
+                              # CPU rehearsal at 1 MS/s gave 39.7)
+NET_TAGS = ("K4f", "K8", "K9")
+EFFT_DEV_FRAMES = 32          # the device EFFT: 32 frames of 65 536
+FEED_FS = 96_000.0            # tests/test_efft_device.py's feed signal
+
+
+def net_client_config(port: int, mode: str, pump: str) -> dict:
+    """Phase 19's app (its WFM, NFM and squelched NFM radios, the DC
+    blocker, fft 65 536 at 20 fps) on an ``sdrpp_server`` source."""
+    conf = served_config("", pump)
+    conf["source"] = {"type": "sdrpp_server", "host": "127.0.0.1",
+                      "port": port, "compression": mode}
+    return conf
+
+
+class NetServer:
+    """A fresh in-process StreamServer on a port app with the capture as
+    its file source (so its stream starts at the capture's sample 0); the
+    time each broadcast takes on the host, and the EFFT compressor's
+    frames, samples and seconds."""
+
+    def __init__(self, root: str, cap: str, dev):
+        from sdrplusplusbrown_tpu_torch.ops.efft import EFFTCompressor
+        from sdrplusplusbrown_tpu_torch.server import stream_server
+        self.app = new_app(root, {"source": {"type": "file", "path": cap,
+                                             "loop": True}}, dev)
+        self.srv = stream_server.StreamServer(self.app, port=0,
+                                              host="127.0.0.1")
+        self.bcast, self.efft = [], {"s": 0.0, "n": 0, "zero": []}
+        orig, efft = self.srv.broadcast_baseband, self.efft
+
+        def timed(blk):
+            t = time.perf_counter()
+            orig(blk)
+            self.bcast.append((time.perf_counter() - t, len(blk)))
+        self.srv.broadcast_baseband = timed
+
+        class Timed(EFFTCompressor):
+            def process(self, x):
+                t = time.perf_counter()
+                out = super().process(x)
+                efft["s"] += time.perf_counter() - t
+                efft["n"] += len(x)
+                efft["zero"] += [float(np.mean(f == 0)) for f in out]
+                return out
+        self._module, self._orig = stream_server, EFFTCompressor
+        stream_server.EFFTCompressor = Timed
+        self.srv.start()
+        self.port = self.srv.port
+
+    def close(self):
+        self._module.EFFTCompressor = self._orig
+        self.srv.stop()
+        self.app.shutdown()
+
+
+def run_net_app(app, blocks: int, sync) -> dict:
+    """``blocks`` manual pump steps: each radio's audio a block."""
+    got = {n: [] for n in app.modules}
+    for n, m in app.modules.items():
+        m.audio_event.bind(lambda blk, n=n: got[n].append(blk))
+    app.modules["Q"].handle_debug_command("set_squelch", f"{SQUELCH_DB}")
+    app.start()
+    out = {n: [] for n in app.modules}
+    for _ in range(blocks):
+        if app.pump_step(1) != 1:
+            fail("phase 26: the pump stopped")
+        for n in app.modules:
+            out[n].append(np.concatenate(got[n], axis=-1))
+            got[n].clear()
+    sync()
+    return out
+
+
+def net_oracles(label: str, out: dict, blocks, card: str) -> None:
+    """Phase 19's audio oracles on ``blocks``: WFM tone SNR > 35 dB and
+    separation > 25 dB, NFM tone SNR > 40 dB, the squelched radio
+    exactly zero in every block."""
+    for b in blocks:
+        snr, sep = stereo_oracle(out["W"][b].astype(np.float64)[None])
+        nfm = tone_snr_db(out["N"][b][0].astype(np.float64))
+        print(f"{label} block {b + 1}: WFM tone SNR {snr:.1f} dB (bound "
+              f"35), separation {sep:.1f} dB (bound 25), NFM tone SNR "
+              f"{nfm:.1f} dB (bound 40) [{card}]")
+        if snr <= 35.0 or sep <= 25.0 or nfm <= 40.0:
+            fail(f"{label} block {b + 1}: audio oracle failed")
+    if any(q.any() for q in out["Q"]):
+        fail(f"{label}: the squelched radio is not exactly silent")
+
+
+def drive_network(dev, card: str, report: dict) -> None:
+    """Phase 26: the network path.  (a) ``python -m
+    sdrplusplusbrown_tpu_torch --server --rigctl`` as a subprocess; (b)
+    the app on an ``sdrpp_server`` source on the card, none / int8 /
+    int8 threaded / efft; (c) the device EFFT and the device feed on the
+    card against the host CPU.  No profiler window: CUDA events and the
+    wall clock."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_net_") as tmp:
+        cap = os.path.join(tmp, "baseband_100000000Hz_10-00-00_01-01-2024"
+                                ".wav")
+        served_capture(cap)
+        net_entry_point(card, tmp, cap)
+        t1 = time.perf_counter()
+        net_client_app(dev, card, report, tmp, cap)
+    t2 = time.perf_counter()
+    efft_on_card(dev, card)
+    t3 = time.perf_counter()
+    print(f"phase 26: {t3 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}"
+          f", (c) {t3 - t2:.1f}) [{card}]")
+
+
+def net_entry_point(card: str, tmp: str, cap: str) -> None:
+    """(a): the entry point with the stream server and rigctl on the
+    capture: /status, a handshake and three int8 blocks, rigctl F, f, M
+    and m, then /exit and exit code 0."""
+    import socket
+    from sdrplusplusbrown_tpu_torch.server.rigctl_client import RigctlClient
+    from sdrplusplusbrown_tpu_torch.server.stream_client import StreamClient
+    root = os.path.join(tmp, "p26a")
+    os.makedirs(root)
+    conf = served_config(cap, "manual", squelched=False)
+    conf["modules"] = {"Radio": conf["modules"]["W"],
+                       "N": conf["modules"]["N"]}
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(conf, f)
+    ports = []
+    for _ in range(3):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    http, stream, rig = ports
+    base = f"http://127.0.0.1:{http}"
+    log_path = os.path.join(tmp, "p26a.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sdrplusplusbrown_tpu_torch", "--root",
+             root, "--http", str(http), "--autostart", "--server", "--port",
+             str(stream), "--rigctl", str(rig)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 180
+        while True:
+            if proc.poll() is not None or time.time() > deadline:
+                fail("phase 26 (a): the app did not come up")
+            try:
+                if http_call(base, "/status", timeout=1)["mainLoopStarted"]:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        up = time.perf_counter() - t0
+        cli = StreamClient("127.0.0.1", stream, compression="int8")
+        try:
+            got = []
+            for blk in cli.blocks(timeout=30):
+                got.append(blk)
+                if len(got) == 3:
+                    break
+        finally:
+            cli.close()
+        rc_cli = RigctlClient("127.0.0.1", rig, timeout=30)
+        try:
+            rig_out = [rc_cli.set_frequency(101_300_000),
+                       rc_cli.get_frequency(), rc_cli.set_mode("FM", 12500),
+                       rc_cli.get_mode()]
+        finally:
+            rc_cli.close()
+        if (cli.samplerate != FS or len(got) != 3
+                or any(b.shape != (int(FS / 200),) for b in got)
+                or rig_out != [True, 101_300_000.0, True, ("FM", 12500)]):
+            fail(f"phase 26 (a): samplerate {cli.samplerate}, blocks "
+                 f"{[b.shape for b in got]}, rigctl {rig_out}")
+        http_call(base, "/exit")
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    if rc != 0:
+        with open(log_path) as f:
+            fail(f"phase 26 (a): exit code {rc}; log tail:\n"
+                 f"{f.read()[-3000:]}")
+    print(f"phase 26 (a): python -m sdrplusplusbrown_tpu_torch --server "
+          f"--rigctl served /status {up:.1f} s after the start; a client's "
+          f"handshake at {cli.samplerate:.0f} S/s and 3 int8 blocks of "
+          f"{got[0].shape[0]}; rigctl F, f {rig_out[1]:.0f}, M FM, m "
+          f"{rig_out[3]}; exit code {rc} [{card}]")
+
+
+def net_client_app(dev, card: str, report: dict, tmp: str,
+                   cap: str) -> None:
+    """(b): the app on the card fed from an in-process server, a fresh
+    server a mode."""
+    import torch
+    sync = torch.cuda.synchronize
+    # the reference: the same app fed from the file
+    ref = run_net_app(new_app(os.path.join(tmp, "p26file"),
+                              served_config(cap, "manual"), dev),
+                      NET_BLOCKS, sync)
+    runs = {}
+    for mode in ("none", "int8"):
+        srv = NetServer(os.path.join(tmp, f"p26srv_{mode}"), cap, dev)
+        try:
+            app = new_app(os.path.join(tmp, f"p26{mode}"),
+                          net_client_config(srv.port, mode, "manual"), dev)
+            try:
+                if mode == "none":
+                    reset_counts()
+                    runs[mode], cap26 = capture(tuple(KERNELS), lambda: (
+                        run_net_app(app, NET_BLOCKS, sync)))
+                    counts = {t: kernel_count(t) for t in KERNELS}
+                else:
+                    runs[mode] = run_net_app(app, NET_BLOCKS, sync)
+            finally:
+                app.shutdown()
+            bc = np.array(srv.bcast)
+        finally:
+            srv.close()
+        if mode == "int8":
+            print(f"phase 26 (b) int8: the server's host compression "
+                  f"{bc[:, 0].mean() * 1e3:.3f} ms a {int(bc[0, 1])}-sample "
+                  f"source block (median {np.median(bc[:, 0]) * 1e3:.3f}), "
+                  f"{bc[:, 0].sum() / bc[:, 1].sum() * SERVED_BLOCK * 1e3:.3f}"
+                  f" ms a {SERVED_BLOCK}-sample block [{card}]")
+    for n in ref:
+        for b in range(NET_BLOCKS):
+            if not np.array_equal(runs["none"][n][b], ref[n][b]):
+                fail(f"phase 26 (b) none: radio {n} block {b + 1} differs "
+                     f"from the app fed from the file")
+    hold_launches(f"phase 26 (b), network client, {NET_BLOCKS} blocks",
+                  {t: counts[t] for t in NET_TAGS}, cap26)
+    others = {t: c for t, c in counts.items() if c and t not in NET_TAGS}
+    if min(counts[t] for t in NET_TAGS) < 1 or others:
+        fail(f"phase 26 (b): launch pattern {counts}")
+    for t in NET_TAGS:
+        report[t].setdefault("launches_by_path", {})["network client"] = \
+            counts[t]
+    print(f"phase 26 (b) none: {NET_BLOCKS} blocks, every radio's audio "
+          f"bit-identical to the app fed from the file on {dev}; launches "
+          + ", ".join(f"{t}={counts[t]}" for t in NET_TAGS)
+          + f", every other kernel 0 [{card}]")
+    net_oracles("phase 26 (b) int8", runs["int8"], (2, 5), card)
+    net_threaded(dev, card, tmp, cap)
+    net_efft(dev, card, tmp, cap)
+
+
+def net_threaded(dev, card: str, tmp: str, cap: str) -> None:
+    """(b) int8 with the pump thread for NET_RT_SECONDS: each block's
+    wall time from the arrival of its last samples to its end through a
+    sync (the stream is paced to real time, so the time between blocks
+    is the block's duration), /status's secondsBehind, the received
+    rate."""
+    import torch
+    srv = NetServer(os.path.join(tmp, "p26srv_rt"), cap, dev)
+    try:
+        app = new_app(os.path.join(tmp, "p26rt"),
+                      net_client_config(srv.port, "int8", "thread"), dev,
+                      run_pump=True)
+        app.modules["Q"].handle_debug_command("set_squelch",
+                                              f"{SQUELCH_DB}")
+        walls, last = [], [0.0]
+        src_iter = app._source_iter
+
+        def arrivals():
+            for blk in src_iter():
+                last[0] = time.perf_counter()
+                yield blk
+
+        def timed_loop():
+            for _ in app._pump_iter():
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - last[0])
+        app._source_iter = arrivals
+        app._pump_loop = timed_loop
+        try:
+            t0 = time.perf_counter()
+            app.start()
+            time.sleep(NET_RT_SECONDS)
+            st, blocks = app.status(), app.blocks_processed
+            secs = time.perf_counter() - t0
+            block_len = app.pump_block_len
+        finally:
+            app.shutdown()
+    finally:
+        srv.close()
+    w = np.array(walls[3:]) * 1e3
+    dur = block_len / FS * 1e3
+    p = [float(np.percentile(w, q)) for q in (50, 90, 99)]
+    print(f"phase 26 (b) int8, threaded pump: {blocks} blocks of "
+          f"{block_len} in {secs:.1f} s, {blocks * block_len / secs / 1e6:.4f}"
+          f" MS/s received; from the last samples' arrival to the block's "
+          f"end through a sync p50 / p90 / p99 {p[0]:.4f} / {p[1]:.4f} / "
+          f"{p[2]:.4f} ms (bound {dur:.0f}); secondsBehind "
+          f"{st['secondsBehind']}, rtFactor {st['rtFactor']} [{card}]")
+    if st["secondsBehind"] != 0 or p[2] >= dur or blocks < 5:
+        fail("phase 26 (b) int8: not real time")
+
+
+def net_efft(dev, card: str, tmp: str, cap: str) -> None:
+    """(b) efft: NET_EFFT_FRAMES frames into the client app (manual pump),
+    not paced: the server's host EFFT rate, the share of zeroed bins, the
+    WFM tone SNR of the last three blocks.  The share is printed, not
+    held: on this crowded band (four carriers, each frame's unwindowed
+    leakage above the windowed floor) the compressor zeroes ~4 % of the
+    bins (ops/efft.py on the host, as the JAX package's); the thinning
+    on a quiet band is held in (c)."""
+    import torch
+    srv = NetServer(os.path.join(tmp, "p26srv_efft"), cap, dev)
+    try:
+        app = new_app(os.path.join(tmp, "p26efft"),
+                      net_client_config(srv.port, "efft", "manual"), dev)
+        try:
+            n_fft = 1 << int(np.floor(np.log2(FS * 0.05)))
+            blocks = -(-NET_EFFT_FRAMES * n_fft // SERVED_BLOCK)
+            t0 = time.perf_counter()
+            out = run_net_app(app, blocks, torch.cuda.synchronize)
+            secs = time.perf_counter() - t0
+            if app.pump_block_len != SERVED_BLOCK:
+                fail(f"phase 26 (b) efft: {app.pump_block_len}-sample "
+                     f"blocks")
+        finally:
+            app.shutdown()
+        e = dict(srv.efft)
+    finally:
+        srv.close()
+    zero = float(np.mean(e["zero"]))
+    frame_ms = e["s"] / max(len(e["zero"]), 1) * 1e3
+    snr, sep = stereo_oracle(np.concatenate(out["W"][-3:], axis=-1)
+                             .astype(np.float64)[None])
+    print(f"phase 26 (b) efft: {len(e['zero'])} frames of {n_fft} emitted, "
+          f"{blocks} client blocks in {secs:.2f} s; zeroed bins "
+          f"{zero:.3f} of a frame; the server's host EFFT "
+          f"{e['n'] / e['s'] / 1e6:.3f} MS/s ({frame_ms:.1f} ms a frame; "
+          f"the feed is {FS / 1e6:.1f} MS/s); WFM "
+          f"tone SNR {snr:.1f} dB (bound {NET_EFFT_WFM_BAR:.0f}), "
+          f"separation {sep:.1f} dB [{card}]")
+    if len(e["zero"]) < NET_EFFT_FRAMES or snr <= NET_EFFT_WFM_BAR:
+        fail("phase 26 (b) efft failed")
+
+
+def graph_node_kinds(dot: str) -> list:
+    """Each node's kind ("kernel", "memset", "memcpy" or "other") in a
+    CUDA graph's dot dump (``cudaGraphDebugDotPrint``): split at each
+    node's definition, the kind the first word of its label names."""
+    nodes = re.split(r'\n\s*"[^"\n]*node[^"\n]*"\s*\[', "\n" + dot)[1:]
+    return [next((k.lower() for k in ("KERNEL", "MEMSET", "MEMCPY")
+                  if re.search(rf"\b{k}\b", c)), "other") for c in nodes]
+
+
+def cuda_graph_kernels(fn, card: str) -> int | None:
+    """CUDA kernel launches of one call of ``fn``: the kernel nodes of a
+    CUDA graph captured around it (None when the call cannot be
+    captured)."""
+    import torch
+    g = torch.cuda.CUDAGraph(keep_graph=True)     # kept for the dump
+    g.enable_debug_mode()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.stream(s):
+            fn()                                  # warm the allocator
+        torch.cuda.current_stream().wait_stream(s)
+        with torch.cuda.graph(g):
+            fn()
+    except RuntimeError as e:
+        print(f"phase 26 (c): graph capture failed: {e}"[:300])
+        return None
+    import tempfile
+    with tempfile.NamedTemporaryFile(suffix=".dot") as f:
+        g.debug_dump(f.name)
+        with open(f.name) as h:
+            dot = h.read()
+    kinds = graph_node_kinds(dot)
+    print(f"phase 26 (c): the captured call's graph: {len(kinds)} nodes, "
+          + ", ".join(f"{k} {kinds.count(k)}" for k in sorted(set(kinds)))
+          + f" [{card}]")
+    return kinds.count("kernel")
+
+
+def np_snr_db(ref: np.ndarray, got: np.ndarray) -> float:
+    """Agreement of ``got`` with ``ref`` in dB (numpy, complex too)."""
+    ref = ref.astype(np.complex128)
+    err = got.astype(np.complex128) - ref
+    return float(10 * np.log10(np.mean(np.abs(ref) ** 2)
+                               / max(np.mean(np.abs(err) ** 2), 1e-300)))
+
+
+def feed_signal(T: int) -> np.ndarray:
+    """tests/test_efft_device.py's signal at FEED_FS: light noise, a
+    0.05 line at 8 kHz and a 0.02 line at −15 kHz."""
+    rng = np.random.default_rng(12345)
+    t = np.arange(T) / FEED_FS
+    return (0.001 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+            + 0.05 * np.exp(2j * np.pi * 8_000 * t)
+            + 0.02 * np.exp(2j * np.pi * -15_000 * t)).astype(np.complex64)
+
+
+def quiet_band(T: int) -> np.ndarray:
+    """The EFFT's design case at FS: light noise and two carriers (0.05
+    at FS / 13, 0.02 at −FS / 6), tests/test_torch_cuda.py's signal."""
+    rng = np.random.default_rng(3)
+    t = np.arange(T) / FS
+    return (0.001 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+            + 0.05 * np.exp(2j * np.pi * FS / 13 * t)
+            + 0.02 * np.exp(2j * np.pi * -FS / 6 * t)).astype(np.complex64)
+
+
+def efft_two_calls(blk: dict, x) -> dict:
+    """Each device's block on two calls of ``x``; the second call's
+    (emits on the host, readys, state)."""
+    out = {}
+    for d, b in blk.items():
+        (_, _), s1 = b.apply(None, b.init_state(), x)
+        (e, r), s2 = b.apply(None, s1, x)
+        out[d] = (e.cpu().numpy(), r.cpu(), int(s2["count"]))
+    return out
+
+
+def efft_on_card(dev, card: str) -> None:
+    """(c): EFFTCompressorDevice at 2.4 MS/s (32 frames of 65 536) on the
+    card against the host CPU, the second of two calls (every frame
+    ready): on the quiet band held (masks, readys and count equal, emits
+    >= 60 dB); on phase 19's crowded band printed, not held (there a
+    last-bit difference of the FFT moves a few per cent of the mask: the
+    15th-percentile cuts and the hole fills that follow them turn it
+    into a different floor), and timed: CUDA events a call and the
+    kernel launches of a captured call.  Then DeviceFeed in its three
+    modes on the card against the host CPU, with
+    tests/test_efft_device.py's bars."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.io.feed import DeviceFeed
+    from sdrplusplusbrown_tpu_torch.ops.efft_device import (
+        EFFTCompressorDevice)
+    blk = {d: EFFTCompressorDevice(FS, device=d) for d in ("cpu", dev)}
+    n = blk["cpu"].fft_size
+    T = EFFT_DEV_FRAMES * n
+    crowded = stereo_wideband(T, APP_WFM) + nfm_wideband(
+        T, APP_NFM, range(len(APP_NFM)))
+    for what, x in (("quiet band", quiet_band(T)),
+                    ("phase 19's band", crowded.astype(np.complex64))):
+        out = efft_two_calls(blk, torch.from_numpy(x))
+        (ec, rc, cc), (eg, rg, cg) = out["cpu"], out[dev]
+        flips = int(np.sum((eg != 0) != (ec != 0)))
+        agree = np_snr_db(ec, eg)
+        same = torch.equal(rg, rc) and cg == cc
+        print(f"phase 26 (c): EFFTCompressorDevice, {what}, at "
+              f"{FS / 1e6:.1f} MS/s, {EFFT_DEV_FRAMES} frames of {n}: card "
+              f"against the host CPU {flips} of {eg.size} mask bins differ, "
+              f"emits {agree:.1f} dB, readys and count "
+              f"{'equal' if same else 'DIFFER'}; zeroed "
+              f"{np.mean(eg == 0):.3f} [{card}]")
+        if what == "quiet band" and (flips or agree < 60.0 or not same):
+            fail("phase 26 (c): the device EFFT disagrees with the host CPU")
+    xg = torch.from_numpy(crowded.astype(np.complex64)).to(dev)
+    (_, _), s1g = blk[dev].apply(None, blk[dev].init_state(), xg)
+    ms = event_ms(lambda: blk[dev].apply(None, s1g, xg), reps=10)
+    launches = cuda_graph_kernels(lambda: blk[dev].apply(None, s1g, xg),
+                                  card)
+    print(f"phase 26 (c): EFFTCompressorDevice {ms:.4f} ms a call (CUDA "
+          f"events, 10 calls) for {T} samples ({T / FS * 1e3:.1f} ms of "
+          f"signal, {n / FS * 1e3:.1f} ms a frame), "
+          f"{launches if launches is not None else 'not measured'} kernel "
+          f"launches a call (a CUDA graph captured around one) [{card}]")
+    # the device feed, tests/test_efft_device.py's run on the card and the
+    # host CPU
+    xf = feed_signal(1 << 17)
+    for mode in ("none", "int8", "efft"):
+        res = {}
+        for d in ("cpu", dev):
+            feed = DeviceFeed(mode, samplerate=FEED_FS, device=d)
+            got = [feed.push(xf[i:i + (1 << 14)])
+                   for i in range(0, len(xf), 1 << 14)]
+            res[d] = (torch.cat([g.cpu() for g in got if g is not None])
+                      .numpy(), feed.stats())
+        (yc, sc_), (yg, sg_) = res["cpu"], res[dev]
+        same = np.array_equal(yg, yc) if mode != "efft" else \
+            np_snr_db(yc, yg) >= 60.0
+        if mode == "none":
+            ok, what = sg_["ratio"] == 1.0 and np.array_equal(yg, xf), \
+                "ratio 1, exact"
+        elif mode == "int8":
+            snr = 10 * np.log10(np.mean(np.abs(xf) ** 2)
+                                / np.mean(np.abs(yg - xf) ** 2))
+            ok = sg_["ratio"] < 0.26 and snr > 25.0
+            what = f"ratio {sg_['ratio']:.4f} (bound 0.26), SNR {snr:.1f} dB" \
+                   f" (bound 25)"
+        else:
+            t = np.arange(len(yg)) / FEED_FS
+            power = np.abs(np.vdot(np.exp(2j * np.pi * 8_000 * t), yg)) \
+                / len(yg)
+            ok = sg_["ratio"] < 0.15 and power > 0.03
+            what = f"ratio {sg_['ratio']:.4f} (bound 0.15), 8 kHz line " \
+                   f"{power:.4f} (bound 0.03)"
+        print(f"phase 26 (c): DeviceFeed {mode} on the card: {what}; "
+              f"against the host CPU {'equal' if same else 'DIFFERENT'}, "
+              f"stats {'equal' if sg_ == sc_ else 'DIFFERENT'} [{card}]")
+        if not (ok and same and sg_ == sc_):
+            fail(f"phase 26 (c): DeviceFeed {mode}")
 
 
 if __name__ == "__main__":

@@ -1,14 +1,16 @@
 """Headless entry point (counterpart of sdrplusplusbrown_tpu/__main__.py):
 
     python -m sdrplusplusbrown_tpu_torch --root DIR --http PORT [--autostart]
-                                         [--device cuda|cpu]
+                                         [--server [--port 5259]]
+                                         [--rigctl PORT] [--device cuda|cpu]
 
 reference: core/src/command_args.cpp:4-40 (--root, --http, --server,
---autostart).  Everything is driven through the HTTP control plane.  The
-app runs on the card (``--device cuda``, the default) unless ``--device
-cpu`` asks for the host; without a CUDA device it exits nonzero.  The IQ
-streaming server (``--server``) and the rigctl server (``--rigctl``) are
-not ported: either exits nonzero.
+--autostart) and server mode core/src/server.cpp:84.  Everything is
+driven through the HTTP control plane; ``--server`` adds the IQ streaming
+server (``server/stream_server.py``) on ``--port`` and ``--rigctl`` a
+hamlib rigctl server (``server/rigctl.py``) on its port.  The app runs on
+the card (``--device cuda``, the default) unless ``--device cpu`` asks
+for the host; without a CUDA device it exits nonzero.
 """
 
 from __future__ import annotations
@@ -29,21 +31,15 @@ def main(argv=None):
     p.add_argument("--autostart", action="store_true",
                    help="start the DSP immediately")
     p.add_argument("--server", action="store_true",
-                   help="run the IQ streaming server (not ported yet)")
+                   help="run the IQ streaming server (headless TCP)")
+    p.add_argument("--port", type=int, default=5259,
+                   help="streaming server port (with --server)")
     p.add_argument("--rigctl", type=int, default=0,
-                   help="run a hamlib rigctl server on this port (not "
-                        "ported yet)")
+                   help="run a hamlib rigctl server on this port")
     p.add_argument("--device", default="cuda",
                    help="torch device of the DSP (default cuda; cpu runs "
                         "the plain versions on the host)")
     args = p.parse_args(argv)
-
-    if args.server or args.rigctl:
-        what = "--server (the IQ streaming server)" if args.server \
-            else "--rigctl (the rigctl server)"
-        print(f"sdrplusplusbrown_tpu_torch: {what} is not ported yet",
-              file=sys.stderr)
-        return 2
 
     from .runtime.block import entry_device
     try:
@@ -62,6 +58,18 @@ def main(argv=None):
     http = HttpDebugServer(app, port=args.http, on_exit=done.set)
     http.start()
 
+    stream_server = None
+    if args.server:
+        from .server.stream_server import StreamServer
+        stream_server = StreamServer(app, port=args.port)
+        stream_server.start()
+
+    rigctl_server = None
+    if args.rigctl:
+        from .server.rigctl import RigctlServer
+        rigctl_server = RigctlServer(app, port=args.rigctl)
+        rigctl_server.start()
+
     if args.autostart:
         app.start()
 
@@ -74,6 +82,10 @@ def main(argv=None):
     try:
         done.wait()
     finally:
+        if stream_server is not None:
+            stream_server.stop()
+        if rigctl_server is not None:
+            rigctl_server.stop()
         app.shutdown()
         http.stop()
     # skip interpreter teardown: a daemon thread (the pump, an HTTP

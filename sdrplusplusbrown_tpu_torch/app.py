@@ -10,8 +10,11 @@ block goes to the card once, and the baseband stays there between the
 radios.  Host copies are the JAX app's: the baseband (the IF spectrum
 ring), the spectrum lines and each radio's audio.
 
-Ported: the ``none`` and ``file`` sources, ``radio`` modules with every
-demod (the RAW demod and plugin demods registered with
+Ported: the ``none`` and ``file`` sources and the ``sdrpp_server`` source
+(a remote ``server/stream_server.py``, through
+``server/stream_client.py``; ``tune`` retunes it and ``shutdown`` closes
+it), the ``iq_exporter`` module (``modules/iq_exporter.py``), ``radio``
+modules with every demod (the RAW demod and plugin demods registered with
 ``models.radio.register_demod_provider`` among them; ``list_demods``),
 their noise blanker and FM IF filter (``set_nb``, ``set_fmif``), their
 audio noise reduction (``set_afnr logmmse|omlsa``, ops/logmmse.py and
@@ -25,7 +28,7 @@ carrying ``IFNRLogMMSE`` as its preprocessor, primed once a pump session,
 shed by the real-time guard), and the ``recorder`` sink.  What the JAX
 app has beyond that is refused by name: its other source types, module
 types, sinks and the transmitter raise ``NotImplementedError`` when
-configured.
+configured (``transmitter`` is always None).
 """
 
 from __future__ import annotations
@@ -88,11 +91,10 @@ DEFAULT_CONFIG = {
 SPECTRUM_BUF_SIZE = 16384  # IF spectrum ring (reference radio_module.h:78)
 
 #: what the JAX app serves and the port does not yet: refused by name
-UNPORTED_SOURCES = ("network", "rtl_tcp", "spyserver", "kiwisdr", "hl2",
-                    "sdrpp_server")
+UNPORTED_SOURCES = ("network", "rtl_tcp", "spyserver", "kiwisdr", "hl2")
 UNPORTED_MODULES = (
     "scanner", "frequency_manager", "recorder", "ft8_decoder",
-    "iq_exporter", "scheduler", "vor_receiver", "ch_tetra_demodulator",
+    "scheduler", "vor_receiver", "ch_tetra_demodulator",
     "ch_extravhf_decoder", "meteor_demodulator", "m17_decoder",
     "tci_server", "weather_sat_decoder", "ryfi_decoder", "atv_decoder",
     "falcon9_decoder", "dab_decoder", "kg_sstv_decoder", "websdr_view",
@@ -474,6 +476,12 @@ class SDRApp:
                 raise NotImplementedError("the transmitter is not ported "
                                           "yet")
             self.pump_manual = (conf.get("pump", "thread") == "manual")
+        # refused before the source and the exporters open their sockets
+        for name, mc in mod_conf.items():
+            mtype = mc.get("type", "radio")
+            if mtype in UNPORTED_MODULES:
+                raise NotImplementedError(f"module type '{mtype}' (module "
+                                          f"'{name}') is not ported yet")
 
         self.source = None
         stype = src.get("type")
@@ -483,6 +491,16 @@ class SDRApp:
             self.samplerate = self.source.samplerate
             if self.source.center_freq:
                 self.frequency = self.source.center_freq
+        elif stype == "sdrpp_server":
+            # a remote StreamServer (reference
+            # source_modules/sdrpp_server_source): its samplerate comes
+            # from the handshake, its blocks are host numpy like a file's
+            from .server.stream_client import StreamClient
+            self.source = StreamClient(
+                src.get("host", "localhost"), int(src.get("port", 5259)),
+                password=src.get("password", ""),
+                compression=src.get("compression", "none"))
+            self.samplerate = float(self.source.samplerate)
         elif stype in UNPORTED_SOURCES:
             raise NotImplementedError(f"source type '{stype}' is not "
                                       f"ported yet")
@@ -509,6 +527,9 @@ class SDRApp:
         # sink layer: per-module streams with priority merger + secondary
         # substreams + the StreamHook bus (reference SinkManager, sink.h)
         self.stream_registry = StreamRegistry()
+        # no transmitter is ported (a config naming one is refused above);
+        # rigctl's T and t read this as the JAX app's is read without one
+        self.transmitter = None
 
         self.modules: Dict[str, ModuleInstance] = {}
         for name, mc in mod_conf.items():
@@ -519,9 +540,13 @@ class SDRApp:
                     offset_hz=mc.get("offset", 0.0),
                     bandwidth=mc.get("bandwidth"),
                     rds=mc.get("rds", False))
-            elif mtype in UNPORTED_MODULES:
-                raise NotImplementedError(f"module type '{mtype}' (module "
-                                          f"'{name}') is not ported yet")
+            elif mtype == "iq_exporter":
+                from .modules.iq_exporter import IQExporterModule
+                self.modules[name] = IQExporterModule(
+                    name, self, port=mc.get("port", 0),
+                    mode=mc.get("mode", "baseband"),
+                    stream=mc.get("stream", "Radio"),
+                    pcm=mc.get("pcm", "i16"))
             else:
                 flog.warn("unknown module type '{}' for '{}'", mtype, name)
 
@@ -557,6 +582,12 @@ class SDRApp:
 
     def tune(self, freq: float):
         self.frequency = float(freq)
+        # a source with a tuner gets the retune (reference
+        # SourceManager::tune → the source's tuneHandler,
+        # source.cpp:127-135): the sdrpp_server source retunes its server
+        tuner = getattr(self.source, "tune", None)
+        if callable(tuner):
+            tuner(freq)
         with self.config.acquire() as conf:
             conf["frequency"] = freq
 
@@ -865,4 +896,8 @@ class SDRApp:
         # point's own shutdown does
         while self.sinks:
             self.sinks.popitem()[1].close()
+        # a remote source says DISCONNECT and closes its socket
+        closer = getattr(self.source, "close", None)
+        if callable(closer):
+            closer()
         self.config.disable_autosave()

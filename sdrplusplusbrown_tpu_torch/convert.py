@@ -8,7 +8,9 @@ trees (dicts and lists) of arrays with the same keys, shapes and dtypes on
 both sides — the per-radio (``Radio.apply``, with its lists of decimator
 and MPX tails, the PLL dict and ``audio_rs`` [2, ..., hist]), IQFrontEnd,
 shared-VFO and channelized layouts alike (int32 bin indices, complex64
-filter tails, float32 audio tails) — and these
+filter tails, float32 audio tails), and the EFFT compressor's
+(``ops/efft_device.py``: its complex64 and float32 rings, int32
+``count``, float32 ``prev_allowance``) — and these
 functions convert them leaf by leaf.  Anything with ``__array__`` (numpy
 arrays, or the JAX package's device arrays) is read through numpy, so
 this module imports nothing of JAX.  The port's trees go to the device

@@ -1554,3 +1554,70 @@ def test_radio_forms_match_cpu(gpu, kw):
         for i, (want, got) in enumerate(zip(out["cpu"][b], out[gpu][b])):
             skip = (960 if i == 0 else 100) if b == 0 else 0
             _close(want[..., skip:], got[..., skip:], 80.0, (b, i))
+
+
+# ---------------------------------------------------------------------
+# the network path's device parts: the EFFT compressor and the feed
+
+def _efft_signal(T: int, fs: float, seed: int) -> np.ndarray:
+    """Light noise and two carriers (tests/test_torch_efft_device.py's
+    signal at ``fs``)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / fs
+    return (0.001 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+            + 0.05 * np.exp(2j * np.pi * fs / 13 * t)
+            + 0.02 * np.exp(2j * np.pi * -fs / 6 * t)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("fs,frames", [(40_000.0, 24), (2_400_000.0, 32)])
+def test_efft_device_matches_cpu(gpu, fs, frames):
+    """EFFTCompressorDevice on the card against the host CPU, two calls
+    with the state carried: readys, count and every frame's nonzero
+    pattern equal, the emits >= 60 dB, the rings >= 80 dB."""
+    from sdrplusplusbrown_tpu_torch.ops.efft_device import (
+        EFFTCompressorDevice, efft_decompress)
+    blocks = {d: EFFTCompressorDevice(fs, device=d) for d in ("cpu", gpu)}
+    n = blocks["cpu"].fft_size
+    x = torch.from_numpy(_efft_signal(2 * frames * n, fs, 3))
+    st = {d: b.init_state() for d, b in blocks.items()}
+    for c in range(2):
+        out = {}
+        for d, b in blocks.items():
+            out[d], st[d] = b.apply(None, st[d],
+                                    x[c * frames * n:(c + 1) * frames * n])
+        (ec, rc), (eg, rg) = out["cpu"], out[gpu]
+        assert eg.device.type == "cuda" and eg.dtype == torch.complex64
+        assert torch.equal(rg.cpu(), rc)
+        assert torch.equal(eg.cpu() != 0, ec != 0), c
+        _close(ec, eg, 60.0, ("emits", c))
+        assert int(st[gpu]["count"]) == int(st["cpu"]["count"])
+        for k in ("clean_freq", "clean_mag", "win_mag"):
+            _close(st["cpu"][k], st[gpu][k], 80.0, (k, c))
+    td = efft_decompress(eg)
+    assert td.device.type == "cuda"
+    np.testing.assert_allclose(td.cpu().numpy(),
+                               efft_decompress(ec).numpy(), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "efft"])
+def test_device_feed_matches_cpu(gpu, mode):
+    """DeviceFeed on the card against the host CPU: none and int8 exact,
+    efft >= 60 dB, the same byte accounting."""
+    from sdrplusplusbrown_tpu_torch.io.feed import DeviceFeed
+    fs = 96_000.0
+    feeds = {d: DeviceFeed(mode, samplerate=fs, device=d)
+             for d in ("cpu", gpu)}
+    x = _efft_signal(1 << 17, fs, 5)
+    for i in range(0, len(x), 1 << 14):
+        a = feeds["cpu"].push(x[i:i + (1 << 14)])
+        b = feeds[gpu].push(x[i:i + (1 << 14)])
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        assert b.device.type == "cuda"
+        if mode == "efft":
+            _close(a, b, 60.0, i)
+        else:
+            assert torch.equal(b.cpu(), a), i
+    assert feeds[gpu].stats() == feeds["cpu"].stats()

@@ -13,11 +13,12 @@ the noise blanker and the FM IF filter are accepted over the control
 plane and the radio still steps, and so is the IF NR from the config
 (``ifnr``) and through the ``ifnr/enabled`` proc entry.  RDS
 (``set_rds``, ``get_rds``, ``rds`` in the config) and the RAW demod are
-served.  And the refusals: what the port lacks answers "not ported yet"
-(the network sink, --server, --rigctl, and in the config a transmitter,
-the other sources and module types), and without a CUDA device the
-entry point exits nonzero naming CUDA unless it is given ``--device
-cpu``."""
+served.  The entry point's ``--server`` streams the capture to a client
+that completes the handshake, and ``--rigctl`` answers ``f``; each exits
+0.  And the refusals: what the port lacks answers "not ported yet" (the
+network sink, and in the config a transmitter, the other sources and
+module types), and without a CUDA device the entry point exits nonzero
+naming CUDA unless it is given ``--device cpu``."""
 
 import glob
 import json
@@ -33,6 +34,8 @@ import pytest
 from e2e_harness import free_port, http_get, http_post
 from sdrplusplusbrown_tpu_torch.app import SDRApp
 from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+from sdrplusplusbrown_tpu_torch.server.rigctl_client import RigctlClient
+from sdrplusplusbrown_tpu_torch.server.stream_client import StreamClient
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,7 +68,8 @@ class TorchAppContext:
     tests/e2e_harness.py:AppContext): a config.json under ``root``,
     ``--http`` on a free port, ``--device cpu``."""
 
-    def __init__(self, root: str, config: dict, autostart: bool = True):
+    def __init__(self, root: str, config: dict, autostart: bool = True,
+                 extra=()):
         self.root = root
         os.makedirs(root, exist_ok=True)
         with open(os.path.join(root, "config.json"), "w") as f:
@@ -76,6 +80,7 @@ class TorchAppContext:
                 "--root", root, "--http", str(self.port), "--device", "cpu"]
         if autostart:
             args.append("--autostart")
+        args += list(extra)
         self.log_path = os.path.join(root, "app.log")
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(args, stdout=self._log,
@@ -410,13 +415,40 @@ def test_threaded_pump_over_http(tmp_path):
     assert int.from_bytes(head[40:44], "little") == os.path.getsize(rec) - 44
 
 
-@pytest.mark.parametrize("flags", [["--server"], ["--rigctl", "4532"]])
-def test_unported_servers_exit_nonzero(tmp_path, flags):
-    res = subprocess.run(
-        [sys.executable, "-m", "sdrplusplusbrown_tpu_torch", "--root",
-         str(tmp_path), "--device", "cpu", *flags], cwd=REPO, env=_env(),
-        capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0 and "not ported yet" in res.stderr, res
+@pytest.mark.parametrize("server", ["stream", "rigctl"])
+def test_servers_serve(tmp_path, server):
+    """``--server --port P``: a client completes the handshake (the
+    capture's rate) and receives int8 blocks; ``--rigctl Q``: ``f``
+    answers the capture's frequency.  /exit, then exit code 0."""
+    port = free_port()
+    flags = (["--server", "--port", str(port)] if server == "stream"
+             else ["--rigctl", str(port)])
+    cfg = config_for(make_capture(tmp_path, seconds=0.5), "manual")
+    ctx = TorchAppContext(str(tmp_path / "root"), cfg, extra=flags)
+    try:
+        assert ctx.wait_ready(timeout=120), ctx.log()[-3000:]
+        if server == "stream":
+            cli = StreamClient("127.0.0.1", port, compression="int8")
+            try:
+                assert cli.samplerate == 240_000.0
+                got = []
+                for blk in cli.blocks(timeout=10):
+                    got.append(blk)
+                    if len(got) == 3:
+                        break
+            finally:
+                cli.close()
+            assert [b.shape for b in got] == [(1200,)] * 3, ctx.log()[-3000:]
+            assert all(np.abs(b).max() > 0.1 for b in got)
+        else:
+            cli = RigctlClient("127.0.0.1", port)
+            try:
+                assert cli.get_frequency() == 14_000_000.0
+            finally:
+                cli.close()
+    finally:
+        rc = ctx.close()
+    assert rc == 0, ctx.log()[-3000:]
 
 
 def test_no_cuda_device_exits_naming_cuda(tmp_path):

@@ -37,10 +37,12 @@ def test_import_loads_no_jax():
 
 # the modules of the app's per-radio step, of the multi-mode bank, of
 # channelizer64, of the serving path (the app, its entry point, the
-# control plane, the pump and the sink layer) and of RDS and the Radio's
-# loops (the PLL, Costas, M&M, the RDS demod), imported with jax, jaxlib
-# and the JAX package blocked (an import of any of them raises
-# ImportError)
+# control plane, the pump and the sink layer), of RDS and the Radio's
+# loops (the PLL, Costas, M&M, the RDS demod) and of the network path
+# (zstd, the protocol, the compression, the host and device EFFT, the
+# stream server and client, rigctl, the IQ exporter, the device feed),
+# imported with jax, jaxlib and the JAX package blocked (an import of
+# any of them raises ImportError)
 _STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
                  "ops.wfm", "ops.wfm_kernel", "ops.fft_kernel",
                  "ops.spectrum", "models.radio", "models.iq_frontend",
@@ -53,7 +55,12 @@ _STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
                  "runtime.routing", "runtime.migrate", "models.waterfall",
                  "io.wav", "io.file_source", "io.recorder", "utils.config",
                  "utils.flog", "utils.event", "utils.metrics", "ops.pll",
-                 "ops.costas", "ops.clock_recovery", "models.rds"]
+                 "ops.costas", "ops.clock_recovery", "models.rds",
+                 "utils.zstd", "server.protocol", "ops.compression",
+                 "ops.efft", "ops.efft_device", "server.stream_server",
+                 "server.stream_client", "server.rigctl",
+                 "server.rigctl_client", "modules", "modules.iq_exporter",
+                 "io.feed"]
 _BLOCKED = """
 import importlib, sys
 for name in ("jax", "jaxlib", "sdrplusplusbrown_tpu"):

@@ -179,3 +179,37 @@ def test_k2_work_counts_the_carried_state(smoke):
     state = 2 * C + C * (25 + 104) + C * 159
     assert [len(h) for h in pipe.hb_taps] == [26, 105] and pipe.K == 159
     assert b == 2 * C * m_if * 2 + 2 * 4 * state + 2 * C * 12_500 * 2
+
+
+def test_graph_node_kinds_reads_a_dot_dump(smoke):
+    """Phase 26 counts a captured call's kernel launches from the graph's
+    dot dump: one kind a node definition, edges and kernel names that
+    mention a copy not counted as nodes or copies."""
+    dot = "\n".join([
+        'digraph dot {', 'subgraph cluster_1 {',
+        'label="graph_1" graph[style="dashed"];',
+        '"graph_1_node_0"[style="solid" shape="record" label="{',
+        'KERNEL', '| {ID | 0 | ...}',
+        '| {name | void at::native::vectorized_elementwise_kernel<4, '
+        'memcpy_like> }"];',
+        '"graph_1_node_1"[style="solid" shape="record" label="{MEMSET',
+        '| {ID | 1}"];',
+        '"graph_1_node_2"[style="solid" shape="record" label="{MEMCPY',
+        '| {ID | 2}"];',
+        '"graph_1_node_3"[style="solid" shape="record" label="{KERNEL',
+        '| {ID | 3}"];',
+        '"graph_1_node_0" -> "graph_1_node_1";', '}', '}'])
+    assert smoke.graph_node_kinds(dot) == ["kernel", "memset", "memcpy",
+                                           "kernel"]
+    assert smoke.graph_node_kinds("digraph dot {\n}") == []
+
+
+def test_net_client_config_is_phase_19s_app_on_a_server(smoke):
+    conf = smoke.net_client_config(5259, "int8", "manual")
+    want = smoke.served_config("", "manual")
+    assert conf["source"] == {"type": "sdrpp_server", "host": "127.0.0.1",
+                              "port": 5259, "compression": "int8"}
+    assert conf["modules"] == want["modules"] and sorted(conf["modules"]) \
+        == ["N", "Q", "W"]
+    assert {k: v for k, v in conf.items() if k != "source"} == \
+        {k: v for k, v in want.items() if k != "source"}

@@ -9,6 +9,7 @@ those same plain versions by chip_smoke.py).
 import glob
 import importlib.util
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -517,3 +518,44 @@ def _np_tree(tree):
     if isinstance(tree, (list, tuple)):
         return [_np_tree(v) for v in tree]
     return _np(tree)
+
+
+# ---------------------------------------------------------------------
+# the network path (tests/test_torch_stream.py, test_torch_rigctl.py,
+# test_torch_iq_exporter.py)
+
+NET_FS = 240_000.0
+
+
+def net_capture(path: str, seconds: float = 1.0):
+    """A WAV capture (float32 IQ at NET_FS) of an NFM carrier at +50 kHz
+    (1 kHz tone, 2.5 kHz peak deviation) in light noise: the capture of
+    tests/test_torch_http_e2e.py."""
+    from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+    T = int(NET_FS * seconds)
+    n = np.arange(T)
+    audio = 0.8 * np.sin(2 * np.pi * 1000 * n / NET_FS)
+    phase = 2 * np.pi * np.cumsum(2500 * audio) / NET_FS
+    rng = np.random.default_rng(9)
+    x = (0.6 * np.exp(1j * (2 * np.pi * 50e3 * n / NET_FS + phase))
+         + 0.01 * (rng.standard_normal(T) + 1j * rng.standard_normal(T)))
+    write_wav(path, x.astype(np.complex64), NET_FS, bits=32)
+
+
+def net_config(source: dict, **modules) -> dict:
+    """A manual-pump config on ``source`` with an NFM radio "Radio" on the
+    carrier and any further ``modules``."""
+    return {"source": source, "fftSize": 4096, "fftRate": 20,
+            "pump": "manual",
+            "modules": {"Radio": {"type": "radio", "demod": "NFM",
+                                  "offset": 50e3}, **modules}}
+
+
+def wait_for(pred, what: str, timeout: float = 10.0):
+    """Poll ``pred`` until it holds; fail with ``what`` after
+    ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(what)
+        time.sleep(0.01)
