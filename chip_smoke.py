@@ -249,8 +249,10 @@ Phases, each fatal on failure:
      counts zeroed before (K4f, K8 and K9 launched and held to their
      plans, every other kernel not); ``int8``, six blocks, phase 19's
      oracles and the server's host compression time; ``int8`` with the
-     pump thread for 5 s (secondsBehind 0, each block's time from its
-     last samples' arrival to its end through a sync, p99 under the
+     pump thread for 5 s, fed by a server that is a process of its own
+     (``python -m sdrplusplusbrown_tpu_torch --server --device cpu``, as
+     a client meets it in use: secondsBehind 0, each block's time from
+     its last samples' arrival to its end through a sync, p99 under the
      block's 50 ms, the received MS/s); ``efft`` on 40 frames of 65 536,
      not paced (the server's host EFFT rate, the zeroed share, the WFM
      tone SNR over NET_EFFT_WFM_BAR); (c) ``EFFTCompressorDevice`` at 2.4
@@ -374,16 +376,27 @@ def nfm_wideband(n: int, offsets, tone_channels) -> np.ndarray:
     return x.astype(np.complex64)
 
 
-def tone_snr_db(audio) -> float:
-    """SNR of the 1 kHz tone in a 48 kHz audio row (sine fit)."""
+def tone_snr_db(audio, hz: float = TONE_HZ) -> float:
+    """SNR of the ``hz`` tone (1 kHz by default) in a 48 kHz audio row
+    (sine fit)."""
     n = audio.shape[-1]
     tt = np.arange(n) / 48_000.0
-    A = np.stack([np.cos(2 * np.pi * TONE_HZ * tt),
-                  np.sin(2 * np.pi * TONE_HZ * tt), np.ones(n)], 1)
+    A = np.stack([np.cos(2 * np.pi * hz * tt),
+                  np.sin(2 * np.pi * hz * tt), np.ones(n)], 1)
     coef, *_ = np.linalg.lstsq(A, audio, rcond=None)
     r = audio - A @ coef
     return float(10 * np.log10(np.mean((A[:, :2] @ coef[:2]) ** 2)
                                / np.mean(r ** 2)))
+
+
+def tone_level_db(audio, hz: float = TONE_HZ) -> float:
+    """The ``hz`` tone's amplitude in a 48 kHz audio row (sine fit), dB."""
+    n = audio.shape[-1]
+    tt = np.arange(n) / 48_000.0
+    A = np.stack([np.cos(2 * np.pi * hz * tt),
+                  np.sin(2 * np.pi * hz * tt), np.ones(n)], 1)
+    coef, *_ = np.linalg.lstsq(A, audio, rcond=None)
+    return float(20 * np.log10(max(np.hypot(coef[0], coef[1]), 1e-300)))
 
 
 def snr_db(ref, got) -> float:
@@ -588,38 +601,74 @@ def event_ms(fn, reps: int = 20) -> float:
 
 
 def call_profile(fn, reps: int = 20, by_kernel: dict | None = None,
-                 counts: dict | None = None,
-                 events: dict | None = None) -> tuple:
+                 counts: dict | None = None, events: dict | None = None,
+                 window: dict | None = None) -> tuple:
     """(device µs, kernel launches) per call of ``fn`` from a torch.profiler
     window of ``reps`` calls: the time of the kernels and copies the window
     saw on the card over ``reps`` (the wrapper's host time, which CUDA
     events around a short kernel also count, left out), and each kernel's
     count over ``reps``, rounded, at least 1, so that an event the
-    profiler drops now and then does not count as a missing launch.  A
-    window that saw no device activity at all is taken again, twice at
-    most; ``by_kernel`` gets µs per call by kernel, ``counts`` launches
-    per call by kernel (rounded, at least 1), ``events`` each kernel's
-    (device µs, launches) as the window saw them."""
+    profiler drops now and then does not count as a missing launch.  The
+    window follows a warm-up step of ``reps`` calls inside the profiler.
+    A window that saw no device activity at all, or fewer launches of the
+    repo's own kernels (csrc/) than the wrappers counted over the same
+    calls, is taken again, twice at most, each retake printed, and the
+    window that saw the largest share of them kept (late in a long run
+    the profiler dropped up to half of a window's events, and the device
+    µs read low); ``by_kernel`` gets µs per call by kernel,
+    ``counts`` launches per call by kernel (rounded, at least 1),
+    ``events`` each kernel's (device µs, launches) as the window saw
+    them, ``window`` the kept window's ``calls``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    seen = {}
-    for _ in range(3):
+    from torch.profiler import ProfilerActivity, profile, schedule
+    best, best_share = {}, -1.0
+    for attempt in range(3):
         fn()
         torch.cuda.synchronize()
+        got = {}
+
+        def ready(p):
+            got["events"] = p.key_averages()
+        # a warm-up step of ``reps`` calls inside the profiler, its events
+        # discarded: the profiler loses a window's first events (late in a
+        # long run up to half of 20 calls' launches), not the active
+        # step's
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=ready) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
+            prof.step()
+            n0 = wrapper_launches()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            counted = wrapper_launches() - n0
+            prof.step()
+        seen = {}
+        for e in got.get("events", []):
             dev_us = getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
-            if dev_us > 0 and e.count and not e.key.startswith(("aten::",
-                                                                "cuda")):
+            # the schedule's step annotation spans the window's kernels
+            if dev_us > 0 and e.count and not e.key.startswith(
+                    ("aten::", "cuda", "ProfilerStep")):
                 seen[e.key] = (dev_us, e.count)
-        if seen:
+        own = sum(c for key, (_, c) in seen.items()
+                  if short_kernel(key) in own_kernels())
+        share = own / counted if counted else 1.0
+        if seen and share > best_share:
+            best, best_share = seen, share
+        if attempt == 2 or (seen and own >= counted):
             break
-        print("profiler window saw no device activity; taken again")
+        print("profiler window saw no device activity; taken again"
+              if not seen else
+              f"profiler window saw {own} of the {counted} launches the "
+              f"wrappers counted; taken again")
+    seen = best
+    if window is not None:
+        window["calls"] = reps
     launches = sum(max(1, round(count / reps)) for key, (_, count)
                    in seen.items() if not key.startswith(("Memcpy", "Memset")))
     for key, (total, count) in seen.items():
@@ -632,6 +681,26 @@ def call_profile(fn, reps: int = 20, by_kernel: dict | None = None,
         if counts is not None and not key.startswith(("Memcpy", "Memset")):
             counts[k] = counts.get(k, 0) + max(1, round(count / reps))
     return sum(total for total, _ in seen.values()) / reps, launches
+
+
+@functools.lru_cache(maxsize=None)
+def own_kernels() -> frozenset:
+    """The names of the repo's CUDA kernels (``__global__`` functions of
+    sdrplusplusbrown_tpu_torch/csrc/), as ``short_kernel`` gives them."""
+    from sdrplusplusbrown_tpu_torch.kernels import _build
+    names = set()
+    for f in os.listdir(_build.CSRC):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(_build.CSRC, f)) as fh:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                    r"(\w+)", fh.read()))
+    return frozenset(names)
+
+
+def wrapper_launches() -> int:
+    """The CUDA launches every kernel wrapper has counted so far."""
+    return sum(kernel_count(tag) for tag in KERNELS)
 
 
 def device_us(fn, reps: int = 20) -> float:
@@ -766,6 +835,7 @@ def main() -> int:
     drive_loops(dev, card, report)
     drive_rds(dev, card, report)
     drive_network(dev, card, report)
+    drive_modes(dev, card, report)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1059,8 +1129,9 @@ def capture(tags, run):
 
 
 def check_scanner_kernel(tag: str, args, card: str, bound_db: float,
-                         timed: bool) -> dict:
-    """K5-K7 against its plain version on ``args``; with ``timed`` both
+                         timed: bool, what: str | None = None) -> dict:
+    """K5-K7 against its plain version on ``args`` (``what`` names the
+    shape in the printout: scanner256's by default); with ``timed`` both
     are timed with CUDA events.  Raises on disagreement."""
     import torch
     mod, name = kernel_fn(tag, "")
@@ -1094,15 +1165,16 @@ def check_scanner_kernel(tag: str, args, card: str, bound_db: float,
         out["library_ms"] = None
         k_us, p_us = device_us(lambda: kern(*args)), device_us(
             lambda: ref(*args))
-        print(f"{tag} {name}: kernel {out['ms']:.4f} ms, plain "
+        print(f"{tag} {name}{f' ({what})' if what else ''}: kernel "
+              f"{out['ms']:.4f} ms, plain "
               f"{out['plain_ms']:.4f} ms, library n/a, bound "
               f"{out['bound_ms']:.4f} ms ({out['bound_by']}), max|err| "
               f"{err:.3e}, {agree}; device time per call (profiler) "
               f"kernel {k_us:.1f} us, plain {p_us:.1f} us [{card}]")
         vs_parent(tag, k_us, out["bound_ms"], card)
     else:
-        print(f"{tag} {name} at C = {SCAN_WIDE_C}: max|err| {err:.3e}, "
-              f"{agree}")
+        print(f"{tag} {name} {f'({what})' if what else f'at C = {SCAN_WIDE_C}'}"
+              f": max|err| {err:.3e}, {agree}")
     if s < bound_db:
         fail(f"{tag}: kernel disagrees with its plain version: {agree}")
     return out
@@ -2548,6 +2620,26 @@ def real_time_bar(label: str, run: dict, bar_ms: float) -> None:
              f"{bar_ms:.0f})")
 
 
+class settled_heap:
+    """Within: the heap as it stands out of the garbage collector's way
+    (``gc.freeze``), as the entry point (``__main__.py``) leaves its
+    startup heap: a full collection then walks only what the pump
+    allocates, not the script's own objects (a pass over ~170 000 of
+    them takes ~0.1 s of host time), which would land inside a timed
+    block."""
+
+    def __enter__(self):
+        import gc
+        gc.collect()
+        gc.freeze()
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.unfreeze()
+        return False
+
+
 def pump_in_real_time(dev, card: str, root: str, config: dict, label: str,
                       seconds: float, prepare=None) -> dict:
     """The app of ``config`` with its pump thread on the looping capture
@@ -2578,12 +2670,13 @@ def pump_in_real_time(dev, card: str, root: str, config: dict, label: str,
     http.start()
     base = f"http://127.0.0.1:{http.port}"
     try:
-        t0 = time.perf_counter()
-        app.start()
-        time.sleep(seconds)
-        st = http_call(base, "/status")
-        blocks, secs = app.blocks_processed, time.perf_counter() - t0
-        walls_rt = list(walls)
+        with settled_heap():
+            t0 = time.perf_counter()
+            app.start()
+            time.sleep(seconds)
+            st = http_call(base, "/status")
+            blocks, secs = app.blocks_processed, time.perf_counter() - t0
+            walls_rt = list(walls)
         block_len = app.pump_block_len
         # then a profiler window of 20 blocks while the pump thread runs
         # (last: the profiler slows the launches of the blocks after it);
@@ -3029,9 +3122,10 @@ def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     guard_clock = PausableClock(app._clock)
     app._clock = guard_clock
     try:
-        t0 = time.perf_counter()
-        app.start()
-        time.sleep(NR_RT_SECONDS)
+        with settled_heap():
+            t0 = time.perf_counter()
+            app.start()
+            time.sleep(NR_RT_SECONDS)
         st = app.status()
         blocks, seconds = app.blocks_processed, time.perf_counter() - t0
         walls_rt = list(walls)
@@ -3226,8 +3320,8 @@ def check_loop_kernel(tag: str, call, card: str, what: str,
         out["library_ms"] = None
         # µs a launch over the launches the window saw: a launch the
         # profiler drops now and then would lower a per-call mean
-        ev = {}
-        call_profile(lambda: kern(*call), events=ev)
+        ev, win = {}, {}
+        call_profile(lambda: kern(*call), events=ev, window=win)
         launches = [tn for k, tn in ev.items()
                     if not k.startswith(("Memcpy", "Memset"))]
         seen = sum(n for _, n in launches)
@@ -3241,7 +3335,8 @@ def check_loop_kernel(tag: str, call, card: str, what: str,
               f"{runs.max():.4f}), plain {out['plain_ms']:.4f} ms, library "
               f"none, bound {out['bound_ms']:.6f} ms ({out['bound_by']}), "
               f"max|err| {err:.3e}, {agree}; device {us:.1f} us a launch "
-              f"({seen} of 20 launches seen); chain {np.median(cpi):.2f} "
+              f"({seen} of {win['calls']} launches seen); chain "
+              f"{np.median(cpi):.2f} "
               f"cycles a step "
               f"({cpi.min():.2f}-{cpi.max():.2f}) at an SM clock of "
               f"{np.median(mhz):.0f} MHz ({mhz.min():.0f}-{mhz.max():.0f}) "
@@ -3553,6 +3648,57 @@ class NetServer:
         self.app.shutdown()
 
 
+class NetServerProcess:
+    """The stream server as a process of its own, as a client meets it
+    in use: ``python -m sdrplusplusbrown_tpu_torch --server`` on the host
+    CPU with the capture as its file source and no radio, so that its
+    compression does not share the client's interpreter."""
+
+    def __init__(self, root: str, cap: str):
+        import socket
+        os.makedirs(root)
+        with open(os.path.join(root, "config.json"), "w") as f:
+            json.dump({"source": {"type": "file", "path": cap,
+                                  "loop": True}, "modules": {}}, f)
+        ports = []
+        for _ in range(2):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                ports.append(s.getsockname()[1])
+        http, self.port = ports
+        self.base = f"http://127.0.0.1:{http}"
+        self.log = open(os.path.join(root, "server.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "sdrplusplusbrown_tpu_torch", "--root",
+             root, "--http", str(http), "--server", "--port",
+             str(self.port), "--device", "cpu"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=self.log,
+            stderr=subprocess.STDOUT)
+        deadline = time.time() + 180
+        while True:
+            if self.proc.poll() is not None or time.time() > deadline:
+                self.close()
+                fail("phase 26 (b): the stream server did not come up")
+            try:
+                http_call(self.base, "/status", timeout=1)
+                break
+            except OSError:
+                time.sleep(0.2)
+
+    def close(self):
+        try:
+            if self.proc.poll() is None:
+                http_call(self.base, "/exit", timeout=10)
+                self.proc.wait(timeout=30)
+        except (OSError, subprocess.TimeoutExpired):
+            pass
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=10)
+            self.log.close()
+
+
 def run_net_app(app, blocks: int, sync) -> dict:
     """``blocks`` manual pump steps: each radio's audio a block."""
     got = {n: [] for n in app.modules}
@@ -3692,7 +3838,7 @@ def net_entry_point(card: str, tmp: str, cap: str) -> None:
 def net_client_app(dev, card: str, report: dict, tmp: str,
                    cap: str) -> None:
     """(b): the app on the card fed from an in-process server, a fresh
-    server a mode."""
+    server a mode (the threaded run's server is a process of its own)."""
     import torch
     sync = torch.cuda.synchronize
     # the reference: the same app fed from the file
@@ -3746,54 +3892,74 @@ def net_client_app(dev, card: str, report: dict, tmp: str,
     net_efft(dev, card, tmp, cap)
 
 
-def net_threaded(dev, card: str, tmp: str, cap: str) -> None:
-    """(b) int8 with the pump thread for NET_RT_SECONDS: each block's
-    wall time from the arrival of its last samples to its end through a
-    sync (the stream is paced to real time, so the time between blocks
-    is the block's duration), /status's secondsBehind, the received
-    rate."""
+def net_threaded(dev, card: str, tmp: str, cap: str,
+                 in_process: bool = False) -> None:
+    """(b) int8 with the pump thread for NET_RT_SECONDS, the server a
+    process of its own (``NetServerProcess``; ``in_process``: a
+    ``NetServer`` in this interpreter, as scripts/net_rt_ab.py compares):
+    each block's wall time from the arrival of its last samples to its
+    end through a sync (the stream is paced to real time, so the time
+    between blocks is the block's duration), /status's secondsBehind,
+    the received rate."""
+    import tempfile
+    import threading
     import torch
-    srv = NetServer(os.path.join(tmp, "p26srv_rt"), cap, dev)
+    threads = threading.active_count()     # before the server and app
+    sub = tempfile.mkdtemp(prefix="p26rt_", dir=tmp)
+    srv = (NetServer(os.path.join(sub, "srv"), cap, dev) if in_process
+           else NetServerProcess(os.path.join(sub, "srv"), cap))
+    where = "in this process" if in_process else "a process of its own"
     try:
-        app = new_app(os.path.join(tmp, "p26rt"),
-                      net_client_config(srv.port, "int8", "thread"), dev,
-                      run_pump=True)
-        app.modules["Q"].handle_debug_command("set_squelch",
-                                              f"{SQUELCH_DB}")
-        walls, last = [], [0.0]
-        src_iter = app._source_iter
+        # settled before the client connects: the stream runs from the
+        # connection on, and a collection over the script's heap after it
+        # would queue a backlog of samples for the pump's first blocks
+        with settled_heap():
+            app = new_app(os.path.join(sub, "app"),
+                          net_client_config(srv.port, "int8", "thread"),
+                          dev, run_pump=True)
+            try:
+                app.modules["Q"].handle_debug_command("set_squelch",
+                                                      f"{SQUELCH_DB}")
+                walls, last = [], [0.0]
+                src_iter = app._source_iter
 
-        def arrivals():
-            for blk in src_iter():
-                last[0] = time.perf_counter()
-                yield blk
+                def arrivals():
+                    for blk in src_iter():
+                        last[0] = time.perf_counter()
+                        yield blk
 
-        def timed_loop():
-            for _ in app._pump_iter():
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - last[0])
-        app._source_iter = arrivals
-        app._pump_loop = timed_loop
-        try:
-            t0 = time.perf_counter()
-            app.start()
-            time.sleep(NET_RT_SECONDS)
-            st, blocks = app.status(), app.blocks_processed
-            secs = time.perf_counter() - t0
-            block_len = app.pump_block_len
-        finally:
-            app.shutdown()
+                def timed_loop():
+                    for _ in app._pump_iter():
+                        torch.cuda.synchronize()
+                        walls.append(time.perf_counter() - last[0])
+                app._source_iter = arrivals
+                app._pump_loop = timed_loop
+                queued = app.source._q.qsize()
+                t0 = time.perf_counter()
+                app.start()
+                time.sleep(NET_RT_SECONDS)
+                st, blocks = app.status(), app.blocks_processed
+                secs = time.perf_counter() - t0
+                block_len = app.pump_block_len
+            finally:
+                app.shutdown()
     finally:
         srv.close()
     w = np.array(walls[3:]) * 1e3
+    worst = np.argsort(w)[::-1][:3]
     dur = block_len / FS * 1e3
     p = [float(np.percentile(w, q)) for q in (50, 90, 99)]
-    print(f"phase 26 (b) int8, threaded pump: {blocks} blocks of "
+    print(f"phase 26 (b) int8, threaded pump, the server {where}: "
+          f"{blocks} blocks of "
           f"{block_len} in {secs:.1f} s, {blocks * block_len / secs / 1e6:.4f}"
           f" MS/s received; from the last samples' arrival to the block's "
           f"end through a sync p50 / p90 / p99 {p[0]:.4f} / {p[1]:.4f} / "
-          f"{p[2]:.4f} ms (bound {dur:.0f}); secondsBehind "
-          f"{st['secondsBehind']}, rtFactor {st['rtFactor']} [{card}]")
+          f"{p[2]:.4f} ms (bound {dur:.0f}), the worst three "
+          + " / ".join(f"{w[i]:.4f} (block {i + 3})" for i in worst)
+          + f" ms; secondsBehind "
+          f"{st['secondsBehind']}, rtFactor {st['rtFactor']}; {queued} "
+          f"source blocks queued at the start, {threads} threads in this "
+          f"process before it [{card}]")
     if st["secondsBehind"] != 0 or p[2] >= dur or blocks < 5:
         fail("phase 26 (b) int8: not real time")
 
@@ -3998,6 +4164,443 @@ def efft_on_card(dev, card: str) -> None:
               f"stats {'equal' if sg_ == sc_ else 'DIFFERENT'} [{card}]")
         if not (ok and same and sg_ == sc_):
             fail(f"phase 26 (c): DeviceFeed {mode}")
+
+
+# ---- phase 27: every demod through the channelized bank ---------------------
+MODES_C = 16                  # VFOs a group: CHANNELIZE_MIN_C, "auto" takes it
+MODES_STEPS = 5
+#: (name, first offset, spacing) of phase 27 (b)'s groups at 2.4 MS/s
+MODES_GROUPS = (("am", -1.15e6, 25e3), ("usb", 100e3, 10e3),
+                ("cw", 700e3, 10e3))
+MODES_MARGIN_DB = 3.0         # the card's tone SNR may sit this far under
+MODES_MIN_DB = 15.0           # the CPU's, and never under this (multimode8's)
+MODES_SILENT_DB = 40.0        # a silent VFO's tone this far under its group's
+MODES_NFM_FS = 96_000.0       # phase 27 (c): BASELINE config 3's rate
+MODES_NFM_OFFSETS = (-30e3, -10e3, 12e3, 33e3)
+MODES_NFM_TONES = (0, 2)
+MODES_NFM_STEPS = 4
+MODES_TAGS = ("K5", "K6", "K8", "K12")
+
+
+def modes_vfos() -> list:
+    """Phase 27 (b)'s bank: MODES_C AM, USB and CW VFOs each (MODES_GROUPS,
+    317 Hz off the grid); the even VFOs of each group carry a tone."""
+    from sdrplusplusbrown_tpu_torch.models.radio import (DEMOD_AM, DEMOD_CW,
+                                                         DEMOD_USB)
+    from sdrplusplusbrown_tpu_torch.models.radio_bank import VFOSpec
+    ids = {"am": DEMOD_AM, "usb": DEMOD_USB, "cw": DEMOD_CW}
+    return [VFOSpec(f"{name}{i}", ids[name], f0 + df * i + 317.0)
+            for name, f0, df in MODES_GROUPS for i in range(MODES_C)]
+
+
+def modes_tone_hz(demod_id: int) -> float:
+    """The audio tone a carrying VFO of ``demod_id`` gives: 1 kHz, or the
+    CW demod's 800 Hz note."""
+    from sdrplusplusbrown_tpu_torch.models.radio import DEMOD_CW
+    return 800.0 if demod_id == DEMOD_CW else TONE_HZ
+
+
+def modes_wideband(n: int, fs: float, vfos, seed: int = 19) -> np.ndarray:
+    """Each even VFO's carrier in its mode: AM a 1 kHz tone at 30 % depth,
+    USB a carrier 400 Hz under the offset (1 kHz above the suppressed
+    carrier, the offset being the passband's centre), CW a carrier on the
+    offset; plus complex noise at 1e-3."""
+    from sdrplusplusbrown_tpu_torch.models.radio import DEMOD_AM, DEMOD_USB
+    t = np.arange(n) / fs
+    tone = np.sin(2 * np.pi * TONE_HZ * t)
+    rng = np.random.default_rng(seed)
+    x = 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    for v in vfos:
+        if int(re.sub(r"\D", "", v.name)) % 2:
+            continue
+        f = v.offset_hz
+        if v.demod_id == DEMOD_AM:
+            x = x + 0.2 * (1 + 0.3 * tone) * np.exp(2j * np.pi * f * t)
+        elif v.demod_id == DEMOD_USB:
+            x = x + 0.1 * np.exp(2j * np.pi * (f - 400.0) * t)
+        else:
+            x = x + 0.1 * np.exp(2j * np.pi * f * t)
+    return x.astype(np.complex64)
+
+
+class no_plain_on_card:
+    """Within: K5's, K6's, K8's and K12's plain versions raise when given
+    a CUDA tensor (a wrapper that fell back to one on the card)."""
+
+    SITES = (("channelizer_kernel", "pfb_bins_ref"),
+             ("chan_frontend", "chan_post_ref"),
+             ("fir_kernel", "fir_rows_ref"), ("agc", "agc_rows_ref"))
+
+    def __enter__(self):
+        import importlib
+        import torch
+        self.saved = []
+        for mod_name, name in self.SITES:
+            mod = importlib.import_module("sdrplusplusbrown_tpu_torch.ops."
+                                          + mod_name)
+            orig = getattr(mod, name)
+
+            def guard(*a, _orig=orig, _name=name):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    fail(f"{_name} ran on the card")
+                return _orig(*a)
+            self.saved.append((mod, name, orig))
+            setattr(mod, name, guard)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+        return False
+
+
+def drive_modes(dev, card: str, report: dict) -> None:
+    """Phase 27 on ``dev``; raises on the first failure.  (a) K5 at
+    M = 100, 160 and 800 (the SSB, DSB, AM and CW banks' PFBs, the
+    large-M kernel) and K5c at M = 128 against their plain versions in
+    both handoffs, K6 at each bandwidth FIR; (b) a 2.4 MS/s bank of 16 AM,
+    16 USB and 16 CW VFOs, every group channelized by "auto"; (c) a
+    96 kS/s bank of 4 NFM VFOs on the shared bank without predecimation;
+    (d) phase 19's app with the scanner, frequency manager, recorder and
+    scheduler modules over HTTP.  Adds the paths' launches to the K5, K6,
+    K7, K8 and K12 entries."""
+    import tempfile
+    t0 = time.perf_counter()
+    modes_kernels(dev, card)
+    t1 = time.perf_counter()
+    modes_bank(dev, card, report)
+    t2 = time.perf_counter()
+    modes_nfm_shared(dev, card, report)
+    t3 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_modes_") as tmp:
+        cap = os.path.join(tmp, "baseband_100000000Hz_10-00-00_01-01-2024"
+                                ".wav")
+        served_capture(cap)
+        modes_app(dev, card, tmp, cap)
+    t4 = time.perf_counter()
+    print(f"phase 27: {t4 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}"
+          f", (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}) [{card}]")
+
+
+def modes_block(fs: float, granule: int) -> int:
+    """BANK_SECONDS of samples at ``fs``, rounded up to ``granule``."""
+    return -(-int(fs * BANK_SECONDS) // granule) * granule
+
+
+def modes_kernels(dev, card: str) -> None:
+    """(a): one step of each channelized group (phase 27 (b)'s AM, USB and
+    CW, and a DSB group of MODES_C on the same band) captured in each
+    handoff: K5 (float32 bins >= 100 dB, bf16 >= 60 dB, as phases 6 and
+    8) and K6 (80 / 45 dB, its squelch sums within rtol 1e-5, its
+    launches its plan's) against their plain versions, timed in bf16 with
+    the design's cost (``k5_as_written``) and, for K6, the conv1d
+    yardstick; K5c at M = 128 (10 MS/s, T = 2^21) the same way as phase
+    16 (100 / 45 dB)."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
+    from sdrplusplusbrown_tpu_torch.models.radio import DEMOD_DSB, Radio
+    from sdrplusplusbrown_tpu_torch.ops import precision
+    from sdrplusplusbrown_tpu_torch.ops.channelizer import \
+        PolyphaseChannelizer
+    vfos = modes_vfos()
+    bank = rb.RadioBank(FS, vfos, device=dev)
+    T = modes_block(FS, bank.in_multiple)
+    x = modes_wideband(T, FS, vfos)
+    xd = (torch.from_numpy(x.real.copy()).to(dev),
+          torch.from_numpy(x.imag.copy()).to(dev))
+    dsb = Radio(FS, DEMOD_DSB, device=dev)
+    dsb_offs = np.linspace(-1.1e6, 1.1e6, MODES_C) + 317.0
+
+    def one_step():
+        bank.apply(bank.make_params(), bank.init_state(), xd, mono_out=True)
+        dsb.apply_channelized(dsb.make_params_channelized(dsb_offs),
+                              dsb.init_state_channelized(MODES_C), xd,
+                              mono_out=True)
+        torch.cuda.synchronize()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for handoff in ("float32", "bf16"):
+        precision.set_handoff_dtype(handoff)
+        f32 = handoff == "float32"
+        _, cap = capture(("K5", "K6"), one_step)
+        for call in cap["K5"]:
+            pipe = call[0]
+            what = (f"M = {pipe.M}, tpp = {pipe.tpp}, T = "
+                    f"{call[1].shape[0]}, W = {call[5]}, {handoff} handoff")
+            e = check_scanner_kernel("K5", call, card, 100.0 if f32 else 60.0,
+                                     timed=not f32, what=what)
+            if not f32:
+                print(k5_as_written(pipe, call[5], call[6], e["bound_ms"],
+                                    e["bound_by"]))
+        for call in cap["K6"]:
+            pipe = call[0]
+            what = (f"M = {pipe.M}, d2 {len(pipe.taps[0])} / FIR "
+                    f"{len(pipe.taps[1])} taps, C = {call[3].shape[0]}, "
+                    f"Tb = {call[8]}, {handoff} handoff")
+            check_scanner_kernel("K6", call, card, 80.0 if f32 else 45.0,
+                                 timed=not f32, what=what)
+            tails_exact("K6", call, what)
+            call_launches("K6", call, what)
+            if not f32:
+                k6_yardstick(call, card)
+    ch = PolyphaseChannelizer(CHZ_FS, 128, device=dev)
+    xr, xi = (torch.from_numpy(a).to(dev) for a in channelizer64_noise())
+    for handoff in ("float32", "bf16"):
+        precision.set_handoff_dtype(handoff)
+        f32 = handoff == "float32"
+        _, cap = capture(("K5c",), lambda: ch.apply_planes(ch.init_state(),
+                                                           (xr, xi)))
+        call = cap["K5c"][-1]
+        e = check_app_kernel(
+            "K5c", call, card, f"M = 128, tpp = {ch.pfb().tpp}, T = "
+            f"{CHZ_T}, W = {call[5]}, {handoff} bins", timed=not f32,
+            min_db=100.0 if f32 else BF16_DB)
+        if not f32:
+            print(k5_as_written(ch.pfb(), call[5], call[6],
+                                *bound("K5c", call)))
+
+
+def modes_bank(dev, card: str, report: dict) -> None:
+    """(b): MODES_STEPS steps of the bank in the bf16 handoff, every group
+    channelized by "auto" (K5, K6, the demods' K12 and K8), with K5's,
+    K6's, K8's and K12's plain versions barred from the card; launches
+    held to their plans; each tone VFO's tone SNR in the last step within
+    MODES_MARGIN_DB of the same steps on the host CPU and >= MODES_MIN_DB,
+    each silent VFO's tone (the AGC leaves noise alone quiet) at least
+    MODES_SILENT_DB under the weakest of its group's tone VFOs, on both;
+    then the step's rate."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
+    from sdrplusplusbrown_tpu_torch.ops import precision
+    vfos = modes_vfos()
+    bank = rb.RadioBank(FS, vfos, device=dev)
+    label = (f"channelized modes @ {FS / 1e6:g} MS/s ("
+             + ", ".join(f"{len(g)} {bank.radios[d].demod_name}"
+                         for d, g in bank.groups.items()) + ")")
+    if not all(bank.channelized.values()):
+        fail(f"{label}: groups channelized {bank.channelized}")
+    T = modes_block(FS, bank.in_multiple)
+    x = modes_wideband(MODES_STEPS * T, FS, vfos)
+    xs = [(torch.from_numpy(x[b * T:(b + 1) * T].real.copy()),
+           torch.from_numpy(x[b * T:(b + 1) * T].imag.copy()))
+          for b in range(MODES_STEPS)]
+
+    def run(device):
+        bk = bank if device != "cpu" else rb.RadioBank(FS, vfos,
+                                                       device="cpu")
+        params, st, outs = bk.make_params(), bk.init_state(), []
+        for xb in xs:
+            audio, st = bk.apply(params, st, tuple(t.to(device) for t in xb),
+                                 mono_out=True)
+            outs.append(audio)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return outs
+    precision.set_handoff_dtype("bf16")
+    reset_counts()
+    with no_plain_on_card():
+        outs, cap = capture(MODES_TAGS, lambda: run(dev))
+    others = ("K1", "K7", "K11", "K5c", "K2", "K3")
+    n = {t: kernel_count(t) for t in MODES_TAGS + others}
+    hold_launches(f"{label}, {MODES_STEPS} steps", n, cap)
+    groups = len(bank.groups)
+    if n["K5"] != groups * MODES_STEPS or min(n["K8"], n["K12"]) < 1 or \
+            any(n[t] for t in others):
+        fail(f"{label}: launch pattern {n}")
+    for t in MODES_TAGS:
+        report[t].setdefault("launches_by_path", {})[
+            f"{label} ({MODES_STEPS} steps)"] = n[t]
+    cpu = run("cpu")[-1]
+    rows = []
+    for d, y in outs[-1].items():
+        hz = modes_tone_hz(d)
+        if y.shape != (MODES_C, T // 50) or not torch.isfinite(y).all():
+            fail(f"{label}: group {d} audio {tuple(y.shape)} or non-finite")
+        rows_d = [(y[i].double().cpu().numpy(), cpu[d][i].double().numpy())
+                  for i in range(MODES_C)]
+        top = min(min(tone_level_db(a, hz), tone_level_db(c, hz))
+                  for a, c in rows_d[::2])
+        for i, v in enumerate(bank.groups[d]):
+            a, c = rows_d[i]
+            if i % 2:
+                lv = max(tone_level_db(a, hz), tone_level_db(c, hz))
+                rows.append(f"{v.name} silent: tone {lv - top:.1f} dB under "
+                            f"the group's")
+                if lv > top - MODES_SILENT_DB:
+                    fail(f"{label}: silent {v.name} shows a tone "
+                         f"{lv - top:.1f} dB under its group's")
+                continue
+            got, ref = tone_snr_db(a, hz), tone_snr_db(c, hz)
+            bar = max(ref - MODES_MARGIN_DB, MODES_MIN_DB)
+            rows.append(f"{v.name} {got:.1f} (CPU {ref:.1f}, bar {bar:.1f})")
+            if got < bar:
+                fail(f"{label}: {v.name} tone SNR {got:.1f} dB, bar "
+                     f"{bar:.1f}")
+    print(f"{label} step {MODES_STEPS}: tone SNR dB (AM and USB 1 kHz, CW "
+          f"800 Hz), card against the port's plain path on the host CPU: "
+          + "; ".join(rows))
+    params = bank.make_params()
+    xd = tuple(t.to(dev) for t in xs[0])
+    step_rate(f"{label}, bf16 handoff",
+              lambda st: bank.apply(params, st, xd, mono_out=True)[1],
+              bank.init_state(), T, card)
+
+
+def modes_nfm_shared(dev, card: str, report: dict) -> None:
+    """(c): 4 NFM VFOs at 96 kS/s (an NFM chain there is the polyphase
+    resampler alone: the shared bank's "xlate" route, then K8 a stage and
+    K7), MODES_NFM_STEPS steps: in the float32 handoff the card's audio
+    >= 80 dB to the host CPU's a step, the tone VFOs' tone SNR > 40 dB
+    (phase 19's NFM oracle) in the last step; in the bf16 handoff the
+    launches held to their plans (K8 and K7; no K1, K11, K5 or K6)."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
+    from sdrplusplusbrown_tpu_torch.models.radio import DEMOD_NFM
+    from sdrplusplusbrown_tpu_torch.ops import precision
+    fs = MODES_NFM_FS
+    vfos = [rb.VFOSpec(f"n{i}", DEMOD_NFM, o)
+            for i, o in enumerate(MODES_NFM_OFFSETS)]
+    bank = rb.RadioBank(fs, vfos, device=dev)
+    route = bank.radios[DEMOD_NFM]._build_vfo_shared().route
+    label = f"NFM x {len(vfos)} @ {fs / 1e3:g} kS/s ({route} route)"
+    if route != "xlate" or bank.channelized[DEMOD_NFM]:
+        fail(f"{label}: not the shared bank without predecimation")
+    T = modes_block(fs, bank.in_multiple)
+    n = MODES_NFM_STEPS * T
+    t = np.arange(n) / fs
+    fm = 2 * np.pi * 2000.0 * np.cumsum(np.sin(2 * np.pi * TONE_HZ * t)) / fs
+    rng = np.random.default_rng(23)
+    x = 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    for k in MODES_NFM_TONES:
+        x = x + 0.2 * np.exp(1j * (2 * np.pi * MODES_NFM_OFFSETS[k] * t + fm))
+    x = x.astype(np.complex64)
+    xs = [torch.from_numpy(x[b * T:(b + 1) * T]) for b in range(
+        MODES_NFM_STEPS)]
+
+    def run(device):
+        bk = bank if device != "cpu" else rb.RadioBank(fs, vfos,
+                                                       device="cpu")
+        params, st, outs = bk.make_params(), bk.init_state(), []
+        for xb in xs:
+            audio, st = bk.apply(params, st, xb.to(device), mono_out=True)
+            outs.append(audio[DEMOD_NFM])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return outs
+    precision.set_handoff_dtype("float32")
+    card_out, cpu_out = run(dev), run("cpu")
+    agree = [snr_db(c, g.cpu()) for c, g in zip(cpu_out, card_out)]
+    tones = [tone_snr_db(card_out[-1][k].double().cpu().numpy())
+             for k in MODES_NFM_TONES]
+    print(f"{label}: card against the host CPU, audio "
+          + ", ".join(f"{a:.1f}" for a in agree) + " dB a step (bound 80); "
+          f"tone SNR " + ", ".join(f"{v:.1f}" for v in tones)
+          + f" dB (bound 40) [{card}]")
+    if min(agree) < 80.0 or min(tones) <= 40.0:
+        fail(f"{label}: card against CPU or tone oracle failed")
+    precision.set_handoff_dtype("bf16")
+    reset_counts()
+    with no_plain_on_card():
+        _, cap = capture(("K7", "K8"), lambda: run(dev))
+    others = ("K1", "K11", "K5", "K6")
+    cnt = {t: kernel_count(t) for t in ("K7", "K8") + others}
+    hold_launches(f"{label}, {MODES_NFM_STEPS} steps, bf16", cnt, cap)
+    if min(cnt["K7"], cnt["K8"]) < 1 or any(cnt[t] for t in others):
+        fail(f"{label}: launch pattern {cnt}")
+    for tag in ("K7", "K8"):
+        report[tag].setdefault("launches_by_path", {})[
+            f"{label} ({MODES_NFM_STEPS} steps)"] = cnt[tag]
+
+
+def modes_app(dev, card: str, tmp: str, cap: str) -> None:
+    """(d): phase 19's app (manual pump, the WFM and NFM radios) on the
+    card with a third NFM radio "S" and the scanner, frequency manager,
+    recorder and scheduler modules, its HTTP control plane in process,
+    every module command over HTTP (/module/<name>/command): the
+    recorder on N's audio for 8 blocks (its WAV's 1 kHz tone > 40 dB,
+    phase 19's NFM oracle); the scanner on S across +100 kHz to +1.1 MHz
+    (its level 30 dB over the line's floor) reports ``receiving`` within
+    1 kHz of the NFM carrier at APP_NFM[0]; a bookmark 700 kHz up in AM
+    applied to S moves its offset and demod; a ``set_demod USB`` on S
+    scheduled 0.2 s ahead fires; shutdown leaves no new thread alive."""
+    import threading
+    from sdrplusplusbrown_tpu_torch.io.wav import read_wav_iq
+    from sdrplusplusbrown_tpu_torch.server.http_server import HttpDebugServer
+    conf = served_config(cap, "manual", squelched=False)
+    conf["modules"].update({
+        "S": {"type": "radio", "demod": "NFM", "offset": 0.0},
+        "Scan": {"type": "scanner", "vfo": "S", "start_freq": 100e3,
+                 "stop_freq": 1.1e6, "interval": 25e3},
+        "FM": {"type": "frequency_manager"}, "Rec": {"type": "recorder"},
+        "Sched": {"type": "scheduler"}})
+    before = set(threading.enumerate())
+    app = new_app(os.path.join(tmp, "p27d"), conf, dev)
+    http = HttpDebugServer(app, port=0)
+    http.start()
+    base = f"http://127.0.0.1:{http.port}"
+
+    def cmd(name: str, c: str, args: str = "") -> dict:
+        return http_call(base, f"/module/{name}/command",
+                         {"cmd": c, "args": args})
+
+    def until(pred, what: str, timeout: float = 20.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                fail(f"phase 27 (d): {what}")
+            time.sleep(0.05)
+    try:
+        app.start()
+        r = cmd("Rec", "start", "N,audio")
+        if r.get("status") != "ok":
+            fail(f"phase 27 (d): recorder start {r}")
+        path = r["path"]
+        http_call(base, "/pump/step", {"blocks": 4})
+        level = float(np.percentile(app.last_spectrum, 2)) + 30.0
+        r = [cmd("Scan", "configure", f"level={level:.1f}"),
+             cmd("Scan", "start")]
+        until(lambda: cmd("Scan", "status")["receiving"],
+              "the scanner reported no signal")
+        scan = cmd("Scan", "status")
+        r.append(cmd("Scan", "stop"))
+        if abs(scan["current"] - APP_NFM[0]) > 1e3 or any(
+                x.get("status") != "ok" for x in r):
+            fail(f"phase 27 (d): scanner {scan}, replies {r}")
+        http_call(base, "/pump/step", {"blocks": 4})
+        r = cmd("Rec", "stop")
+        s = app.modules["S"]
+        bm = f"Hi|{app.frequency + 700e3:.0f}|10000|AM|S"
+        r = [r, cmd("FM", "add_bookmark", bm),
+             cmd("FM", "apply_bookmark", "Hi")]
+        if any(x.get("status") != "ok" for x in r) or \
+                (s.offset_hz, s.demod_id) != (700e3, 2):
+            fail(f"phase 27 (d): bookmark: replies {r}, S at "
+                 f"{s.offset_hz} Hz, demod {s.demod_id}")
+        r = cmd("Sched", "add", json.dumps({"in": 0.2, "module": "S",
+                                           "cmd": "set_demod",
+                                           "args": "USB"}))
+        until(lambda: s.demod_id == 4 and s.radio.demod_name == "USB",
+              f"the scheduled set_demod did not fire ({r})")
+        tasks = cmd("Sched", "list")["tasks"]
+        http_call(base, "/pump/step", {"blocks": 1})
+    finally:
+        http.stop()
+        app.shutdown()
+    until(lambda: not [t for t in threading.enumerate()
+                       if t not in before and t.is_alive()],
+          "threads left after shutdown: "
+          + ", ".join(t.name for t in threading.enumerate()
+                      if t not in before), timeout=10.0)
+    iq, rate = read_wav_iq(path)
+    nfm = tone_snr_db(iq.real[int(0.02 * rate):].astype(np.float64))
+    print(f"phase 27 (d): app on {dev} over HTTP: scanner receiving at "
+          f"{scan['current']:.0f} Hz (carrier {APP_NFM[0]:.0f}, level "
+          f"{level:.1f} dB), bookmark moved S to {s.offset_hz:.0f} Hz AM, "
+          f"the scheduled set_demod fired (tasks left {len(tasks)}), the "
+          f"recording of N ({iq.shape[0]} frames at {rate:.0f} Hz) tone SNR "
+          f"{nfm:.1f} dB (bound 40), no thread left [{card}]")
+    if nfm <= 40.0 or rate != 48_000 or tasks:
+        fail("phase 27 (d): recorder, rate or scheduler")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ ring), the spectrum lines and each radio's audio.
 Ported: the ``none`` and ``file`` sources and the ``sdrpp_server`` source
 (a remote ``server/stream_server.py``, through
 ``server/stream_client.py``; ``tune`` retunes it and ``shutdown`` closes
-it), the ``iq_exporter`` module (``modules/iq_exporter.py``), ``radio``
+it), the ``iq_exporter``, ``scanner``, ``frequency_manager``,
+``recorder`` and ``scheduler`` modules (``modules/``), ``radio``
 modules with every demod (the RAW demod and plugin demods registered with
 ``models.radio.register_demod_provider`` among them; ``list_demods``),
 their noise blanker and FM IF filter (``set_nb``, ``set_fmif``), their
@@ -93,8 +94,7 @@ SPECTRUM_BUF_SIZE = 16384  # IF spectrum ring (reference radio_module.h:78)
 #: what the JAX app serves and the port does not yet: refused by name
 UNPORTED_SOURCES = ("network", "rtl_tcp", "spyserver", "kiwisdr", "hl2")
 UNPORTED_MODULES = (
-    "scanner", "frequency_manager", "recorder", "ft8_decoder",
-    "scheduler", "vor_receiver", "ch_tetra_demodulator",
+    "ft8_decoder", "vor_receiver", "ch_tetra_demodulator",
     "ch_extravhf_decoder", "meteor_demodulator", "m17_decoder",
     "tci_server", "weather_sat_decoder", "ryfi_decoder", "atv_decoder",
     "falcon9_decoder", "dab_decoder", "kg_sstv_decoder", "websdr_view",
@@ -540,6 +540,21 @@ class SDRApp:
                     offset_hz=mc.get("offset", 0.0),
                     bandwidth=mc.get("bandwidth"),
                     rds=mc.get("rds", False))
+            elif mtype == "scanner":
+                from .modules.scanner import ScannerModule
+                self.modules[name] = ScannerModule(
+                    name, self, vfo=mc.get("vfo", "Radio"),
+                    **{k: mc[k] for k in
+                       ("start_freq", "stop_freq", "interval", "level")
+                       if k in mc})
+            elif mtype == "frequency_manager":
+                from .modules.frequency_manager import FrequencyManagerModule
+                self.modules[name] = FrequencyManagerModule(
+                    name, self, bookmarks=mc.get("bookmarks"))
+            elif mtype == "recorder":
+                from .modules.recorder_module import RecorderModule
+                self.modules[name] = RecorderModule(
+                    name, self, directory=mc.get("directory"))
             elif mtype == "iq_exporter":
                 from .modules.iq_exporter import IQExporterModule
                 self.modules[name] = IQExporterModule(
@@ -547,6 +562,9 @@ class SDRApp:
                     mode=mc.get("mode", "baseband"),
                     stream=mc.get("stream", "Radio"),
                     pcm=mc.get("pcm", "i16"))
+            elif mtype == "scheduler":
+                from .modules.scheduler import SchedulerModule
+                self.modules[name] = SchedulerModule(name, self)
             else:
                 flog.warn("unknown module type '{}' for '{}'", mtype, name)
 

@@ -5,8 +5,9 @@
 // 2×-oversampled (PallasChannelizerV3; also the first half of
 // ops/chan_frontend.py:_chan_fused_kernel_v3) and critically sampled
 // (PallasPolyChannelizerV3, critical = True); the V2 and V1 bodies
-// (_chz2_kernel, also as PallasPolyChannelizer, and _chz_kernel) compute
-// the same function.
+// (_chz2_kernel, also as PallasPolyChannelizer, and _chz_kernel, the
+// PallasChannelizer at pallas_channelizer.py:72) compute the same
+// function.
 //
 // What it computes, with s = [hist (nh = K0 − hop samples) | x (T) | 0…],
 // K0 = tpp·M and hop = M/2 (oversampled) or M (critical), for every output
@@ -73,6 +74,12 @@
 // registers a thread) are too few warps to hide them, and the fold and
 // the products, each ~6 µs of the ~25, still add up more than they
 // overlap.
+// Above M = 64 (AM's M = 160, SSB's 100, CW's 800 at 2.4 MS/s, and the
+// critical form at M = 128) the [2M, 2M] matrix fits neither the fragment
+// registers nor shared memory: pfb_big_kernel keeps the fold and reads the
+// matrix's k-steps from L2, an m-tile at a time (see there).  It is the
+// counterpart of _chz_kernel (PallasChannelizer), which the JAX package
+// runs where its V3 and V2 bodies refuse 2M > 128.
 // ``fold_out``, when not null, also receives the folded frames v_F (float32
 // [2M, width], unsigned), for tests that hold them bit for bit.
 #include <stdint.h>
@@ -84,6 +91,7 @@ namespace {
 constexpr int PFB_THREADS = 256;  // 8 warps
 constexpr int PFB_HALF = 128;     // one group of a warp-specialised block
 constexpr int PFB_NF = 8;         // frames a thread folds (one class)
+constexpr int PFB_KC = 8;         // k-steps a chunk of pfb_big_kernel
 
 // One block's shared memory in floats (``pfb_plan`` sizes it the same):
 // the transposed taps, nbuf input spans, nbs frame buffers (three bf16
@@ -94,11 +102,12 @@ struct PfbLayout {
   int SC;     // one plane of one input span: (nt − 1)·hop + K0, + slack
   int BSW;    // words of one frame's row of one bf16 part: KP/2 + 4
   int OS;     // output tile row: nt + 8 floats
-  int span, bs, os, total;
+  int span, bs, os, total;  // os: the output tile (none in pfb_big_kernel)
 };
 
 __host__ __device__ inline PfbLayout pfb_layout(int M, int tpp, int h,
-                                                int nt, int nbuf, int nbs) {
+                                                int nt, int nbuf, int nbs,
+                                                int out_tile = 1) {
   PfbLayout l;
   l.K16 = (2 * M + 15) / 16;
   l.KP = 16 * l.K16;
@@ -109,7 +118,7 @@ __host__ __device__ inline PfbLayout pfb_layout(int M, int tpp, int h,
   l.span = (tpp * M + 3) & ~3;       // after the transposed taps
   l.bs = l.span + nbuf * 2 * l.SC;
   l.os = l.bs + nbs * 3 * nt * l.BSW;
-  l.total = l.os + l.KP * l.OS;
+  l.total = l.os + out_tile * l.KP * l.OS;
   return l;
 }
 
@@ -626,34 +635,215 @@ __global__ void __launch_bounds__(PFB_THREADS) pfb_ws_kernel(
   }
 }
 
+// Large M (2M > 128, up to thousands of rows): the matrix fits neither the
+// registers nor shared memory (M = 160 in three bf16 parts: 614 KB), so it
+// is tiled over m and over k and read from L2 (NA·KP·KP bf16, shared by
+// every block).  Each block folds its tile as pfb_kernel does, into one
+// frame buffer (three bf16 parts); warp w then takes m-tiles
+// blockIdx.y·8 + w, + 8·gridDim.y, ...: for each, the A fragments of the
+// NA parts come from the matrix in global memory PFB_KC k-steps at a
+// time, the B fragments from the frame buffer, the products in
+// MMA_PASSES' order (as in the register-resident kernels), and the
+// accumulators go straight to ``out`` (the (−1)^m sign on even frames
+// applied there).  gridDim.y
+// splits the m-tiles of one frame tile over blocks, each folding the tile
+// again, so that a short call still fills the SMs.  No output tile: the
+// frame buffer and the spans have the shared memory to themselves.
+template <int NA>
+__global__ void __launch_bounds__(PFB_THREADS) pfb_big_kernel(
+    PfbArgs g, const float* __restrict__ br, const unsigned* __restrict__ ap,
+    int even_sign, void* __restrict__ out, int out_bf16, int width, int nbuf,
+    float* __restrict__ fold_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int M = g.M, tpp = g.tpp, h = g.h, nt = g.nt;
+  const PfbLayout L = pfb_layout(M, tpp, h, nt, nbuf, 1, 0);
+  float* brT = smem;
+  float* spans = smem + L.span;
+  unsigned* Bs = reinterpret_cast<unsigned*>(smem + L.bs);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = (nt - 1) * h + tpp * M;
+  const int ntiles = (width + nt - 1) / nt;
+  const int part = nt * L.BSW;
+  const int K16 = L.K16, KW = L.KP / 2, ntn = nt / 8;
+  const int gq = lane >> 2, tq = lane & 3;
+  const long a_part = static_cast<long>(L.KP) * KW;  // words of one part
+
+  int tile = blockIdx.x;
+  if (tile < ntiles && nbuf > 0) {
+    const long n0 = static_cast<long>(tile) * nt * h;
+    float* d = spans + span_off(n0, g.nh);
+    stage_span(g, n0, span, d, d + L.SC, tid, PFB_THREADS);
+  }
+  sdr::cp_async_commit();
+  for (int i = tid; i < tpp * M; i += PFB_THREADS) {
+    const int p = i / tpp;
+    brT[(i - p * tpp) * M + p] = br[i];
+  }
+  for (int i = tid; i < 3 * part; i += PFB_THREADS) Bs[i] = 0u;
+
+  for (int it = 0; tile < ntiles; tile += gridDim.x, ++it) {
+    const int b = nbuf > 1 ? (it & 1) : 0;
+    const int next = tile + gridDim.x;
+    if (nbuf == 2) {
+      if (next < ntiles) {
+        const long n1 = static_cast<long>(next) * nt * h;
+        float* d = spans + (b ^ 1) * 2 * L.SC + span_off(n1, g.nh);
+        stage_span(g, n1, span, d, d + L.SC, tid, PFB_THREADS);
+      }
+      sdr::cp_async_commit();
+      sdr::cp_async_wait<1>();
+    } else {
+      sdr::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int F0 = tile * nt;
+    fold_at(g, spans + b * 2 * L.SC, L.SC, nbuf, brT,
+            reinterpret_cast<__nv_bfloat16*>(Bs), L.BSW, part, F0, width,
+            fold_out, tid, PFB_THREADS);
+    __syncthreads();
+    if (nbuf == 1 && next < ntiles) {
+      const long n1 = static_cast<long>(next) * nt * h;
+      float* d = spans + span_off(n1, g.nh);
+      stage_span(g, n1, span, d, d + L.SC, tid, PFB_THREADS);
+      sdr::cp_async_commit();
+    }
+
+    for (int mt = blockIdx.y * 8 + warp; mt < K16; mt += 8 * gridDim.y) {
+      float d[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[jj][e] = 0.f;
+      const unsigned* arow =
+          ap + static_cast<long>(mt * 16 + gq) * KW + tq;
+      // PFB_KC k-steps' A fragments at a time, their L2 loads issued
+      // together: one L2 latency a chunk, not one a k-step
+      for (int k0 = 0; k0 < K16; k0 += PFB_KC) {
+        unsigned A[PFB_KC][NA][4];
+#pragma unroll
+        for (int c = 0; c < PFB_KC; ++c) {
+          if (k0 + c < K16) {
+#pragma unroll
+            for (int a = 0; a < NA; ++a) {
+              const unsigned* w = arow + a * a_part + (k0 + c) * 8;
+              A[c][a][0] = __ldg(w);
+              A[c][a][1] = __ldg(w + 8 * KW);
+              A[c][a][2] = __ldg(w + 4);
+              A[c][a][3] = __ldg(w + 8 * KW + 4);
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < PFB_KC; ++c) {
+          if (k0 + c >= K16) break;
+          const int ks = k0 + c;
+          // the frame parts of every n-tile, [n-tile][part][2]
+          unsigned bq[4][3][2];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            if (jj >= ntn) break;
+            const unsigned* w = Bs + (jj * 8 + gq) * L.BSW + ks * 8 + tq;
+#pragma unroll
+            for (int pt = 0; pt < 3; ++pt) {
+              bq[jj][pt][0] = w[pt * part];
+              bq[jj][pt][1] = w[pt * part + 4];
+            }
+          }
+          // the small products first (ops/channelizer_kernel.py:
+          // MMA_PASSES), each pass over every n-tile (independent
+          // accumulators back to back), into accumulators of this k-step
+          // alone, then added to the sums in float32: hundreds of k-steps
+          // chained in one tensor-core accumulator lose bits at each
+          // (M = 800: 99.5 dB against the float32 plain version)
+          constexpr int NP = NA == 3 ? 6 : 3;
+          constexpr int PA[6] = {NA == 3 ? 2 : 0, NA == 3 ? 1 : 0, 0, 1, 0,
+                                 0};
+          constexpr int PB[6] = {0, 1, 2, 0, 1, 0};
+          constexpr int PB1[3] = {2, 1, 0};
+          float e[4][4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) e[jj][q] = 0.f;
+#pragma unroll
+          for (int ps = 0; ps < NP; ++ps) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              if (jj >= ntn) break;
+              const int pb = NA == 3 ? PB[ps] : PB1[ps];
+              sdr::mma_bf16_16816(e[jj], A[c][NA == 3 ? PA[ps] : 0],
+                                  bq[jj][pb][0], bq[jj][pb][1]);
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) d[jj][q] += e[jj][q];
+        }
+      }
+      // rows mt·16 + gq (+ 8), frames F0 + 8·jj + 2·tq (+ 1): the first
+      // of each pair is an even frame (F0 is even)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (jj >= ntn) break;
+        const int F = F0 + jj * 8 + 2 * tq;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = mt * 16 + gq + 8 * hf;
+          if (r >= 2 * M) continue;
+          float v0 = d[jj][2 * hf];
+          const float v1 = d[jj][2 * hf + 1];
+          if (even_sign && ((r < M ? r : r - M) & 1)) v0 = -v0;
+          const long at = static_cast<long>(r) * width + F;
+          if (F < width) sdr::st(out, at, v0, out_bf16);
+          if (F + 1 < width) sdr::st(out, at + 1, v1, out_bf16);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // br [M, tpp] float32; ap [na, KP, KP] bf16 (KP = 2M padded to 16) as the
 // host splits the DFT matrix; out [2M, width] float32 or bf16; fold_out
-// null or [2M, width] float32.  ws (1: the warp-specialised kernel, which
-// takes na 1; 0: pfb_kernel, which takes na 3), nt (16 or 32 frames a
-// tile), nbuf (0, 1 or 2 input spans in shared memory; with 0, ext_r/ext_i
-// hold s whole through the last tile's span, else they are null) and grid
-// (persistent blocks) come from ops/channelizer_kernel.py:pfb_plan.
+// null or [2M, width] float32.  kind (0: pfb_kernel, which takes na 3 and
+// M <= 64; 1: the warp-specialised pfb_ws_kernel, which takes na 1 and
+// M <= 64; 2: pfb_big_kernel, either na, any even M), nt (16 or 32 frames
+// a tile), nbuf (0, 1 or 2 input spans in shared memory; with 0, ext_r/
+// ext_i hold s whole through the last tile's span, else they are null),
+// grid (persistent blocks along the frames) and mgroups (kind 2: blocks
+// sharing one frame tile's m-tiles; else 1) come from
+// ops/channelizer_kernel.py:pfb_plan.
 extern "C" int sdr_pfb_bins(const float* xr, const float* xi, int T,
                             const float* hr, const float* hi, int nh,
                             const float* br, const void* ap, int na, int M,
                             int tpp, int hop, int even_sign, void* out,
-                            int out_bf16, int width, int ws, int nt, int nbuf,
-                            int grid, const float* ext_r, const float* ext_i,
+                            int out_bf16, int width, int kind, int nt,
+                            int nbuf, int grid, int mgroups,
+                            const float* ext_r, const float* ext_i,
                             float* fold_out, cudaStream_t stream) {
-  if (M < 2 || M % 2 || M > 64 || tpp < 2 || width < 1 ||
+  if (M < 2 || M % 2 || (kind != 2 && M > 64) || tpp < 2 || width < 1 ||
       (hop != M / 2 && hop != M) || nh != tpp * M - hop ||
       (na != 1 && na != 3) || (nt != 16 && nt != 32) || nbuf < 0 ||
       nbuf > 2 || grid < 1 || (nbuf == 0 && (!ext_r || !ext_i)) ||
-      ((ws != 0) != (na == 1)))
+      kind < 0 || kind > 2 || (kind < 2 && (kind != 0) != (na == 1)) ||
+      mgroups < 1 || (kind < 2 && mgroups != 1) ||
+      mgroups > (2 * M + 127) / 128)
     return cudaErrorInvalidValue;
-  const size_t smem =
-      pfb_layout(M, tpp, hop, nt, nbuf, ws ? 2 : 1).total * sizeof(float);
+  const size_t smem = pfb_layout(M, tpp, hop, nt, nbuf, kind == 1 ? 2 : 1,
+                                 kind == 2 ? 0 : 1).total * sizeof(float);
   const PfbArgs g{xr, xi, hr, hi, ext_r, ext_i, T, nh, M, tpp, hop, nt};
   const unsigned* a = static_cast<const unsigned*>(ap);
   cudaError_t e;
-  if (ws) {
+  if (kind == 2) {
+    auto* k = na == 3 ? pfb_big_kernel<3> : pfb_big_kernel<1>;
+    e = sdr::allow_smem(k, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    k<<<dim3(grid, mgroups), PFB_THREADS, smem, stream>>>(
+        g, br, a, even_sign, out, out_bf16, width, nbuf, fold_out);
+  } else if (kind == 1) {
     e = sdr::allow_smem(pfb_ws_kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     pfb_ws_kernel<<<grid, PFB_THREADS, smem, stream>>>(

@@ -50,7 +50,7 @@ SIGNATURES = {
                      _I, _I, _P, _P, _P],
     "sdr_fft_rows": [_P, _I, _I, _I, _I, _P, _F, _P],
     "sdr_pfb_bins": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
-                     _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                     _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "sdr_chan_post_d2": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                          _I, _P, _I, _P, _I, _P, _I, _I, _I, _I],
     "sdr_chan_post_fir": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I, _P,

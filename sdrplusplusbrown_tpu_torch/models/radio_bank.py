@@ -3,8 +3,10 @@ sdrplusplusbrown_tpu/models/radio_bank.py).
 
 VFOs of one mode form a group, and a group is one batched ``Radio`` that
 reads the wideband once: through ``apply_shared`` (the shared front end
-K1, or K11 then K8, then the mode's demod) or, for NFM groups of
-``CHANNELIZE_MIN_C`` or more, ``apply_channelized`` (K5, K6, K7).  The
+K1, or K11 then K8, then the mode's demod) or, for groups of
+``CHANNELIZE_MIN_C`` or more whose mode can channelize,
+``apply_channelized`` (K5, K6, then K7 for NFM, the demod's K12 and K8
+for AM, SSB, DSB and CW).  The
 state and params trees are the JAX package's, keyed by demod id, with
 shared groups of 1-3 VFOs padded to 4 channels, so ``convert.py``
 interchanges them unchanged.  Like every entry point, the bank runs on
@@ -54,9 +56,8 @@ class RadioBank:
 
     ``channelize``: "auto" takes the PFB path for groups that
     ``Radio.can_channelize`` and that hold ``CHANNELIZE_MIN_C`` VFOs or
-    more, the shared front end otherwise.  Only NFM is ported through the
-    PFB: a channelized group of another mode raises
-    ``NotImplementedError`` when the bank is built."""
+    more, the shared front end otherwise; ``True`` channelizes every
+    group and raises ValueError for one that cannot (WFM, RAW)."""
 
     def __init__(self, in_samplerate: float, vfos: List[VFOSpec],
                  audio_samplerate: float = 48_000.0,
@@ -83,10 +84,6 @@ class RadioBank:
                     raise ValueError(
                         f"RadioBank: demod {demod_id} cannot channelize "
                         f"(in/IF ratio must be an even integer)")
-            if chz and demod_id != DEMOD_NFM:
-                raise NotImplementedError(
-                    f"{r.demod_name} through the channelized path is not "
-                    f"ported (NFM only)")
             self.channelized[demod_id] = chz
         self.in_multiple = math.lcm(
             *[r.in_multiple for r in self.radios.values()]) \

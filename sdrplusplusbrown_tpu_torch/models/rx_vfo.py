@@ -77,6 +77,10 @@ class SharedRxVFOBank(Block):
     the chain's geometry: ``route`` is "K1" where ``_solve_geometry``
     solves it, else "K11" (K11 then K8 per stage) — at 2.4 MS/s the NFM,
     AM, SSB and WFM chains take K1 and CW does not; at 10 MS/s none
+    does.  A chain without a predecimation stage (NFM at 96 kS/s: the
+    polyphase resampler alone) has nothing to fold the mix-down into:
+    ``route`` "xlate" broadcasts the wideband to one translator a channel
+    and runs the chain's stages on K8, as the JAX package's fallback
     does."""
 
     def __init__(self, in_samplerate: float, out_samplerate: float,
@@ -86,30 +90,39 @@ class SharedRxVFOBank(Block):
         self.base = RxVFO(in_samplerate, out_samplerate, bandwidth)
         self.in_samplerate = float(in_samplerate)
         blocks = self.base.resamp.chain.named_blocks
-        if not (blocks and blocks[0][0] == "decim"):
-            raise NotImplementedError("shared bank without predecimation")
-        stage0 = blocks[0][1].stages[0]
-        self.fused = SharedXlateDecimFIR(stage0.taps, in_samplerate,
-                                         stage0.decim)
-        self.rest_decim = blocks[0][1].stages[1:]
+        self.has_predec = bool(blocks) and blocks[0][0] == "decim"
+        self.fused, self.rest_decim = None, []
+        if self.has_predec:
+            stage0 = blocks[0][1].stages[0]
+            self.fused = SharedXlateDecimFIR(stage0.taps, in_samplerate,
+                                             stage0.decim)
+            self.rest_decim = blocks[0][1].stages[1:]
         self.rest = [(n, b) for n, b in blocks if n != "decim"]
         self.ratio = self.base.ratio
         self.in_multiple = self.base.in_multiple
         self.filter_needed = self.base.filter_needed
         from ..ops import mono_frontend
-        self.route = "K1" if mono_frontend.solves(self) else "K11"
+        self.route = ("xlate" if not self.has_predec
+                      else "K1" if mono_frontend.solves(self) else "K11")
         self._pipe = None
 
     def make_params(self, offsets_hz):
         from ..ops.fused_frontend import fused_params
-        return to_device(
-            {"fused": fused_params(np.asarray(offsets_hz, np.float64),
-                                   self.in_samplerate, self.fused.decim)},
-            entry_device(self.device))
+        offs = np.asarray(offsets_hz, np.float64)
+        if not self.has_predec:
+            p = {"xl": self.base.make_params(offs)["xl"]}
+        else:
+            p = {"fused": fused_params(offs, self.in_samplerate,
+                                       self.fused.decim)}
+        return to_device(p, entry_device(self.device))
 
     def init_state(self, C: int):
-        st = {"fused": self.fused.init_state((C,)),
-              "rest_decim": [s.init_state((C,)) for s in self.rest_decim]}
+        if not self.has_predec:
+            st = {"xl": self.base.xlator.init_state((C,))}
+        else:
+            st = {"fused": self.fused.init_state((C,)),
+                  "rest_decim": [s.init_state((C,))
+                                 for s in self.rest_decim]}
         for n, b in self.rest:
             st[n] = b.init_state((C,))
         if self.filter_needed:
@@ -135,7 +148,8 @@ class SharedRxVFOBank(Block):
     def write_tails(self, state, tails) -> None:
         """Store ``tails`` (stage order) in the state layout."""
         n = len(self.rest_decim)
-        state["rest_decim"] = list(tails[:n])
+        if self.has_predec:
+            state["rest_decim"] = list(tails[:n])
         for i, (name, _) in enumerate(self.rest):
             state[name] = tails[n + i]
         if self.filter_needed:
@@ -163,12 +177,31 @@ class SharedRxVFOBank(Block):
         dev = entry_device(self.device)
         xr, xi = x if isinstance(x, tuple) else (x.real, x.imag)
         x = (xr.to(dev, torch.float32), xi.to(dev, torch.float32))
+        if not self.has_predec:
+            return self._apply_xlate(params, state, x, raw)
         buf, st = self.pipe().apply(params["fused"], state, x,
                                     raw=raw and not float32)
         if raw:
             return buf, st
         C = buf.shape[0] // 2
         return torch.complex(buf[:C], buf[C:]), st
+
+    def _apply_xlate(self, params, state, x, raw: bool):
+        """The "xlate" route: the wideband through each channel's
+        translator (the JAX package's broadcast), then every stage of the
+        chain (K8 on the card); the IF float32, as [2C, m] planes with
+        ``raw``."""
+        st = dict(state)
+        y, st["xl"] = self.base.xlator.apply(params["xl"], state["xl"],
+                                             torch.complex(*x))
+        tails = []
+        for blk, tail in zip(self.stage_blocks(), self.stage_tails(state)):
+            y, t = blk.apply(None, tail, y)
+            tails.append(t)
+        self.write_tails(st, tails)
+        if raw:
+            return torch.cat([y.real, y.imag]).float().contiguous(), st
+        return y, st
 
 
 class ChannelizedRxVFOBank(Block):

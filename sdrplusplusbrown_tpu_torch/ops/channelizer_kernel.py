@@ -47,16 +47,22 @@ SM_SMEM = 233_472    # shared memory of one SM (228 KB)
 
 
 def pfb_smem(M: int, tpp: int, h: int, nt: int, nbuf: int,
-             nbs: int = 1) -> int:
+             nbs: int = 1, out_tile: bool = True) -> int:
     """Shared-memory bytes of one K5 block (csrc/pfb_channelizer.cu:
     pfb_layout): the transposed taps, ``nbuf`` input spans of both planes,
     ``nbs`` buffers of a tile's folded frames as three bf16 parts [nt, 2M
-    padded to 16 + 8] and the output tile [2M padded, nt + 8] float32."""
+    padded to 16 + 8] and, but in the large-M kernel, the output tile [2M
+    padded, nt + 8] float32."""
     KP = -(-2 * M // 16) * 16
     SC = (((nt - 1) * h + tpp * M + M + 3) & ~3) + 4
     words = ((tpp * M + 3) & ~3) + nbuf * 2 * SC \
-        + nbs * 3 * nt * (KP // 2 + 4) + KP * (nt + 8)
+        + nbs * 3 * nt * (KP // 2 + 4) + int(out_tile) * KP * (nt + 8)
     return 4 * words
+
+
+#: M above which the DFT matrix leaves the fragment registers for L2
+#: (2M rows on 8 warps' m-tiles): the large-M kernel, pfb_big_kernel
+PFB_REG_M = 64
 
 
 def pfb_plan(M: int, tpp: int, h: int, width: int, na: int = 1) -> dict:
@@ -71,20 +77,32 @@ def pfb_plan(M: int, tpp: int, h: int, width: int, na: int = 1) -> dict:
     (``nbuf`` 0) where not even one fits: the fold then reads the stream,
     laid out whole, in place (thousands of taps a branch).  Every block
     walks tiles blockIdx, blockIdx + grid, ...; raises where no tile fits
-    SMEM_MAX."""
-    ws = na == 1
+    SMEM_MAX.
+
+    Above M = ``PFB_REG_M`` (``big``) the matrix stays in L2 and either
+    matrix takes pfb_big_kernel: one frame buffer, no output tile, the
+    three-part kernel's tiles; ``mgroups`` blocks share one frame tile's
+    m-tiles (at least 8 a block) where the tiles alone leave SMs idle."""
+    big = M > PFB_REG_M
+    ws = na == 1 and not big
     for nt, nbuf in PFB_WS_TILES if ws else PFB_TILES:
-        smem = pfb_smem(M, tpp, h, nt, nbuf, 2 if ws else 1)
+        smem = pfb_smem(M, tpp, h, nt, nbuf, 2 if ws else 1, not big)
         if smem <= SMEM_MAX:
             break
     else:
         raise NotImplementedError(f"PFB kernel geometry M={M}, tpp={tpp} "
                                   f"does not fit {SMEM_MAX} bytes")
     tiles = -(-width // nt)
-    per_sm = min(2 if ws else 1, SM_SMEM // (smem + 1024))
+    # two blocks an SM but for the three-part register kernel's 96
+    # fragment registers a thread
+    per_sm = min(1 if na == 3 and not big else 2, SM_SMEM // (smem + 1024))
     grid = min(tiles, SMS * per_sm)
-    return {"ws": ws, "nt": nt, "nbuf": nbuf, "smem": smem, "tiles": tiles,
-            "per_sm": per_sm, "grid": grid, "launches": 1}
+    mgroups = 1
+    if big:
+        mgroups = max(1, min(-(-2 * M // 128), SMS * per_sm // grid))
+    return {"ws": ws, "big": big, "nt": nt, "nbuf": nbuf, "smem": smem,
+            "tiles": tiles, "per_sm": per_sm, "grid": grid,
+            "mgroups": mgroups, "launches": 1}
 
 
 #: the bf16 products the kernel sums into each bin, smallest first: (matrix
@@ -136,9 +154,9 @@ class PFBChannelizer:
 
     def check_kernel_geometry(self) -> None:
         """Raise unless csrc/pfb_channelizer.cu takes this geometry: even
-        M <= 64 (2M rows of the matrix on 8 warps' m-tiles) and at least
-        two taps per branch (``pfb_plan`` raises where no tile fits)."""
-        if self.tpp < 2 or self.M % 2 or self.M > 64:
+        M (above ``PFB_REG_M`` the large-M kernel) and at least two taps
+        per branch (``pfb_plan`` raises where no tile fits)."""
+        if self.tpp < 2 or self.M % 2:
             raise NotImplementedError(
                 f"PFB kernel geometry M={self.M}, tpp={self.tpp}")
 
@@ -301,8 +319,9 @@ def _launch_pfb(pipe, xr, xi, xwr, xwi, width_out: int, tap_dtype,
         _build.check(br, "branch taps", f32, device=dev),
         _build.check(parts, "dft parts", torch.bfloat16, device=dev), na,
         pipe.M, pipe.tpp, pipe.h, int(not pipe.critical), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), width_out, int(plan["ws"]),
-        plan["nt"], plan["nbuf"], plan["grid"],
+        int(out_dtype == torch.bfloat16), width_out,
+        2 if plan["big"] else int(plan["ws"]), plan["nt"], plan["nbuf"],
+        plan["grid"], plan["mgroups"],
         *(None if e is None else e.data_ptr() for e in ext),
         None if fold is None else fold.data_ptr())
     return (out, fold) if probe else out

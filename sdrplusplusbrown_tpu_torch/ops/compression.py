@@ -33,9 +33,8 @@ class PCMType(IntEnum):
 
 def compress_samples(x: np.ndarray, pcm: PCMType) -> bytes:
     """complex64 [T] → framed bytes (pre-entropy-coding)."""
-    inter = np.empty(2 * len(x), np.float32)
-    inter[0::2] = np.real(x)
-    inter[1::2] = np.imag(x)
+    # complex64's memory is the interleaved (re, im) float32 pairs
+    inter = np.ascontiguousarray(x, np.complex64).view(np.float32)
     if pcm == PCMType.F32:
         return struct.pack("<HHf", 0, int(pcm), 0.0) + inter.tobytes()
     max_val = float(np.max(np.abs(inter))) if len(x) else 1.0
@@ -52,7 +51,7 @@ def decompress_samples(buf: bytes) -> np.ndarray:
     comp, pcm, scaler = struct.unpack("<HHf", buf[:8])
     payload = buf[8:]
     if pcm == PCMType.F32:
-        inter = np.frombuffer(payload, np.float32)
+        inter = np.frombuffer(payload, np.float32).copy()
     elif pcm == PCMType.I8:
         inter = np.frombuffer(payload, np.int8).astype(np.float32) \
             * (scaler / 127.0)
@@ -61,7 +60,7 @@ def decompress_samples(buf: bytes) -> np.ndarray:
             * (scaler / 32767.0)
     else:
         raise ValueError(f"unknown pcm type {pcm}")
-    return (inter[0::2] + 1j * inter[1::2]).astype(np.complex64)
+    return inter.view(np.complex64)
 
 
 def entropy_encode(buf: bytes, level: int = 1) -> bytes:

@@ -79,6 +79,11 @@ class StreamServer:
     def stop(self):
         self._stop.set()
         try:
+            # wakes the accept loop (closing alone leaves it blocked)
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
             self._listener.close()
         except OSError:
             pass

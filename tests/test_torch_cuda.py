@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from sdrplusplusbrown_tpu_torch.models.radio import (Radio, DEMOD_NFM,
-                                                     DEMOD_WFM)
+from sdrplusplusbrown_tpu_torch.models.radio import (
+    Radio, DEMOD_AM, DEMOD_CW, DEMOD_DSB, DEMOD_NFM, DEMOD_USB, DEMOD_WFM)
 from sdrplusplusbrown_tpu_torch.ops import (chan_frontend, channelizer_kernel,
                                             demod_kernel, fft_kernel,
                                             mono_frontend)
@@ -371,6 +371,60 @@ def test_post_kernel_matches_plain(gpu, handoff, C):
     # four calls (two a block), each counted at every CUDA launch
     per_call = chan_frontend.chan_post_plan(post, Tb, C)["launches"]
     assert chan_frontend.chan_post_kernel.launches == n0 + 4 * per_call
+
+
+#: the channelized banks' post-channelizer geometries at 2.4 MS/s, d2 and
+#: bandwidth FIR taps: AM 45/114, USB 17/651, DSB 18/396, CW 16/1140
+POST_BANK_FORMS = {"am": (DEMOD_AM, 45, 114), "usb": (DEMOD_USB, 17, 651),
+                   "dsb": (DEMOD_DSB, 18, 396), "cw": (DEMOD_CW, 16, 1140)}
+
+
+@pytest.mark.parametrize("form", list(POST_BANK_FORMS))
+def test_post_kernel_at_every_bandwidth_fir(gpu, handoff, form):
+    """K6 at the AM, USB, DSB and CW banks' tap counts (16 channels across
+    ±1.1 MHz, 0.1 s at 2.4 MS/s), against its plain version, two blocks:
+    the IF and both tails >= 80 dB (45 dB in the bf16 handoff), the
+    squelch sums (summed from the fir launch's per-tile partials) within
+    rtol 1e-5, ``chan_post_plan``'s two launches a call.  CW's 600 bin
+    frames give 300 outputs a row: one output a lane (P = 1)."""
+    demod, k1, k2 = POST_BANK_FORMS[form]
+    bank = Radio(FS, demod)._build_vfo_channelized()
+    _, post = bank.pipes()
+    assert [len(t) for t in post.taps] == [k1, k2]
+    C = 16
+    params = bank.make_params(np.linspace(-1.1e6, 1.1e6, C) + 917.0)
+    Tb = 2 * SCAN_T // bank.M
+    plan = post.plan(Tb)
+    cplan = chan_frontend.chan_post_plan(post, Tb, C)
+    if form == "cw":
+        assert (cplan["d2"]["P"], cplan["fir"]["P"]) == (1, 1)
+    rng = np.random.default_rng(k2)
+    h_dt = precision.get_handoff_dtype()
+    state = bank.init_state(C)
+    n0 = chan_frontend.chan_post_kernel.launches
+    bound = 80.0 if handoff == "float32" else 45.0
+    for b in range(2):
+        bins = torch.from_numpy(rng.standard_normal(
+            (2 * bank.M, plan["Tb_pad"])).astype(np.float32)).to(gpu).to(h_dt)
+        a_sup, rem = divmod(post.adv0, chan_frontend.SPAN)
+        span = params["xl_sup"] * a_sup + params["xl_bs"] * (rem // 128)
+        tails = [precision.round_to(torch.cat([state[n].real,
+                                               state[n].imag]).float(),
+                                    h_dt).contiguous() for n in post.names]
+        args = (post, bins, params["bin"], params["xl"]["omega"],
+                state["xl"], span, params["xl_bs"], tails, Tb, h_dt, h_dt)
+        out, sq, nt = chan_frontend.chan_post(*args)
+        out0, sq0, nt0 = chan_frontend.chan_post_ref(*args)
+        m = plan["m"][-1]
+        assert out.is_cuda and out.shape == out0.shape == (2 * C,
+                                                           plan["n_out"])
+        _close(out0[:, :m], out[:, :m], bound, f"{form} IF block {b}")
+        torch.testing.assert_close(sq, sq0, rtol=1e-5, atol=0)
+        for t, t0 in zip(nt, nt0):
+            _close(t0, t, bound, f"{form} tail")
+        _, _, state = post.apply(params, state, bins, Tb, raw=True)
+    assert chan_frontend.chan_post_kernel.launches == n0 + 4 * cplan[
+        "launches"]
 
 
 def _post_args(gpu, C, seed):
@@ -1043,38 +1097,53 @@ def _identity_pipe(pipe):
     return p
 
 
+#: K5's oversampled forms by path: the channelized bank's demod at 2.4 MS/s
+PFB_BANK_FORMS = {"scanner128": DEMOD_NFM, "am160": DEMOD_AM,
+                  "ssb100": DEMOD_USB, "cw800": DEMOD_CW}
+
+
 def _pfb_path_case(form, dev):
     """(pipe, (xr, xi, xwr, xwi), width) at a path's full width: the
-    scanner's PFB (scanner128 and scanner256 share it; 0.1 s at 2.4 MS/s,
-    10 240 frames) or channelizer64's (2^21 samples at 10 MS/s, 32 768)."""
+    channelized bank's PFB at 0.1 s of 2.4 MS/s (scanner128 and
+    scanner256 share NFM's, M = 48, 10 240 frames; AM's M = 160, SSB's
+    M = 100 and CW's M = 800 run the large-M kernel), channelizer64's
+    (2^21 samples at 10 MS/s, 32 768) or the critical form at M = 128
+    (2^21 samples, 16 384 frames, the large-M kernel)."""
     from sdrplusplusbrown_tpu_torch.ops.channelizer import \
         PolyphaseChannelizer
-    if form == "scanner128":
-        bank = Radio(FS, DEMOD_NFM)._build_vfo_channelized()
+    if form in PFB_BANK_FORMS:
+        bank = Radio(FS, PFB_BANK_FORMS[form])._build_vfo_channelized()
         pipe, post = bank.pipes()
         T = 240_000
-        W = post.plan(T // pipe.h)["Tb_pad"]
+        W = post.plan(2 * T // pipe.M)["Tb_pad"]
     else:
-        pipe = PolyphaseChannelizer(10e6, 64).pfb()
+        M = 128 if form == "critical128" else 64
+        pipe = PolyphaseChannelizer(10e6, M).pfb()
         T = 1 << 21
-        W = T // 64
+        W = T // M
     rng = np.random.default_rng(T)
     x = tuple(torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
         np.float32)).to(dev) for n in (T, T, pipe.n_hist, pipe.n_hist))
     return pipe, x, W
 
 
-@pytest.mark.parametrize("form", ["scanner128", "channelizer64"])
+@pytest.mark.parametrize("form", ["scanner128", "channelizer64", "am160",
+                                  "ssb100", "cw800", "critical128"])
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
                          ids=["float32 taps", "bf16 taps"])
 def test_pfb_kernels_at_path_widths(gpu, form, tdt):
-    """K5 (scanner128/256's 10 240 frames, 2×-oversampled) and K5c
-    (channelizer64's 32 768, critical) against their plain versions at
-    the path's full width, both tap dtypes: float32 bins >= 100 dB, bf16
-    bins >= 45 dB, one launch a call; the folded frames (the kernel's
-    probe) within 120 dB of the plain version's (its bins through an
-    identity DFT matrix, the sign undone)."""
+    """K5 (scanner128/256's 10 240 frames, 2×-oversampled; the
+    channelized AM, SSB and CW banks' at M = 160, 100 and 800) and K5c
+    (channelizer64's 32 768, critical; M = 128's 16 384) against their
+    plain versions at the path's full width, both tap dtypes: float32
+    bins >= 100 dB, bf16 bins >= 45 dB, one launch a call; the folded
+    frames (the kernel's probe) within 120 dB of the plain version's (its
+    bins through an identity DFT matrix, the sign undone).  Above M = 64
+    the plan is the large-M kernel's."""
     pipe, x, W = _pfb_path_case(form, gpu)
+    na = pipe.dft_parts(gpu, tdt)[1]
+    assert channelizer_kernel.pfb_plan(pipe.M, pipe.tpp, pipe.h, W,
+                                       na)["big"] == (pipe.M > 64)
     fn = channelizer_kernel.pfb_critical_bins_kernel if pipe.critical \
         else channelizer_kernel.pfb_bins_kernel
     for out, bound in ((torch.float32, 100.0), (torch.bfloat16, 45.0)):
@@ -1269,15 +1338,33 @@ def test_channelizer64_reaches_no_library_kernel(gpu, monkeypatch):
 
 
 def test_channelizer64_kernels_raise_instead_of_falling_back(gpu):
-    """A geometry K5's critical form cannot take (M > 64, odd M, one tap
-    per branch) raises NotImplementedError on the card; a CPU, a
-    non-contiguous or a wrong-dtype tensor given to the new wrappers
-    raises ValueError."""
+    """A geometry K5's critical form cannot take (odd M, one tap per
+    branch) raises NotImplementedError on the card, while M = 128 (the
+    large-M kernel) runs and holds its plain version on the CPU to 100 dB
+    (float32 bins); a CPU, a non-contiguous or a wrong-dtype tensor given
+    to the new wrappers raises ValueError."""
     from sdrplusplusbrown_tpu_torch.ops.channelizer import \
         PolyphaseChannelizer
     for M, tf in ((128, 0.2), (15, 0.2), (16, 5.0)):
         ch = PolyphaseChannelizer(10e6, M, trans_frac=tf)
         x = torch.zeros(M * 256, dtype=torch.complex64, device=gpu)
+        if M == 128:
+            rng = np.random.default_rng(M)
+            x = torch.from_numpy((rng.standard_normal(M * 256) + 1j
+                                  * rng.standard_normal(M * 256)).astype(
+                                      np.complex64))
+            ch_cpu = PolyphaseChannelizer(10e6, M, trans_frac=tf,
+                                          device="cpu")
+            n0 = channelizer_kernel.pfb_critical_bins_kernel.launches
+            got, st = ch.apply_planes(ch.init_state(), x.to(gpu),
+                                      out_dtype=torch.float32)
+            want, st0 = ch_cpu.apply_planes(ch_cpu.init_state(), x,
+                                            out_dtype=torch.float32)
+            assert channelizer_kernel.pfb_critical_bins_kernel.launches \
+                == n0 + 1
+            _close(want, got, 100.0, "M = 128 bins")
+            assert torch.equal(st.cpu(), st0)
+            continue
         with pytest.raises(NotImplementedError):
             ch.apply_planes(ch.init_state(), x)
     ch = PolyphaseChannelizer(10e6, 64)

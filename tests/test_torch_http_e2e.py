@@ -467,7 +467,7 @@ def test_no_cuda_device_exits_naming_cuda(tmp_path):
     ({"transmitter": {"type": "loopback"}}, "transmitter"),
     ({"source": {"type": "rtl_tcp"}}, "rtl_tcp"),
     ({"source": {"type": "spyserver"}}, "spyserver"),
-    ({"modules": {"S": {"type": "scanner"}}}, "scanner"),
+    ({"modules": {"S": {"type": "signal_detector"}}}, "signal_detector"),
     ({"modules": {"F": {"type": "ft8_decoder"}}}, "ft8_decoder"),
 ])
 def test_unported_config_refused(tmp_path, conf, what):

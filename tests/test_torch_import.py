@@ -40,7 +40,8 @@ def test_import_loads_no_jax():
 # control plane, the pump and the sink layer), of RDS and the Radio's
 # loops (the PLL, Costas, M&M, the RDS demod) and of the network path
 # (zstd, the protocol, the compression, the host and device EFFT, the
-# stream server and client, rigctl, the IQ exporter, the device feed),
+# stream server and client, rigctl, the IQ exporter, the device feed)
+# and the app's scanner, frequency manager, recorder and scheduler,
 # imported with jax, jaxlib and the JAX package blocked (an import of
 # any of them raises ImportError)
 _STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
@@ -60,7 +61,8 @@ _STEP_MODULES = ["ops.fir_kernel", "ops.fir", "ops.resampler", "ops.demod",
                  "ops.efft", "ops.efft_device", "server.stream_server",
                  "server.stream_client", "server.rigctl",
                  "server.rigctl_client", "modules", "modules.iq_exporter",
-                 "io.feed"]
+                 "io.feed", "modules.scanner", "modules.frequency_manager",
+                 "modules.recorder_module", "modules.scheduler"]
 _BLOCKED = """
 import importlib, sys
 for name in ("jax", "jaxlib", "sdrplusplusbrown_tpu"):

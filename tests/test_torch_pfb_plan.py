@@ -28,6 +28,7 @@ Every patch that ``scripts/chz_mix_sweep.py`` builds on the card
 committed sources."""
 
 import copy
+import functools
 
 import numpy as np
 import pytest
@@ -283,3 +284,96 @@ def test_sweep_patch_sites_are_in_the_sources(name):
     with open(os.path.join(_build.CSRC, src)) as fh:
         text = fh.read()
     assert sweep.patched(text, subs, name) != text
+
+
+@functools.lru_cache(maxsize=None)
+def bank_pfbs():
+    """[(label, pipe, width)]: the channelized banks' PFBs at 2.4 MS/s
+    above M = 64 (AM 160, USB and DSB 100, CW 800) at 0.1 s, and the
+    critical form at M = 128 (2^21 samples at 10 MS/s)."""
+    from sdrplusplusbrown_tpu_torch.models.radio import (DEMOD_AM, DEMOD_CW,
+                                                         DEMOD_DSB,
+                                                         DEMOD_USB)
+    out = []
+    for d in (DEMOD_AM, DEMOD_USB, DEMOD_DSB, DEMOD_CW):
+        pfb, post = Radio(2.4e6, d, device="cpu")._build_vfo_channelized() \
+            .pipes()
+        out.append((f"oversampled M={pfb.M}", pfb,
+                    post.plan(2 * 243_200 // pfb.M)["Tb_pad"]))
+    crit = PolyphaseChannelizer(10e6, 128, device="cpu").pfb()
+    out.append(("critical M=128", crit, (1 << 21) // 128))
+    return out
+
+
+@pytest.mark.parametrize("na", [1, 3])
+def test_pfb_plan_large_m_at_the_banks(na):
+    """Above M = 64 either matrix takes the large-M kernel: no output tile
+    in its shared memory, which fits, every frame in one tile, every
+    m-tile of a frame tile in one (m-group, warp) pair, at most
+    ceil(2M / 128) m-groups, and the SMs filled where the tiles allow."""
+    for label, pipe, W in bank_pfbs():
+        M, h = pipe.M, pipe.h
+        p = ck.pfb_plan(M, pipe.tpp, h, W, na)
+        assert p["big"] and not p["ws"], label
+        assert p["smem"] == ck.pfb_smem(M, pipe.tpp, h, p["nt"], p["nbuf"],
+                                        1, False) <= SMEM
+        assert p["per_sm"] * (p["smem"] + 1024) <= ck.SM_SMEM
+        assert p["nt"] // (M // h) % ck.PFB_NF == 0
+        count = np.zeros(W, np.int64)
+        for b in range(p["grid"]):
+            for tile in range(b, p["tiles"], p["grid"]):
+                count[tile * p["nt"]:(tile + 1) * p["nt"]] += 1
+        assert (count == 1).all(), label
+        K16 = -(-2 * M // 16)
+        assert 1 <= p["mgroups"] <= -(-2 * M // 128)
+        mts = sorted(mt for y in range(p["mgroups"]) for w in range(8)
+                     for mt in range(y * 8 + w, K16, 8 * p["mgroups"]))
+        assert mts == list(range(K16)), label
+        assert p["grid"] * p["mgroups"] >= min(SMS, p["tiles"]), (label, p)
+    assert not ck.pfb_plan(64, 19, 64, 1000, 1)["big"]
+
+
+def big_model(pipe, xr, xi, xwr, xwi, W, tdt):
+    """The large-M kernel's bins [2M, W] float32: ``split_model``'s
+    products, summed apart for each 16-wide k-step (its accumulators of
+    one k-step, in MMA_PASSES' order) and the k-steps' sums added in
+    float32, ascending."""
+    M = pipe.M
+    v = ck.pfb_bins_ref(identity_pipe(pipe), xr, xi, xwr, xwi, W, tdt,
+                        torch.float32)
+    sign = torch.ones(2 * M, W)
+    if not pipe.critical:
+        odd = (torch.arange(2 * M) % M) % 2 == 1
+        sign[odd[:, None] & (torch.arange(W) % 2 == 0)[None]] = -1.0
+    v = v * sign
+    parts, na = pipe.dft_parts("cpu", tdt)
+    KP = parts.shape[-1]
+    vp = torch.zeros(KP, W)
+    vp[:2 * M] = v
+    b = ck.split_bf16(vp)
+    out = torch.zeros(KP, W)
+    for k in range(0, KP, 16):
+        e = torch.zeros(KP, W)
+        for ia, ib in ck.MMA_PASSES[na]:
+            e = e + parts[ia][:, k:k + 16].float() @ b[ib][k:k + 16].float()
+        out = out + e
+    return out[:2 * M] * sign
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["float32 taps", "bf16 taps"])
+@pytest.mark.parametrize("idx", range(5), ids=["am160", "usb100", "dsb100",
+                                                "cw800", "critical128"])
+def test_big_kernel_sum_holds_100db(idx, tdt):
+    """``big_model`` against ``pfb_bins_ref``'s float32 bins at the banks'
+    geometries, 24 frames: >= 100 dB."""
+    label, pipe, _ = bank_pfbs()[idx]
+    rng = np.random.default_rng(pipe.M)
+    T = pipe.h * 24
+    xr, xi, xwr, xwi = (torch.from_numpy(
+        (0.1 * rng.standard_normal(n)).astype(np.float32))
+        for n in (T, T, pipe.n_hist, pipe.n_hist))
+    want = ck.pfb_bins_ref(pipe, xr, xi, xwr, xwi, 24, tdt, torch.float32)
+    got = big_model(pipe, xr, xi, xwr, xwi, 24, tdt)
+    db = snr_db(want.numpy(), got.numpy())
+    assert db >= 100.0, (label, db)

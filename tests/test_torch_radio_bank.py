@@ -252,27 +252,33 @@ def test_padding_mono_out_and_state_layout():
 
 
 def test_channelized_groups():
-    """An NFM group of CHANNELIZE_MIN_C or more takes the PFB path; any
-    other mode that would channelize raises when the bank is built."""
+    """A group of CHANNELIZE_MIN_C or more whose mode can channelize takes
+    the PFB path with ``"auto"`` (NFM and AM here), a single USB VFO with
+    ``channelize=True``; WFM cannot and raises when the bank is built
+    (tests/test_torch_channelized_modes.py holds the modes to JAX)."""
     fs = 2.4e6
     offs = np.linspace(-1e6, 1e6, radio_bank.CHANNELIZE_MIN_C)
-    with pytest.raises(NotImplementedError):
-        radio_bank.RadioBank(fs, [radio_bank.VFOSpec(f"a{i}", DEMOD_AM, o)
-                                  for i, o in enumerate(offs)], device="cpu")
-    with pytest.raises(NotImplementedError):
-        radio_bank.RadioBank(fs, [radio_bank.VFOSpec("u", DEMOD_USB, 0.0)],
+    with pytest.raises(ValueError):
+        radio_bank.RadioBank(fs, [radio_bank.VFOSpec("w", DEMOD_WFM, 0.0)],
                              channelize=True, device="cpu")
-    pb = radio_bank.RadioBank(fs, [radio_bank.VFOSpec(f"n{i}", DEMOD_NFM, o)
-                                   for i, o in enumerate(offs)],
-                              device="cpu")
-    assert pb.channelized[DEMOD_NFM]
-    T = pb.in_multiple
-    out, st = pb.apply(pb.make_params(), pb.init_state(),
-                       torch.from_numpy(multimode_iq(
-                           T, fs, [(DEMOD_NFM, o) for o in offs])),
-                       mono_out=True)
-    assert out[DEMOD_NFM].shape == (len(offs), T // 50)
-    assert "chz" in st[DEMOD_NFM]["vfo"]
+    for d, vfos in (
+            (DEMOD_AM, [radio_bank.VFOSpec(f"a{i}", DEMOD_AM, o)
+                        for i, o in enumerate(offs)]),
+            (DEMOD_USB, [radio_bank.VFOSpec("u", DEMOD_USB, 1e5)]),
+            (DEMOD_NFM, [radio_bank.VFOSpec(f"n{i}", DEMOD_NFM, o)
+                         for i, o in enumerate(offs)])):
+        pb = radio_bank.RadioBank(fs, vfos, device="cpu",
+                                  channelize=True if d == DEMOD_USB
+                                  else "auto")
+        assert pb.channelized == {d: True}
+        T = pb.in_multiple
+        out, st = pb.apply(pb.make_params(), pb.init_state(),
+                           torch.from_numpy(multimode_iq(
+                               T, fs, [(d, v.offset_hz) for v in vfos])),
+                           mono_out=True)
+        assert out[d].shape == (len(vfos), T // 50)
+        assert torch.isfinite(out[d]).all() and out[d].any()
+        assert "chz" in st[d]["vfo"]
 
 
 def test_bank_device_rule():

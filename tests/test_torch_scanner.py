@@ -146,15 +146,23 @@ def test_default_radio_runs_on_cuda_or_raises(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What the channelized route still refuses: another demod than NFM,
-    raw audio beside the noise blanker and the FM IF filter, a block off
-    the granularity.  WFM with the squelch through apply_shared, the RAW
-    demod and de-emphasis on a mono demod build
-    (tests/test_torch_radio_forms.py holds them to JAX)."""
+    """What the channelized route still refuses: a demod that cannot
+    channelize (WFM: the bank's ValueError, as in the JAX package), raw
+    audio beside the noise blanker and the FM IF filter, a block off the
+    granularity; another demod that can (AM) runs it
+    (tests/test_torch_channelized_modes.py holds them to JAX).  WFM with
+    the squelch through apply_shared, the RAW demod and de-emphasis on a
+    mono demod build (tests/test_torch_radio_forms.py holds them to
+    JAX)."""
     pr = Radio(FS, DEMOD_NFM, device="cpu")
     wfm = Radio(FS, DEMOD_WFM, squelch_enabled=True, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="even integer"):
         wfm.apply_channelized(None, None, planes(nfm_iq(T, OFFSETS, [1])))
+    am = Radio(FS, "AM", device="cpu")
+    audio, _ = am.apply_channelized(am.make_params_channelized(OFFSETS),
+                                    am.init_state_channelized(C),
+                                    planes(nfm_iq(T, OFFSETS, [1])))
+    assert audio.shape == (C, 2, T // 50) and torch.isfinite(audio).all()
     # the noise blanker and the FM IF filter leave the fused routes
     # (tests/test_torch_noise_chain.py); raw audio has no such route
     nb = Radio(FS, DEMOD_NFM, nb_enabled=True, fmif_enabled=True,

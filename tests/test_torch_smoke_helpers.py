@@ -213,3 +213,88 @@ def test_net_client_config_is_phase_19s_app_on_a_server(smoke):
         == ["N", "Q", "W"]
     assert {k: v for k, v in conf.items() if k != "source"} == \
         {k: v for k, v in want.items() if k != "source"}
+
+
+def test_net_server_process_streams_the_capture(smoke, tmp_path):
+    """Phase 26 (b)'s threaded client's server: ``python -m
+    sdrplusplusbrown_tpu_torch --server --device cpu`` on a capture, int8
+    blocks at its rate, exit code 0 on close."""
+    from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+    from sdrplusplusbrown_tpu_torch.server.stream_client import StreamClient
+    cap = str(tmp_path / "baseband_100000000Hz_10-00-00_01-01-2024.wav")
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(48_000) + 1j * rng.standard_normal(48_000))
+    write_wav(cap, (0.1 * x).astype(np.complex64), smoke.FS, bits=32)
+    srv = smoke.NetServerProcess(str(tmp_path / "srv"), cap)
+    try:
+        cli = StreamClient("127.0.0.1", srv.port, compression="int8")
+        try:
+            got = []
+            for blk in cli.blocks(timeout=30):
+                got.append(blk)
+                if len(got) == 3:
+                    break
+        finally:
+            cli.close()
+    finally:
+        srv.close()
+    assert cli.samplerate == smoke.FS
+    assert [b.shape for b in got] == [(int(smoke.FS / 200),)] * 3
+    assert srv.proc.returncode == 0
+
+
+def test_phase27_bank_channelizes_every_group(smoke):
+    """Phase 27 (b)'s 48 VFOs form three groups of 16 (AM, USB, CW), each
+    channelized by "auto"; the wideband carries a carrier on each even
+    VFO; a CW VFO's tone is the demod's 800 Hz note."""
+    from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
+    from sdrplusplusbrown_tpu_torch.models.radio import (DEMOD_AM, DEMOD_CW,
+                                                         DEMOD_USB)
+    vfos = smoke.modes_vfos()
+    bank = rb.RadioBank(smoke.FS, vfos, device="cpu")
+    assert bank.channelized == {DEMOD_AM: True, DEMOD_USB: True,
+                                DEMOD_CW: True}
+    assert [len(g) for g in bank.groups.values()] == [smoke.MODES_C] * 3
+    assert smoke.modes_block(smoke.FS, bank.in_multiple) == 243_200
+    assert smoke.modes_tone_hz(DEMOD_CW) == 800.0
+    assert smoke.modes_tone_hz(DEMOD_AM) == smoke.TONE_HZ
+    x = smoke.modes_wideband(48_000, smoke.FS, vfos)
+    spec = np.abs(np.fft.fft(x))
+    f = np.fft.fftfreq(x.size, 1 / smoke.FS)
+    for i, v in enumerate(vfos):
+        near = np.abs(f - v.offset_hz) < 1500.0
+        assert (spec[near].max() > 100.0) == (i % 2 == 0), v.name
+
+
+def test_tone_level_and_snr_at_a_chosen_frequency(smoke):
+    t = np.arange(4800) / 48_000.0
+    row = 0.5 * np.sin(2 * np.pi * 800.0 * t + 0.3)
+    assert smoke.tone_level_db(row, 800.0) == pytest.approx(
+        20 * np.log10(0.5), abs=1e-6)
+    assert smoke.tone_snr_db(row, 800.0) > 200.0
+    assert smoke.tone_snr_db(row) < 0.0
+
+
+def test_own_kernels_names_each_csrc_kernel(smoke):
+    """``call_profile`` compares the profiler's events of these kernels
+    with the wrappers' counts."""
+    own = smoke.own_kernels()
+    for name in ("pfb_big_kernel", "pfb_ws_kernel", "post_d2_kernel",
+                 "post_fir_kernel", "agc_rows_kernel", "fir_rows_kernel",
+                 "fused_mix_kernel", "stage_kernel", "costas_kernel"):
+        assert name in own, name
+    assert "vectorized_elementwise_kernel" not in own
+    assert smoke.wrapper_launches() >= 0
+
+
+def test_no_plain_on_card_restores_the_plain_versions(smoke):
+    """Within the guard a plain version still runs on CPU tensors; after
+    it the module attributes are the originals again."""
+    from sdrplusplusbrown_tpu_torch.ops import agc, fir_kernel
+    orig = (fir_kernel.fir_rows_ref, agc.agc_rows_ref)
+    with smoke.no_plain_on_card():
+        assert fir_kernel.fir_rows_ref is not orig[0]
+        y, _ = fir_kernel.fir_rows(torch.ones(2, 8), torch.zeros(2, 2),
+                                   torch.ones(1, 3), 1, 1)
+        assert y.shape == (2, 8)
+    assert (fir_kernel.fir_rows_ref, agc.agc_rows_ref) == orig

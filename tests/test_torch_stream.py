@@ -275,6 +275,17 @@ def test_clients_across_packages(server, client, mode):
         srv.stop()
 
 
+def test_stop_ends_the_accept_loop():
+    """stop() wakes the accept loop blocked on the listener: no thread of
+    the server outlives it."""
+    srv = pserver.StreamServer(StubApp(), port=0, host="127.0.0.1")
+    srv.start()
+    assert srv._accept_thread.is_alive()
+    srv.stop()
+    srv._accept_thread.join(timeout=10)
+    assert not srv._accept_thread.is_alive()
+
+
 def test_server_refuses_a_transmitter():
     app = StubApp()
     app.transmitter = object()
