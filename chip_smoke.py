@@ -32,27 +32,30 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     fps), then ``Radio.apply`` for a WFM, an NFM and a squelched NFM
     radio on ~120 000-sample blocks, audio through the sink layer to a
     recorder, driven in manual pump mode in process and over HTTP, and
-    with its pump thread in real time: K4f, K8, K9;
+    with its pump thread in real time: K4f, K8, K9, K15 (the DC
+    blocker's linear recurrence);
   * the noise path — BASELINE config 3 (tests/test_e2e_ssb_nr.py's HF
     voice capture at 96 kS/s through the served app, a USB radio at +10
     kHz with ``set_afnr logmmse`` then ``omlsa``), the IF NR
     (``IFNRLogMMSE``) on the served 2.4 MS/s capture with ``ifnr: true``,
     the noise blanker on a WFM radio and the FM IF filter on an NFM
     radio: K4f, K8 (the AF NR's moving average among its calls), K9,
-    K12;
+    K12, K14 (LogMMSE's frame recursions, IF and AF), K15 (the DC
+    blocker and the noise blanker's envelope);
   * RDS and the Radio's other forms — a WFM radio with the scan PLL
     (``Radio(pll_mode="scan")``: K13's PLL form), the served app on a
     2.4 MS/s capture of a stereo station carrying RDS with two WFM radios
     decoding it (``rds: true`` in the config, ``set_rds 1`` over HTTP):
     the RDS tap (K8), ``RDSDemod`` (K12's complex form, K13's Costas and
-    M&M forms, K9) and the host ``RDSDecoder``, with K4f, K8 and K9;
+    M&M forms, K9) and the host ``RDSDecoder``, with K4f, K8, K9 and
+    K15;
   * the served app over the network — ``python -m
     sdrplusplusbrown_tpu_torch --server --rigctl`` streaming the served
     capture, and the app on an ``sdrpp_server`` source (the IQ stream
     server's client) fed by an in-process ``StreamServer`` in its raw
-    float32, int8 and EFFT modes: K4f, K8, K9; beside it the device EFFT
-    (``ops/efft_device.py``) and the device feed (``io/feed.py``), which
-    are PyTorch ops;
+    float32, int8 and EFFT modes: K4f, K8, K9, K15; beside it the device
+    EFFT (``ops/efft_device.py``) and the device feed (``io/feed.py``),
+    which are PyTorch ops;
   * the multi-mode bank — ``RadioBank.apply(..., mono_out=True)`` on
     multimode8 (bench.py:build_multimode8, BASELINE config 2: 4 NFM, 2 AM
     and 2 USB VFOs on one 2.4 MS/s wideband, 240 000-sample steps) and on
@@ -162,9 +165,9 @@ Phases, each fatal on failure:
      (−30 dB) NFM radio off the signal, a recorder on the WFM stream;
      the launch counts zeroed, six blocks, a retune (``set_vfo_offset``)
      and a ``set_demod`` round trip (NFM → USB → NFM) between blocks 3
-     and 4: K4f, K8 and K9 launched and held to their calls' planned
-     launches, every other kernel not; the WFM tone SNR and separation
-     and the NFM tone SNR (phase 11's bounds) on blocks 3 and 6, the
+     and 4: K4f, K8, K9 and K15 launched and held to their calls'
+     planned launches, every other kernel not; the WFM tone SNR and
+     separation and the NFM tone SNR (phase 11's bounds) on blocks 3 and 6, the
      squelched radio exactly zero, ``get_snr`` finite and over 20 dB on
      the carriers, spectrum peaks on them; the baseband's DC bin at least
      30 dB under the same run's without the blocker; the recording read
@@ -188,8 +191,9 @@ Phases, each fatal on failure:
      audio), then ``set_afnr logmmse`` and ``set_afnr omlsa`` (4 s
      each), each held to tests/test_e2e_ssb_nr.py's bars (S/N up by more
      than 5 dB, the speech band down by no more than 6 dB), the launch
-     counts zeroed before each NR recording (K4f, K8 and K12 launched and
-     held to their calls' plans, every other kernel not); K8 against its
+     counts zeroed before each NR recording (K4f, K8, K12 and, with
+     logmmse, K14 launched and held to their calls' plans, every other
+     kernel not; K14 against its plain version there); K8 against its
      plain version at the AF NR's moving-average shapes, timed; each
      mode alone on one block of audio (device µs, launches); ``get_afnr``
      reports the mode at the end and the log has no ``afnr error``; then
@@ -200,7 +204,11 @@ Phases, each fatal on failure:
      on the NFM radio, six blocks on the card and on the host CPU (float32
      handoff, the real-time guard held still): the baseband and each
      radio's audio agree to 80 dB in every block, the WFM and NFM tone
-     SNRs reported, K4f, K8 and K9 launched and held to their plans; then
+     SNRs reported, K4f, K8, K9, K14 and K15 launched and held to their
+     plans, K14 (the IF NR's last block) and K15 (the DC blocker's and
+     the noise blanker's last calls) against their plain versions, the
+     first form of each timed beside its bound, these launches their
+     report's; then
      the threaded pump for 10 s as in 21 (block wall percentiles once
      the IF NR is primed, the profiler window, the guard's clock held
      still while it is open and its trace is processed), and the IF NR
@@ -230,10 +238,10 @@ Phases, each fatal on failure:
      pump (blocks of the RDS granularity), ``get_rds`` over HTTP after
      each block: each radio synced with PI, PS and RT exact within 3 s
      of signal from its switch-on; the counts zeroed before: K4f, K8,
-     K9, K12c, K13c and K13m launched and held to their calls' planned
-     launches, every other kernel not; K12c, K13c and K13m against their
-     plain versions at the served shapes; both radios' tone SNR and
-     separation (phase 19's bars); then the threaded pump with RDS on
+     K9, K12c, K13c, K13m and K15 launched and held to their calls'
+     planned launches, every other kernel not; K12c, K13c and K13m
+     against their plain versions at the served shapes; both radios'
+     tone SNR and separation (phase 19's bars); then the threaded pump with RDS on
      both for 10 s as in 21 (``pump_in_real_time``: rtFactor, the block
      wall percentiles, the profiler window's device µs, launches and
      device-to-host copies a block); fails unless the p99 block wall
@@ -246,8 +254,8 @@ Phases, each fatal on failure:
      squelched NFM radios) on an ``sdrpp_server`` source, a fresh
      in-process server a mode: ``none``, manual pump, six blocks, every
      radio's audio bit-identical to the same app fed from the file, the
-     counts zeroed before (K4f, K8 and K9 launched and held to their
-     plans, every other kernel not); ``int8``, six blocks, phase 19's
+     counts zeroed before (K4f, K8, K9 and K15 launched and held to
+     their plans, every other kernel not); ``int8``, six blocks, phase 19's
      oracles and the server's host compression time; ``int8`` with the
      pump thread for 5 s, fed by a server that is a process of its own
      (``python -m sdrplusplusbrown_tpu_torch --server --device cpu``, as
@@ -477,11 +485,17 @@ def work(tag: str, args) -> tuple:
         n = xr.shape[0] // interval
         return (n * (8 * keep + 4 * N),
                 n * (5 * N * int(np.log2(N)) + 2 * keep + 4 * N))
-    if tag in ("K5", "K5c"):    # the M-point DFT counted as an FFT
-        pipe, xr, xi, xwr, xwi, width, tdt, odt = args
+    if tag in ("K5", "K5c"):    # the rows the call computes: R of 2M
+        pipe, xr, xi, xwr, xwi, width, tdt, odt = args[:8]
+        rows = args[8] if len(args) > 8 else None
         Tb = xr.shape[0] // pipe.h
-        return (8 * xr.shape[0] + 2 * pipe.M * width * nbytes(odt),
-                Tb * (2 * 2 * pipe.K0 + 5 * pipe.M * np.log2(pipe.M)))
+        R = 2 * pipe.M if rows is None else rows.shape[0]
+        # above M = 64 the valid frames only, else every column; the
+        # M-point DFT counted as an FFT, or R direct rows where fewer
+        out = R * (Tb if pipe.M > 64 else width)
+        dft = min(5 * pipe.M * np.log2(pipe.M), 4 * pipe.M * R)
+        return (8 * xr.shape[0] + out * nbytes(odt),
+                Tb * (2 * 2 * pipe.K0 + dft))
     if tag == "K6":
         pipe, bins, bin_idx, om, ph0, span, sbs, tails, Tb, odt, tdt = args
         Cn = om.shape[0]
@@ -557,6 +571,22 @@ def work(tag: str, args) -> tuple:
         b = 4 * w * R * (T + 2 * (mm.K - 1)) + R * n * (4 * w + 1) \
             + 4 * mm.P * mm.K
         return b, R * n * (2 * w * mm.K + 20)
+    if tag == "K14":    # frames, state and F ring slots in; gains, state
+        core, st, sig = args[:3]        # and the F slots out
+        F = sig.shape[-2]
+        bins = sig.numel() // F
+        b = 4 * bins * (2 * F + 2 * 2 * F + 4 + 3) + 2 * (
+            st["has_prev"].numel() + 8)
+        # a bin and frame: the history's 7, the gain's 19 and E1's 36
+        # (both of its branches; exp, log and powf not counted)
+        return b, 62 * bins * F
+    if tag == "K15":    # b (and a tensor a), y0 in; y out
+        a, b, y0 = args
+        e, n = b.element_size(), b.numel()
+        by = 2 * n * e + y0.numel() * e + (4 * n if hasattr(a, "numel")
+                                            else 0)
+        # a multiply-add a sample on each part
+        return by, 2 * (2 if b.is_complex() else 1) * n
     raise KeyError(tag)
 
 
@@ -1086,6 +1116,12 @@ KERNELS = {
     "K12c": ("agc", "agc_cplx_rows",
              "sdrplusplusbrown_tpu_torch/csrc/agc.cu",
              "sdrplusplusbrown_tpu/ops/agc.py:56"),
+    "K14": ("logmmse", "logmmse_frames",
+            "sdrplusplusbrown_tpu_torch/csrc/logmmse.cu",
+            "sdrplusplusbrown_tpu/ops/logmmse.py:327"),
+    "K15": ("recurrence", "linear_recurrence",
+            "sdrplusplusbrown_tpu_torch/csrc/recurrence.cu",
+            "sdrplusplusbrown_tpu/ops/recurrence.py:22"),
 }
 
 
@@ -1142,6 +1178,9 @@ def check_scanner_kernel(tag: str, args, card: str, bound_db: float,
     if tag == "K6":       # (IF, sums, tails): the valid IF and the sums
         m = args[0].plan(args[8])["m"][-1]
         got, want = (got[0][:, :m], got[1]), (want[0][:, :m], want[1])
+    elif tag == "K5" and args[0].M > 64:   # the large-M kernel writes
+        V = args[1].shape[0] // args[0].h  # the valid frames' tiles only
+        got, want = (got[:, :V],), (want[:, :V],)
     else:
         got, want = got if isinstance(got, tuple) else (got,), \
             want if isinstance(want, tuple) else (want,)
@@ -1171,7 +1210,9 @@ def check_scanner_kernel(tag: str, args, card: str, bound_db: float,
               f"{out['bound_ms']:.4f} ms ({out['bound_by']}), max|err| "
               f"{err:.3e}, {agree}; device time per call (profiler) "
               f"kernel {k_us:.1f} us, plain {p_us:.1f} us [{card}]")
-        vs_parent(tag, k_us, out["bound_ms"], card)
+        if not (tag == "K5" and args[0].M > 64):  # the large-M kernel's
+            vs_parent(tag, k_us, out["bound_ms"], card)   # k5_yardsticks
+        out["dev_us"] = k_us
     else:
         print(f"{tag} {name} {f'({what})' if what else f'at C = {SCAN_WIDE_C}'}"
               f": max|err| {err:.3e}, {agree}")
@@ -1367,7 +1408,8 @@ def library_call(tag: str, args):
 def check_app_kernel(tag: str, args, card: str, what: str,
                      timed: bool = True, plain_reps: int = 20,
                      min_db: float = 100.0) -> dict:
-    """K8-K12, K4f, K4r or K5c against its plain version on ``args``
+    """K8-K12, K4f, K4r, K5c, K14 or K15 against its plain version on
+    ``args``
     (``min_db`` SNR, or the spectra's dB bars); with ``timed`` both are
     timed with CUDA events beside the library call (the plain version
     over ``plain_reps`` calls).  Raises on disagreement."""
@@ -1387,6 +1429,16 @@ def check_app_kernel(tag: str, args, card: str, what: str,
             fail(f"K12 {what}: the new state differs from the plain "
                  f"version")
         got, want = got[0], want[0]
+    if tag == "K14":            # (state, hw): the history exact, then
+        for k in ("hist", "dev_hist", "sums", "devs", "count", "pos",
+                  "has_prev"):  # the gains and X held to min_db
+            if not torch.equal(got[0][k], want[0][k]):
+                fail(f"K14 {what}: the new {k} differs from the plain "
+                     f"version")
+        got, want = (torch.cat([got[1].flatten(), got[0]["Xk_prev"]
+                                .flatten()]),
+                     torch.cat([want[1].flatten(), want[0]["Xk_prev"]
+                                .flatten()]))
     if got.is_complex():
         got, want = torch.view_as_real(got), torch.view_as_real(want)
     got, want = got.float(), want.float()
@@ -2013,25 +2065,75 @@ def drive_channelizer(dev, card: str) -> dict:
 
 
 def k5_as_written(pipe, W: int, tap_dtype, bound_ms: float,
-                  bound_by: str) -> str:
+                  bound_by: str, rows=None, T: int | None = None) -> str:
     """What K5's design costs as written on ``W`` frames: the fold's
     2·K0 float32 multiply-adds a frame and plane at the FP32 peak, and the
     DFT's tensor-core work, [KP, KP] · [KP, W tiles] (KP = 2M padded to 16)
     in bf16 once for each product of the split (3 where the matrix is one
-    bf16 part, 6 for three), at the bf16 peak."""
+    bf16 part, 6 for three), at the bf16 peak.  Above M = 64 (the large-M
+    kernel on ``rows``, default all 2M, and the tiles of the T/h valid
+    frames): each block's rbp rows by KP, and each block's fold of its
+    tile (every row group folds it again)."""
     from sdrplusplusbrown_tpu_torch.ops import channelizer_kernel as ck
     _, na = pipe.dft_parts("cpu", tap_dtype)
-    plan = ck.pfb_plan(pipe.M, pipe.tpp, pipe.h, W, na)
+    R = 2 * pipe.M if rows is None else rows.shape[0]
+    V = W if T is None else T // pipe.h
+    plan = ck.pfb_plan(pipe.M, pipe.tpp, pipe.h, W, na, R, V)
     KP = -(-2 * pipe.M // 16) * 16
     passes = 3 if na == 1 else 6
-    mma = 2.0 * KP * KP * plan["tiles"] * plan["nt"] * passes
-    fold = 2.0 * 2 * pipe.K0 * W
-    return (f"K5 as written on {W} frames (M = {pipe.M}, tpp = {pipe.tpp}): "
+    frames = plan["tiles"] * plan["nt"]
+    if plan["big"]:
+        mma = 2.0 * plan["rgroups"] * plan["rbp"] * KP * frames * passes
+        fold = 2.0 * 2 * pipe.K0 * frames * plan["rgroups"]
+    else:
+        mma = 2.0 * KP * KP * frames * passes
+        fold = 2.0 * 2 * pipe.K0 * W
+    return (f"K5 as written on {frames if plan['big'] else W} frames "
+            f"(M = {pipe.M}, tpp = {pipe.tpp}"
+            + (f", {plan['rgroups']} row groups of {plan['rbp']}"
+               if plan["big"] else "") + "): "
             f"the fold {fold / 1e9:.3f} GFLOP float32, "
             f"{fold / FP32_FLOPS * 1e3:.4f} ms at the FP32 peak; the DFT "
             f"{mma / 1e9:.3f} GFLOP on the tensor cores ({na} matrix "
             f"part(s), {passes} bf16 products), {mma / BF16_FLOPS * 1e3:.4f} "
             f"ms at the bf16 peak; its bound {bound_ms:.4f} ms ({bound_by})")
+
+
+#: the earlier large-M kernel (every row, every tile), device µs a call in
+#: phase 27 (a), bf16 handoff (PERF.md §6: NVIDIA H100 80GB HBM3, 700 W),
+#: by (M, critical form)
+EARLIER_BIG_US = {(160, False): "36.4", (100, False): "36.6-36.7",
+               (800, False): "210.7", (128, True): "87.0"}
+
+
+def k5_yardsticks(call, k_us: float, card: str) -> None:
+    """Two PyTorch calls the port never makes, timed beside the large-M
+    kernel on its call: the selected rows of the float32 DFT matrix
+    [R, 2M] times the folded frames [2M, T/h] (one ``torch.matmul``, the
+    gathered form) and one ``torch.fft.fft`` of the folded frames (every
+    bin); the folded frames are the kernel's probe.  With the earlier
+    large-M kernel's time (``EARLIER_BIG_US``)."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.ops import channelizer_kernel as ck
+    pipe, xr, xi, xwr, xwi, W, tdt, odt = call[:8]
+    rows = call[8] if len(call) > 8 else None
+    V = xr.shape[0] // pipe.h
+    R = 2 * pipe.M if rows is None else rows.shape[0]
+    _, fold = ck._launch_pfb(pipe, xr, xi, xwr, xwi, W, tdt, odt, rows,
+                             probe=True)
+    v = fold[:, :V].contiguous()
+    _, cm, sm = pipe.operands(xr.device, tdt)
+    A = ck.dft_matrix(cm, sm)
+    A = (A if rows is None else A[rows.long()]).contiguous()
+    z = torch.complex(v[:pipe.M], v[pipe.M:]).t().contiguous()  # [V, M]
+    mm_us = device_us(lambda: torch.matmul(A, v))
+    fft_us = device_us(lambda: torch.fft.fft(z, dim=-1))
+    print(f"K5 large-M yardsticks (M = {pipe.M}, {R} rows, {V} frames): "
+          f"torch.matmul of the rows by the folded frames (float32) "
+          f"{mm_us:.1f} us, torch.fft.fft of the folded frames (every "
+          f"bin) {fft_us:.1f} us; the kernel {k_us:.1f} us, the earlier "
+          f"design {EARLIER_BIG_US.get((pipe.M, pipe.critical), 'n/a')} us "
+          f"(PERF.md) [{card}]")
 
 
 def vs_parent(tag: str, us: float, bound_ms: float, card: str) -> None:
@@ -2299,7 +2401,7 @@ SERVED_SECONDS = 0.5          # the capture, looped by the file source
 SERVED_BLOCKS = 6
 SERVED_DC = 0.1               # the DC offset added to the capture's IQ
 SERVED_RT_SECONDS = 10.0      # phase 21's run of the threaded pump
-SERVED_TAGS = ("K4f", "K8", "K9")
+SERVED_TAGS = ("K4f", "K8", "K9", "K15")     # K15: the DC blocker
 
 
 def served_capture(path: str) -> None:
@@ -2404,8 +2506,8 @@ def served_in_process(dev, card: str, report: dict, tmp: str,
     if min(counts[t] for t in SERVED_TAGS) < 1 or others:
         fail(f"phase 19: launch pattern {counts}")
     for t in SERVED_TAGS:
-        report[t].setdefault("launches_by_path", {})["served app"] = \
-            counts[t]
+        report.setdefault(t, {}).setdefault("launches_by_path", {})[
+            "served app"] = counts[t]
     # each kernel against its plain version at the shapes the served path
     # gave it: every distinct K8 geometry on its last call with data (the
     # squelched radio's rows are all zero), K9 and K4f on their last calls
@@ -2603,10 +2705,9 @@ def served_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     bb = torch.complex(*noise_planes(block_len, dev))
     st0 = fe.dc.init_state().to(dev)
     us, n = call_profile(lambda: fe.dc.apply(None, st0, bb))
-    print(f"phase 21: the DC blocker (torch doubling scan, "
-          f"{int(np.ceil(np.log2(block_len)))} levels) on {block_len} "
-          f"samples: {us:.1f} us device and {n} launches a block "
-          f"[{card}]")
+    print(f"phase 21: the DC blocker (K15 and its elementwise ops) on "
+          f"{block_len} samples: {us:.1f} us device and {n} launches a "
+          f"block [{card}]")
     real_time_bar("phase 21", run, run["dur_ms"])
 
 
@@ -2787,7 +2888,8 @@ def speech_noise_db(path: str) -> tuple:
 
 def drive_noise(dev, card: str, report: dict) -> None:
     """Phases 22-23 on ``dev``; raises on the first failure.  Adds each
-    path's K4f, K8, K9 and K12 launches to their entries."""
+    path's K4f, K8, K9, K12, K14 and K15 launches to their entries and
+    fills K14's and K15's."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_noise_") as tmp:
         noise_config3(dev, card, report, tmp)
@@ -2849,7 +2951,8 @@ def noise_config3(dev, card: str, report: dict, tmp: str) -> None:
         (wav, n), calls = capture(tuple(KERNELS),
                                   lambda: record(NR_ON_SECONDS))
         counts = {t: kernel_count(t) for t in KERNELS}
-        tags = ("K4f", "K8", "K12")
+        tags = ("K4f", "K8", "K12") + (("K14",) if mode == "logmmse"
+                                       else ())
         hold_launches(f"phase 22, {mode}, {n} blocks",
                       {t: counts[t] for t in tags}, calls)
         others = {t: c for t, c in counts.items() if c and t not in tags}
@@ -2866,7 +2969,8 @@ def noise_config3(dev, card: str, report: dict, tmp: str) -> None:
             fail(f"phase 22: {mode} misses BASELINE config 3's bars")
         label = f"BASELINE config 3 ({mode}, {n} blocks)"
         for t in tags:
-            report[t].setdefault("launches_by_path", {})[label] = counts[t]
+            report.setdefault(t, {}).setdefault("launches_by_path", {})[
+                label] = counts[t]
         # each kernel against its plain version at the shapes this path
         # gave it: every distinct K8 geometry (VFO, AF resampler, the AF
         # NR's moving average) on its last call with data, K12 on the USB
@@ -2882,13 +2986,16 @@ def noise_config3(dev, card: str, report: dict, tmp: str) -> None:
                 if not sma or key != app_stage(sma[-1])]
         held += [("K12", calls["K12"][-1], "USB AGC"),
                  ("K4f", calls["K4f"][-1], "4096 points")]
+        if mode == "logmmse":
+            held.append(("K14", calls["K14"][-1], "the AF NR's frames"))
         for tag, call, what in held:
             err = check_app_kernel(tag, call, card, f"config 3, {what}",
                                    timed=False)["max_abs_err"]
-            report[tag]["max_abs_err"] = max(report[tag]["max_abs_err"], err)
+            entry = report.setdefault(tag, {})
+            entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), err)
         print(f"phase 22: {mode}: {len(stages)} distinct K8 geometries, K12 "
-              f"and K4f held against their plain versions at config 3's "
-              f"shapes")
+              f"and K4f" + (" and K14" if mode == "logmmse" else "")
+              + " held against their plain versions at config 3's shapes")
         if sma:
             report["K8"]["launches_by_path"][
                 f"AF NR moving average ({n} blocks)"] = sum(
@@ -3029,16 +3136,18 @@ def noise_full_width(dev, card: str, report: dict, tmp: str,
         fail(f"phase 23: IF NR primed {card_run['primed']} on the card, "
              f"{host['primed']} on the CPU")
     counts = card_run["counts"]
-    tags = ("K4f", "K8", "K9")
+    tags = ("K4f", "K8", "K9", "K14", "K15")
     hold_launches(f"phase 23, {NR_BLOCKS} blocks", {t: counts[t]
                                                     for t in tags},
                   card_run["calls"])
     others = {t: c for t, c in counts.items() if c and t not in tags}
     if min(counts[t] for t in tags) < 1 or others:
         fail(f"phase 23: launch pattern {counts}")
+    path = f"noise path ({NR_BLOCKS} blocks)"
     for t in tags:
-        report[t].setdefault("launches_by_path", {})[
-            f"noise path ({NR_BLOCKS} blocks)"] = counts[t]
+        report.setdefault(t, {}).setdefault("launches_by_path", {})[
+            path] = counts[t]
+    host_path_kernels(card_run["calls"], counts, path, report, card)
     first_nr = card_run["primed"].index(True)
 
     def agree(want, got) -> float:
@@ -3070,6 +3179,35 @@ def noise_full_width(dev, card: str, report: dict, tmp: str,
           + f" [{card}]")
     if min(worst.values()) < NR_MIN_DB:
         fail(f"phase 23: the card disagrees with the host CPU: {worst}")
+
+
+def host_path_kernels(calls: dict, counts: dict, path: str, report: dict,
+                      card: str) -> None:
+    """K14 and K15 against their plain versions at the noise path's shapes
+    (phase 23's card run): K14 on the IF NR's last block, timed; K15 on
+    the last call of each of its forms there (the front end's DC blocker,
+    complex rows and a scalar pole, timed; the noise blanker's envelope,
+    real rows and a pole a sample).  Fills their report entries, with
+    this path's launches as the main path's."""
+    forms = {}
+    for call in calls["K15"]:
+        forms[(call[1].is_complex(), hasattr(call[0], "numel"))] = call
+    checks = [("K14", calls["K14"][-1], "the IF NR's frames, nFFT "
+               f"{calls['K14'][-1][0].nFFT}", True, 100.0)]
+    for (cplx, per_sample), call in sorted(forms.items(), reverse=True):
+        what = ("the DC blocker, complex rows" if cplx else
+                "the noise blanker, real rows") + (", a pole a sample"
+                                                   if per_sample else "")
+        checks.append(("K15", call, f"{what} {tuple(call[1].shape)}",
+                       cplx, 80.0))
+    for tag, call, what, timed, min_db in checks:
+        got = check_app_kernel(tag, call, card, what, timed=timed,
+                               min_db=min_db)
+        entry = report.setdefault(tag, {})
+        err = max(entry.get("max_abs_err", 0.0), got.pop("max_abs_err"))
+        entry.update(got, max_abs_err=err)
+    for tag in ("K14", "K15"):
+        report[tag].update(launches=counts[tag], launches_path=path)
 
 
 class PausableClock:
@@ -3206,7 +3344,7 @@ RDS_DECODE_S = 3.0            # each radio decodes within this of its switch-on
 RDS_SET_BLOCK = 2             # V's set_rds 1 comes before this block
 RDS_RT_SECONDS = 10.0         # phase 25's run of the threaded pump
 LOOP_BLOCKS = 4               # phase 24's blocks a radio
-RDS_TAGS = ("K4f", "K8", "K9", "K12c", "K13c", "K13m")
+RDS_TAGS = ("K4f", "K8", "K9", "K12c", "K13c", "K13m", "K15")
 
 
 def rds_bits(repeats: int) -> np.ndarray:
@@ -3554,7 +3692,7 @@ def drive_rds(dev, card: str, report: dict) -> None:
         if min(counts[t] for t in RDS_TAGS) < 1 or others:
             fail(f"phase 25: launch pattern {counts}")
         for t in RDS_TAGS:
-            report[t].setdefault("launches_by_path", {})[
+            report.setdefault(t, {}).setdefault("launches_by_path", {})[
                 "served app with RDS"] = counts[t]
         for t in ("K12c", "K13c", "K13m"):
             report[t]["launches"] = counts[t]
@@ -3593,7 +3731,7 @@ NET_RT_SECONDS = 5.0          # the int8 client's threaded pump
 NET_EFFT_FRAMES = 40          # EFFT frames the client takes
 NET_EFFT_WFM_BAR = 30.0       # the WFM tone SNR bar over EFFT (dB; a
                               # CPU rehearsal at 1 MS/s gave 39.7)
-NET_TAGS = ("K4f", "K8", "K9")
+NET_TAGS = ("K4f", "K8", "K9", "K15")
 EFFT_DEV_FRAMES = 32          # the device EFFT: 32 frames of 65 536
 FEED_FS = 96_000.0            # tests/test_efft_device.py's feed signal
 
@@ -3881,8 +4019,8 @@ def net_client_app(dev, card: str, report: dict, tmp: str,
     if min(counts[t] for t in NET_TAGS) < 1 or others:
         fail(f"phase 26 (b): launch pattern {counts}")
     for t in NET_TAGS:
-        report[t].setdefault("launches_by_path", {})["network client"] = \
-            counts[t]
+        report.setdefault(t, {}).setdefault("launches_by_path", {})[
+            "network client"] = counts[t]
     print(f"phase 26 (b) none: {NET_BLOCKS} blocks, every radio's audio "
           f"bit-identical to the app fed from the file on {dev}; launches "
           + ", ".join(f"{t}={counts[t]}" for t in NET_TAGS)
@@ -4223,6 +4361,59 @@ def modes_wideband(n: int, fs: float, vfos, seed: int = 19) -> np.ndarray:
     return x.astype(np.complex64)
 
 
+class torch_calls:
+    """Within: the calls of ``torch.<name>`` for each of ``names`` that
+    code of ``module`` makes, counted in ``counts`` (the module's global
+    ``torch`` swapped for a counting stand-in)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+
+    def __enter__(self):
+        import torch
+        counts = self.counts = {n: 0 for n in self.names}
+
+        class Counting:
+            def __getattr__(self, attr):
+                fn = getattr(torch, attr)
+                if attr not in counts:
+                    return fn
+
+                def call(*a, **k):
+                    counts[attr] += 1
+                    return fn(*a, **k)
+                return call
+        self.module.torch = Counting()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        self.module.torch = torch
+        return False
+
+
+def k5_input_ops(bank, params, x) -> dict:
+    """The ``torch.cat`` and ``torch.zeros`` calls made inside K5's
+    launches (``channelizer_kernel._launch_pfb``: its input's layout)
+    over one step of ``bank`` (whose K5 matrices are built already)."""
+    from sdrplusplusbrown_tpu_torch.ops import channelizer_kernel as ck
+    calls = {"cat": 0, "zeros": 0}
+    orig = ck._launch_pfb
+
+    def counted(*a, **k):
+        with torch_calls(ck, tuple(calls)) as tc:
+            out = orig(*a, **k)
+        for name in calls:
+            calls[name] += tc.counts[name]
+        return out
+    ck._launch_pfb = counted
+    try:
+        bank.apply(params, bank.init_state(), x, mono_out=True)
+    finally:
+        ck._launch_pfb = orig
+    return calls
+
+
 class no_plain_on_card:
     """Within: K5's, K6's, K8's and K12's plain versions raise when given
     a CUDA tensor (a wrapper that fell back to one on the card)."""
@@ -4290,12 +4481,14 @@ def modes_block(fs: float, granule: int) -> int:
 def modes_kernels(dev, card: str) -> None:
     """(a): one step of each channelized group (phase 27 (b)'s AM, USB and
     CW, and a DSB group of MODES_C on the same band) captured in each
-    handoff: K5 (float32 bins >= 100 dB, bf16 >= 60 dB, as phases 6 and
-    8) and K6 (80 / 45 dB, its squelch sums within rtol 1e-5, its
+    handoff: K5 (the large-M kernel on the groups' gathered rows, on the
+    T/h valid frames: float32 bins >= 100 dB, bf16 >= 60 dB, as phases 6
+    and 8) and K6 (80 / 45 dB, its squelch sums within rtol 1e-5, its
     launches its plan's) against their plain versions, timed in bf16 with
-    the design's cost (``k5_as_written``) and, for K6, the conv1d
-    yardstick; K5c at M = 128 (10 MS/s, T = 2^21) the same way as phase
-    16 (100 / 45 dB)."""
+    the design's cost (``k5_as_written``), K5's two yardsticks
+    (``k5_yardsticks``) and, for K6, the conv1d yardstick; K5c at M = 128
+    (10 MS/s, T = 2^21, every row) the same way as phase 16 (100 /
+    45 dB), with its yardsticks."""
     import torch
     from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
     from sdrplusplusbrown_tpu_torch.models.radio import DEMOD_DSB, Radio
@@ -4327,11 +4520,14 @@ def modes_kernels(dev, card: str) -> None:
             pipe = call[0]
             what = (f"M = {pipe.M}, tpp = {pipe.tpp}, T = "
                     f"{call[1].shape[0]}, W = {call[5]}, {handoff} handoff")
+            rows = call[8] if len(call) > 8 else None
+            what += f", {2 * pipe.M if rows is None else len(rows)} rows"
             e = check_scanner_kernel("K5", call, card, 100.0 if f32 else 60.0,
                                      timed=not f32, what=what)
             if not f32:
                 print(k5_as_written(pipe, call[5], call[6], e["bound_ms"],
-                                    e["bound_by"]))
+                                    e["bound_by"], rows, call[1].shape[0]))
+                k5_yardsticks(call, e["dev_us"], card)
         for call in cap["K6"]:
             pipe = call[0]
             what = (f"M = {pipe.M}, d2 {len(pipe.taps[0])} / FIR "
@@ -4358,6 +4554,8 @@ def modes_kernels(dev, card: str) -> None:
         if not f32:
             print(k5_as_written(ch.pfb(), call[5], call[6],
                                 *bound("K5c", call)))
+            kern = getattr(*kernel_fn("K5c", "_kernel"))
+            k5_yardsticks(call, device_us(lambda: kern(*call)), card)
 
 
 def modes_bank(dev, card: str, report: dict) -> None:
@@ -4368,7 +4566,8 @@ def modes_bank(dev, card: str, report: dict) -> None:
     MODES_MARGIN_DB of the same steps on the host CPU and >= MODES_MIN_DB,
     each silent VFO's tone (the AGC leaves noise alone quiet) at least
     MODES_SILENT_DB under the weakest of its group's tone VFOs, on both;
-    then the step's rate."""
+    no ``torch.cat`` or ``torch.zeros`` inside K5's launches
+    (``k5_input_ops``); then the step's rate."""
     import torch
     from sdrplusplusbrown_tpu_torch.models import radio_bank as rb
     from sdrplusplusbrown_tpu_torch.ops import precision
@@ -4408,7 +4607,7 @@ def modes_bank(dev, card: str, report: dict) -> None:
             any(n[t] for t in others):
         fail(f"{label}: launch pattern {n}")
     for t in MODES_TAGS:
-        report[t].setdefault("launches_by_path", {})[
+        report.setdefault(t, {}).setdefault("launches_by_path", {})[
             f"{label} ({MODES_STEPS} steps)"] = n[t]
     cpu = run("cpu")[-1]
     rows = []
@@ -4441,6 +4640,13 @@ def modes_bank(dev, card: str, report: dict) -> None:
           + "; ".join(rows))
     params = bank.make_params()
     xd = tuple(t.to(dev) for t in xs[0])
+    n = k5_input_ops(bank, params, xd)
+    print(f"{label}: K5's launches made {n['cat']} torch.cat and "
+          f"{n['zeros']} torch.zeros calls in a step (the earlier design's "
+          f"CW route laid [history | x | 0] out with two and one; the "
+          f"large-M kernel reads it by index)")
+    if any(n.values()):
+        fail(f"{label}: K5's input laid out by torch ops {n}")
     step_rate(f"{label}, bf16 handoff",
               lambda st: bank.apply(params, st, xd, mono_out=True)[1],
               bank.init_state(), T, card)

@@ -6,9 +6,10 @@
 // overlap-save history rolled in VMEM across a sequential grid), which also
 // runs as the second half of _chan_fused_kernel_v3.
 //
-// What it computes, per channel c, from the stacked PFB bins [2M, Tb_pad]
-// (float32 or bfloat16 storage; valid frames n < Tb):
-//   z[n]  = (bins[bin_c, n] + j·bins[M + bin_c, n]) · e^{jθ(n)},
+// What it computes, per channel c, from the stacked PFB bins [2P, Tb_pad]
+// (float32 or bfloat16 storage; valid frames n < Tb; P rows a plane: the
+// PFB's M, or C where K5 computed only the channels' rows, bin_c = c):
+//   z[n]  = (bins[bin_c, n] + j·bins[P + bin_c, n]) · e^{jθ(n)},
 //           θ(n) = ((ph0 + span·i) + bs·b) + ω·j,  n = i·adv0 + 128·b + j,
 //           each product and sum rounded on its own (__fmul_rn/__fadd_rn):
 //           the TPU kernel forms the phase so, and one fused multiply-add
@@ -55,7 +56,7 @@ constexpr int NCO_BS = 128;   // the NCO's block (ops/chan_frontend.py BS)
 // The d2 launch's inputs: what every block needs to find its channel's z.
 struct Bins {
   const void* bins;
-  int bf16, M, Tb_pad, adv0, C;
+  int bf16, P, Tb_pad, adv0, C;   // P: rows of one plane of bins
   const int* bin_idx;
   const float *om, *ph0, *span, *sbs;
   const float* tail;      // the d2 tail, [2C, hist] planes
@@ -80,7 +81,7 @@ struct ZSrc {
       : bins(x.bins), bf16(x.bf16), q(x.adv0 / NCO_BS),
         rq(1.f / static_cast<float>(x.adv0 / NCO_BS)),
         row_r(static_cast<long>(x.bin_idx[c]) * x.Tb_pad),
-        row_i(static_cast<long>(x.M + x.bin_idx[c]) * x.Tb_pad),
+        row_i(static_cast<long>(x.P + x.bin_idx[c]) * x.Tb_pad),
         w(x.om[c]), p0(x.ph0[c]), sp(x.span[c]), bs(x.sbs[c]),
         tr(x.tail + static_cast<long>(c) * x.hist),
         ti(x.tail + static_cast<long>(x.C + c) * x.hist), hist(x.hist),
@@ -239,28 +240,28 @@ bool bad_plan(int P, int Cc, int warps) {
 
 }  // namespace
 
-// The first launch.  bins [2M, Tb_pad] (bins_bf16), Tb <= Tb_pad even;
-// bin_idx, om, ph0, span, sbs [C]; t_d2 [2C, K1 − 1] float32 (rounded by
+// The first launch.  bins [2P, Tb_pad] (bins_bf16), Tb <= Tb_pad even;
+// bin_idx [C] (each < P), om, ph0, span, sbs [C]; t_d2 [2C, K1 − 1] float32 (rounded by
 // the caller); h_d2 [K1]; y1 [C, n1] complex64 with 2·(n1 − 1) + K1 <=
 // K1 − 1 + Tb_pad; nt_d2 [2C, K1 − 1] (tail_bf16: rounded to bf16); probe
 // [C, Tb_pad] complex64 or null (z, for the checks).  P, Cc and warps are
 // ops/chan_frontend.py:chan_post_plan's.
 extern "C" int sdr_chan_post_d2(
-    const void* bins, int bins_bf16, int M, int Tb_pad, int Tb,
+    const void* bins, int bins_bf16, int plane_rows, int Tb_pad, int Tb,
     const int* bin_idx, const float* om, const float* ph0, const float* span,
     const float* sbs, int adv0, const float* t_d2, const float* h_d2, int K1,
     void* y1, int n1, float* nt_d2, int tail_bf16, void* probe, int C, int P,
     int Cc, int warps, cudaStream_t stream) {
-  if (C < 1 || C > 65535 || K1 < 2 || Tb % 2 || Tb < 2 || Tb > Tb_pad ||
-      Tb_pad > (1 << 24) || adv0 < NCO_BS || adv0 % NCO_BS || n1 < 1 ||
+  if (C < 1 || C > 65535 || plane_rows < 1 || K1 < 2 || Tb % 2 || Tb < 2 ||
+      Tb > Tb_pad || Tb_pad > (1 << 24) || adv0 < NCO_BS || adv0 % NCO_BS || n1 < 1 ||
       2L * (n1 - 1) + K1 > K1 - 1L + Tb_pad || bad_plan(P, Cc, warps))
     return cudaErrorInvalidValue;
   const int per = Cc * 32 * P;
   const dim3 grid((n1 + per - 1) / per, 1, C);
   const size_t smem =
       sdr::fir_tile_layout(2, K1, n1, P, 1, Cc, 2).total * sizeof(float);
-  const Bins x{bins, bins_bf16, M, Tb_pad, adv0, C, bin_idx, om, ph0, span,
-               sbs, t_d2, K1 - 1};
+  const Bins x{bins, bins_bf16, plane_rows, Tb_pad, adv0, C, bin_idx, om,
+               ph0, span, sbs, t_d2, K1 - 1};
   return static_cast<int>(sdr::fir_launch_p(
       P, post_d2_kernel<1>, post_d2_kernel<3>, post_d2_kernel<5>, grid,
       warps, smem, stream, x, Tb, h_d2, K1, static_cast<float2*>(y1), n1,

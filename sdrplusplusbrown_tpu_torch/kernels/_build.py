@@ -50,7 +50,9 @@ SIGNATURES = {
                      _I, _I, _P, _P, _P],
     "sdr_fft_rows": [_P, _I, _I, _I, _I, _P, _F, _P],
     "sdr_pfb_bins": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                     _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "sdr_pfb_big": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+                    _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sdr_chan_post_d2": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                          _I, _P, _I, _P, _I, _P, _I, _I, _I, _I],
     "sdr_chan_post_fir": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I, _P,
@@ -72,6 +74,10 @@ SIGNATURES = {
     "sdr_pll_rows": [_P, _I, _I, _P, _P, _F, _F, _F, _F, _P, _P, _P, _P],
     "sdr_costas_rows": [_P, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _P, _P,
                         _P, _P],
+    "sdr_logmmse_frames": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P,
+                           _P],
+    "sdr_linear_recurrence": [_P, _F, _P, _P, _I, _I, _I, _P],
     "sdr_mm_rows": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                     _F, _P, _P, _P, _P, _P, _P],
 }

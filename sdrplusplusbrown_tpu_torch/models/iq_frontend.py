@@ -7,8 +7,9 @@ to the radios is free: the baseband it returns is what every
 
 The decimator's FIR stages run kernel K8 and the spectrum kernel K4f.
 The DC blocker is the JAX package's XLA ``linear_recurrence``, which has
-no Pallas body: here the torch doubling scan of ``ops/recurrence.py``
-(⌈log2 T⌉ levels of torch ops), its faithful counterpart.  An entry
+no Pallas body: here ``ops/recurrence.py:linear_recurrence``, kernel K15
+on the card (one launch a block) and on the host the torch doubling scan
+that pairs as the JAX package's does.  An entry
 point: it runs on ``device`` (CUDA unless the caller asks for the CPU),
 keeps its state there and moves only the input to it.  The pluggable
 baseband preprocessors (``preprocessors``: (name, block) pairs, such as

@@ -246,6 +246,8 @@ class ChannelizedRxVFOBank(Block):
         self.ratio = Fraction(1, M)
         self.in_multiple = M
         self._pfb = self._post = None
+        self._rows = None       # (weakref to a bin index, version, rows)
+        self._iota = {}
 
     def make_params(self, offsets_hz):
         """Per-channel offsets (Hz) → nearest bin, the residual NCO and
@@ -282,12 +284,37 @@ class ChannelizedRxVFOBank(Block):
             self._post = ChanPostPipeline(self)
         return self._pfb, self._post
 
+    def gathers(self, C: int) -> bool:
+        """Whether K5 computes only the C channels' bins (their rows of
+        each plane, [bin | M + bin]) rather than the whole plane: above
+        M = 64 (the large-M kernel; the register-resident kernels compute
+        every bin anyway) and for fewer channels than bins."""
+        from ..ops.channelizer_kernel import PFB_REG_M
+        return self.M > PFB_REG_M and C < self.M
+
+    def gather_rows(self, bin_idx: torch.Tensor) -> torch.Tensor:
+        """int32 [2C] K5 row list [bin | M + bin] of ``bin_idx``, made on
+        its device once for each bin tensor (a retune is a new params
+        dict, so a new tensor: its first block makes the list, with no
+        host copy; the blocks after reuse it)."""
+        import weakref
+        hit = self._rows
+        if hit is not None and hit[0]() is bin_idx and \
+                hit[1] == bin_idx._version:
+            return hit[2]
+        rows = torch.cat([bin_idx, bin_idx + self.M]).to(torch.int32) \
+            .contiguous()
+        self._rows = (weakref.ref(bin_idx), bin_idx._version, rows)
+        return rows
+
     def apply(self, params, state, x, raw: bool = False):
         """x: [T] shared wideband, (xr, xi) float32 planes or complex →
         (y, sq_sums [C], state'): y the complex [C, T/M] IF, or with
         ``raw`` (buf [2C, W] in the handoff dtype, m_if); sq_sums = Σ|y|
         per channel over the block (the squelch's block mean × m_if).
-        Runs K5 then K6 (their plain versions on the CPU)."""
+        Runs K5 then K6 (their plain versions on the CPU); where
+        ``gathers``, K5 computes only the channels' rows and K6 reads
+        channel c at rows c and C + c."""
         dev = entry_device(self.device)
         xr, xi = x if isinstance(x, tuple) else (x.real, x.imag)
         xr = xr.to(dev, torch.float32).contiguous()
@@ -298,6 +325,15 @@ class ChannelizedRxVFOBank(Block):
         pfb, post = self.pipes()
         Tb = 2 * T // self.M
         st = dict(state)
+        C = params["bin"].shape[0]
+        rows = bin_idx = None
+        if self.gathers(C):
+            rows = self.gather_rows(params["bin"])
+            key = (str(dev), C)
+            if key not in self._iota:
+                self._iota[key] = torch.arange(C, dtype=torch.int32,
+                                               device=dev)
+            bin_idx = self._iota[key]
         bins, st["chz"] = pfb.apply(state["chz"], (xr, xi),
-                                    post.plan(Tb)["Tb_pad"])
-        return post.apply(params, st, bins, Tb, raw=raw)
+                                    post.plan(Tb)["Tb_pad"], rows=rows)
+        return post.apply(params, st, bins, Tb, raw=raw, bin_idx=bin_idx)

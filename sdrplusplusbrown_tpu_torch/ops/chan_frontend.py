@@ -2,11 +2,13 @@
 (counterpart of sdrplusplusbrown_tpu/ops/chan_frontend.py, whose
 ``_chan_kernel`` body also runs inside ``_chan_fused_kernel_v3``).
 
-Per channel c, from the stacked PFB bins [2M, Tb_pad] (ops/
-channelizer_kernel.py):
+Per channel c, from the stacked PFB bins [2P, Tb_pad] (ops/
+channelizer_kernel.py): the whole plane pair (P = M), or the rows a
+channelized bank had K5 compute, channel c's at rows c and C + c (P = C,
+the bin index 0 .. C − 1):
 
-  1. gather bin ``bin[c]`` and rotate by the residual NCO,
-         z[n] = bins[bin[c], n] · e^{jθ_c(n)},
+  1. gather row ``bin[c]`` of each plane and rotate by the residual NCO,
+         z[n] = (bins[bin[c], n] + j·bins[P + bin[c], n]) · e^{jθ_c(n)},
          θ_c(n) = ((ph0 + span·i) + bs·b) + ω·j,  n = i·adv0 + 128·b + j,
      each operation rounded to float32 on its own, as the TPU kernel
      evaluates it (the spans are host-float64 products reduced mod 2π);
@@ -102,14 +104,20 @@ class ChanPostPipeline:
                               .to(device).contiguous() for t in self.taps]
         return self._dev[key]
 
-    def apply(self, params, state, bins, Tb: int, raw: bool = False):
-        """bins: [2M, Tb_pad] stacked PFB planes with ``Tb`` valid frames
-        → (y, sq_sums [C], state') with y the complex [C, m_if] IF, or
-        with ``raw`` (buf [2C, n_out] in the handoff dtype, m_if)."""
+    def apply(self, params, state, bins, Tb: int, raw: bool = False,
+              bin_idx=None):
+        """bins: [2M, Tb_pad] stacked PFB planes with ``Tb`` valid frames,
+        or [2C, Tb_pad] of the channels' gathered rows with ``bin_idx``
+        0 .. C − 1 (default: ``params["bin"]``, the whole plane's bins) →
+        (y, sq_sums [C], state') with y the complex [C, m_if] IF, or with
+        ``raw`` (buf [2C, n_out] in the handoff dtype, m_if)."""
         plan = self.plan(Tb)
-        if tuple(bins.shape) != (2 * self.M, plan["Tb_pad"]):
+        C = params["xl"]["omega"].shape[0]
+        if tuple(bins.shape) not in ((2 * self.M, plan["Tb_pad"]),
+                                     (2 * C, plan["Tb_pad"])):
             raise ValueError(f"bins shape {tuple(bins.shape)}, expected "
-                             f"{(2 * self.M, plan['Tb_pad'])}")
+                             f"{(2 * self.M, plan['Tb_pad'])} or "
+                             f"{(2 * C, plan['Tb_pad'])}")
         h_dt = get_handoff_dtype()
         om = params["xl"]["omega"]
         phase0 = state["xl"]
@@ -118,7 +126,8 @@ class ChanPostPipeline:
         tails = [round_to(torch.cat([state[n].real, state[n].imag])
                           .float(), h_dt).contiguous() for n in self.names]
         out, sq, new_tails = chan_post(
-            self, bins, params["bin"], om.contiguous(), phase0.contiguous(),
+            self, bins, params["bin"] if bin_idx is None else bin_idx,
+            om.contiguous(), phase0.contiguous(),
             span_adv.contiguous(), params["xl_bs"].contiguous(), tails, Tb,
             h_dt if raw else torch.float32, h_dt)
         C = om.shape[0]
@@ -136,7 +145,8 @@ class ChanPostPipeline:
 def _check_post(pipe, bins, bin_idx, om, tails, Tb):
     C = om.shape[0]
     plan = pipe.plan(Tb)
-    if tuple(bins.shape) != (2 * pipe.M, plan["Tb_pad"]):
+    if bins.dim() != 2 or bins.shape[0] not in (2 * pipe.M, 2 * C) or \
+            bins.shape[1] != plan["Tb_pad"]:
         raise ValueError(f"bins shape {tuple(bins.shape)}")
     if tuple(bin_idx.shape) != (C,):
         raise ValueError(f"bin index shape {tuple(bin_idx.shape)}")
@@ -167,7 +177,8 @@ def chan_post_ref(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
                   out_dtype, tail_dtype):
     """Plain PyTorch K6: (out [2C, n_out] ``out_dtype``, Σ|y| over the
     valid outputs [C] float32, next-call tails [[2C, hist] float32
-    rounded to ``tail_dtype``])."""
+    rounded to ``tail_dtype``]).  ``bins`` [2P, Tb_pad]: channel c's rows
+    bin_idx[c] and P + bin_idx[c]."""
     return _chan_post_ref(pipe, bins, bin_idx, om, ph0, span_adv, sbs,
                           tails, Tb, out_dtype, tail_dtype)[:3]
 
@@ -181,7 +192,8 @@ def _chan_post_ref(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails, Tb,
     taps = pipe.dev_taps(bins.device, tail_dtype)
     n = plan["Tb_pad"]
     b = bins.float()
-    zr, zi = b[bin_idx.long()], b[pipe.M + bin_idx.long()]
+    P = bins.shape[0] // 2
+    zr, zi = b[bin_idx.long()], b[P + bin_idx.long()]
     ang = nco_phase(pipe, om, ph0, span_adv, sbs, n)
     co, si = torch.cos(ang), torch.sin(ang)
     y = torch.cat([zr * co - zi * si, zr * si + zi * co])      # [2C, n]
@@ -275,7 +287,8 @@ def _chan_post_launches(pipe, bins, bin_idx, om, ph0, span_adv, sbs, tails,
     _build.launch(
         "sdr_chan_post_d2", dev,
         _build.check(bins, "bins", _STORAGE, device=dev),
-        int(bins.dtype == torch.bfloat16), pipe.M, geo["Tb_pad"], Tb,
+        int(bins.dtype == torch.bfloat16), bins.shape[0] // 2, geo["Tb_pad"],
+        Tb,
         _build.check(bin_idx, "bin index", torch.int32, (C,), dev),
         _build.check(om, "omega", f32, (C,), dev),
         _build.check(ph0, "phase", f32, (C,), dev),

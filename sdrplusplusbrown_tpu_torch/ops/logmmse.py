@@ -8,12 +8,14 @@ last 12 frames on the audio branch, per-bin deviation thresholding
 against a histogram-mode background estimate on the wideband branch.
 
 All frames of a block go through one batched FFT; the per-frame
-bookkeeping (the history ring and the ξ recursion) is a Python loop of
-torch ops over the block's few frames.  Nothing in ``apply`` reads a
-value back to the host: the frame counters are 0-d tensors, the ring slot
-is read and written by a tensor index, and the ``hold`` param selects
-with ``torch.where``.  The rings are copied once per ``apply`` (the
-caller's state stays as it was) and written one slot a frame in place.
+bookkeeping (the history ring and the ξ recursion) is kernel K14
+(``logmmse_frames``, csrc/logmmse.cu) on the card, one launch a block,
+and on the host its plain version, a Python loop of torch ops over the
+block's few frames.  Nothing in ``apply`` reads a value back to the host:
+the frame counters are 0-d tensors, the ring slot is read and written by
+a tensor index, and the ``hold`` param selects with ``torch.where``.  The
+rings are copied once per ``apply`` (the caller's state stays as it was)
+and written one slot a frame in place.
 
 ``AFNRLogMMSE``'s 5-sample moving average is kernel K8 (``fir_rows``),
 as the JAX package's runs its real-tap Pallas FIR; the rest is torch ops
@@ -30,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels import _build
 from ..runtime.block import Block, device_const
 from .fir import device_taps
 from .fir_kernel import fir_rows
@@ -357,8 +360,7 @@ class LogMMSE(Block):
         spec, sig = self._spectra(self._frames(ext, F))
         # the noise PSD refresh reads the history as of the previous block
         st = self._update_noise_mu2(st, hold)
-        st = self._push_history(st, sig, hold)
-        st, hw = self._gains(st, sig)
+        st, hw = logmmse_frames(self, st, sig, hold)
         xi = torch.fft.ifft(hw.to(torch.complex64) * spec, dim=-1)
         head = xi[..., :self.len1]
         tail = xi[..., self.len1:self.Slen]
@@ -385,6 +387,62 @@ class LogMMSE(Block):
         st["noise_mu2"] = noise_mean * noise_mean
         st["primed"] = torch.ones_like(st["primed"])
         return st
+
+
+def logmmse_frames_ref(core: LogMMSE, st: dict, sig: torch.Tensor, hold):
+    """Plain K14: each frame's history-ring update, then the ξ recursion
+    over the frames → (state', hw [..., F, nFFT]).  ``st`` is not
+    modified (its rings are copied)."""
+    st = core._push_history(dict(st), sig, hold)
+    return core._gains(st, sig)
+
+
+@_build.counted
+def logmmse_frames_kernel(core: LogMMSE, st: dict, sig: torch.Tensor, hold):
+    """K14 on the card (csrc/logmmse.cu), one launch; same contract as
+    ``logmmse_frames_ref``."""
+    dev = sig.device
+    batch = tuple(sig.shape[:-2])
+    F, N = sig.shape[-2:]
+    H, B = core.H, int(np.prod(batch, dtype=np.int64))
+    if N != core.nFFT:
+        raise ValueError(f"K14: {N} bins, expected nFFT={core.nFFT}")
+    f32, bvec = torch.float32, batch + (N,)
+    hist, dev_hist = st["hist"].clone(), st["dev_hist"].clone()
+    hw = torch.empty(batch + (F, N), dtype=f32, device=dev)
+    out = {k: torch.empty_like(st[k]) for k in
+           ("Xk_prev", "sums", "devs", "count", "pos", "has_prev")}
+    if hold is not None:
+        hold = _build.check(hold, "K14 hold", torch.bool, (), dev)
+    one_m_aa = float(np.float32(1.0) - np.float32(core.aa))
+    _build.launch(
+        "sdr_logmmse_frames", dev, _build.check(sig, "K14 frames", f32,
+                                                batch + (F, N), dev),
+        _build.check(st["noise_mu2"], "K14 noise_mu2", f32, bvec, dev),
+        _build.check(st["Xk_prev"], "K14 Xk_prev", f32, bvec, dev),
+        _build.check(st["has_prev"], "K14 has_prev", torch.bool, batch, dev),
+        _build.check(hist, "K14 hist", f32, batch + (H, N), dev),
+        _build.check(dev_hist, "K14 dev_hist", f32, batch + (H, N), dev),
+        _build.check(st["sums"], "K14 sums", f32, bvec, dev),
+        _build.check(st["devs"], "K14 devs", f32, bvec, dev),
+        _build.check(st["count"], "K14 count", torch.int32, (), dev),
+        _build.check(st["pos"], "K14 pos", torch.int32, (), dev),
+        hold, B, F, N, H, float(np.float32(core.aa)), one_m_aa,
+        float(np.float32(core.ksi_min)), hw.data_ptr(),
+        out["Xk_prev"].data_ptr(), out["sums"].data_ptr(),
+        out["devs"].data_ptr(), out["count"].data_ptr(),
+        out["pos"].data_ptr(), out["has_prev"].data_ptr())
+    st = dict(st)
+    st.update(out, hist=hist, dev_hist=dev_hist)
+    return st, hw
+
+
+def logmmse_frames(core: LogMMSE, st: dict, sig: torch.Tensor, hold):
+    """K14 dispatch: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if not sig.is_cuda:
+        return logmmse_frames_ref(core, st, sig, hold)
+    return logmmse_frames_kernel(core, st, sig, hold)
 
 
 class IFNRLogMMSE(Block):

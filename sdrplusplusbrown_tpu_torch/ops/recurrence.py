@@ -1,10 +1,14 @@
 """First-order recurrences (counterpart of
 sdrplusplusbrown_tpu/ops/recurrence.py).
 
-  * ``linear_recurrence`` — y[n] = a[n]·y[n−1] + b[n] along the last axis
-    in ⌈log2 T⌉ doubling steps of torch ops (no kernel).  The pairing is
-    the JAX package's ``jax.lax.associative_scan`` recursion step for
-    step, so every float32 rounding agrees with it;
+  * ``linear_recurrence`` — y[n] = a[n]·y[n−1] + b[n] along the last axis:
+    on the card kernel K15 (csrc/recurrence.cu, one launch: a block a
+    row, a warp a segment, batches of 32 lanes × 4 samples scanned by
+    shuffles, the segments' maps scanned, each segment walked from its
+    start); on the host its plain version ``linear_recurrence_ref``, in
+    ⌈log2 T⌉ doubling steps of torch ops whose pairing is the JAX
+    package's ``jax.lax.associative_scan`` recursion step for step, so
+    every float32 rounding agrees with it;
   * ``DCBlocker`` — out[n] = x[n] − o[n−1], o[n] = (1−r)·o[n−1] + r·x[n]
     (reference correction/dc_blocker.h), on that recurrence;
   * ``NoiseBlanker`` — the IF chain's amplitude-ratio limiter against a
@@ -25,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import _build
 from ..runtime.block import Block, device_const
 from .fir import RealFIR
 
@@ -61,12 +66,49 @@ def _scan(elems):
     return [_interleave(e, o) for e, o in zip(even, odd)]
 
 
-def linear_recurrence(a, b: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
-    """y[n] = a[n]·y[n−1] + b[n] along the last axis, y[−1] = y0; ``a`` a
-    scalar or a tensor like ``b``.  Returns the whole y."""
+def linear_recurrence_ref(a, b: torch.Tensor,
+                          y0: torch.Tensor) -> torch.Tensor:
+    """Plain K15: y[n] = a[n]·y[n−1] + b[n] along the last axis, y[−1] =
+    y0; ``a`` a scalar or a tensor like ``b``.  Returns the whole y."""
     a = a.expand(b.shape) if torch.is_tensor(a) else torch.full_like(b, a)
     A, B = _scan([a, b])
     return A * y0.unsqueeze(-1) + B
+
+
+@_build.counted
+def linear_recurrence_kernel(a, b: torch.Tensor,
+                             y0: torch.Tensor) -> torch.Tensor:
+    """K15 on the card (csrc/recurrence.cu), one launch; same contract as
+    ``linear_recurrence_ref``, with ``b`` float32 or complex64 and a
+    tensor ``a`` float32 of b's shape."""
+    dev = b.device
+    if b.dtype not in (torch.float32, torch.complex64) or b.dim() < 1:
+        raise ValueError(f"K15: b {tuple(b.shape)} {b.dtype}, expected "
+                         f"float32 or complex64 [..., T]")
+    T = b.shape[-1]
+    R = b.numel() // T if T else 0
+    b = b.contiguous()
+    y0 = y0.to(b.dtype).expand(b.shape[:-1]).contiguous()
+    if torch.is_tensor(a):
+        a = a.expand(b.shape).contiguous()  # held until the launch
+        a_ptr = _build.check(a, "K15 a", torch.float32, tuple(b.shape), dev)
+        a_scalar = 0.0
+    else:
+        a_ptr, a_scalar = None, float(a)
+    y = torch.empty_like(b)
+    _build.launch("sdr_linear_recurrence", dev, a_ptr, a_scalar,
+                  _build.check(b, "K15 b", b.dtype, device=dev),
+                  _build.check(y0, "K15 y0", b.dtype, device=dev), R, T,
+                  int(b.is_complex()), y.data_ptr())
+    return y
+
+
+def linear_recurrence(a, b: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
+    """K15 dispatch: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if not b.is_cuda:
+        return linear_recurrence_ref(a, b, y0)
+    return linear_recurrence_kernel(a, b, y0)
 
 
 class DCBlocker(Block):

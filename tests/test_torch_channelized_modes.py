@@ -234,3 +234,111 @@ def test_shared_bank_without_predecimation_matches_jax():
     a = pa[0, 0].astype(np.float64)
     spec = np.abs(np.fft.rfft(a * np.hanning(a.size)))
     assert np.argmax(spec[5:]) + 5 == round(1000.0 * a.size / 48e3)
+
+
+def _post_case(demod, seed):
+    """(ChanPostPipeline, params, state, C, Tb) of ``demod``'s channelized
+    bank at 2.4 MS/s, C = 8 channels (two on one bin) and 0.1 s."""
+    bank = Radio(FS, demod, device="cpu")._build_vfo_channelized()
+    _, post = bank.pipes()
+    offs = OFFSETS.copy()
+    offs[3] = offs[2] + 1.0                  # a duplicate bin
+    params = bank.make_params(offs)
+    st = bank.init_state(C)
+    rng = np.random.default_rng(seed)
+    for k in ("d2", "fir"):                  # nonzero carried tails
+        st[k] = torch.from_numpy((1e-2 * (rng.standard_normal(
+            st[k].shape) + 1j * rng.standard_normal(st[k].shape))).astype(
+                np.complex64))
+    return bank, post, params, st, 2 * 240_000 // bank.M
+
+
+def _post_args(post, params, st, bins, bin_idx, Tb, dtype):
+    from sdrplusplusbrown_tpu_torch.ops.chan_frontend import BS, SPAN
+    om = params["xl"]["omega"]
+    a_sup, rem = divmod(post.adv0, SPAN)
+    span = params["xl_sup"] * a_sup + params["xl_bs"] * (rem // BS)
+    tails = [torch.cat([st[n].real, st[n].imag]).float().contiguous()
+             for n in post.names]
+    return (post, bins, bin_idx, om, st["xl"], span, params["xl_bs"],
+            tails, Tb, dtype, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("demod", [DEMOD_AM, DEMOD_USB, DEMOD_CW])
+def test_post_on_the_gathered_rows_equals_the_full_plane(demod, dtype):
+    """K6's plain version on the compact plane pair [2C, Tb_pad] (rows
+    [bin | M + bin] of the full plane) with the bin index 0 .. C − 1
+    equals its result on the full [2M, Tb_pad] plane with the channels'
+    bins, bit for bit: the IF, the squelch sums and both tails."""
+    from sdrplusplusbrown_tpu_torch.ops.chan_frontend import chan_post_ref
+    bank, post, params, st, Tb = _post_case(demod, 3)
+    M, W = bank.M, post.plan(Tb)["Tb_pad"]
+    rng = np.random.default_rng(4)
+    full = torch.from_numpy(rng.standard_normal((2 * M, W)).astype(
+        np.float32)).to(dtype)
+    b = params["bin"]
+    compact = full[torch.cat([b, b + M]).long()]
+    want = chan_post_ref(*_post_args(post, params, st, full, b, Tb, dtype))
+    got = chan_post_ref(*_post_args(post, params, st, compact,
+                                    torch.arange(C, dtype=torch.int32), Tb,
+                                    dtype))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(torch.equal(a, w) for a, w in zip(got[2], want[2]))
+
+
+@pytest.mark.parametrize("demod", [DEMOD_AM, DEMOD_USB, DEMOD_CW])
+def test_post_ignores_the_bins_past_the_valid_frames(demod):
+    """The large-M kernel leaves the columns past its valid tiles
+    unwritten: K6's valid IF (the first m_if outputs), its squelch sums
+    and both tails are bit for bit the same when the bins past Tb hold
+    NaN."""
+    from sdrplusplusbrown_tpu_torch.ops.chan_frontend import chan_post_ref
+    bank, post, params, st, Tb = _post_case(demod, 5)
+    W = post.plan(Tb)["Tb_pad"]
+    assert W > Tb
+    rng = np.random.default_rng(6)
+    bins = torch.from_numpy(rng.standard_normal((2 * C, W)).astype(
+        np.float32))
+    nan = bins.clone()
+    nan[:, Tb:] = float("nan")
+    idx = torch.arange(C, dtype=torch.int32)
+    m = post.plan(Tb)["m"][-1]
+    want = chan_post_ref(*_post_args(post, params, st, bins, idx, Tb,
+                                     torch.float32))
+    got = chan_post_ref(*_post_args(post, params, st, nan, idx, Tb,
+                                    torch.float32))
+    assert torch.equal(got[0][:, :m], want[0][:, :m])
+    assert torch.equal(got[1], want[1])
+    assert all(torch.equal(a, w) for a, w in zip(got[2], want[2]))
+
+
+def test_bank_gathers_only_above_m64_and_under_m_channels():
+    """``ChannelizedRxVFOBank.apply`` asks K5 for the 2C rows [bin |
+    M + bin] above M = 64 with fewer channels than bins, the whole plane
+    otherwise (the scanner's M = 48; C >= M); the row list is made once
+    for a bin tensor and made anew for a retune's."""
+    from sdrplusplusbrown_tpu_torch.ops import channelizer_kernel as ck
+    am = Radio(FS, DEMOD_AM, device="cpu")._build_vfo_channelized()
+    nfm = Radio(FS, DEMOD_NFM, device="cpu")._build_vfo_channelized()
+    assert am.gathers(C) and not am.gathers(am.M) and not nfm.gathers(C)
+    seen = []
+    orig = ck.pfb_bins
+
+    def spy(*a):
+        seen.append(a[8])
+        return orig(*a)
+    x = planes(mode_iq(am.M * 40, FS, DEMOD_AM, OFFSETS, TONE_CH))
+    ck.pfb_bins = spy
+    try:
+        p = am.make_params(OFFSETS)
+        st = am.init_state(C)
+        for params in (p, p, am.make_params(RETUNED)):
+            _, _, st = am.apply(params, st, x)
+    finally:
+        ck.pfb_bins = orig
+    assert seen[0] is seen[1] and seen[2] is not seen[1]
+    for params, rows in zip((p, p, am.make_params(RETUNED)), seen):
+        b = params["bin"]
+        assert rows.dtype == torch.int32
+        assert rows.tolist() == b.tolist() + (b + am.M).tolist()

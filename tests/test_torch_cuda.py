@@ -1133,17 +1133,22 @@ def _pfb_path_case(form, dev):
                          ids=["float32 taps", "bf16 taps"])
 def test_pfb_kernels_at_path_widths(gpu, form, tdt):
     """K5 (scanner128/256's 10 240 frames, 2×-oversampled; the
-    channelized AM, SSB and CW banks' at M = 160, 100 and 800) and K5c
-    (channelizer64's 32 768, critical; M = 128's 16 384) against their
-    plain versions at the path's full width, both tap dtypes: float32
-    bins >= 100 dB, bf16 bins >= 45 dB, one launch a call; the folded
-    frames (the kernel's probe) within 120 dB of the plain version's (its
-    bins through an identity DFT matrix, the sign undone).  Above M = 64
-    the plan is the large-M kernel's."""
+    channelized AM, SSB and CW banks' at M = 160, 100 and 800, every row)
+    and K5c (channelizer64's 32 768, critical; M = 128's 16 384) against
+    their plain versions at the path's full width, both tap dtypes, on the
+    T/h valid frames (the large-M kernel leaves the columns past its
+    valid tiles unwritten): float32 bins >= 100 dB, bf16 bins >= 45 dB,
+    one launch a call; the folded frames (the kernel's probe) within
+    120 dB of the plain version's (its bins through an identity DFT
+    matrix, the sign undone).  Above M = 64 the plan is the large-M
+    kernel's: wgmma on all 2M rows."""
     pipe, x, W = _pfb_path_case(form, gpu)
+    V = x[0].shape[0] // pipe.h
     na = pipe.dft_parts(gpu, tdt)[1]
-    assert channelizer_kernel.pfb_plan(pipe.M, pipe.tpp, pipe.h, W,
-                                       na)["big"] == (pipe.M > 64)
+    plan = channelizer_kernel.pfb_plan(pipe.M, pipe.tpp, pipe.h, W, na,
+                                       2 * pipe.M, V)
+    assert plan["big"] == (pipe.M > 64)
+    assert plan.get("wg", False) == (pipe.M > 64)
     fn = channelizer_kernel.pfb_critical_bins_kernel if pipe.critical \
         else channelizer_kernel.pfb_bins_kernel
     for out, bound in ((torch.float32, 100.0), (torch.bfloat16, 45.0)):
@@ -1152,7 +1157,7 @@ def test_pfb_kernels_at_path_widths(gpu, form, tdt):
         assert fn.launches == n0 + 1
         want = channelizer_kernel.pfb_bins_ref(pipe, *x, W, tdt, out)
         assert got.dtype == out and got.shape == (2 * pipe.M, W)
-        _close(want, got, bound, f"{form} bins {out}")
+        _close(want[:, :V], got[:, :V], bound, f"{form} bins {out}")
     _, fold = channelizer_kernel._launch_pfb(pipe, *x, W, tdt,
                                              torch.float32, probe=True)
     plain = channelizer_kernel.pfb_bins_ref(_identity_pipe(pipe), *x, W,
@@ -1162,7 +1167,132 @@ def test_pfb_kernels_at_path_widths(gpu, form, tdt):
         odd = (torch.arange(2 * M, device=gpu) % M) % 2 == 1
         even = torch.arange(W, device=gpu) % 2 == 0
         plain = torch.where(odd[:, None] & even[None], -plain, plain)
-    _close(plain, fold, 120.0, f"{form} folded frames")
+    _close(plain[:, :V], fold[:, :V], 120.0, f"{form} folded frames")
+
+
+def _bank_bins(M, seed):
+    """Sixteen bin indices at M (a bank's C = 16): bins 0 and M − 1, a
+    duplicate, odd and even bins (the oversampled form's sign)."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, M, 16)
+    b[:4] = [0, M - 1, 1, 1]
+    return torch.from_numpy(b.astype(np.int32))
+
+
+@pytest.mark.parametrize("form", ["am160", "ssb100", "cw800"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["float32 taps", "bf16 taps"])
+def test_pfb_big_gathered_rows_match_plain(gpu, form, tdt):
+    """The large-M kernel on a bank's row list [bin | M + bin] (16 bins:
+    0, M − 1, a duplicate, odd ones) at the bank's 0.1 s width, against
+    the plain version's rows on the T/h valid frames: float32 taps
+    >= 100 dB with float32 bins, bf16 taps >= 60 dB with bf16 bins
+    (phase 27's bars); the mma.sync route (under 128 rows)."""
+    pipe, x, W = _pfb_path_case(form, gpu)
+    V = x[0].shape[0] // pipe.h
+    b = _bank_bins(pipe.M, pipe.M)
+    rows = torch.cat([b, b + pipe.M]).to(gpu)
+    na = pipe.dft_parts(gpu, tdt)[1]
+    assert not channelizer_kernel.pfb_plan(pipe.M, pipe.tpp, pipe.h, W, na,
+                                           32, V)["wg"]
+    out, bound = ((torch.float32, 100.0) if tdt == torch.float32
+                  else (torch.bfloat16, 60.0))
+    got = channelizer_kernel.pfb_bins(pipe, *x, W, tdt, out, rows)
+    want = channelizer_kernel.pfb_bins_ref(pipe, *x, W, tdt, out, rows)
+    assert got.shape == want.shape == (32, W)
+    _close(want[:, :V], got[:, :V], bound, f"{form} gathered rows")
+    full = channelizer_kernel.pfb_bins_ref(pipe, *x, W, tdt, out)
+    assert torch.equal(want, full[rows.long()])
+
+
+def test_pfb_big_retune_reuses_the_plan(gpu, handoff):
+    """Two blocks of the AM bank's ``apply`` with a retune between: one
+    K5 call each, no new matrix or plan state (the PFB's device cache
+    unchanged), each block's bins the plain version's rows of its own
+    bins (K5 called again with the captured rows)."""
+    bank = Radio(FS, DEMOD_AM)._build_vfo_channelized()
+    pfb, post = bank.pipes()
+    T = pfb.M * 300
+    x = wfm_iq(2 * T, [0.0], seed=4)
+    offs = np.linspace(-1.0e6, 1.0e6, 16) + 317.0
+    st = bank.init_state(16)
+    seen = []
+    orig = channelizer_kernel.pfb_bins
+
+    def spy(*a):
+        seen.append(a)
+        return orig(*a)
+    channelizer_kernel.pfb_bins = spy
+    try:
+        for blk, o in enumerate((offs, offs + 25e3)):
+            _, _, st = bank.apply(bank.make_params(o), st,
+                                  _planes(x[blk * T:(blk + 1) * T], gpu))
+            if blk == 0:
+                keys = set(pfb._dev)
+    finally:
+        channelizer_kernel.pfb_bins = orig
+    assert set(pfb._dev) == keys and len(seen) == 2
+    for blk, (o, a) in enumerate(zip((offs, offs + 25e3), seen)):
+        rows = a[8]
+        k = np.mod(np.round(o / bank.out_samplerate).astype(np.int64),
+                   pfb.M)
+        assert rows.cpu().tolist() == list(k) + list(k + pfb.M)
+        V = a[1].shape[0] // pfb.h
+        got = channelizer_kernel.pfb_bins(*a)
+        want = channelizer_kernel.pfb_bins_ref(*a)
+        _close(want[:, :V], got[:, :V],
+               100.0 if handoff == "float32" else 45.0, f"block {blk}")
+
+
+def test_pfb_big_leaves_columns_past_the_valid_tiles(gpu):
+    """Into a NaN-filled buffer: every valid frame written and finite,
+    the columns past the plan's last tile still NaN, on both routes."""
+    for form, R in (("cw800", 32), ("critical128", 256)):
+        pipe, x, W = _pfb_path_case(form, gpu)
+        T = pipe.M * 37 if pipe.critical else pipe.h * 74
+        x = (x[0][:T], x[1][:T]) + x[2:]
+        V = T // pipe.h
+        W = V + 200
+        rows = torch.arange(R, dtype=torch.int32, device=gpu)
+        na = pipe.dft_parts(gpu, torch.bfloat16)[1]
+        p = channelizer_kernel.pfb_plan(pipe.M, pipe.tpp, pipe.h, W, na, R,
+                                        V)
+        end = p["tiles"] * p["nt"]
+        assert V <= end < W
+        buf = torch.full((R, W), float("nan"), device=gpu)
+        got = channelizer_kernel._launch_pfb(pipe, *x, W, torch.bfloat16,
+                                             torch.float32, rows, out=buf)
+        assert got is buf
+        assert torch.isfinite(buf[:, :end]).all(), form
+        assert torch.isnan(buf[:, end:]).all(), form
+
+
+@pytest.mark.parametrize("form", ["scanner128", "channelizer64"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["float32 taps", "bf16 taps"])
+def test_pfb_big_fold_matches_the_register_kernels(gpu, form, tdt):
+    """The large-M kernel's folded frames (its probe, on a large-M plan
+    at M = 48 and 64, both routes) bit for bit the register-resident
+    kernels' (the same ascending-i fmaf chain) on the valid frames; its
+    bins >= 100 dB (float32 taps) against theirs."""
+    pipe, x, _ = _pfb_path_case(form, gpu)
+    T = pipe.M * 300
+    x = (x[0][:T], x[1][:T]) + x[2:]
+    V = T // pipe.h
+    W = V + 40
+    na = pipe.dft_parts(gpu, tdt)[1]
+    a, fa = channelizer_kernel._launch_pfb(pipe, *x, W, tdt, torch.float32,
+                                           probe=True)
+    for R in (2 * pipe.M, 32):
+        plan = channelizer_kernel._big_plan(pipe.M, pipe.tpp, pipe.h, W, na,
+                                            R, V)
+        assert plan["wg"] == (R >= 128)
+        rows = torch.arange(R, dtype=torch.int32, device=gpu)
+        b, fb = channelizer_kernel._launch_pfb(
+            pipe, *x, W, tdt, torch.float32, rows, probe=True, plan=plan)
+        assert torch.equal(fa[:, :V], fb[:, :V]), (form, R)
+        if tdt == torch.float32:
+            _close(a[:R, :V], b[:, :V], 100.0, f"{form} R = {R}")
 
 
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
@@ -1170,11 +1300,13 @@ def test_pfb_kernels_at_path_widths(gpu, form, tdt):
 def test_pfb_in_place_route_matches_staged(gpu, tdt):
     """``pfb_plan``'s last resort, no input span in shared memory (the fold
     reads the stream in place), gives the staged route's bins and folded
-    frames bit for bit, both forms, in both kernels (bf16 taps: the
-    warp-specialised one; float32 taps: the three-part one); and the
-    largest tpp the earlier kernel took at M = 8, 2×-oversampled (2 381
-    taps a branch), which needs that route, launches and holds 100 dB
-    against the plain version."""
+    frames bit for bit, both forms, in both register kernels (bf16 taps:
+    the warp-specialised one; float32 taps: the three-part one) and in the
+    large-M kernel on both routes (a bank's 32 rows on mma.sync at AM's
+    M = 160; every row on wgmma at the critical M = 128; ``staged`` off);
+    and the largest tpp the earlier kernel took at M = 8, 2×-oversampled
+    (2 381 taps a branch), which needs that route, launches and holds
+    100 dB against the plain version."""
     from sdrplusplusbrown_tpu_torch.ops.channelizer import \
         OversampledChannelizer
     for form in ("scanner128", "channelizer64"):
@@ -1189,6 +1321,24 @@ def test_pfb_in_place_route_matches_staged(gpu, tdt):
         b = channelizer_kernel._launch_pfb(
             pipe, *x, W, tdt, torch.float32, probe=True,
             plan=dict(p, nt=16, nbuf=0, tiles=-(-W // 16)))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), form
+    for form, R in (("am160", 32), ("critical128", 256)):
+        pipe, x, _ = _pfb_path_case(form, gpu)
+        T = pipe.M * 200
+        x, V = (x[0][:T], x[1][:T]) + x[2:], T // pipe.h
+        na = pipe.dft_parts(gpu, tdt)[1]
+        rows = torch.arange(R, dtype=torch.int32, device=gpu)
+        p = channelizer_kernel.pfb_plan(pipe.M, pipe.tpp, pipe.h, V, na, R,
+                                        V)
+        if channelizer_kernel.pfb_big_smem(
+                pipe.M, pipe.tpp, pipe.h, p["nt"], p["kc"], p["rbp"], na,
+                True, p["wg"], p["ring"], p["threads"]) > \
+                channelizer_kernel.SMEM_MAX:
+            assert not p["staged"]      # the three-part wgmma route
+            continue
+        a, b = (channelizer_kernel._launch_pfb(
+            pipe, *x, V, tdt, torch.float32, rows, probe=True,
+            plan=dict(p, staged=staged)) for staged in (True, False))
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), form
     rng = np.random.default_rng(8)
     proto = np.hanning(8 * 2381 + 2)[1:-1] * (
@@ -1708,3 +1858,98 @@ def test_device_feed_matches_cpu(gpu, mode):
         else:
             assert torch.equal(b.cpu(), a), i
     assert feeds[gpu].stats() == feeds["cpu"].stats()
+
+
+# ---- K14 (LogMMSE's frame recursions) and K15 (the linear recurrence) -----
+
+@pytest.mark.parametrize("fs,wideband,batch,frames,count,hold", [
+    (2.4e6, True, (), 5, 7, None),     # the served IF NR, the ring filling
+    (2.4e6, True, (), 5, 230, None),   # the ring full
+    (2.4e6, True, (), 5, 230, True),   # a held block
+    (24_000.0, False, (2,), 20, 1990, False),   # the AF NR, filling to full
+])
+def test_logmmse_frames_kernel_matches_plain(gpu, fs, wideband, batch,
+                                             frames, count, hold):
+    """K14 against its plain version on the card at the served IF NR's
+    2.4 MS/s (nFFT 96 000, H 200) and the AF NR's 24 kS/s at batch 2: the
+    rings, sums, counters and has_prev bit-identical, the gains and X
+    >= 120 dB; the caller's state untouched."""
+    from sdrplusplusbrown_tpu_torch.ops import logmmse as plm
+    from torch_parity import logmmse_frames_inputs
+    core = plm.LogMMSE(fs, wideband=wideband)
+    st, sig = logmmse_frames_inputs(core, batch, frames, count, seed=count)
+    st = {k: v.to(gpu) for k, v in st.items()}
+    sig = sig.to(gpu)
+    h = None if hold is None else torch.tensor(hold, device=gpu)
+    before = {k: v.clone() for k, v in st.items()}
+    got_st, got_hw = plm.logmmse_frames_kernel(core, st, sig, h)
+    want_st, want_hw = plm.logmmse_frames_ref(core, st, sig, h)
+    torch.cuda.synchronize()
+    for k, v in st.items():
+        assert torch.equal(v, before[k]), k
+    for k in ("hist", "dev_hist", "sums", "devs", "count", "pos",
+              "has_prev"):
+        assert torch.equal(got_st[k], want_st[k]), k
+    _close(want_hw, got_hw, 120.0, "K14 hw")
+    _close(want_st["Xk_prev"], got_st["Xk_prev"], 120.0, "K14 Xk_prev")
+
+
+def test_logmmse_frames_dispatch_launches_once_a_block(gpu):
+    """``LogMMSE.apply`` on CUDA tensors reaches K14 once a block (and
+    never its plain version)."""
+    from sdrplusplusbrown_tpu_torch.ops import logmmse as plm
+    nr = plm.IFNRLogMMSE(96_000.0)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((rng.standard_normal(40_000) + 1j
+                          * rng.standard_normal(40_000))
+                         .astype(np.complex64)).to(gpu)
+    st = nr.prime(_to(nr.init_state(()), gpu), x[:12 * nr.core.Slen])
+    n0 = plm.logmmse_frames_kernel.launches
+    for _ in range(3):
+        _, st = nr.apply(None, st, x[:4 * nr.core.len2])
+    assert plm.logmmse_frames_kernel.launches - n0 == 3
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_linear_recurrence_kernel_matches_plain(gpu, case):
+    """K15 against its plain version (the doubling scan) on the card at
+    the paths' poles and rows (tests/torch_parity.py:recurrence_cases):
+    >= 80 dB, and at least as close as the plain version to the float64
+    recurrence."""
+    from sdrplusplusbrown_tpu_torch.ops import recurrence as prec
+    from torch_parity import recurrence_cases, recurrence_chunks_model
+    name, a, b, y0 = list(recurrence_cases())[case]
+    ta = torch.from_numpy(a).to(gpu) if isinstance(a, np.ndarray) else a
+    tb, ty0 = torch.from_numpy(b).to(gpu), torch.from_numpy(y0).to(gpu)
+    got = prec.linear_recurrence_kernel(ta, tb, ty0)
+    want = prec.linear_recurrence_ref(ta, tb, ty0)
+    torch.cuda.synchronize()
+    wide = np.complex128 if np.iscomplexobj(b) else np.float64
+    truth = recurrence_chunks_model(
+        np.asarray(a, np.float32).astype(np.float64), b.astype(wide),
+        y0.astype(wide))
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert snr_db(want, got) >= 80.0, name
+    assert snr_db(truth, got) >= snr_db(truth, want) - 0.5, name
+
+
+def test_recurrence_kernels_raise_instead_of_falling_back(gpu):
+    """K14 and K15 refuse CPU tensors and wrong dtypes on the card."""
+    from sdrplusplusbrown_tpu_torch.ops import logmmse as plm
+    from sdrplusplusbrown_tpu_torch.ops import recurrence as prec
+    b = torch.zeros(2, 64, device=gpu)
+    with pytest.raises(ValueError):
+        prec.linear_recurrence_kernel(0.5, b.double(), torch.zeros(2,
+                                                                  device=gpu))
+    with pytest.raises(ValueError):
+        prec.linear_recurrence_kernel(torch.ones(2, 64, device=gpu).double(),
+                                      b, torch.zeros(2, device=gpu))
+    with pytest.raises(ValueError):
+        prec.linear_recurrence_kernel(0.5, b, torch.zeros(2))
+    core = plm.LogMMSE(96_000.0, wideband=True)
+    st = _to(core.init_state(()), gpu)
+    sig = torch.ones(2, core.nFFT, device=gpu)
+    with pytest.raises(ValueError):
+        plm.logmmse_frames_kernel(core, st, sig.cpu(), None)
+    with pytest.raises(ValueError):
+        plm.logmmse_frames_kernel(core, st, sig[:, :-1], None)

@@ -305,39 +305,100 @@ def bank_pfbs():
     return out
 
 
+def bank_rows(M, seed):
+    """A bank's row list [bin | M + bin] of 16 bins at M: bins 0 and
+    M − 1, a duplicate, odd and even bins."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, M, 16)
+    b[:4] = [0, M - 1, 1, 1]
+    b = torch.from_numpy(b.astype(np.int32))
+    return torch.cat([b, b + M])
+
+
 @pytest.mark.parametrize("na", [1, 3])
 def test_pfb_plan_large_m_at_the_banks(na):
-    """Above M = 64 either matrix takes the large-M kernel: no output tile
-    in its shared memory, which fits, every frame in one tile, every
-    m-tile of a frame tile in one (m-group, warp) pair, at most
-    ceil(2M / 128) m-groups, and the SMs filled where the tiles allow."""
+    """Above M = 64 either matrix takes the large-M kernel, at the banks'
+    0.1 s widths and the critical M = 128, on a bank's 32 gathered rows
+    and on every row: its shared memory (``pfb_big_smem``, two blocks an
+    SM counted with the SM's share) fits; the tiles hold every valid
+    frame and no tile past them; the row groups hold every row; wgmma
+    from 128 rows (nt 64, 256 rows a block), mma.sync under them; and, on
+    a bank's rows and the critical form, the blocks fill the 132 SMs, or
+    the plan is the most blocks mma.sync makes (16 frames by 16 rows).
+    (Every row of a bank, its C >= M case, takes wgmma's fixed tiles.)"""
     for label, pipe, W in bank_pfbs():
         M, h = pipe.M, pipe.h
-        p = ck.pfb_plan(M, pipe.tpp, h, W, na)
-        assert p["big"] and not p["ws"], label
-        assert p["smem"] == ck.pfb_smem(M, pipe.tpp, h, p["nt"], p["nbuf"],
-                                        1, False) <= SMEM
-        assert p["per_sm"] * (p["smem"] + 1024) <= ck.SM_SMEM
-        assert p["nt"] // (M // h) % ck.PFB_NF == 0
-        count = np.zeros(W, np.int64)
-        for b in range(p["grid"]):
-            for tile in range(b, p["tiles"], p["grid"]):
-                count[tile * p["nt"]:(tile + 1) * p["nt"]] += 1
-        assert (count == 1).all(), label
-        K16 = -(-2 * M // 16)
-        assert 1 <= p["mgroups"] <= -(-2 * M // 128)
-        mts = sorted(mt for y in range(p["mgroups"]) for w in range(8)
-                     for mt in range(y * 8 + w, K16, 8 * p["mgroups"]))
-        assert mts == list(range(K16)), label
-        assert p["grid"] * p["mgroups"] >= min(SMS, p["tiles"]), (label, p)
+        V = (1 << 21) // M if pipe.critical else 2 * 243_200 // M
+        for R in ((2 * M,) if pipe.critical else (32, 2 * M)):
+            p = ck.pfb_plan(M, pipe.tpp, h, W, na, R, V)
+            assert p["big"] and not p["ws"], label
+            assert p["wg"] == (R >= ck.PFB_WG_ROWS), (label, R)
+            assert p["smem"] == ck.pfb_big_smem(
+                M, pipe.tpp, h, p["nt"], p["kc"], p["rbp"], na,
+                p["staged"], p["wg"], p["ring"], p["threads"]) <= SMEM, \
+                (label, R)
+            assert p["per_sm"] * (p["smem"] + 1024) <= ck.SM_SMEM
+            assert p["nt"] // (M // h) % ck.PFB_NF == 0
+            assert (p["tiles"] - 1) * p["nt"] < V <= p["tiles"] * p["nt"]
+            assert p["tiles"] * p["nt"] <= W
+            assert (p["rgroups"] - 1) * p["rbp"] < R <= \
+                p["rgroups"] * p["rbp"]
+            assert p["kc"] >= 16 and p["kc"] & (p["kc"] - 1) == 0
+            if p["wg"]:
+                assert (p["nt"], p["rbp"], p["kc"]) == (
+                    64, 256, 64 if na == 1 else 16)
+            else:
+                assert p["rbp"] in (16, 32)
+                assert p["rbp"] // 16 * (p["nt"] // 8) <= 32
+            assert p["blocks"] == p["tiles"] * p["rgroups"]
+            assert p["threads"] == (512 if not p["wg"] and p["blocks"] <= SMS
+                                    else 256)
+            if R == 32 or pipe.critical:    # a bank's rows; the critical
+                assert p["blocks"] >= ck.SMS or \
+                    (p["nt"], p["rbp"]) == (16, 16), (label, R, p)
+                assert p["staged"], (label, R)
     assert not ck.pfb_plan(64, 19, 64, 1000, 1)["big"]
 
 
-def big_model(pipe, xr, xi, xwr, xwi, W, tdt):
+@pytest.mark.parametrize("idx", range(5), ids=["am160", "usb100", "dsb100",
+                                                "cw800", "critical128"])
+def test_plain_rows_are_the_full_planes_rows(idx):
+    """``pfb_bins_ref`` with a row list is the full plane's rows bit for
+    bit, at M = 100, 160, 800 and the critical 128: duplicate bins, bins 0
+    and M − 1, odd bins on even frames (the oversampled form's sign), both
+    output dtypes."""
+    label, pipe, _ = bank_pfbs()[idx]
+    rng = np.random.default_rng(pipe.M + 1)
+    T = pipe.M * 12
+    x = tuple(torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
+        np.float32)) for n in (T, T, pipe.n_hist, pipe.n_hist))
+    W = T // pipe.h + 5
+    rows = bank_rows(pipe.M, pipe.M)
+    for odt in (torch.float32, torch.bfloat16):
+        full = ck.pfb_bins_ref(pipe, *x, W, torch.float32, odt)
+        got = ck.pfb_bins_ref(pipe, *x, W, torch.float32, odt, rows)
+        assert got.shape == (32, W) and got.dtype == odt
+        assert torch.equal(got, full[rows.long()]), label
+    if not pipe.critical:   # bin 1 (odd) carries the sign on even frames
+        ident = ck.pfb_bins_ref(identity_pipe(pipe), *x, W, torch.float32,
+                                torch.float32, rows)[2].double()
+        s_ = torch.cat([x[2], x[0], torch.zeros(W * pipe.h)]).double()
+        br = torch.from_numpy(pipe.branches).double()
+        v = torch.stack([sum(br[1, i] * s_[F * pipe.h + i * pipe.M + 1]
+                             for i in range(pipe.tpp)) for F in range(W)])
+        sign = torch.where(torch.arange(W) % 2 == 0, -1.0, 1.0).double()
+        assert torch.allclose(ident, sign * v, rtol=1e-5, atol=1e-7)
+    with pytest.raises(ValueError):
+        ck.pfb_bins_ref(pipe, *x, W, torch.float32, torch.float32,
+                        rows.long())
+
+
+def big_model(pipe, xr, xi, xwr, xwi, W, tdt, group: int = 1):
     """The large-M kernel's bins [2M, W] float32: ``split_model``'s
-    products, summed apart for each 16-wide k-step (its accumulators of
-    one k-step, in MMA_PASSES' order) and the k-steps' sums added in
-    float32, ascending."""
+    products, summed apart for each group of ``group`` 16-wide k-steps
+    (its accumulator of one k-step on mma.sync, of a chunk's kc / 16 on
+    wgmma: the k-steps in order, each k-step's MMA_PASSES) and the
+    groups' sums added in float32, ascending."""
     M = pipe.M
     v = ck.pfb_bins_ref(identity_pipe(pipe), xr, xi, xwr, xwi, W, tdt,
                         torch.float32)
@@ -352,10 +413,12 @@ def big_model(pipe, xr, xi, xwr, xwi, W, tdt):
     vp[:2 * M] = v
     b = ck.split_bf16(vp)
     out = torch.zeros(KP, W)
-    for k in range(0, KP, 16):
+    for k0 in range(0, KP, 16 * group):
         e = torch.zeros(KP, W)
-        for ia, ib in ck.MMA_PASSES[na]:
-            e = e + parts[ia][:, k:k + 16].float() @ b[ib][k:k + 16].float()
+        for k in range(k0, min(KP, k0 + 16 * group), 16):
+            for ia, ib in ck.MMA_PASSES[na]:
+                e = e + parts[ia][:, k:k + 16].float() @ \
+                    b[ib][k:k + 16].float()
         out = out + e
     return out[:2 * M] * sign
 
@@ -377,3 +440,51 @@ def test_big_kernel_sum_holds_100db(idx, tdt):
     got = big_model(pipe, xr, xi, xwr, xwi, 24, tdt)
     db = snr_db(want.numpy(), got.numpy())
     assert db >= 100.0, (label, db)
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["float32 taps", "bf16 taps"])
+@pytest.mark.parametrize("idx", range(5), ids=["am160", "usb100", "dsb100",
+                                                "cw800", "critical128"])
+def test_wgmma_sum_at_the_plans_chunk_holds_100db(idx, tdt):
+    """On every row (the wgmma route) a chunk's kc / 16 k-steps share one
+    accumulator: ``big_model`` at the plan's chunk against
+    ``pfb_bins_ref``'s float32 bins, 24 frames: >= 100 dB."""
+    label, pipe, W = bank_pfbs()[idx]
+    na = pipe.dft_parts("cpu", tdt)[1]
+    p = ck.pfb_plan(pipe.M, pipe.tpp, pipe.h, W, na)
+    assert p["wg"]
+    rng = np.random.default_rng(pipe.M + 2)
+    T = pipe.h * 24
+    xr, xi, xwr, xwi = (torch.from_numpy(
+        (0.1 * rng.standard_normal(n)).astype(np.float32))
+        for n in (T, T, pipe.n_hist, pipe.n_hist))
+    want = ck.pfb_bins_ref(pipe, xr, xi, xwr, xwi, 24, tdt, torch.float32)
+    got = big_model(pipe, xr, xi, xwr, xwi, 24, tdt, p["kc"] // 16)
+    db = snr_db(want.numpy(), got.numpy())
+    assert db >= 100.0, (label, p["kc"], db)
+
+
+def ab_module():
+    """scripts/pfb_big_ab.py as a module."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "pfb_big_ab.py")
+    spec = importlib.util.spec_from_file_location("pfb_big_ab", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", [n for n, _ in ab_module().patch_sets()])
+def test_big_ab_patch_sites_are_in_the_source(name):
+    """Every variant that ``pfb_big_ab.py --parts`` and ``--phases`` build
+    on the card finds its sites in the committed large-M kernel."""
+    import os
+    from sdrplusplusbrown_tpu_torch.kernels import _build
+    ab = ab_module()
+    subs, = [s for n, s in ab.patch_sets() if n == name]
+    with open(os.path.join(_build.CSRC, "pfb_channelizer.cu")) as fh:
+        text = fh.read()
+    assert ab.patched(text, subs, name) != text

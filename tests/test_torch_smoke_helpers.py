@@ -298,3 +298,76 @@ def test_no_plain_on_card_restores_the_plain_versions(smoke):
                                    torch.ones(1, 3), 1, 1)
         assert y.shape == (2, 8)
     assert (fir_kernel.fir_rows_ref, agc.agc_rows_ref) == orig
+
+
+@pytest.mark.parametrize("odt, nbytes", [(torch.float32, 4),
+                                         (torch.bfloat16, 2)])
+def test_k5_bound_counts_the_gathered_rows_and_valid_frames(smoke, odt,
+                                                            nbytes):
+    """The channelized CW group's K5 (M = 800, tpp 5) on its 32 gathered
+    rows: 2·T planes in, 32 rows of the T/h valid frames out (the large-M
+    kernel writes no more), the fold's 4·K0 operations a frame and the
+    DFT counted as the cheaper of an FFT and 32 direct rows."""
+    from sdrplusplusbrown_tpu_torch.models.radio import DEMOD_CW, Radio
+    bank = Radio(2.4e6, DEMOD_CW, device="cpu")._build_vfo_channelized()
+    pfb, post = bank.pipes()
+    T, M = 243_200, pfb.M
+    Tb = 2 * T // M
+    W = post.plan(Tb)["Tb_pad"]
+    xr = torch.zeros(T)
+    rows = torch.zeros(32, dtype=torch.int32)
+    args = (pfb, xr, xr, None, None, W, odt, odt, rows)
+    b, ops = smoke.work("K5", args)
+    assert W > Tb and b == 8 * T + 32 * Tb * nbytes
+    dft = min(5 * M * np.log2(M), 4 * M * 32)
+    assert ops == pytest.approx(Tb * (4 * pfb.K0 + dft))
+    assert smoke.bound("K5", args)[1] == "bytes"
+
+
+def test_torch_calls_counts_a_modules_torch_calls(smoke):
+    """Phase 27 (b)'s guard on K5's input: inside ``torch_calls`` the
+    plain K5's ``torch.cat`` calls are counted; after it the module's
+    ``torch`` is torch again."""
+    from sdrplusplusbrown_tpu_torch.models.radio import DEMOD_AM, Radio
+    from sdrplusplusbrown_tpu_torch.ops import channelizer_kernel as ck
+    pfb, _ = Radio(2.4e6, DEMOD_AM, device="cpu")._build_vfo_channelized() \
+        .pipes()
+    z = torch.zeros(pfb.M * 4)
+    h = torch.zeros(pfb.n_hist)
+    with smoke.torch_calls(ck, ("cat", "zeros")) as tc:
+        ck.pfb_bins_ref(pfb, z, z, h, h, 8, torch.float32, torch.float32)
+    assert tc.counts["cat"] >= 2 and tc.counts["zeros"] >= 2
+    assert ck.torch is torch
+
+
+def test_k14_bound_counts_the_frames_state_and_ring_slots(smoke):
+    """The served IF NR's K14 (nFFT 96 000, five frames a block): the
+    frames in and the gains out, four state rows in and three out, the F
+    ring slots of both rings read and written, 62 operations a bin and
+    frame; bound by its bytes."""
+    from sdrplusplusbrown_tpu_torch.ops.logmmse import LogMMSE
+    core = LogMMSE(2.4e6, wideband=True)
+    st = core.init_state(())
+    sig = torch.zeros(5, core.nFFT)
+    b, ops = smoke.work("K14", (core, st, sig, None))
+    N = core.nFFT
+    assert b == 4 * N * (2 * 5 + 4 * 5 + 7) + 2 * (1 + 8)
+    assert ops == 62 * N * 5
+    assert smoke.bound("K14", (core, st, sig, None))[1] == "bytes"
+
+
+@pytest.mark.parametrize("cplx, per_sample", [(True, False), (False, True)])
+def test_k15_bound_counts_b_y_and_a_pole_a_sample(smoke, cplx, per_sample):
+    """K15 at the front end's DC blocker (complex rows, one pole) and the
+    noise blanker's envelope (real rows, a pole a sample): b and y0 in, y
+    out, a float32 a where it is a tensor; a multiply-add a sample on
+    each part."""
+    T = 120_000
+    b = torch.zeros(1, T, dtype=torch.complex64 if cplx else torch.float32)
+    a = torch.zeros(1, T) if per_sample else 0.99
+    y0 = torch.zeros(1, dtype=b.dtype)
+    nb, ops = smoke.work("K15", (a, b, y0))
+    e = 8 if cplx else 4
+    assert nb == 2 * T * e + e + (4 * T if per_sample else 0)
+    assert ops == 2 * (2 if cplx else 1) * T
+    assert smoke.bound("K15", (a, b, y0))[1] == "bytes"

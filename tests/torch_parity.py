@@ -559,3 +559,124 @@ def wait_for(pred, what: str, timeout: float = 10.0):
         if time.monotonic() > deadline:
             raise AssertionError(what)
         time.sleep(0.01)
+
+
+# ---- K14 and K15 (the served block's host-bound recurrences) --------------
+RECURRENCE_WARPS = 32         # csrc/recurrence.cu: segments (warps) a row
+RECURRENCE_K = 4              # csrc/recurrence.cu: contiguous samples a lane
+
+
+def logmmse_frames_inputs(core, batch, frames, count, seed):
+    """K14's inputs (tests/test_torch_host_path_kernels.py,
+    tests/test_torch_cuda.py): a LogMMSE state as a stream leaves it,
+    the rings filled with |spectra|-like values to ``count`` frames, the
+    slot after them, a PSD and the last frame's X; and ``frames`` frames
+    of magnitudes."""
+    rng = np.random.default_rng(seed)
+    N, H = core.nFFT, core.H
+    st = core.init_state(batch)
+    mag = lambda *s: (rng.rayleigh(1.0, s) + 1e-3).astype(np.float32)
+    filled = min(count, H)
+    hist = np.zeros(batch + (H, N), np.float32)
+    hist[..., :filled, :] = mag(*batch, filled, N)
+    dev = np.zeros_like(hist)
+    dev[..., :filled, :] = mag(*batch, filled, N) ** 2
+    st.update(
+        hist=torch.from_numpy(hist), dev_hist=torch.from_numpy(dev),
+        sums=torch.from_numpy(hist.sum(-2)),
+        devs=torch.from_numpy(dev.sum(-2)),
+        count=torch.tensor(count, dtype=torch.int32),
+        pos=torch.tensor(count % H, dtype=torch.int32),
+        noise_mu2=torch.from_numpy(mag(*batch, N) ** 2),
+        Xk_prev=torch.from_numpy(mag(*batch, N) ** 2),
+        has_prev=torch.from_numpy(np.arange(int(np.prod(batch, dtype=int)))
+                                  .reshape(batch) % 2 == 0)
+        if batch else torch.tensor(count > 0))
+    return st, torch.from_numpy(mag(*batch, frames, N) * 2.0)
+
+
+def _warp_scan(A, B):
+    """csrc/recurrence.cu:warp_scan on maps [..., 32] (lanes last)."""
+    d = 1
+    while d < 32:
+        Ap = np.concatenate([A[..., :d], A[..., :-d]], axis=-1)
+        Bp = np.concatenate([B[..., :d], B[..., :-d]], axis=-1)
+        lanes = np.arange(32) >= d
+        A, B = np.where(lanes, Ap * A, A), np.where(lanes, A * Bp + B, B)
+        d *= 2
+    return A, B
+
+
+def recurrence_chunks_model(a, b, y0):
+    """K15's arithmetic (csrc/recurrence.cu) in numpy on rows [R, T]:
+    RECURRENCE_WARPS segments of whole batches of 32 lanes ×
+    RECURRENCE_K samples, each batch's lane maps scanned and folded into
+    its segment's, the segments' maps scanned, each segment walked batch
+    by batch from its start (every segment side by side; the identity,
+    a = 1 and b = 0, past a segment's end)."""
+    R, T = b.shape
+    W, K = RECURRENCE_WARPS, RECURRENCE_K
+    batch = 32 * K
+    per = -(-(-(-T // batch)) // W)
+    L = per * batch
+    pad = W * L - T
+    wide = b.dtype in (np.float64, np.complex128)
+    a = np.broadcast_to(np.asarray(a, np.float64 if wide else np.float32),
+                        b.shape)
+    one, zero = a.dtype.type(1), b.dtype.type(0)
+    # [R, W, per, 32, K]: segment, batch, lane, sample
+    av = np.pad(a, ((0, 0), (0, pad)), constant_values=one).reshape(
+        R, W, per, 32, K)
+    bv = np.pad(b, ((0, 0), (0, pad))).reshape(R, W, per, 32, K)
+
+    def lane_maps(j):
+        A = np.full((R, W, 32), one, a.dtype)
+        B = np.full((R, W, 32), zero, b.dtype)
+        for k in range(K):
+            A, B = A * av[:, :, j, :, k], av[:, :, j, :, k] * B + \
+                bv[:, :, j, :, k]
+        return _warp_scan(A, B)
+
+    As = np.full((R, W), one, a.dtype)
+    Bs = np.full((R, W), zero, b.dtype)
+    for j in range(per):
+        A, B = lane_maps(j)
+        At, Bt = A[..., 31], B[..., 31]
+        As, Bs = As * At, At * Bs + Bt
+    Aw, Bw = _warp_scan(As, Bs)
+    y0 = np.asarray(y0, b.dtype)[:, None]
+    carry = np.concatenate([y0, Aw[:, :-1] * y0 + Bw[:, :-1]], axis=1)
+    y = np.empty((R, W, per, 32, K), b.dtype)
+    for j in range(per):
+        A, B = lane_maps(j)
+        yv = np.concatenate([carry[..., None], A[..., :-1] * carry[..., None]
+                             + B[..., :-1]], axis=-1)
+        for k in range(K):
+            yv = av[:, :, j, :, k] * yv + bv[:, :, j, :, k]
+            y[:, :, j, :, k] = yv
+        carry = yv[..., 31]
+    return y.reshape(R, -1)[:, :T]
+
+
+def recurrence_cases():
+    """(name, a, b, y0) of K15 at the paths' poles and row shapes."""
+    rng = np.random.default_rng(5)
+    T = 120_000
+    x = (rng.standard_normal(T) + 1j * rng.standard_normal(T) + 0.1
+         + 0.1j).astype(np.complex64)[None] * np.float32(0.3)
+    r = np.float32(50.0 / 2.4e6)       # the front end's DC blocker
+    yield ("front end DC", float(np.float32(1) - r), x * r,
+           np.array([0.05 + 0.02j], np.complex64))
+    amp = np.abs(x).astype(np.float32)
+    amp[0, ::977] = 0.0                 # the blanker holds zero samples
+    rb = np.float32(500.0 / 24000.0)
+    nz = amp != 0
+    yield ("noise blanker", np.where(nz, np.float32(1) - rb, np.float32(1))
+           .astype(np.float32), np.where(nz, amp * rb, 0).astype(np.float32),
+           np.array([1.0], np.float32))
+    m = rng.standard_normal((4, 2_400)).astype(np.float32) + 0.5
+    ra = np.float32(100.0 / 24_000.0)   # the AM demod's DC blocker rows
+    yield ("AM DC rows", float(np.float32(1) - ra),
+           (m * ra).astype(np.complex64), np.zeros(4, np.complex64))
+    yield ("short row", 0.5, rng.standard_normal((3, 100)).astype(np.float32),
+           np.ones(3, np.float32))
