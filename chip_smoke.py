@@ -61,7 +61,15 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     and 2 USB VFOs on one 2.4 MS/s wideband, 240 000-sample steps) and on
     the same VFOs at 10 MS/s (1 040 000-sample steps): K1 (or K11 then
     K8 where K1 cannot take the chain: every group at 10 MS/s), K7 for
-    NFM, K8 and the AGC kernel K12 for AM and USB.
+    NFM, K8 and the AGC kernel K12 for AM and USB;
+  * the sources, sinks and transmitter — the transmit path
+    (``models/trx.py``: ``TxChain``, its AGC on K12 and ``SSBMod``'s 651
+    complex taps on K9; ``ServerTxPath``, the stream server's 6 k → 48 k
+    resampler on K8), the served app on an rtl_tcp source (phase 19's
+    capture, uint8 at 2.4 MS/s) and on a Hermes Lite 2 (384 kS/s, its RX
+    frames and, keyed by rigctl, the TX audio of a stream client), each
+    fed by a fake peer in a process of its own, and the network and MPEG
+    sinks: K4f, K8, K9, K12, K15.
 
 Phases, each fatal on failure:
 
@@ -269,6 +277,28 @@ Phases, each fatal on failure:
      call (a CUDA graph captured around it), and ``DeviceFeed`` in its
      three modes on the card against the host CPU with
      tests/test_efft_device.py's bars.
+ 27. every demod through the channelized bank (``drive_modes``).
+ 28. the sources, sinks and transmitter (``drive_trx``): (a) the TX path
+     with the counts zeroed (``TxChain`` USB and FM on 1 s of audio,
+     ``ServerTxPath`` on ten 200 ms wire blocks: K8 ten launches, K9 one,
+     K12 two, every other kernel none; the USB output single-sideband,
+     the FM output on the unit circle, the packets against the host
+     CPU's), then K8 at the resampler's wire block, K9 at SSBMod's 48 000
+     samples and K12 at TxChain's 48 000-sample AGC against their plain
+     versions, timed beside their bounds and conv1d; (b) phase 19's app
+     on a fake rtl_tcp server process (the capture quantized to uint8,
+     paced at 2.4 MS/s), manual pump: every radio's audio and spectrum
+     line bit-identical to the app on a file of the quantized samples,
+     the commands logged (sample rate, frequency, gain mode, gain
+     index); then 5 s of the threaded pump (block p50 / p99,
+     secondsBehind < 1 s); (c) the app on a fake Hermes Lite 2 process
+     at 384 kS/s (an NFM tone in its RX frames > 40 dB) with the stream
+     server and rigctl: ``T 1``, 2 s of a 1 kHz TX tone from a stream
+     client at 6 kHz, the fake's 48 kHz MOX frames > 40 dB and within
+     0.5 dB of the host CPU's TX path, ``t`` answering 1; (d) the network
+     sink (UDP int16) and the MPEG sink (TCP) to local listeners, each
+     tone within 1 dB of the recording's (the MPEG stream byte for byte
+     the host's Layer I encoding); (e) no thread or socket left.
 
 Every ``launches`` count is of CUDA launches: each wrapper counts every
 launch it makes (``kernels/_build.py``).  Beside each CUDA-event time
@@ -866,6 +896,7 @@ def main() -> int:
     drive_rds(dev, card, report)
     drive_network(dev, card, report)
     drive_modes(dev, card, report)
+    drive_trx(dev, card, report)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1412,12 +1443,18 @@ def check_app_kernel(tag: str, args, card: str, what: str,
     ``args``
     (``min_db`` SNR, or the spectra's dB bars); with ``timed`` both are
     timed with CUDA events beside the library call (the plain version
-    over ``plain_reps`` calls).  Raises on disagreement."""
+    over ``plain_reps`` calls; with 0, for a per-sample plain loop of
+    ~10^5 launches a call, its one call that the comparison makes, and
+    no profiler window).  Raises on disagreement."""
     import torch
     mod, name = kernel_fn(tag, "")
     kern = getattr(mod, name + "_kernel")
     ref = getattr(mod, name + "_ref")
-    got, want = kern(*args), ref(*args)
+    got = kern(*args)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    marks[0].record()
+    want = ref(*args)
+    marks[1].record()
     torch.cuda.synchronize()
     if tag in ("K8", "K9"):     # (y, new tail): the tail is a copy
         if not torch.equal(got[1], want[1]):
@@ -1467,12 +1504,14 @@ def check_app_kernel(tag: str, args, card: str, what: str,
                  f"{agree}")
         return {"max_abs_err": err}
     ms = event_ms(lambda: kern(*args))
-    plain_ms = event_ms(lambda: ref(*args), plain_reps)
+    plain_ms = event_ms(lambda: ref(*args), plain_reps) if plain_reps \
+        else marks[0].elapsed_time(marks[1])
     lib = library_call(tag, args)
     library_ms = event_ms(lib) if lib is not None else None
     split = {}
     k_us, n_launch = call_profile(lambda: kern(*args), by_kernel=split)
-    us = [k_us, device_us(lambda: ref(*args), plain_reps)]
+    us = [k_us, device_us(lambda: ref(*args), plain_reps)
+          if plain_reps else float("nan")]
     if lib is not None:
         us.append(device_us(lib))
     if tag == "K4f":
@@ -4415,12 +4454,13 @@ def k5_input_ops(bank, params, x) -> dict:
 
 
 class no_plain_on_card:
-    """Within: K5's, K6's, K8's and K12's plain versions raise when given
-    a CUDA tensor (a wrapper that fell back to one on the card)."""
+    """Within: K5's, K6's, K8's, K9's and K12's plain versions raise when
+    given a CUDA tensor (a wrapper that fell back to one on the card)."""
 
     SITES = (("channelizer_kernel", "pfb_bins_ref"),
              ("chan_frontend", "chan_post_ref"),
-             ("fir_kernel", "fir_rows_ref"), ("agc", "agc_rows_ref"))
+             ("fir_kernel", "fir_rows_ref"), ("fir_kernel", "fir_cplx_ref"),
+             ("agc", "agc_rows_ref"))
 
     def __enter__(self):
         import importlib
@@ -4807,6 +4847,845 @@ def modes_app(dev, card: str, tmp: str, cap: str) -> None:
           f"{nfm:.1f} dB (bound 40), no thread left [{card}]")
     if nfm <= 40.0 or rate != 48_000 or tasks:
         fail("phase 27 (d): recorder, rate or scheduler")
+
+
+# ---- phase 28: the sources, the sinks and the transmitter -------------------
+RTL_GAIN_INDEX = 7            # the gain index phase 28 (b) sets
+RTL_RT_SECONDS = 5.0          # phase 28 (b)'s run of the threaded pump
+RTL_BEHIND_S = 1.0            # its secondsBehind bar
+HL2_FS = 384_000              # the Hermes Lite 2's top RX rate
+HL2_OFFSET = 50e3             # the NFM carrier in its RX frames
+HL2_LOOP = 8064               # lcm(126, 384): the RX loop, continuous
+HL2_FREQ = 7_100_000.0
+HL2_RX_SECONDS = 1.5          # RX audio before the TX session
+HL2_BURST = 16                # the fake HL2's most packets at one wakeup
+TX_WIRE_FS = 6000.0
+TX_BLOCK = 1200               # a 200 ms wire block
+TX_SECONDS = 2.0              # the client's TX tone
+TX_BAR_DB = 40.0
+TX_MARGIN_DB = 0.5            # the card's TX tone SNR within this of the CPU's
+SINK_BLOCKS = 8
+SINK_MARGIN_DB = 1.0          # each sink's tone level within this of the WAV's
+TX_TAGS = ("K8", "K9", "K12")
+
+
+def u8_quantize(x: np.ndarray) -> np.ndarray:
+    """Complex IQ as rtl_tcp sends it: interleaved uint8, 128 + 128·x
+    rounded and clipped."""
+    flat = np.empty(2 * x.shape[0], np.float64)
+    flat[0::2], flat[1::2] = x.real, x.imag
+    return np.clip(np.round(128.0 + 128.0 * flat), 0, 255).astype(np.uint8)
+
+
+class FakeRtlTcp:
+    """An rtl_tcp server on 127.0.0.1 (the protocol of the reference's
+    rtl_tcp_client.cpp).  Each connection gets the ``RTL0`` banner (tuner
+    type 5, 29 gains), then ``data`` (interleaved uint8) from its start,
+    looped, in SR/200-sample chunks paced at ``rate`` samples a second
+    (unpaced when None), ``limit`` samples at most; the 5-byte commands
+    a connection sends are logged, in order, in ``commands``."""
+
+    def __init__(self, data: np.ndarray, rate, limit=None):
+        import socket
+        import threading
+        self.data = np.ascontiguousarray(data, np.uint8).tobytes()
+        self.rate, self.limit = rate, limit
+        self.commands: list = []
+        self._stop = threading.Event()
+        self._conns, self._threads = [], []
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(4)
+        self.sock.settimeout(0.2)
+        self.port = self.sock.getsockname()[1]
+        self._spawn(self._accept_loop)
+
+    def _spawn(self, fn, *args):
+        import threading
+        t = threading.Thread(target=fn, args=args, daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def _accept_loop(self):
+        import socket
+        while not self._stop.is_set():
+            try:
+                conn, _ = self.sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            conn.settimeout(None)
+            cmds: list = []
+            self.commands.append(cmds)
+            self._conns.append(conn)
+            self._spawn(self._read, conn, cmds)
+            self._spawn(self._feed, conn)
+
+    def _read(self, conn, cmds):
+        import select
+        import struct
+        buf = b""
+        while not self._stop.is_set():
+            try:
+                ready, _, _ = select.select([conn], [], [], 0.2)
+                if not ready:
+                    continue
+                part = conn.recv(64)
+            except (OSError, ValueError):
+                return
+            if not part:
+                return
+            buf += part
+            while len(buf) >= 5:
+                cmds.append(struct.unpack(">BI", buf[:5]))
+                buf = buf[5:]
+
+    def _feed(self, conn):
+        import struct
+        n = max(int((self.rate or FS) // 200), 256)
+        data, pos, sent = self.data, 0, 0
+        t0 = time.monotonic()
+        try:
+            conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+            while not self._stop.is_set() and (
+                    self.limit is None or sent < self.limit):
+                k = n if self.limit is None else min(n, self.limit - sent)
+                piece = bytearray()
+                while len(piece) < 2 * k:
+                    take = min(2 * k - len(piece), len(data) - pos)
+                    piece += data[pos:pos + take]
+                    pos = (pos + take) % len(data)
+                if self.rate:
+                    wait = t0 + sent / self.rate - time.monotonic()
+                    if wait > 0:
+                        time.sleep(wait)
+                conn.sendall(bytes(piece))
+                sent += k
+        except OSError:
+            return
+
+    def close(self):
+        import socket
+        self._stop.set()
+        for c in [self.sock] + self._conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            c.close()
+        for t in self._threads:
+            t.join(timeout=5)
+
+
+def ep6_packets(iq: np.ndarray) -> np.ndarray:
+    """EP6 packets (Metis header, two 512-byte frames of 63 samples: the
+    HL2's RX frames at one receiver, 24-bit big-endian I/Q, zero mic and
+    control) of ``iq``, a whole number of packets: [n, 1032] uint8, the
+    sequence numbers left 0."""
+    from sdrplusplusbrown_tpu_torch.io import hl2_source as hl2
+    nf = iq.shape[0] // hl2.SAMPLES_PER_FRAME
+    fr = np.zeros((nf, hl2.FRAME_BYTES), np.uint8)
+    fr[:, :3] = hl2.SYNC
+    body = fr[:, 8:8 + 8 * hl2.SAMPLES_PER_FRAME].reshape(
+        nf, hl2.SAMPLES_PER_FRAME, 8)
+    z = iq[:nf * hl2.SAMPLES_PER_FRAME].reshape(nf, -1)
+    for j, part in enumerate((z.real, z.imag)):
+        v = np.round(part * hl2.FULL_SCALE_24).astype(np.int64) & 0xFFFFFF
+        body[..., 3 * j] = v >> 16
+        body[..., 3 * j + 1] = (v >> 8) & 0xFF
+        body[..., 3 * j + 2] = v & 0xFF
+    pk = np.zeros((nf // 2, 8 + 2 * hl2.FRAME_BYTES), np.uint8)
+    pk[:, :4] = (0xEF, 0xFE, 0x01, 6)
+    pk[:, 8:] = fr[:nf // 2 * 2].reshape(nf // 2, -1)
+    return pk
+
+
+class FakeHL2:
+    """A Hermes Lite 2 on UDP 127.0.0.1 (openHPSDR protocol 1 as
+    ``io/hl2_source.py`` codes it).  It answers discovery; on the Metis
+    start command it streams ``iq`` (looped, a whole number of packets)
+    in EP6 packets paced at ``rate`` samples a second, and stops on the
+    stop command; it answers a RQST'd RX frequency with an ACK in the
+    control bytes of the next packet's first frame (the IQ stream runs
+    on unbroken); it records every EP2 frame's C0 (``frames``,
+    ``mox_frames``), the registers written, and the TX IQ of the MOX
+    frames that carry samples (16-bit, in order: ``tx_iq``)."""
+
+    def __init__(self, iq: np.ndarray, rate: float):
+        import socket
+        import threading
+        self.packets = ep6_packets(iq)
+        self.rate = float(rate)
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.1)
+        self.port = self.sock.getsockname()[1]
+        self.peer = None
+        self.started = threading.Event()
+        self.stopped = threading.Event()
+        self.lock = threading.Lock()
+        self.registers: dict = {}
+        self.frames = self.mox_frames = 0
+        self.tx_iq: list = []
+        self.acked: list = []
+        self.max_lag = 0.0            # packets the stream fell behind
+        self._ack = None
+        self._run = True
+        self._threads = [threading.Thread(target=f, daemon=True)
+                         for f in (self._recv_loop, self._stream_loop)]
+        for t in self._threads:
+            t.start()
+
+    def _ep2_frame(self, frame):
+        import struct
+        from sdrplusplusbrown_tpu_torch.io import hl2_source as hl2
+        if not (frame[:3] == hl2.SYNC).all():
+            return
+        c0 = int(frame[3])
+        rqst = bool(c0 & 0x80)
+        reg = (c0 >> 1) & (0x1F if rqst else 0x3F)
+        value = struct.unpack(">I", bytes(frame[4:8]))[0]
+        with self.lock:
+            self.frames += 1
+            self.registers[reg] = value
+            if c0 & 1:
+                self.mox_frames += 1
+                iq = ep2_iq(frame[8:8 + 8 * hl2.SAMPLES_PER_FRAME])
+                if iq.any():              # a frame without queued TX IQ
+                    self.tx_iq.append(iq)
+            if rqst and reg == hl2.REG_RX_FREQ:
+                ack = np.zeros(5, np.uint8)
+                ack[0] = 0x80 | (hl2.REG_RX_FREQ << 1)
+                ack[1:] = np.frombuffer(struct.pack(">I", value), np.uint8)
+                self._ack = ack
+                self.acked.append(value)
+
+    def _recv_loop(self):
+        import socket
+        while self._run:
+            try:
+                raw, addr = self.sock.recvfrom(2048)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            if len(raw) < 4 or raw[0] != 0xEF or raw[1] != 0xFE:
+                continue
+            self.peer = addr
+            if raw[2] == 0x04:
+                if raw[3] & 1:
+                    self.stopped.clear()
+                    self.started.set()
+                else:
+                    self.started.clear()
+                    self.stopped.set()
+            elif raw[2] == 0x01 and raw[3] == 0x02 and len(raw) >= 1032:
+                buf = np.frombuffer(raw, np.uint8)
+                self._ep2_frame(buf[8:520])
+                self._ep2_frame(buf[520:1032])
+            elif raw[2] == 0x02:          # discovery: an HL2, gateware 73
+                resp = bytearray(60)
+                resp[0:3] = b"\xef\xfe\x02"
+                resp[3:9] = bytes.fromhex("02aabbccddee")
+                resp[9], resp[10], resp[0x13] = 73, 6, 4
+                self.sock.sendto(bytes(resp), addr)
+
+    def _stream_loop(self):
+        import struct
+        per = 2 * 63 / self.rate          # seconds a packet
+        n_pk = self.packets.shape[0]
+        while self._run:
+            if not self.started.wait(0.1):
+                continue
+            t0, k = time.monotonic(), 0
+            while self._run and self.started.is_set():
+                # late packets go out at most HL2_BURST at a time, as a
+                # device's steady stream would, not in one burst that
+                # overruns the host's socket buffer
+                due = min(int((time.monotonic() - t0) / per) + 1,
+                          k + HL2_BURST)
+                self.max_lag = max(self.max_lag, (time.monotonic() - t0)
+                                   / per - k)
+                while k < due:
+                    pk = self.packets[k % n_pk].copy()
+                    pk[4:8] = np.frombuffer(struct.pack(">I", k & 0xFFFFFFFF),
+                                            np.uint8)
+                    with self.lock:
+                        ack, self._ack = self._ack, None
+                    if ack is not None:
+                        pk[11:16] = ack
+                    try:
+                        self.sock.sendto(pk.tobytes(), self.peer)
+                    except OSError:
+                        return
+                    k += 1
+                time.sleep(0.002)
+
+    def results(self) -> dict:
+        with self.lock:
+            tx = np.concatenate(self.tx_iq) if self.tx_iq else \
+                np.zeros(0, np.complex64)
+            return {"tx_iq": tx, "frames": self.frames,
+                    "mox_frames": self.mox_frames,
+                    "registers": dict(self.registers),
+                    "acked": list(self.acked),
+                    "max_lag": float(self.max_lag),
+                    "stopped": self.stopped.is_set()}
+
+    def close(self):
+        self._run = False
+        for t in self._threads:
+            t.join(timeout=5)
+        self.sock.close()
+
+
+def fake_peer_main() -> None:
+    """A fake peer as a process of its own: ``python3 -c "import
+    chip_smoke; chip_smoke.fake_peer_main()" KIND DATA RATE OUT``, KIND
+    ``rtl_tcp`` (DATA: a file of interleaved uint8) or ``hl2`` (DATA: a
+    .npy of complex IQ), paced at RATE samples a second.  It prints its
+    port, serves until its standard input closes, then writes what it
+    logged (the rtl_tcp commands a connection; the HL2's results) to OUT
+    as JSON with the TX IQ beside it in OUT.npy."""
+    kind, data, rate, out = sys.argv[1:5]
+    if kind == "rtl_tcp":
+        peer = FakeRtlTcp(np.fromfile(data, np.uint8), float(rate))
+    else:
+        peer = FakeHL2(np.load(data), float(rate))
+    print(peer.port, flush=True)
+    sys.stdin.read()
+    if kind == "rtl_tcp":
+        res = {"commands": [list(map(list, c)) for c in peer.commands]}
+    else:
+        res = peer.results()
+        np.save(out + ".npy", res.pop("tx_iq"))
+        res["registers"] = {str(k): v for k, v in res["registers"].items()}
+    peer.close()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+class FakePeerProcess:
+    """``fake_peer_main`` in a subprocess: ``port``, and ``finish()``,
+    which closes its input, waits for it and returns what it logged."""
+
+    def __init__(self, kind: str, data: str, rate: float, out: str):
+        self.out = out
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             "chip_smoke.fake_peer_main()", kind, data, str(rate), out],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        line = self.proc.stdout.readline()
+        if not line.strip().isdigit():
+            self.finish()
+            fail(f"phase 28: the fake {kind} did not start")
+        self.port = int(line)
+
+    def finish(self) -> dict:
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+        self.proc.stdout.close()
+        with open(self.out) as f:
+            res = json.load(f)
+        if os.path.exists(self.out + ".npy"):
+            res["tx_iq"] = np.load(self.out + ".npy")
+        return res
+
+
+def ctone_snr_db(iq: np.ndarray, hz: float, fs: float) -> float:
+    """SNR of the complex tone e^{j2π·hz·t} in ``iq`` (a complex fit with
+    a DC term), dB."""
+    n = iq.shape[0]
+    A = np.stack([np.exp(2j * np.pi * hz * np.arange(n) / fs),
+                  np.ones(n)], 1)
+    coef, *_ = np.linalg.lstsq(A, iq.astype(np.complex128), rcond=None)
+    r = iq - A @ coef
+    return float(10 * np.log10(np.abs(coef[0]) ** 2
+                               / np.mean(np.abs(r) ** 2)))
+
+
+def hl2_wideband() -> np.ndarray:
+    """HL2_LOOP samples at HL2_FS: an NFM carrier at HL2_OFFSET (1 kHz
+    tone, 2.5 kHz peak deviation, 0.5 amplitude) in complex noise of
+    1e-3; its phase and tone close on whole cycles, so it loops without
+    a seam."""
+    n = np.arange(HL2_LOOP)
+    tone = np.sin(2 * np.pi * TONE_HZ * n / HL2_FS)
+    dev = 2500.0 * np.cumsum(tone) / HL2_FS
+    dev -= dev.mean()
+    rng = np.random.default_rng(29)
+    x = 0.5 * np.exp(2j * np.pi * (HL2_OFFSET * n / HL2_FS + dev)) + 1e-3 * (
+        rng.standard_normal(HL2_LOOP) + 1j * rng.standard_normal(HL2_LOOP))
+    return x.astype(np.complex64)
+
+
+def tx_wire() -> np.ndarray:
+    """TX_SECONDS of a 1 kHz complex tone (0.5) at the 6 kHz wire rate in
+    TX_BLOCK blocks."""
+    n = int(TX_SECONDS * TX_WIRE_FS)
+    t = np.arange(n) / TX_WIRE_FS
+    return (0.5 * np.exp(2j * np.pi * TONE_HZ * t)).astype(
+        np.complex64).reshape(-1, TX_BLOCK)
+
+
+def ep2_iq(body: np.ndarray) -> np.ndarray:
+    """The TX IQ of an EP2 frame's sample groups (8 bytes a sample,
+    16-bit big-endian I and Q at bytes 4..7), as the device decodes it."""
+    b = body.reshape(-1, 8).astype(np.int32)
+    re = ((b[:, 4] << 8) | b[:, 5]).astype(np.uint16).astype(np.int16)
+    im = ((b[:, 6] << 8) | b[:, 7]).astype(np.uint16).astype(np.int16)
+    return (re / 32767.0 + 1j * (im / 32767.0)).astype(np.complex64)
+
+
+def i16_round_trip(iq: np.ndarray) -> np.ndarray:
+    """TX IQ through the HL2's 16-bit frame codec at full power
+    (``encode_tx_samples``, then the device's decode)."""
+    from sdrplusplusbrown_tpu_torch.io import hl2_source as hl2
+    k = hl2.SAMPLES_PER_FRAME
+    buf = np.zeros(8 * k, np.uint8)
+    out = []
+    for i in range(0, iq.shape[0] // k * k, k):
+        hl2.encode_tx_samples(buf, iq[i:i + k], 1.0)
+        out.append(ep2_iq(buf))
+    return np.concatenate(out) if out else np.zeros(0, np.complex64)
+
+
+def open_sockets() -> int:
+    """Sockets this process holds open (its /proc/self/fd)."""
+    n = 0
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            n += os.readlink(f"/proc/self/fd/{fd}").startswith("socket:")
+        except OSError:
+            pass
+    return n
+
+
+def drive_trx(dev, card: str, report: dict) -> None:
+    """Phase 28: the sources, the sinks and the transmitter.  (a) K8, K9
+    and K12 at the TX path's shapes against their plain versions, and the
+    TX path with the counts zeroed; (b) phase 19's app on an rtl_tcp
+    source (a fake server process); (c) the app on a Hermes Lite 2 (a
+    fake on UDP, a process of its own): RX, then TX from a stream
+    client's backchannel after rigctl ``T 1``; (d) the network and MPEG
+    sinks; (e) no thread or socket left."""
+    import tempfile
+    import threading
+    t0 = time.perf_counter()
+    threads, socks = set(threading.enumerate()), open_sockets()
+    tx_kernels(dev, card, report)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trx_") as tmp:
+        cap = os.path.join(tmp, "baseband_100000000Hz_10-00-00_01-01-2024"
+                                ".wav")
+        served_capture(cap)
+        rtl_tcp_app(dev, card, tmp, cap)
+        t2 = time.perf_counter()
+        hl2_app(dev, card, tmp)
+        t3 = time.perf_counter()
+        sinks_app(dev, card, tmp, cap)
+    t4 = time.perf_counter()
+    deadline = time.monotonic() + 15
+    while True:
+        left = [t for t in threading.enumerate()
+                if t not in threads and t.is_alive()]
+        n_socks = open_sockets()
+        if (not left and n_socks <= socks) or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    print(f"phase 28 (e): after every app's shutdown {len(left)} new "
+          f"threads, {n_socks} sockets open (before (a): {socks})")
+    if left or n_socks > socks:
+        fail("phase 28 (e): left behind: " + ", ".join(
+            t.name for t in left) + f"; sockets {n_socks} > {socks}")
+    print(f"phase 28: {t4 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}"
+          f", (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}) [{card}]")
+
+
+def tx_kernels(dev, card: str, report: dict) -> None:
+    """(a): the TX path on the card, the counts zeroed just before:
+    ``TxChain`` USB (K12, then ``SSBMod``'s 651 complex taps on K9) and
+    FM (K12) on 1 s of audio at 48 kHz, then ``ServerTxPath`` on ten
+    200 ms wire blocks (K8 a block); every other kernel not launched; the
+    USB output single-sideband (the upper half >= 30 dB over the lower,
+    tests/test_tx.py's oracle), the FM output on the unit circle, the
+    ServerTxPath packets against the same path on the host CPU.  Then K8
+    at the resampler's 200 ms block, K9 at SSBMod's 48 000 samples and
+    K12 at TxChain's 48 000-sample AGC against their plain versions on
+    the captured inputs, each timed (device µs a call) beside its bound
+    and conv1d's time (K12's plain loop, ~13 s a call on the card, timed
+    by its one comparison call)."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models import trx
+    from sdrplusplusbrown_tpu_torch.runtime.block import to_device
+    fs = 48_000.0
+    t = np.arange(int(fs)) / fs
+    audio = (0.3 * np.sin(2 * np.pi * TONE_HZ * t)
+             + 0.1 * np.sin(2 * np.pi * 1900.0 * t)).astype(np.float32)
+    wire = np.concatenate([tx_wire()] * 3)[:10]
+
+    def tx_path(device) -> np.ndarray:
+        lb = trx.LoopbackTransmitter()
+        path = trx.ServerTxPath(lb, device=device)
+        for blk in wire:
+            path.push_wire_block(blk)
+        return np.concatenate(lb.blocks)
+
+    def run():
+        out = {}
+        for mode in ("USB", "FM"):
+            ch = trx.TxChain(mode)
+            st = to_device(ch.init_state(()), dev)
+            y, _ = ch.apply(None, st, torch.from_numpy(audio).to(dev))
+            out[mode] = y.cpu().numpy()
+        out["tx"] = tx_path(dev)
+        return out
+    reset_counts()
+    with no_plain_on_card():
+        got, caps = capture(TX_TAGS, run)
+    torch.cuda.synchronize()
+    n = {tg: kernel_count(tg) for tg in KERNELS}
+    hold_launches("phase 28 (a), TX path", {tg: n[tg] for tg in TX_TAGS},
+                  caps)
+    want = {"K8": len(wire), "K9": 1, "K12": 2}
+    if any(n[tg] != want.get(tg, 0) for tg in KERNELS):
+        fail(f"phase 28 (a): TX path launch pattern "
+             f"{ {tg: c for tg, c in n.items() if c} }, want {want}")
+    path_label = (f"TX path (TxChain USB + FM on 1 s, ServerTxPath "
+                  f"{len(wire)} wire blocks)")
+    for tg in TX_TAGS:
+        report.setdefault(tg, {}).setdefault("launches_by_path", {})[
+            path_label] = n[tg]
+    agree = np_snr_db(tx_path("cpu"), got["tx"])
+    spec = np.abs(np.fft.fft(got["USB"][len(audio) // 2:])) ** 2
+    side = 10 * np.log10(spec[1:len(spec) // 2].sum()
+                         / spec[len(spec) // 2 + 1:].sum())
+    unit = float(np.abs(np.abs(got["FM"]) - 1.0).max())
+    print(f"phase 28 (a): TX path on the card: USB upper sideband {side:.1f}"
+          f" dB over the lower (bound 30), FM ||y| - 1| <= {unit:.2e}, "
+          f"ServerTxPath's packets {agree:.1f} dB to the host CPU's (bound "
+          f"80); launches K8 {n['K8']}, K9 {n['K9']}, K12 {n['K12']} "
+          f"[{card}]")
+    if side < 30.0 or unit > 1e-5 or agree < 80.0:
+        fail("phase 28 (a): the TX path's oracles")
+    shapes = (("K8", caps["K8"][0], f"ServerTxPath 6 k -> 48 k, a "
+               f"{TX_BLOCK}-sample wire block"),
+              ("K9", caps["K9"][0], "SSBMod, 651 complex taps on 48 000 "
+               "samples"),
+              ("K12", caps["K12"][0], "TxChain's AGC on 48 000 samples"))
+    for tg, call, what in shapes:
+        r = check_app_kernel(tg, call, card, f"phase 28 (a), {what}",
+                             plain_reps=0 if tg == "K12" else 20)
+        entry = report.setdefault(tg, {})
+        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                                   r["max_abs_err"])
+        if tg == "K12":
+            k12_floor(call, what, card)
+
+
+def rtl_tcp_app(dev, card: str, tmp: str, cap: str) -> None:
+    """(b): phase 19's capture quantized to uint8 and served by a fake
+    rtl_tcp process paced at 2.4 MS/s.  Manual pump: the app on the
+    ``rtl_tcp`` source, SERVED_BLOCKS blocks, every radio's audio and
+    every spectrum line bit-identical to the same app on a file of the
+    quantized samples; the commands the server logged: sample rate,
+    frequency, gain mode and gain index.  Then the threaded pump for
+    RTL_RT_SECONDS on a new connection: block p50 / p99 and
+    secondsBehind (< RTL_BEHIND_S)."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.io.network_source import (RtlTcpSource,
+                                                              _u8_iq)
+    from sdrplusplusbrown_tpu_torch.io.wav import read_wav_iq, write_wav
+    x, _ = read_wav_iq(cap)
+    u8 = u8_quantize(x)
+    raw = os.path.join(tmp, "capture.u8")
+    u8.tofile(raw)
+    qcap = os.path.join(tmp, "baseband_100000000Hz_10-00-00_01-01-2024_u8"
+                             ".wav")
+    write_wav(qcap, _u8_iq(u8.tobytes()), FS, bits=32)
+    peer = FakePeerProcess("rtl_tcp", raw, FS, os.path.join(tmp, "rtl.json"))
+    try:
+        def run(conf, gains: bool):
+            app = new_app(os.path.join(tmp, f"p28b_{len(runs)}"), conf, dev)
+            if gains:
+                app.source.set_gain_mode(True)
+                app.source.set_gain_index(RTL_GAIN_INDEX)
+            got = {n: [] for n in app.modules}
+            for nm, m in app.modules.items():
+                m.audio_event.bind(lambda b, nm=nm: got[nm].append(b))
+            lines = []
+            app.spectrum_event.bind(lambda s: lines.append(s.copy()))
+            app.modules["Q"].handle_debug_command("set_squelch",
+                                                  f"{SQUELCH_DB}")
+            app.start()
+            try:
+                for _ in range(SERVED_BLOCKS):
+                    if app.pump_step(1) != 1:
+                        fail("phase 28 (b): the pump stopped")
+                torch.cuda.synchronize()
+            finally:
+                app.shutdown()
+            return {n: np.concatenate(v, axis=-1) for n, v in got.items()}, \
+                np.stack(lines)
+        runs: list = []
+        conf = served_config(qcap, "manual")
+        runs.append(run(conf, False))
+        conf["source"] = {"type": "rtl_tcp", "host": "127.0.0.1",
+                          "port": peer.port, "samplerate": FS}
+        runs.append(run(conf, True))
+        same = all(np.array_equal(runs[0][0][n], runs[1][0][n])
+                   for n in runs[0][0]) and np.array_equal(runs[0][1],
+                                                           runs[1][1])
+        lens = ", ".join(f"{n} {v.shape[-1]}" for n, v in runs[1][0].items())
+        print(f"phase 28 (b): app on rtl_tcp (uint8 at {FS / 1e6:g} MS/s, "
+              f"paced), {SERVED_BLOCKS} blocks: every radio's audio "
+              f"({lens} samples) and {runs[1][1].shape[0]} spectrum lines "
+              + ("bit-identical" if same else "DIFFERENT")
+              + f" to the file-fed app on the quantized samples [{card}]")
+        if not same:
+            fail("phase 28 (b): the rtl_tcp app differs from the file-fed "
+                 "app")
+        run_rt = pump_in_real_time(dev, card, os.path.join(tmp, "p28b_rt"),
+                                   {**conf, "pump": "thread"},
+                                   "phase 28 (b), rtl_tcp",
+                                   RTL_RT_SECONDS)
+        w = run_rt["w"]
+        behind = run_rt["status"]["secondsBehind"]
+        print(f"phase 28 (b): threaded pump on rtl_tcp, block p50 "
+              f"{np.percentile(w, 50):.4f} ms, p99 {np.percentile(w, 99):.4f}"
+              f" ms (paced by the source: a block waits for its samples), "
+              f"secondsBehind {behind} (bound {RTL_BEHIND_S}) [{card}]")
+        if behind >= RTL_BEHIND_S:
+            fail("phase 28 (b): secondsBehind over its bound")
+    finally:
+        log = peer.finish()
+    C = RtlTcpSource
+    want = [[C.CMD_SAMPLERATE, int(FS)], [C.CMD_FREQ, 100_000_000],
+            [C.CMD_GAIN_MODE, 1], [C.CMD_GAIN_INDEX, RTL_GAIN_INDEX]]
+    cmds = log["commands"]
+    print(f"phase 28 (b): the server logged {len(cmds)} connections, the "
+          f"manual app's commands {cmds[0] if cmds else None}")
+    if len(cmds) != 2 or cmds[0] != want or cmds[1] != want[:2]:
+        fail(f"phase 28 (b): commands {cmds}, want {want} then {want[:2]}")
+
+
+def hl2_app(dev, card: str, tmp: str) -> None:
+    """(c): the app on a Hermes Lite 2 (a fake on UDP, a process of its
+    own) at HL2_FS with the pump thread, an NFM radio on the carrier in
+    its RX frames (tone SNR > 40 dB); with the stream server and rigctl
+    in process: rigctl ``T 1``, a stream client sends TX_SECONDS of a
+    1 kHz tone at the 6 kHz wire rate in 200 ms blocks, paced; the fake
+    receives the TX IQ at 48 kHz in its MOX frames: tone SNR > TX_BAR_DB
+    and within TX_MARGIN_DB of the host CPU's TX path on the same wire
+    blocks (through the same 16-bit codec); ``t`` answers 1."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models import trx
+    from sdrplusplusbrown_tpu_torch.server.rigctl import RigctlServer
+    from sdrplusplusbrown_tpu_torch.server.rigctl_client import RigctlClient
+    from sdrplusplusbrown_tpu_torch.server.stream_client import StreamClient
+    from sdrplusplusbrown_tpu_torch.server.stream_server import StreamServer
+    data = os.path.join(tmp, "hl2.npy")
+    np.save(data, hl2_wideband())
+    peer = FakePeerProcess("hl2", data, HL2_FS, os.path.join(tmp, "hl2.json"))
+    conf = {"source": {"type": "hl2", "host": "127.0.0.1",
+                       "port": peer.port, "samplerate": HL2_FS},
+            "frequency": HL2_FREQ, "fftSize": 8192, "fftRate": 20,
+            "modules": {"N": {"type": "radio", "demod": "NFM",
+                              "offset": HL2_OFFSET}}}
+    audio, wire_in = [], []
+    ptt = None
+    try:
+        app = new_app(os.path.join(tmp, "p28c"), conf, dev, run_pump=True)
+        srv = rig = cli = rc = None
+        try:
+            if app.transmitter is not app.source:
+                fail("phase 28 (c): the HL2 source is not the transmitter")
+            app.modules["N"].audio_event.bind(audio.append)
+            srv = StreamServer(app, port=0, host="127.0.0.1")
+            orig = srv.tx_path.push_wire_block
+
+            def recorded(iq):
+                wire_in.append(np.array(iq))
+                orig(iq)
+            srv.tx_path.push_wire_block = recorded
+            srv.start()
+            rig = RigctlServer(app, port=0)
+            rig.start()
+            with settled_heap():      # no collection pause drops RX frames
+                app.start()
+                time.sleep(HL2_RX_SECONDS)
+                torch.cuda.synchronize()
+                n_rx = sum(a.shape[-1] for a in audio)
+                rc = RigctlClient("127.0.0.1", rig.port)
+                if not rc.set_ptt(True):
+                    fail("phase 28 (c): rigctl T 1 refused")
+                cli = StreamClient("127.0.0.1", srv.port)
+                t0 = time.monotonic()
+                for i, blk in enumerate(tx_wire()):
+                    cli.transmit(blk)
+                    wait = t0 + (i + 1) * TX_BLOCK / TX_WIRE_FS \
+                        - time.monotonic()
+                    if wait > 0:
+                        time.sleep(wait)
+                time.sleep(1.0)   # the prebuffer, then the pacer drains
+                ptt = rc.get_ptt()
+                rc.set_ptt(False)
+        finally:
+            for c in (cli, rc):
+                if c is not None:
+                    c.close()
+            for s in (rig, srv):
+                if s is not None:
+                    s.stop()
+            app.shutdown()
+    finally:
+        res = peer.finish()
+    rx = np.concatenate(audio, axis=-1)
+    rx_snr = tone_snr_db(rx[0, n_rx - 24_000:n_rx].astype(np.float64)) \
+        if n_rx > 48_000 else -1.0
+    lb = trx.LoopbackTransmitter()
+    path = trx.ServerTxPath(lb, device="cpu")
+    for blk in wire_in:
+        path.push_wire_block(blk)
+    cpu_tx = i16_round_trip(np.concatenate(lb.blocks))
+    got = res["tx_iq"]
+    skip = 4800                        # the resampler's onset, 100 ms
+    n = min(len(got), len(cpu_tx))
+    snr = ctone_snr_db(got[skip:n], TONE_HZ, 48_000.0) if n > 2 * skip \
+        else -1.0
+    ref = ctone_snr_db(cpu_tx[skip:n], TONE_HZ, 48_000.0) if n > 2 * skip \
+        else -1.0
+    agree = np_snr_db(cpu_tx[:n], got[:n]) if n else -1.0
+    print(f"phase 28 (c): app on the HL2 at {HL2_FS} S/s, pump thread: "
+          f"{n_rx} samples of NFM audio in {HL2_RX_SECONDS} s, tone SNR "
+          f"{rx_snr:.1f} dB (bound 40) [{card}]")
+    print(f"phase 28 (c): TX: {len(wire_in)} wire blocks through the "
+          f"server's ServerTxPath (K8 on {dev}), the fake received "
+          f"{len(got)} samples at 48 kHz in {res['mox_frames']} MOX frames "
+          f"of {res['frames']}; tone SNR {snr:.1f} dB (bound {TX_BAR_DB:g}), "
+          f"the host CPU's path {ref:.1f} dB (margin {TX_MARGIN_DB}), the "
+          f"two streams agree to {agree:.1f} dB; rigctl t answered {ptt}; "
+          f"RQST'd frequencies acked {res['acked'][:3]} [{card}]")
+    if rx_snr <= 40.0:
+        fail("phase 28 (c): the HL2 RX tone")
+    if len(wire_in) != len(tx_wire()) or snr <= TX_BAR_DB or \
+            abs(snr - ref) > TX_MARGIN_DB or not res["mox_frames"] or \
+            ptt is not True or not res["stopped"]:
+        fail("phase 28 (c): the TX path through the HL2")
+
+
+def sinks_app(dev, card: str, tmp: str, cap: str) -> None:
+    """(d): phase 19's capture, manual pump, three NFM radios on the 1
+    kHz carrier: "R" to the recorder, "U" to the network sink (UDP int16
+    to a local listener), "M" to the MPEG sink (TCP to a local
+    listener).  The network sink's tone level within SINK_MARGIN_DB of
+    the recording's; the MPEG stream byte-identical to M's audio
+    encoded on the host, and its tone, decoded with the sink's own Layer
+    I parser and synthesis bank, within SINK_MARGIN_DB of the recording
+    through the same encoder and decoder (the Layer I codec, not the
+    transport, sets its level and noise)."""
+    import socket
+    import threading
+    from sdrplusplusbrown_tpu_torch.io import mpeg_sink
+    from sdrplusplusbrown_tpu_torch.io.wav import read_wav_iq
+    mods = {k: {"type": "radio", "demod": "NFM", "offset": APP_NFM[0]}
+            for k in ("R", "U", "M")}
+    conf = {"source": {"type": "file", "path": cap, "loop": True},
+            "fftSize": FFT, "fftRate": 20, "pump": "manual",
+            "modules": mods}
+    udp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    udp.bind(("127.0.0.1", 0))
+    udp.settimeout(0.5)
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(1)
+    lst.settimeout(10)
+    got_udp, got_tcp = [], bytearray()
+
+    def tcp_rx():
+        try:
+            conn, _ = lst.accept()
+        except OSError:
+            return
+        conn.settimeout(10)
+        with conn:
+            while True:
+                try:
+                    b = conn.recv(65536)
+                except OSError:
+                    return
+                if not b:
+                    return
+                got_tcp.extend(b)
+    th = threading.Thread(target=tcp_rx, daemon=True)
+    th.start()
+    app = new_app(os.path.join(tmp, "p28d"), conf, dev)
+    m_audio = []
+    app.modules["M"].audio_event.bind(m_audio.append)
+    try:
+        ok = [app.select_sink("R", "recorder"),
+              app.select_sink("U", "network", host="127.0.0.1",
+                              port=udp.getsockname()[1], protocol="udp"),
+              app.select_sink("M", "mpeg", host="127.0.0.1",
+                              port=lst.getsockname()[1])]
+        if not all(ok):
+            fail(f"phase 28 (d): select_sink {ok}")
+        app.start()
+        for _ in range(SINK_BLOCKS):
+            if app.pump_step(1) != 1:
+                fail("phase 28 (d): the pump stopped")
+        sent = app.sinks["U"].samples_sent
+        while sum(len(p) for p in got_udp) < 2 * sent:
+            try:
+                got_udp.append(udp.recv(65536))
+            except socket.timeout:
+                break
+        wav = app.sinks["R"].path
+    finally:
+        app.shutdown()
+        th.join(timeout=10)
+        udp.close()
+        lst.close()
+    iq, rate = read_wav_iq(wav)
+    skip = int(0.02 * rate)
+    rec = iq.real.astype(np.float64)
+    net = np.frombuffer(b"".join(got_udp), "<i2") / 32768.0
+
+    def decode(data: bytes) -> np.ndarray:
+        fb = mpeg_sink.MpegL1Encoder(48_000, 288).frame_bytes
+        syn, out = mpeg_sink._Synthesis(), [np.zeros(0)]
+        for f in range(len(data) // fb):
+            out.append(syn.push(mpeg_sink.mpeg_l1_decode_frame(
+                data[f * fb:(f + 1) * fb], fb)[1]))
+        return np.concatenate(out)
+    m_mono = np.concatenate(m_audio, axis=-1).mean(axis=0)
+    exact = bytes(got_tcp) == mpeg_sink.MpegL1Encoder(48_000, 288).encode(
+        m_mono)
+    rows = {"recorder": rec, "network": net, "mpeg": decode(bytes(got_tcp)),
+            "recorder via Layer I": decode(mpeg_sink.MpegL1Encoder(
+                48_000, 288).encode(rec.astype(np.float32)))}
+    lv = {k: tone_level_db(v[skip:]) for k, v in rows.items()}
+    sn = {k: tone_snr_db(v[skip:]) for k, v in rows.items()}
+    print(f"phase 28 (d): {SINK_BLOCKS} blocks; samples "
+          + ", ".join(f"{k} {v.shape[0]}" for k, v in rows.items())
+          + f"; the MPEG stream ({len(got_tcp)} bytes) "
+          + ("byte-identical" if exact else "DIFFERENT")
+          + " to M's audio encoded on the host; tone level dB "
+          + ", ".join(f"{k} {v:.2f}" for k, v in lv.items())
+          + "; tone SNR dB " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                         sn.items()) + f" [{card}]")
+    if rate != 48_000 or min(net.shape[0], rows["mpeg"].shape[0]) < \
+            0.2 * rate or not exact or \
+            abs(lv["network"] - lv["recorder"]) > SINK_MARGIN_DB or \
+            abs(lv["mpeg"] - lv["recorder via Layer I"]) > SINK_MARGIN_DB:
+        fail("phase 28 (d): a sink's tone is not the recording's")
 
 
 if __name__ == "__main__":

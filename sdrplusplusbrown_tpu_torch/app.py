@@ -10,11 +10,15 @@ block goes to the card once, and the baseband stays there between the
 radios.  Host copies are the JAX app's: the baseband (the IF spectrum
 ring), the spectrum lines and each radio's audio.
 
-Ported: the ``none`` and ``file`` sources and the ``sdrpp_server`` source
-(a remote ``server/stream_server.py``, through
-``server/stream_client.py``; ``tune`` retunes it and ``shutdown`` closes
-it), the ``iq_exporter``, ``scanner``, ``frequency_manager``,
-``recorder`` and ``scheduler`` modules (``modules/``), ``radio``
+Ported: every source of the JAX app — ``none``, ``file``, ``network``
+(raw UDP/TCP IQ), ``rtl_tcp``, ``spyserver``, ``kiwisdr``, ``hl2`` (the
+Hermes Lite 2, also the app's transmitter) and ``sdrpp_server`` (a
+remote ``server/stream_server.py``, through ``server/stream_client.py``):
+each is host code that yields numpy blocks, ``tune`` retunes one with a
+tuner and ``shutdown`` closes it; the ``loopback`` transmitter (the
+``transmitter`` config key), keyed by rigctl's ``T``; the
+``iq_exporter``, ``scanner``, ``frequency_manager``, ``recorder`` and
+``scheduler`` modules (``modules/``), ``radio``
 modules with every demod (the RAW demod and plugin demods registered with
 ``models.radio.register_demod_provider`` among them; ``list_demods``),
 their noise blanker and FM IF filter (``set_nb``, ``set_fmif``), their
@@ -26,10 +30,9 @@ hard bits and valid mask read back in one copy a block into the host
 ``RDSDecoder``, read by ``get_rds``), the IF noise reduction (the
 ``ifnr`` config key and ``set_ifnr_enabled``: a second front end
 carrying ``IFNRLogMMSE`` as its preprocessor, primed once a pump session,
-shed by the real-time guard), and the ``recorder`` sink.  What the JAX
-app has beyond that is refused by name: its other source types, module
-types, sinks and the transmitter raise ``NotImplementedError`` when
-configured (``transmitter`` is always None).
+shed by the real-time guard), and the ``recorder``, ``network`` and
+``mpeg`` sinks.  What the JAX app has beyond that is refused by name: its
+other module types raise ``NotImplementedError`` when configured.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from .ops.omlsa import OMLSA
 from .ops.spectrum import calculate_vfo_signal_info
 from .io.file_source import FileSource
 from .io.recorder import WavRecorder
+from .models.trx import LoopbackTransmitter, Transmitter
 from .runtime.block import entry_device, to_device
 from .runtime.migrate import migrate_state
 from .runtime.pump import Rechunker, RealTimeGuard
@@ -92,14 +96,12 @@ DEFAULT_CONFIG = {
 SPECTRUM_BUF_SIZE = 16384  # IF spectrum ring (reference radio_module.h:78)
 
 #: what the JAX app serves and the port does not yet: refused by name
-UNPORTED_SOURCES = ("network", "rtl_tcp", "spyserver", "kiwisdr", "hl2")
 UNPORTED_MODULES = (
     "ft8_decoder", "vor_receiver", "ch_tetra_demodulator",
     "ch_extravhf_decoder", "meteor_demodulator", "m17_decoder",
     "tci_server", "weather_sat_decoder", "ryfi_decoder", "atv_decoder",
     "falcon9_decoder", "dab_decoder", "kg_sstv_decoder", "websdr_view",
     "reports_monitor", "discord_integration", "signal_detector")
-UNPORTED_SINKS = ("network", "mpeg")
 
 
 def describe_device(dev: torch.device) -> str:
@@ -471,10 +473,7 @@ class SDRApp:
             mod_conf = dict(conf.get("modules", {}))
             self.sink_sel = dict(conf.get("sinks", {}))
             self.ifnr_enabled = bool(conf.get("ifnr", False))
-            # a transmitter has no port yet
-            if conf.get("transmitter", {}).get("type"):
-                raise NotImplementedError("the transmitter is not ported "
-                                          "yet")
+            txc = dict(conf.get("transmitter", {}))
             self.pump_manual = (conf.get("pump", "thread") == "manual")
         # refused before the source and the exporters open their sockets
         for name, mc in mod_conf.items():
@@ -491,6 +490,57 @@ class SDRApp:
             self.samplerate = self.source.samplerate
             if self.source.center_freq:
                 self.frequency = self.source.center_freq
+        elif stype == "network":
+            # raw UDP/TCP IQ (reference source_modules/network_source)
+            from .io.network_source import NetworkSource
+            self.source = NetworkSource(
+                host=src.get("host", "localhost"),
+                port=int(src.get("port", 1234)),
+                protocol=src.get("protocol", "udp"),
+                sample_type=src.get("sampleType", "int16"),
+                samplerate=float(src.get("samplerate", 1_000_000.0)))
+            self.samplerate = self.source.samplerate
+        elif stype == "rtl_tcp":
+            # rtl_tcp protocol client (reference
+            # source_modules/rtl_tcp_source)
+            from .io.network_source import RtlTcpSource
+            self.source = RtlTcpSource(
+                host=src.get("host", "localhost"),
+                port=int(src.get("port", 1234)),
+                samplerate=float(src.get("samplerate", 2_400_000.0)))
+            self.samplerate = self.source.samplerate
+            self.source.tune(self.frequency)
+        elif stype == "spyserver":
+            # SpyServer protocol client (reference
+            # source_modules/spyserver_source)
+            from .io.spyserver_source import SpyServerSource
+            self.source = SpyServerSource(
+                host=src.get("host", "localhost"),
+                port=int(src.get("port", 5555)),
+                srate_index=int(src.get("sampleRateId", 0)),
+                gain=int(src.get("gain", 0)))
+            self.samplerate = self.source.samplerate
+            self.source.start_stream(self.frequency)
+        elif stype == "kiwisdr":
+            # remote KiwiSDR IQ (reference source_modules/kiwisdr_source)
+            from .io.kiwisdr_source import KiwiSDRSource
+            self.source = KiwiSDRSource(
+                host=src.get("host", "localhost"),
+                port=int(src.get("port", 8073)),
+                freq_hz=self.frequency)
+            self.samplerate = self.source.samplerate
+        elif stype == "hl2":
+            # Hermes Lite 2 TRX (reference source_modules/hl2_source):
+            # also the app's transmitter below, as the reference sets
+            # sigpath::transmitter (main.cpp)
+            from .io.hl2_source import HL2Source
+            self.source = HL2Source(
+                host=src.get("host", "localhost"),
+                port=int(src.get("port", 1024)),
+                samplerate=int(src.get("samplerate", 384_000)),
+                adc_gain=int(src.get("adcGain", 0)))
+            self.samplerate = self.source.samplerate
+            self.source.tune(self.frequency)
         elif stype == "sdrpp_server":
             # a remote StreamServer (reference
             # source_modules/sdrpp_server_source): its samplerate comes
@@ -501,9 +551,6 @@ class SDRApp:
                 password=src.get("password", ""),
                 compression=src.get("compression", "none"))
             self.samplerate = float(self.source.samplerate)
-        elif stype in UNPORTED_SOURCES:
-            raise NotImplementedError(f"source type '{stype}' is not "
-                                      f"ported yet")
 
         self.frontend = IQFrontEnd(
             self.samplerate, decim_ratio=self._decim, dc_blocking=self._dc,
@@ -527,9 +574,13 @@ class SDRApp:
         # sink layer: per-module streams with priority merger + secondary
         # substreams + the StreamHook bus (reference SinkManager, sink.h)
         self.stream_registry = StreamRegistry()
-        # no transmitter is ported (a config naming one is refused above);
-        # rigctl's T and t read this as the JAX app's is read without one
+        # TX hardware (reference trx.h): the HL2 source is its own
+        # transmitter; a ``loopback`` one keeps the TX IQ in memory
         self.transmitter = None
+        if isinstance(self.source, Transmitter):
+            self.transmitter = self.source
+        if txc.get("type") == "loopback":
+            self.transmitter = LoopbackTransmitter()
 
         self.modules: Dict[str, ModuleInstance] = {}
         for name, mc in mod_conf.items():
@@ -620,10 +671,12 @@ class SDRApp:
         """Attach a sink to a module's audio stream (or a secondary
         substream 'Name__##N'): 'recorder' records to WAV,
         'null_audio_sink'/'None' discards (reference
-        SinkManager::setStreamSink, sink.h).  The network and MPEG sinks
-        are not ported and raise ``NotImplementedError``."""
-        if sink in UNPORTED_SINKS:
-            raise NotImplementedError(f"the {sink} sink is not ported yet")
+        SinkManager::setStreamSink, sink.h), 'network' streams int16 PCM
+        to a host:port (reference sink_modules/network_sink), 'mpeg'
+        MPEG-1 Layer I frames over TCP (io/mpeg_sink.py).  The sink's
+        settings come from the config's ``network_sink``/``mpeg_sink``,
+        overridden by ``sink_conf``; one that cannot connect leaves the
+        stream without a sink and returns False."""
         base, idx = get_secondary_stream_index(stream)
         m = self.modules.get(base)
         if not isinstance(m, RadioModuleInstance):
@@ -633,6 +686,7 @@ class SDRApp:
         old = self.sinks.pop(stream, None)
         if hasattr(old, "close"):
             old.close()
+        new_sink = None
         if sink == "recorder":
             rec_dir = os.path.join(self.root, "recordings")
             os.makedirs(rec_dir, exist_ok=True)
@@ -645,13 +699,45 @@ class SDRApp:
             while os.path.exists(path):
                 path = f"{stem}_{k}{ext}"
                 k += 1
-            rec = WavRecorder(path, m.radio.audio_samplerate, channels=2)
-            self.sinks[stream] = rec
+            new_sink = WavRecorder(path, m.radio.audio_samplerate,
+                                   channels=2)
+        elif sink == "network":
+            from .io.network_sink import NetworkSink
+            with self.config.acquire(False) as conf:
+                nc = dict(conf.get("network_sink", {}))
+            nc.update(sink_conf)
+            try:
+                new_sink = NetworkSink(
+                    host=nc.get("host", "localhost"),
+                    port=int(nc.get("port", 7355)),
+                    protocol=nc.get("protocol", "udp"),
+                    stereo=bool(nc.get("stereo", False)))
+            except OSError as e:
+                flog.error("network sink connect failed: {}", repr(e))
+                return False
+        elif sink == "mpeg":
+            # MPEG-1 Layer I frames over TCP (the mpeg_adts_sink analog,
+            # io/mpeg_sink.py; reference sink_modules/mpeg_adts_sink)
+            from .io.mpeg_sink import MpegNetworkSink
+            with self.config.acquire(False) as conf:
+                nc = dict(conf.get("mpeg_sink", {}))
+            nc.update(sink_conf)
+            try:
+                new_sink = MpegNetworkSink(
+                    host=nc.get("host", "localhost"),
+                    port=int(nc.get("port", 2020)),
+                    samplerate=int(m.radio.audio_samplerate),
+                    bitrate_kbps=int(nc.get("bitrate_kbps", 288)))
+            except (OSError, AssertionError) as e:
+                flog.error("mpeg sink connect failed: {}", repr(e))
+                return False
+        if new_sink is not None:
+            self.sinks[stream] = new_sink
             if idx > 0:
                 # substream sinks consume via the registry fan-out (the
                 # pump only writes base-stream sinks directly)
                 self.stream_registry.get(stream).bind(
-                    lambda blk, _r=rec: _r.write(blk))
+                    lambda blk, _r=new_sink: _r.write(blk))
         self.sink_sel[stream] = sink
         with self.config.acquire() as conf:
             conf.setdefault("sinks", {})[stream] = sink

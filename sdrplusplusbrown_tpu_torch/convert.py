@@ -1,20 +1,26 @@
 """Map runtime params and carried state between the JAX package and the
 port.
 
-In an SDR the "weights" are the designed taps and the runtime params.
-Both packages design their taps deterministically from the same numpy
-code (pinned equal by test); the runtime params and the carried state are
-trees (dicts and lists) of arrays with the same keys, shapes and dtypes on
-both sides — the per-radio (``Radio.apply``, with its lists of decimator
-and MPX tails, the PLL dict and ``audio_rs`` [2, ..., hist]), IQFrontEnd,
+In an SDR the "weights" are the designed taps and the runtime params. Both
+packages design their taps deterministically from the same numpy code
+(pinned equal by test); the runtime params and the carried state are trees
+(dicts and lists) of arrays with the same keys, shapes and dtypes on both
+sides — the per-radio (``Radio.apply``, with its lists of decimator and
+MPX tails, the PLL dict and ``audio_rs`` [2, ..., hist]), IQFrontEnd,
 shared-VFO and channelized layouts alike (int32 bin indices, complex64
 filter tails, float32 audio tails), and the EFFT compressor's
-(``ops/efft_device.py``: its complex64 and float32 rings, int32
-``count``, float32 ``prev_allowance``) — and these
-functions convert them leaf by leaf.  Anything with ``__array__`` (numpy
-arrays, or the JAX package's device arrays) is read through numpy, so
-this module imports nothing of JAX.  The port's trees go to the device
-the caller names: there is no default.
+(``ops/efft_device.py``: its complex64 and float32 rings, int32 ``count``,
+float32 ``prev_allowance``), and the transmit path's (``models/trx.py``:
+``TxChain``'s AGC ``amp`` and ``env`` and its modulator's — the FM phase,
+a float32 scalar, or the SSB FIR's complex64 tail — and ``ServerTxPath``'s
+resampler tail) — and these functions convert them leaf by leaf. A tree
+that the JAX package's ``runtime/checkpoint.load_state`` returned (numpy
+leaves) converts the same way, so that a checkpoint the JAX package saved
+continues in the port; the port's own ``runtime/checkpoint.py`` reads that
+file too. Anything with ``__array__`` (numpy arrays, or the JAX package's
+device arrays) is read through numpy, so this module imports nothing of
+JAX. The port's trees go to the device the caller names: there is no
+default.
 """
 
 from __future__ import annotations

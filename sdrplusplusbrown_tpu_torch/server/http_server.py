@@ -172,7 +172,8 @@ class HttpDebugServer:
                      for name, m in app.modules.items()})
             return
         if path == "/sinks":
-            h._json({"sinks": ["null_audio_sink", "recorder"]})
+            h._json({"sinks": sorted(set(
+                ["null_audio_sink", "recorder", "network"]))})
             return
         if path == "/streams":
             names = list(app.modules)

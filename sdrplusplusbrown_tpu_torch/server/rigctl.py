@@ -78,6 +78,11 @@ class RigctlServer:
     def stop(self):
         self._stop.set()
         try:
+            # wakes the accept loop (closing alone leaves it blocked)
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
             self._listener.close()
         except OSError:
             pass

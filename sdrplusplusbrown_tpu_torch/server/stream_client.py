@@ -81,16 +81,26 @@ class StreamClient:
                         self.send_command(Command.SECURE_CHALLENGE,
                                           {"response": resp.hex()})
                 elif ptype == PacketType.BASEBAND:
-                    self._q.put(decompress_samples(payload))
+                    self._put(decompress_samples(payload))
                 elif ptype == PacketType.BASEBAND_COMPRESSED:
-                    self._q.put(decompress_samples(entropy_decode(payload)))
+                    self._put(decompress_samples(entropy_decode(payload)))
                 elif ptype == PacketType.BASEBAND_EXPERIMENTAL_FFT:
                     frame = decompress_samples(entropy_decode(payload))
                     if self._efft_dec is None:
                         self._efft_dec = EFFTDecompressor(len(frame))
-                    self._q.put(self._efft_dec.process([frame]))
+                    self._put(self._efft_dec.process([frame]))
         except (ConnectionError, OSError):
             pass
+
+    def _put(self, blk):
+        """Queue a block, waiting while the queue is full (the JAX
+        client's backpressure) but not past ``close``."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(blk, timeout=0.2)
+                return
+            except queue.Full:
+                pass
 
     def blocks(self, timeout: float = 10.0) -> Iterator[np.ndarray]:
         while not self._stop.is_set():

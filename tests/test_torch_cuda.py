@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card, over
 shapes the main path does not reach (odd channel counts, partial tiles and
 windows, both handoff dtypes, every supported FFT size, the scanner banks
-at C = 8, 128 and 256 with offsets at both band edges).  These need an
+at C = 8, 128 and 256 with offsets at both band edges; the TX path's K8,
+K9 and K12 at its shapes).  These need an
 NVIDIA GPU and skip without one; on the GPU machine, which has no JAX, run
 
     python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py
@@ -1953,3 +1954,92 @@ def test_recurrence_kernels_raise_instead_of_falling_back(gpu):
         plm.logmmse_frames_kernel(core, st, sig.cpu(), None)
     with pytest.raises(ValueError):
         plm.logmmse_frames_kernel(core, st, sig[:, :-1], None)
+
+
+# ---- the TX path's kernels at its shapes -------------------------------
+
+def test_tx_kernels_at_tx_shapes(gpu):
+    """K8 at ServerTxPath's 6 k -> 48 k resampler on a 200 ms wire block,
+    K9 at SSBMod's 651 complex taps on 48 000 samples and K12 at
+    TxChain's AGC on 48 000 samples, each against its plain version (K8
+    and K9 on the card, >= 100 dB and the tail exact; K12 against the
+    plain loop on the host CPU, bit for bit: its loop takes ~13 s a call
+    on the card)."""
+    from sdrplusplusbrown_tpu_torch.models import trx
+    from sdrplusplusbrown_tpu_torch.ops import agc, fir_kernel
+    from sdrplusplusbrown_tpu_torch.ops.fir import device_taps
+    from sdrplusplusbrown_tpu_torch.ops.mod import SSBMod
+    rng = np.random.default_rng(28)
+
+    def cplx(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) + 1j
+                                 * rng.standard_normal(shape)).astype(
+            np.complex64)).to(gpu)
+    poly = dict(trx.ServerTxPath(trx.LoopbackTransmitter(), device=gpu)
+                .resamp.chain.named_blocks)["resamp"]
+    assert (poly.interp, poly.decim) == (8, 1)
+    args = (cplx(1200), cplx(poly.tpp - 1),
+            device_taps(poly, poly.kernel, gpu), poly.interp, poly.decim)
+    y, t = fir_kernel.fir_rows_kernel(*args)
+    yr, tr = fir_kernel.fir_rows_ref(*args)
+    _close(yr, y, 100.0, "K8 TX resampler")
+    assert y.shape == (9600,) and torch.equal(t, tr)
+    ssb = SSBMod(SSBMod.USB, 2800.0, 48_000.0)
+    args = (cplx(48_000), cplx(650), device_taps(ssb.fir, ssb.fir.taps, gpu),
+            1)
+    y, t = fir_kernel.fir_cplx_kernel(*args)
+    yr, tr = fir_kernel.fir_cplx_ref(*args)
+    _close(yr, y, 100.0, "K9 SSBMod")
+    assert y.shape == (48_000,) and torch.equal(t, tr)
+    blk = trx.TxChain("USB").agc
+    x = (0.3 * rng.standard_normal((1, 48_000))).astype(np.float32)
+    host = (blk, torch.from_numpy(x), torch.ones(1), torch.zeros(
+        1, dtype=torch.int32), False)
+    got = agc.agc_rows_kernel(*(blk,) + tuple(v.to(gpu) for v in host[1:4])
+                              + (False,))
+    for g, w in zip(got, agc.agc_rows_ref(*host)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("mode", ["USB", "LSB", "FM", "AM"])
+def test_tx_path_matches_cpu(gpu, mode):
+    """TxChain on the card (K12, then K9 for SSB) and ServerTxPath's
+    packets (K8) against the same blocks on the host CPU, three carried
+    blocks: >= 80 dB (the FM phasors within 1e-4), each kernel launched
+    a block."""
+    from sdrplusplusbrown_tpu_torch.models import trx
+    from sdrplusplusbrown_tpu_torch.ops import agc, fir_kernel
+    rng = np.random.default_rng(29)
+    audio = (0.3 * rng.standard_normal((3, 4800))).astype(np.float32)
+    wire = (0.5 * np.exp(2j * np.pi * rng.random((3, 1200)))).astype(
+        np.complex64)
+    out = {}
+    for dev in (gpu, torch.device("cpu")):
+        n0 = (agc.agc_rows_kernel.launches,
+              fir_kernel.fir_cplx_kernel.launches,
+              fir_kernel.fir_rows_kernel.launches)
+        ch = trx.TxChain(mode)
+        init, ys = ch.init_state(()), []
+        st = {"agc": _to(init["agc"], dev),
+              "mod": None if init["mod"] is None else _to(init["mod"], dev)}
+        for a in audio:
+            y, st = ch.apply(None, st, torch.from_numpy(a).to(dev))
+            ys.append(y.cpu())
+        lb = trx.LoopbackTransmitter()
+        path = trx.ServerTxPath(lb, prebuffer_ms=20.0, device=dev)
+        for w in wire:
+            path.push_wire_block(w)
+        out[dev.type] = (ys, lb.blocks)
+        if dev.type == "cuda":
+            n = (agc.agc_rows_kernel.launches - n0[0],
+                 fir_kernel.fir_cplx_kernel.launches - n0[1],
+                 fir_kernel.fir_rows_kernel.launches - n0[2])
+            assert n == (3, 3 if mode in ("USB", "LSB") else 0, 3), n
+    for g, c in zip(out["cuda"][0], out["cpu"][0]):
+        if mode == "FM":
+            assert float((g - c).abs().max()) <= 1e-4
+        else:
+            _close(c, g, 80.0, f"TxChain {mode}")
+    assert len(out["cuda"][1]) == len(out["cpu"][1]) > 0
+    for g, c in zip(*(out[k][1] for k in ("cuda", "cpu"))):
+        _close(torch.from_numpy(c), torch.from_numpy(g), 80.0, "TX packets")

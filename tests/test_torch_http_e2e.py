@@ -15,16 +15,21 @@ plane and the radio still steps, and so is the IF NR from the config
 (``set_rds``, ``get_rds``, ``rds`` in the config) and the RAW demod are
 served.  The entry point's ``--server`` streams the capture to a client
 that completes the handshake, and ``--rigctl`` answers ``f``; each exits
-0.  And the refusals: what the port lacks answers "not ported yet" (the
-network sink, and in the config a transmitter, the other sources and
-module types), and without a CUDA device the entry point exits nonzero
-naming CUDA unless it is given ``--device cpu``."""
+0.  The network sink streams the radio's audio to a local listener; a
+config with a loopback transmitter, or an rtl_tcp, SpyServer, network,
+KiwiSDR or Hermes Lite 2 source (each against a fake peer), builds.  And
+the refusals: the module types the port lacks answer "not ported yet",
+and without a CUDA device the entry point exits nonzero naming CUDA
+unless it is given ``--device cpu``."""
 
 import glob
 import json
 import os
+import socket
+import struct
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 
@@ -32,6 +37,7 @@ import numpy as np
 import pytest
 
 from e2e_harness import free_port, http_get, http_post
+from torch_parity import _chip_smoke, wait_for
 from sdrplusplusbrown_tpu_torch.app import SDRApp
 from sdrplusplusbrown_tpu_torch.io.wav import write_wav
 from sdrplusplusbrown_tpu_torch.server.rigctl_client import RigctlClient
@@ -218,7 +224,8 @@ def test_modules_streams_sinks(app):
                     "Radio2": {"module": "radio", "enabled": True}}
     streams = app.get("/streams")
     assert streams["streams"][0]["name"] == "Radio"
-    assert app.get("/sinks") == {"sinks": ["null_audio_sink", "recorder"]}
+    assert app.get("/sinks") == {"sinks": ["network", "null_audio_sink",
+                                           "recorder"]}
     r = app.post("/sink/select", {"stream": "Radio",
                                   "sink": "null_audio_sink"})
     assert r["status"] == "ok"
@@ -378,11 +385,22 @@ def test_off_switches_and_levels(app):
     assert r == {"status": "ok", "level": -80.0}
     assert app.module_cmd("Radio", "set_volume", "0.5")["volume"] == 0.5
     assert app.module_cmd("Radio", "set_volume", "1")["volume"] == 1.0
-    # the control plane answers what raises with 500 and the error
-    with pytest.raises(urllib.error.HTTPError) as e:
-        app.post("/sink/select", {"stream": "Radio", "sink": "network"})
-    assert e.value.code == 500
-    assert "not ported yet" in json.loads(e.value.read())["error"]
+    # the network sink streams the radio's audio (int16 over UDP)
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    rx.settimeout(10)
+    try:
+        r = app.post("/sink/select", {"stream": "Radio", "sink": "network",
+                                      "host": "127.0.0.1", "protocol":
+                                      "udp", "port": rx.getsockname()[1]})
+        assert r == {"status": "ok", "stream": "Radio", "sink": "network"}
+        assert app.pump_step(2)["stepped"] == 2
+        pcm = np.frombuffer(rx.recv(1 << 16), "<i2")
+        assert pcm.shape == (500,) and np.abs(pcm).max() > 1000
+    finally:
+        app.post("/sink/select", {"stream": "Radio",
+                                  "sink": "null_audio_sink"})
+        rx.close()
 
 
 def test_threaded_pump_over_http(tmp_path):
@@ -464,9 +482,6 @@ def test_no_cuda_device_exits_naming_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("conf,what", [
-    ({"transmitter": {"type": "loopback"}}, "transmitter"),
-    ({"source": {"type": "rtl_tcp"}}, "rtl_tcp"),
-    ({"source": {"type": "spyserver"}}, "spyserver"),
     ({"modules": {"S": {"type": "signal_detector"}}}, "signal_detector"),
     ({"modules": {"F": {"type": "ft8_decoder"}}}, "ft8_decoder"),
 ])
@@ -475,6 +490,123 @@ def test_unported_config_refused(tmp_path, conf, what):
         json.dump(conf, f)
     with pytest.raises(NotImplementedError, match=what):
         SDRApp(str(tmp_path), run_pump=False, device="cpu").shutdown()
+
+
+def _spyserver_peer(conn):
+    """Enough of a SpyServer for the client's constructor: the hello
+    read, the device info sent, the seven settings of ``start_stream``
+    read, then closed (so that the client's reader ends at once)."""
+    from sdrplusplusbrown_tpu_torch.io import spyserver_source as spy
+    conn.recv(4096)
+    di = struct.pack("<12I", 3, 1, 2_000_000, 1_600_000, 4, 1, 29,
+                     24_000_000, 1_700_000_000, 8, 1, 0)
+    conn.sendall(struct.pack("<IIIII", spy.PROTOCOL_VERSION,
+                             spy.MSG_DEVICE_INFO, 0, 0, len(di)) + di)
+    _read(conn, 7 * 16)
+
+
+def _rtl_tcp_peer(conn):
+    """The banner, then the two commands the app sends (the rate and its
+    frequency), then closed."""
+    conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+    _read(conn, 2 * 5)
+
+
+def _read(conn, n: int):
+    """``n`` bytes from ``conn`` (fewer if it closes)."""
+    got = 0
+    while got < n:
+        part = conn.recv(n - got)
+        if not part:
+            return
+        got += len(part)
+
+
+def _kiwi_peer(conn):
+    while b"\r\n\r\n" not in conn.recv(4096):
+        pass
+    conn.sendall(b"HTTP/1.1 101 Switching Protocols\r\n\r\n")
+    conn.recv(4096)
+
+
+class OnePeer:
+    """A TCP peer on 127.0.0.1:0 serving one connection with ``serve``."""
+
+    def __init__(self, serve):
+        self.srv = socket.socket()
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(1)
+        self.srv.settimeout(10)
+        self.port = self.srv.getsockname()[1]
+
+        def run():
+            try:
+                conn, _ = self.srv.accept()
+            except OSError:
+                return
+            conn.settimeout(10)
+            with conn:
+                try:
+                    serve(conn)
+                except OSError:
+                    pass
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.srv.close()
+        self.thread.join(timeout=15)
+
+
+@pytest.mark.parametrize("what", ["transmitter", "rtl_tcp", "spyserver",
+                                  "network", "kiwisdr", "hl2"])
+def test_config_builds(tmp_path, what):
+    """What the port refused before builds from a config the JAX app
+    accepts, against a fake peer (or as a loopback): the source and its
+    rate, and the transmitter (the HL2 source is its own), then shuts
+    down cleanly."""
+    peer, conf = None, {}
+    if what == "transmitter":
+        conf = {"transmitter": {"type": "loopback"}}
+    elif what == "network":
+        conf = {"source": {"type": "network", "host": "127.0.0.1",
+                           "port": 0, "protocol": "udp",
+                           "sampleType": "int8", "samplerate": 96_000.0}}
+    elif what == "hl2":
+        peer = _chip_smoke().FakeHL2(np.zeros(126, np.complex64), 48_000)
+        conf = {"source": {"type": "hl2", "host": "127.0.0.1",
+                           "port": peer.port, "samplerate": 48_000}}
+    else:
+        peer = OnePeer({"rtl_tcp": _rtl_tcp_peer, "spyserver":
+                        _spyserver_peer, "kiwisdr": _kiwi_peer}[what])
+        conf = {"source": {"type": what, "host": "127.0.0.1",
+                           "port": peer.port}}
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(conf, f)
+    try:
+        app = SDRApp(str(tmp_path), run_pump=False, device="cpu")
+        try:
+            # the source's rate, or the config's default (1 MS/s)
+            rate = {"transmitter": 1_000_000.0, "rtl_tcp": 1_000_000.0,
+                    "spyserver": 1_000_000.0, "network": 96_000.0,
+                    "kiwisdr": 12_000.0, "hl2": 48_000.0}[what]
+            assert app.samplerate == rate
+            if what == "transmitter":
+                assert app.source is None
+                assert type(app.transmitter).__name__ == \
+                    "LoopbackTransmitter"
+            elif what == "hl2":
+                assert app.transmitter is app.source
+                wait_for(lambda: peer.started.is_set(), "no Metis start")
+            else:
+                assert app.transmitter is None
+                assert type(app.source).__module__.startswith(
+                    "sdrplusplusbrown_tpu_torch.io.")
+        finally:
+            app.shutdown()
+    finally:
+        if peer is not None:
+            peer.close()
 
 
 @pytest.mark.parametrize("demod,decoder", [("WFM", True), ("NFM", False)])

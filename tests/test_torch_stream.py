@@ -286,11 +286,71 @@ def test_stop_ends_the_accept_loop():
     assert not srv._accept_thread.is_alive()
 
 
-def test_server_refuses_a_transmitter():
+def _tx_session(server_mod, trx_mod, device=None):
+    """A client's TX session on a server whose app has a loopback
+    transmitter: the handshake, TX_BLOCKS wire blocks of TRANSMIT_DATA
+    (6 kHz, int16 on the wire, as StreamClient.transmit sends them), a
+    GET_SAMPLERATE barrier.  Every packet the client received, as raw
+    bytes, and the 48 kHz packets the transmitter got."""
+    P = pproto
     app = StubApp()
-    app.transmitter = object()
-    with pytest.raises(NotImplementedError, match="transmitter"):
-        pserver.StreamServer(app, port=0, host="127.0.0.1")
+    app.transmitter = trx_mod.LoopbackTransmitter()
+    if device is not None:
+        app.device = device
+    srv = server_mod.StreamServer(app, port=0, host="127.0.0.1")
+    srv.start()
+    got = []
+    sock = socket.create_connection(("127.0.0.1", srv.port), timeout=10)
+    sock.settimeout(10)
+
+    def read_until(cmd):
+        while True:
+            ptype, payload = P.recv_packet(sock)
+            got.append(P.pack_packet(ptype, payload))
+            if ptype == P.PacketType.COMMAND and \
+                    P.unpack_command(payload)[0] == cmd:
+                return
+    try:
+        read_until(P.Command.SET_SAMPLERATE)
+        sock.sendall(P.pack_command(P.Command.START, {"magic": P.MAGIC}))
+        read_until(P.Command.SET_TRANSMITTER_SUPPORTED)
+        rng = np.random.default_rng(16)
+        t = np.arange(TX_BLOCKS * 1200) / 6000.0
+        wire = (0.5 * np.exp(2j * np.pi * 1000.0 * t) + 0.01 * (
+            rng.standard_normal(t.size) + 1j * rng.standard_normal(t.size))
+            ).astype(np.complex64).reshape(TX_BLOCKS, 1200)
+        for blk in wire:
+            sock.sendall(P.pack_packet(
+                P.PacketType.TRANSMIT_DATA, pcomp.entropy_encode(
+                    pcomp.compress_samples(blk, pcomp.PCMType.I16))))
+        sock.sendall(P.pack_command(P.Command.GET_SAMPLERATE))
+        read_until(P.Command.SET_SAMPLERATE)
+    finally:
+        sock.close()
+        srv.stop()
+    return got, app.transmitter.blocks
+
+
+TX_BLOCKS = 5
+
+
+def test_server_refuses_a_transmitter():
+    """The refusal is gone: a server whose app has a transmitter announces
+    SET_TRANSMITTER_SUPPORTED with the JAX server's bytes, and the
+    client's TX audio reaches the transmitter through ServerTxPath (the
+    port's 6 k → 48 k resampler on the app's device, here the CPU): the
+    same 960-sample 48 kHz packets as the JAX server's, each >= MIN_DB."""
+    from sdrplusplusbrown_tpu.models import trx as jtrx
+    from sdrplusplusbrown_tpu_torch.models import trx as ptrx
+    jgot, jpk = _tx_session(jserver, jtrx)
+    pgot, ppk = _tx_session(pserver, ptrx, device="cpu")
+    assert pgot == jgot
+    # ten 20 ms packets a 200 ms block: the 200 ms prebuffer primes on
+    # the first block's 9 600 samples and drains whole
+    assert len(ppk) == len(jpk) == TX_BLOCKS * 10
+    for a, b in zip(jpk, ppk):
+        assert b.shape == (960,) and b.dtype == np.complex64
+        assert snr_db(a, b) >= MIN_DB
 
 
 # ---------------------------------------------------------------------
