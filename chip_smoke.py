@@ -191,8 +191,9 @@ Phases, each fatal on failure:
      block's wall time through a sync (percentiles), then a profiler
      window of 20 blocks (device µs and launches a block, idle share,
      host↔device copies a block), and the DC blocker alone on one
-     block's baseband (device µs and launches); fails unless rtFactor <
-     1 and the p99 block is within the block's duration.
+     block's baseband (device µs and launches: K15's dc form, one);
+     fails unless rtFactor < 1, the p99 block is within the block's
+     duration and the blocker is one launch.
  22. BASELINE config 3 in process: the HF voice capture (USB voice at +10
      kHz, 6 dB SNR, 96 kS/s) through ``SDRApp`` on the card, manual pump,
      a USB radio and a recorder; recordings with the AF NR off (5 s of
@@ -213,17 +214,22 @@ Phases, each fatal on failure:
      handoff, the real-time guard held still): the baseband and each
      radio's audio agree to 80 dB in every block, the WFM and NFM tone
      SNRs reported, K4f, K8, K9, K14 and K15 launched and held to their
-     plans, K14 (the IF NR's last block) and K15 (the DC blocker's and
-     the noise blanker's last calls) against their plain versions, the
-     first form of each timed beside its bound, these launches their
-     report's; then
+     plans (K14 once more for the IF NR's priming), K14 (the IF NR's
+     last block; its device µs with the hand-over and with the rings
+     copied first, whose window must show the two ring-sized copies) and
+     K15 (the DC blocker's and the noise blanker's last calls, each one
+     launch, each fused form also against the unfused route: K15's scan
+     form, then the block's torch ops) against their plain versions, each
+     timed beside its bound, these launches their report's; then
      the threaded pump for 10 s as in 21 (block wall percentiles once
      the IF NR is primed, the profiler window, the guard's clock held
-     still while it is open and its trace is processed), and the IF NR
-     alone on one block (device
-     µs, launches); fails if the guard shed the IF NR, read at the end
-     of the 10 s and after the profiler window, or the p99 block exceeds
-     its duration.
+     still while it is open and its trace is processed; the window's
+     device-to-device copies, none a whole 76.8 MB ring), and the IF NR
+     alone on one block (device µs, launches; a warmed-up profiler
+     window of 10 such blocks, each on the state the previous returned,
+     with no whole-ring copy); fails if the guard shed the IF NR, read at
+     the end of the 10 s and after the profiler window, a window holds a
+     ring's copy, or the p99 block exceeds its duration.
  24. RDS's loops and the Radio's forms: K13's PLL form on the scan-PLL
      radio's 6 250-sample MPX block (``Radio(pll_mode="scan")`` at 2.4
      MS/s, four 50 ms blocks, the counts zeroed before: K13p one launch
@@ -248,7 +254,9 @@ Phases, each fatal on failure:
      of signal from its switch-on; the counts zeroed before: K4f, K8,
      K9, K12c, K13c, K13m and K15 launched and held to their calls'
      planned launches, every other kernel not; K12c, K13c and K13m
-     against their plain versions at the served shapes; both radios'
+     against their plain versions at the served shapes, K15 at the
+     block's 480 000-sample DC blocker too (timed, and against the
+     unfused route); both radios'
      tone SNR and separation (phase 19's bars); then the threaded pump with RDS on
      both for 10 s as in 21 (``pump_in_real_time``: rtFactor, the block
      wall percentiles, the profiler window's device µs, launches and
@@ -300,6 +308,9 @@ Phases, each fatal on failure:
      tone within 1 dB of the recording's (the MPEG stream byte for byte
      the host's Layer I encoding); (e) no thread or socket left.
 
+The main-path runs of phases 19 and 21-28 run inside ``no_plain_on_card``:
+a plain version of K5, K6, K8, K9, K12, K14 or K15, or LogMMSE's plain
+``_push_history``, given a CUDA tensor fails the run.
 Every ``launches`` count is of CUDA launches: each wrapper counts every
 launch it makes (``kernels/_build.py``).  Beside each CUDA-event time
 (which, for a kernel shorter than its wrapper's host work, is the
@@ -610,13 +621,19 @@ def work(tag: str, args) -> tuple:
         # a bin and frame: the history's 7, the gain's 19 and E1's 36
         # (both of its branches; exp, log and powf not counted)
         return b, 62 * bins * F
-    if tag == "K15":    # b (and a tensor a), y0 in; y out
-        a, b, y0 = args
-        e, n = b.element_size(), b.numel()
-        by = 2 * n * e + y0.numel() * e + (4 * n if hasattr(a, "numel")
-                                            else 0)
-        # a multiply-add a sample on each part
-        return by, 2 * (2 if b.is_complex() else 1) * n
+    if tag == "K15":    # b or x (and a tensor a), y0 in; y or out (and
+        a, b, y0 = args[:3]                 # the new state) out
+        form = args[3] if len(args) > 3 else "scan"
+        e, n, parts = b.element_size(), b.numel(), 2 if b.is_complex() else 1
+        ve = 4 if form == "nb" else e
+        by = 2 * n * e + y0.numel() * ve * (1 if form == "scan" else 2) + (
+            4 * n if hasattr(a, "numel") else 0)
+        # a multiply-add a sample on each part; the DC blocker's gain and
+        # difference (2 a part more); the noise blanker's multiply-add
+        # (2), |x| (3), gain·|x|, two divisions, a compare (4) and x·gain
+        # (a part)
+        return by, {"scan": 2 * parts, "dc": 4 * parts,
+                    "nb": 9 + parts}[form] * n
     raise KeyError(tag)
 
 
@@ -1174,16 +1191,40 @@ def reset_counts() -> None:
         getattr(mod, name).launches = 0
 
 
+def state_copy(st: dict) -> dict:
+    """A copy of a state dict's tensors (a LogMMSE state that K14 can take
+    while the original goes on)."""
+    return {k: v.clone() for k, v in st.items()}
+
+
+def k14_chain(kern, args):
+    """A call of K14 on ``args``' frames that each time takes the state
+    the previous call returned (K14 takes the rings of the state it is
+    given, ops/logmmse.py:hand_over); the first takes ``args``' state."""
+    core, st, sig, hold = args
+    box = [st]
+
+    def call():
+        box[0], hw = kern(core, box[0], sig, hold)
+        return box[0], hw
+    return call
+
+
 def capture(tags, run):
     """Run ``run()`` with the wrappers of ``tags`` recording their
-    arguments; returns (run's result, {tag: [args of each call]})."""
+    arguments; returns (run's result, {tag: [args of each call]}); a K14
+    call's state is recorded as a copy (``state_copy``)."""
     captured, originals = {}, {}
     for tag in tags:
         mod, name = kernel_fn(tag, "_kernel")
         originals[tag] = orig = getattr(mod, name)
 
         def rec(*args, _tag=tag, _orig=orig):
-            captured.setdefault(_tag, []).append(args)
+            # K14 takes the rings of the state it is given (hand_over):
+            # its call is kept with a copy of that state
+            captured.setdefault(_tag, []).append(
+                (args[0], state_copy(args[1]), *args[2:]) if _tag == "K14"
+                else args)
             return _orig(*args)
         setattr(mod, name, rec)
     try:
@@ -1450,11 +1491,16 @@ def check_app_kernel(tag: str, args, card: str, what: str,
     mod, name = kernel_fn(tag, "")
     kern = getattr(mod, name + "_kernel")
     ref = getattr(mod, name + "_ref")
-    got = kern(*args)
+    if tag == "K14":    # K14 takes the rings it is given: it runs on a
+        kern_call = k14_chain(kern, (args[0], state_copy(args[1]),  # copy
+                                     *args[2:]))
+    else:
+        kern_call = functools.partial(kern, *args)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     marks[0].record()
     want = ref(*args)
     marks[1].record()
+    got = kern_call()
     torch.cuda.synchronize()
     if tag in ("K8", "K9"):     # (y, new tail): the tail is a copy
         if not torch.equal(got[1], want[1]):
@@ -1476,6 +1522,9 @@ def check_app_kernel(tag: str, args, card: str, what: str,
                                 .flatten()]),
                      torch.cat([want[1].flatten(), want[0]["Xk_prev"]
                                 .flatten()]))
+    if tag == "K15" and isinstance(got, tuple):     # a fused form's (out,
+        got, want = (torch.cat([t.flatten() for t in got]),  # new state)
+                     torch.cat([t.flatten() for t in want]))
     if got.is_complex():
         got, want = torch.view_as_real(got), torch.view_as_real(want)
     got, want = got.float(), want.float()
@@ -1503,13 +1552,13 @@ def check_app_kernel(tag: str, args, card: str, what: str,
             fail(f"{tag} {what}: kernel disagrees with its plain version: "
                  f"{agree}")
         return {"max_abs_err": err}
-    ms = event_ms(lambda: kern(*args))
+    ms = event_ms(kern_call)
     plain_ms = event_ms(lambda: ref(*args), plain_reps) if plain_reps \
         else marks[0].elapsed_time(marks[1])
     lib = library_call(tag, args)
     library_ms = event_ms(lib) if lib is not None else None
     split = {}
-    k_us, n_launch = call_profile(lambda: kern(*args), by_kernel=split)
+    k_us, n_launch = call_profile(kern_call, by_kernel=split)
     us = [k_us, device_us(lambda: ref(*args), plain_reps)
           if plain_reps else float("nan")]
     if lib is not None:
@@ -2537,7 +2586,8 @@ def served_in_process(dev, card: str, report: dict, tmp: str,
         torch.cuda.synchronize()
 
     reset_counts()
-    _, cap19 = capture(tuple(KERNELS), run)
+    with no_plain_on_card():
+        _, cap19 = capture(tuple(KERNELS), run)
     counts = {t: kernel_count(t) for t in KERNELS}
     hold_launches(f"phase 19, served app, {SERVED_BLOCKS} blocks",
                   {t: counts[t] for t in SERVED_TAGS}, cap19)
@@ -2725,6 +2775,60 @@ def window_stats(prof, nb: int) -> tuple:
     return by_kernel, launches, h2d, d2h
 
 
+def device_copies(prof, tmp: str) -> tuple:
+    """A profiler window's trace: (each device-to-device copy as (bytes,
+    µs), bytes None where the trace gives none; the kernels it holds)."""
+    path = os.path.join(tmp, "window_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    os.remove(path)
+    copies = [(e.get("args", {}).get("bytes"), float(e.get("dur", 0.0)))
+              for e in events if str(e.get("name", "")).startswith("Memcpy")
+              and ("DtoD" in e["name"] or "Device -> Device" in e["name"])]
+    return copies, sum(e.get("cat") == "kernel" for e in events)
+
+
+def window_copies(fn, calls: int) -> tuple:
+    """``device_copies`` of a profiler window of ``calls`` calls of ``fn``
+    after a warm-up step of as many inside the profiler (it loses a
+    window's first events); a window that saw no kernel is taken again,
+    twice at most."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    got = {}
+
+    def ready(prof):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_copies_") as tmp:
+            got["copies"] = device_copies(prof, tmp)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if got.get("copies", ([], 0))[1]:
+            break
+    return got.get("copies", ([], 0))
+
+
+# a 76.8 MB ring's copy reads and writes 153.6 MB: 46 µs at 3.35 TB/s;
+# a copy without its bytes in the trace counts as one from this long
+RING_COPY_US = 20.0
+
+
+def ring_copies(copies: list, ring_bytes: int) -> list:
+    """The copies of ``device_copies`` that move a whole ring."""
+    return [(b, us) for b, us in copies
+            if (b is not None and b >= ring_bytes)
+            or (b is None and us >= RING_COPY_US)]
+
+
 def served_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     """Phase 21: the app with its pump thread on the looping capture for
     SERVED_RT_SECONDS of wall time (``pump_in_real_time``), then the DC
@@ -2744,9 +2848,10 @@ def served_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     bb = torch.complex(*noise_planes(block_len, dev))
     st0 = fe.dc.init_state().to(dev)
     us, n = call_profile(lambda: fe.dc.apply(None, st0, bb))
-    print(f"phase 21: the DC blocker (K15 and its elementwise ops) on "
-          f"{block_len} samples: {us:.1f} us device and {n} launches a "
-          f"block [{card}]")
+    print(f"phase 21: the DC blocker (K15's dc form) on {block_len} "
+          f"samples: {us:.1f} us device and {n} launches a block [{card}]")
+    if n != 1:
+        fail(f"phase 21: the DC blocker took {n} launches, not 1")
     real_time_bar("phase 21", run, run["dur_ms"])
 
 
@@ -2809,32 +2914,33 @@ def pump_in_real_time(dev, card: str, root: str, config: dict, label: str,
     http = HttpDebugServer(app, port=0)
     http.start()
     base = f"http://127.0.0.1:{http.port}"
-    try:
-        with settled_heap():
-            t0 = time.perf_counter()
-            app.start()
-            time.sleep(seconds)
-            st = http_call(base, "/status")
-            blocks, secs = app.blocks_processed, time.perf_counter() - t0
-            walls_rt = list(walls)
-        block_len = app.pump_block_len
-        # then a profiler window of 20 blocks while the pump thread runs
-        # (last: the profiler slows the launches of the blocks after it);
-        # a window whose trace holds copies but no kernel is taken again
-        for window in range(1, 4):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                b0, w0 = app.blocks_processed, time.perf_counter()
-                while app.blocks_processed < b0 + 20:
-                    time.sleep(0.005)
-                nb, window_us = app.blocks_processed - b0, (
-                    time.perf_counter() - w0) * 1e6
-            by_kernel, launches, h2d, d2h = window_stats(prof, nb)
-            if launches:
-                break
-    finally:
-        app.shutdown()
-        http.stop()
+    with no_plain_on_card():
+        try:
+            with settled_heap():
+                t0 = time.perf_counter()
+                app.start()
+                time.sleep(seconds)
+                st = http_call(base, "/status")
+                blocks, secs = app.blocks_processed, time.perf_counter() - t0
+                walls_rt = list(walls)
+            block_len = app.pump_block_len
+            # then a profiler window of 20 blocks while the pump thread runs
+            # (last: the profiler slows the launches of the blocks after it);
+            # a window whose trace holds copies but no kernel is taken again
+            for window in range(1, 4):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    b0, w0 = app.blocks_processed, time.perf_counter()
+                    while app.blocks_processed < b0 + 20:
+                        time.sleep(0.005)
+                    nb, window_us = app.blocks_processed - b0, (
+                        time.perf_counter() - w0) * 1e6
+                by_kernel, launches, h2d, d2h = window_stats(prof, nb)
+                if launches:
+                    break
+        finally:
+            app.shutdown()
+            http.stop()
     busy = sum(by_kernel.values())
     dur_ms = block_len / FS * 1e3
     w = np.array(walls_rt[3:]) * 1e3     # past the first blocks' warm-up
@@ -2987,8 +3093,9 @@ def noise_config3(dev, card: str, report: dict, tmp: str) -> None:
         if r != {"status": "ok", "afnr": mode}:
             fail(f"phase 22: set_afnr {mode}: {r}")
         reset_counts()
-        (wav, n), calls = capture(tuple(KERNELS),
-                                  lambda: record(NR_ON_SECONDS))
+        with no_plain_on_card():
+            (wav, n), calls = capture(tuple(KERNELS),
+                                      lambda: record(NR_ON_SECONDS))
         counts = {t: kernel_count(t) for t in KERNELS}
         tags = ("K4f", "K8", "K12") + (("K14",) if mode == "logmmse"
                                        else ())
@@ -3045,12 +3152,17 @@ def noise_config3(dev, card: str, report: dict, tmp: str) -> None:
                                               err["max_abs_err"])
             print(f"phase 22: the AF NR's moving average ran K8 {len(sma)} "
                   f"times in {n} blocks, at {tuple(sma[-1][0].shape)}")
-        nr, st = m.afnr, m.afnr_state
+        # from a copy of the radio's state, each call on the state the
+        # previous returned (K14 takes the rings it is given)
+        nr, box = m.afnr, [state_copy(m.afnr_state)]
         x = torch.complex(*noise_planes(2 * 2400, dev)).reshape(2, 2400)
         x = x[..., :2400 // nr.in_multiple * nr.in_multiple]
         if mode == "omlsa":
             x = x.real.contiguous()
-        us, launches = call_profile(lambda: nr.apply(None, st, x))
+
+        def one_call():
+            _, box[0] = nr.apply(None, box[0], x)
+        us, launches = call_profile(one_call)
         print(f"phase 22: {mode} alone on [2, {x.shape[-1]}] audio "
               f"samples (one block's): {us:.1f} us device and {launches} "
               f"launches a call [{card}]")
@@ -3141,7 +3253,8 @@ def noise_session(app, blocks: int, kernels: bool) -> dict:
 
     if kernels:
         reset_counts()
-        _, out["calls"] = capture(tuple(KERNELS), run)
+        with no_plain_on_card():
+            _, out["calls"] = capture(tuple(KERNELS), run)
         out["counts"] = {t: kernel_count(t) for t in KERNELS}
     else:
         run()
@@ -3220,31 +3333,104 @@ def noise_full_width(dev, card: str, report: dict, tmp: str,
         fail(f"phase 23: the card disagrees with the host CPU: {worst}")
 
 
+def k15_what(call) -> str:
+    """A K15 call's row: its form, rows and type."""
+    form = call[3] if len(call) > 3 else "scan"
+    what = {"dc": "the DC blocker", "nb": "the noise blanker",
+            "scan": "the scan"}[form]
+    return (f"{what}, {'complex' if call[1].is_complex() else 'real'} "
+            f"{tuple(call[1].shape)}")
+
+
+def k15_unfused(call, card: str) -> None:
+    """A fused K15 call ("dc", "nb") against the unfused route on the card:
+    K15's scan form, then the block's torch ops (``dc_route``,
+    ``nb_route``).  Bit-identical, or the agreement and the output that
+    differs (fails under 130 dB)."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.ops import recurrence as prec
+    a, x, y0, form, gain = call[:5]
+    extra = (gain,) if form == "dc" else (gain, call[5])
+    route = prec.dc_route if form == "dc" else prec.nb_route
+    got = prec.linear_recurrence_kernel(*call)
+    want = route(prec.linear_recurrence_kernel, a, x, y0, *extra)
+    torch.cuda.synchronize()
+    differ = [name for name, g, w in zip(("out", "state"), got, want)
+              if not torch.equal(g, w)]
+    if not differ:
+        print(f"K15 {k15_what(call)}: the fused form bit-identical to the "
+              f"unfused route (K15's scan, then the block's torch ops) "
+              f"[{card}]")
+        return
+    sn = min(snr_db(torch.view_as_real(w) if w.is_complex() else w,
+                    torch.view_as_real(g) if g.is_complex() else g)
+             for g, w in zip(got, want))
+    print(f"K15 {k15_what(call)}: the fused form against the unfused route:"
+          f" {' and '.join(differ)} differ, {sn:.1f} dB (bound 130) "
+          f"[{card}]")
+    if sn < 130.0:
+        fail(f"K15 {k15_what(call)}: the fused form {sn:.1f} dB from the "
+             f"unfused route")
+
+
+def k14_with_and_without_hand_over(call, card: str) -> None:
+    """K14's device µs a call at ``call``'s shapes with the hand-over (each
+    call on the state the previous returned: the rings written in place)
+    and without it (the rings copied first, as the earlier wrapper did); a
+    window of the copies must show ring-sized device-to-device copies,
+    which phase 23's window must not."""
+    from sdrplusplusbrown_tpu_torch.ops import logmmse as plm
+    core, st, sig, hold = call
+    kern = plm.logmmse_frames_kernel
+    with_us, n = call_profile(k14_chain(kern, (core, state_copy(st), sig,
+                                               hold)))
+    base = state_copy(st)
+
+    def copied():
+        return kern(core, {**base, **{k: base[k].clone()
+                                       for k in plm.RINGS}}, sig, hold)
+    without_us, n2 = call_profile(copied)
+    # three calls in the window: six ring copies
+    seen = ring_copies(window_copies(copied, 3)[0], 4 * st["hist"].numel())
+    print(f"K14 at nFFT {core.nFFT} x {sig.shape[-2]} frames: {with_us:.1f} "
+          f"us device a call with the hand-over ({n} launches), "
+          f"{without_us:.1f} us with the rings copied first ({n2} launches; "
+          f"a window of three such calls shows {len(seen)} of their 6 "
+          f"ring-sized device-to-device copies) [{card}]")
+    if len(seen) < 2:
+        fail(f"K14: the ring copies' window shows {len(seen)} ring-sized "
+             f"copies: the copy check cannot see them")
+
+
 def host_path_kernels(calls: dict, counts: dict, path: str, report: dict,
                       card: str) -> None:
     """K14 and K15 against their plain versions at the noise path's shapes
-    (phase 23's card run): K14 on the IF NR's last block, timed; K15 on
-    the last call of each of its forms there (the front end's DC blocker,
-    complex rows and a scalar pole, timed; the noise blanker's envelope,
-    real rows and a pole a sample).  Fills their report entries, with
-    this path's launches as the main path's."""
+    (phase 23's card run): K14 on the IF NR's last block, timed, with and
+    without the hand-over; K15 on the last call of each of its forms there
+    (the front end's DC blocker, complex rows, and the noise blanker, each
+    one launch, timed), each fused form against the unfused route.  Fills their report entries, with this path's
+    launches as the main path's."""
     forms = {}
     for call in calls["K15"]:
-        forms[(call[1].is_complex(), hasattr(call[0], "numel"))] = call
+        forms[(call[3] if len(call) > 3 else "scan",
+               call[1].is_complex())] = call
     checks = [("K14", calls["K14"][-1], "the IF NR's frames, nFFT "
-               f"{calls['K14'][-1][0].nFFT}", True, 100.0)]
-    for (cplx, per_sample), call in sorted(forms.items(), reverse=True):
-        what = ("the DC blocker, complex rows" if cplx else
-                "the noise blanker, real rows") + (", a pole a sample"
-                                                   if per_sample else "")
-        checks.append(("K15", call, f"{what} {tuple(call[1].shape)}",
-                       cplx, 80.0))
-    for tag, call, what, timed, min_db in checks:
-        got = check_app_kernel(tag, call, card, what, timed=timed,
-                               min_db=min_db)
+               f"{calls['K14'][-1][0].nFFT}", 100.0)]
+    for key in sorted(forms, key=lambda k: ("dc", "nb", "scan").index(k[0])):
+        checks.append(("K15", forms[key], k15_what(forms[key]),
+                       130.0 if key[0] == "nb" else 100.0))
+    for tag, call, what, min_db in checks:
+        got = check_app_kernel(tag, call, card, what, min_db=min_db)
         entry = report.setdefault(tag, {})
         err = max(entry.get("max_abs_err", 0.0), got.pop("max_abs_err"))
+        if tag == "K15" and "ms" in entry:
+            got = {}        # the report keeps the first form's timing
         entry.update(got, max_abs_err=err)
+        if tag == "K15":
+            if len(call) > 3 and call[3] != "scan":
+                k15_unfused(call, card)
+        else:
+            k14_with_and_without_hand_over(call, card)
     for tag in ("K14", "K15"):
         report[tag].update(launches=counts[tag], launches_path=path)
 
@@ -3298,35 +3484,38 @@ def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     app._pump_loop = timed_loop
     guard_clock = PausableClock(app._clock)
     app._clock = guard_clock
-    try:
-        with settled_heap():
-            t0 = time.perf_counter()
-            app.start()
-            time.sleep(NR_RT_SECONDS)
-        st = app.status()
-        blocks, seconds = app.blocks_processed, time.perf_counter() - t0
-        walls_rt = list(walls)
-        block_len = app.pump_block_len
-        for window in range(1, 4):
-            guard_clock.pause()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                b0, w0 = app.blocks_processed, time.perf_counter()
-                while app.blocks_processed < b0 + 20:
-                    time.sleep(0.005)
-                nb, window_us = app.blocks_processed - b0, (
-                    time.perf_counter() - w0) * 1e6
-            by_kernel, launches, h2d, d2h = window_stats(prof, nb)
-            guard_clock.resume()
-            if launches:
-                break
-        # three blocks after the window, on the running clock
-        b0, until = app.blocks_processed, time.perf_counter() + 5.0
-        while app.blocks_processed < b0 + 3 and time.perf_counter() < until:
-            time.sleep(0.005)
-        st_end = app.status()
-    finally:
-        app.shutdown()
+    with no_plain_on_card():
+        try:
+            with settled_heap():
+                t0 = time.perf_counter()
+                app.start()
+                time.sleep(NR_RT_SECONDS)
+            st = app.status()
+            blocks, seconds = app.blocks_processed, time.perf_counter() - t0
+            walls_rt = list(walls)
+            block_len = app.pump_block_len
+            for window in range(1, 4):
+                guard_clock.pause()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    b0, w0 = app.blocks_processed, time.perf_counter()
+                    while app.blocks_processed < b0 + 20:
+                        time.sleep(0.005)
+                    nb, window_us = app.blocks_processed - b0, (
+                        time.perf_counter() - w0) * 1e6
+                by_kernel, launches, h2d, d2h = window_stats(prof, nb)
+                copies, _ = device_copies(prof, tmp)
+                guard_clock.resume()
+                if launches:
+                    break
+            # three blocks after the window, on the running clock
+            b0, until = app.blocks_processed, time.perf_counter() + 5.0
+            while (app.blocks_processed < b0 + 3
+                   and time.perf_counter() < until):
+                time.sleep(0.005)
+            st_end = app.status()
+        finally:
+            app.shutdown()
     dur_ms = block_len / FS * 1e3
     w = np.array([x for x, primed in walls_rt if primed][3:]) * 1e3
     if not len(w):
@@ -3355,13 +3544,40 @@ def noise_in_real_time(dev, card: str, tmp: str, cap: str) -> None:
     else:
         print("phase 23: device time, launches and copies a block not "
               f"measured (the profiler saw no kernel in {window} windows)")
-    # the IF NR alone on one block's baseband, from a primed state
-    from sdrplusplusbrown_tpu_torch.runtime.block import to_device
+    # K14 writes the IF NR's rings in place: no whole-ring copy a block,
+    # in the pump's window and in a warmed-up window of the IF NR alone
     nr = app.ifnr
+    ring = 4 * nr.core.H * nr.core.nFFT
+
+    def copy_check(copies, what: str) -> None:
+        known = [b for b, _ in copies if b is not None]
+        print(f"phase 23: {what}: {len(copies)} device-to-device copies, "
+              f"the largest " + (f"{max(known)} bytes" if known else
+                                 "of unknown size")
+              + f"; a ring is {ring} bytes [{card}]")
+        if ring_copies(copies, ring):
+            fail(f"phase 23: {what} holds copies of a whole ring: "
+                 f"{ring_copies(copies, ring)}")
+    if launches:
+        copy_check(copies, f"the pump's profiler window ({nb} blocks)")
+    else:
+        print("phase 23: the pump's profiler window's copies not measured "
+              "(it saw no kernel)")
+    # the IF NR alone on one block's baseband, from a primed state, each
+    # call on the state the previous one returned
+    from sdrplusplusbrown_tpu_torch.runtime.block import to_device
     bb = torch.complex(*noise_planes(block_len, dev))
-    st0 = nr.prime(to_device(nr.init_state(()), dev), bb.repeat(
-        -(-nr.core.NOISE_FRAMES * nr.core.Slen // block_len)))
-    us, n = call_profile(lambda: nr.apply(None, st0, bb), reps=10)
+    box = [nr.prime(to_device(nr.init_state(()), dev), bb.repeat(
+        -(-nr.core.NOISE_FRAMES * nr.core.Slen // block_len)))]
+
+    def one_block():
+        _, box[0] = nr.apply(None, box[0], bb)
+    copies, kernels = window_copies(one_block, 10)
+    if not kernels:
+        fail("phase 23: the IF NR's profiler window saw no kernel in 3 "
+             "windows: its copies cannot be checked")
+    copy_check(copies, f"the IF NR alone, 10 blocks ({kernels} kernels)")
+    us, n = call_profile(one_block, reps=10)
     print(f"phase 23: the IF NR alone (Slen {nr.core.Slen}, nFFT "
           f"{nr.core.nFFT}, H {nr.core.H}, {block_len // nr.core.len2} "
           f"frames) on {block_len} samples: {us:.1f} us device and {n} "
@@ -3556,8 +3772,9 @@ def drive_loops(dev, card: str, report: dict) -> None:
     scan = Radio(FS, DEMOD_WFM, pll_mode="scan", device=dev)
     x = stereo_wideband(LOOP_BLOCKS * B, [APP_WFM[0]])
     reset_counts()
-    outs, cap24 = capture(tuple(KERNELS), lambda: run_radio(
-        scan, x, B, dev, LOOP_BLOCKS, APP_WFM[0]))
+    with no_plain_on_card():
+        outs, cap24 = capture(tuple(KERNELS), lambda: run_radio(
+            scan, x, B, dev, LOOP_BLOCKS, APP_WFM[0]))
     torch.cuda.synchronize()
     counts = {t: kernel_count(t) for t in KERNELS}
     if counts["K13p"] != LOOP_BLOCKS or counts["K10"] or counts["K2"]:
@@ -3591,7 +3808,8 @@ def drive_loops(dev, card: str, report: dict) -> None:
         nonlocal rst
         for y in run_radio(radio, xr, rb, dev, 2, APP_WFM[0]):
             _, rst = demod.apply(None, rst, y[1].to(dev))
-    _, cap_rds = capture(("K12c", "K13c", "K13m"), rds_run)
+    with no_plain_on_card():
+        _, cap_rds = capture(("K12c", "K13c", "K13m"), rds_run)
     for tag in ("K12c", "K13c", "K13m"):
         report[tag] = check_loop_kernel(tag, cap_rds[tag][-1], card,
                                         "RDSDemod, the served block",
@@ -3706,7 +3924,8 @@ def drive_rds(dev, card: str, report: dict) -> None:
             torch.cuda.synchronize()
         try:
             reset_counts()
-            _, cap25 = capture(tuple(KERNELS), run)
+            with no_plain_on_card():
+                _, cap25 = capture(tuple(KERNELS), run)
             counts = {t: kernel_count(t) for t in KERNELS}
             block_len = app.pump_block_len
         finally:
@@ -3741,6 +3960,13 @@ def drive_rds(dev, card: str, report: dict) -> None:
                                     "served app with RDS",
                                     timed=False)["max_abs_err"]
             report[t]["max_abs_err"] = max(report[t]["max_abs_err"], err)
+        # K15 at the served RDS block's DC blocker: 480 000 samples
+        k15 = cap25["K15"][-1]
+        err = check_app_kernel("K15", k15, card, k15_what(k15) + ", the "
+                               "served RDS block", min_db=100.0)
+        report["K15"]["max_abs_err"] = max(report["K15"]["max_abs_err"],
+                                           err["max_abs_err"])
+        k15_unfused(k15, card)
         print(f"phase 25: served app on {dev} ({block_len}-sample blocks, "
               f"the RDS granularity; fft {FFT}, DC blocker on), two WFM "
               f"radios with RDS, {nb} blocks: launches "
@@ -4031,8 +4257,9 @@ def net_client_app(dev, card: str, report: dict, tmp: str,
             try:
                 if mode == "none":
                     reset_counts()
-                    runs[mode], cap26 = capture(tuple(KERNELS), lambda: (
-                        run_net_app(app, NET_BLOCKS, sync)))
+                    with no_plain_on_card():
+                        runs[mode], cap26 = capture(tuple(KERNELS), lambda: (
+                            run_net_app(app, NET_BLOCKS, sync)))
                     counts = {t: kernel_count(t) for t in KERNELS}
                 else:
                     runs[mode] = run_net_app(app, NET_BLOCKS, sync)
@@ -4454,34 +4681,46 @@ def k5_input_ops(bank, params, x) -> dict:
 
 
 class no_plain_on_card:
-    """Within: K5's, K6's, K8's, K9's and K12's plain versions raise when
-    given a CUDA tensor (a wrapper that fell back to one on the card)."""
+    """Within: the plain versions of K5, K6, K8, K9, K12, K14 and K15, and
+    LogMMSE's plain history (``LogMMSE._push_history``), fail the run when
+    given a CUDA tensor (a wrapper, or ``LogMMSE.prime``, that fell back to
+    one on the card).  A call in another thread (the app's pump) is
+    recorded and fails the run at the end of the block."""
 
     SITES = (("channelizer_kernel", "pfb_bins_ref"),
              ("chan_frontend", "chan_post_ref"),
              ("fir_kernel", "fir_rows_ref"), ("fir_kernel", "fir_cplx_ref"),
-             ("agc", "agc_rows_ref"))
+             ("agc", "agc_rows_ref"),
+             ("recurrence", "linear_recurrence_ref"),
+             ("logmmse", "logmmse_frames_ref"),
+             ("logmmse", "LogMMSE._push_history"))
 
     def __enter__(self):
         import importlib
         import torch
-        self.saved = []
+        self.saved, self.hits = [], []
         for mod_name, name in self.SITES:
-            mod = importlib.import_module("sdrplusplusbrown_tpu_torch.ops."
-                                          + mod_name)
-            orig = getattr(mod, name)
+            owner = importlib.import_module("sdrplusplusbrown_tpu_torch.ops."
+                                            + mod_name)
+            *path, attr = name.split(".")
+            for part in path:
+                owner = getattr(owner, part)
+            orig = getattr(owner, attr)
 
             def guard(*a, _orig=orig, _name=name):
                 if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    self.hits.append(_name)
                     fail(f"{_name} ran on the card")
                 return _orig(*a)
-            self.saved.append((mod, name, orig))
-            setattr(mod, name, guard)
+            self.saved.append((owner, attr, orig))
+            setattr(owner, attr, guard)
         return self
 
     def __exit__(self, *exc):
-        for mod, name, orig in self.saved:
-            setattr(mod, name, orig)
+        for owner, attr, orig in self.saved:
+            setattr(owner, attr, orig)
+        if self.hits and exc[0] is None:
+            fail(f"plain versions ran on the card: {sorted(set(self.hits))}")
         return False
 
 

@@ -77,7 +77,8 @@ SIGNATURES = {
     "sdr_logmmse_frames": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P,
                            _P],
-    "sdr_linear_recurrence": [_P, _F, _P, _P, _I, _I, _I, _P],
+    "sdr_linear_recurrence": [_P, _F, _F, _P, _F, _P, _P, _I, _I, _I, _I,
+                              _P, _P],
     "sdr_mm_rows": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                     _F, _P, _P, _P, _P, _P, _P],
 }

@@ -13,9 +13,13 @@ bookkeeping (the history ring and the ξ recursion) is kernel K14
 and on the host its plain version, a Python loop of torch ops over the
 block's few frames.  Nothing in ``apply`` reads a value back to the host:
 the frame counters are 0-d tensors, the ring slot is read and written by
-a tensor index, and the ``hold`` param selects with ``torch.where``.  The
-rings are copied once per ``apply`` (the caller's state stays as it was)
-and written one slot a frame in place.
+a tensor index, and the ``hold`` param selects with ``torch.where``.  On
+the card K14 writes a block's F slots into the rings in place and hands
+them over to the state it returns (``hand_over``, the counterpart of a
+donated buffer in JAX): the state it was given loses its rings, and a
+second use of it raises (``check_rings``).  On the host the plain
+version copies the rings once per ``apply``, and the caller's state
+stays as it was.
 
 ``AFNRLogMMSE``'s 5-sample moving average is kernel K8 (``fir_rows``),
 as the JAX package's runs its real-tap Pallas FIR; the rest is torch ops
@@ -154,6 +158,33 @@ def bg_noise_update(dev_square, last_noise, frame_count):
                             0.9 * last_noise + 0.1 * maxf)
     last_noise = torch.where(do_update, new_noise, last_noise)
     return last_noise, frame_count + 1
+
+
+RINGS = ("hist", "dev_hist")
+HANDED_OVER = ("this LogMMSE state's rings were handed over to the state "
+               "K14 returned (ops/logmmse.py:hand_over; K14 writes them in "
+               "place): continue from that state")
+
+
+def hand_over(st: dict) -> dict:
+    """The rings of ``st`` for the state K14 returns: new tensors on the
+    same storage, while ``st``'s own ring tensors are emptied and marked,
+    so that ``st`` (or any state holding them) used again raises in
+    ``check_rings`` and cannot read rings a later block has written."""
+    out = {}
+    for k in RINGS:
+        t = st[k]
+        out[k] = t.new_empty(0).set_(t)
+        t.set_()
+        t.handed_over = True
+    return out
+
+
+def check_rings(st: dict) -> None:
+    """Raise if ``st``'s rings were handed over to a later state."""
+    for k in RINGS:
+        if getattr(st[k], "handed_over", False):
+            raise RuntimeError(f"LogMMSE: {HANDED_OVER}")
 
 
 class LogMMSE(Block):
@@ -345,6 +376,7 @@ class LogMMSE(Block):
 
     # ------------------------------------------------------------------
     def apply(self, params, state, x):
+        check_rings(state)
         if x.shape[-1] % self.len2:
             raise ValueError(
                 f"LogMMSE: block length {x.shape[-1]} must be a multiple "
@@ -374,13 +406,20 @@ class LogMMSE(Block):
     def prime(self, state, x0):
         """Initial noise sampling (reference logmmse_sample,
         logmmse.h:286-339): NOISE_FRAMES non-overlapping Slen frames of
-        ``x0`` seed noise_mu2 and the history."""
+        ``x0`` seed noise_mu2 and the history (through
+        ``logmmse_frames``: on the card K14, one launch); Xk_prev and
+        has_prev stay as they were."""
         need = self.NOISE_FRAMES * self.Slen
         assert x0.shape[-1] >= need, (x0.shape, need)
         frames = x0[..., :need].to(torch.complex64).reshape(
             x0.shape[:-1] + (self.NOISE_FRAMES, self.Slen))
         _, sig = self._spectra(frames)
-        st = self._push_history(dict(state), sig, None)
+        # the history half of K14 (its gains unread): the plain
+        # _push_history's ring, sums and counters bit for bit
+        pushed, _ = logmmse_frames(self, dict(state), sig, None)
+        st = dict(state)
+        st.update({k: pushed[k] for k in
+                   RINGS + ("sums", "devs", "count", "pos")})
         noise_mean = sig.mean(-2)
         if not self.audio:
             noise_mean = moving_average(noise_mean, 120, self)
@@ -399,8 +438,11 @@ def logmmse_frames_ref(core: LogMMSE, st: dict, sig: torch.Tensor, hold):
 
 @_build.counted
 def logmmse_frames_kernel(core: LogMMSE, st: dict, sig: torch.Tensor, hold):
-    """K14 on the card (csrc/logmmse.cu), one launch; same contract as
-    ``logmmse_frames_ref``."""
+    """K14 on the card (csrc/logmmse.cu), one launch; the contract of
+    ``logmmse_frames_ref``, but the rings are not copied: K14 writes the
+    block's F slots in place, the returned state holds the rings, and
+    ``st``'s are handed over (``hand_over``): ``st`` used again raises."""
+    check_rings(st)
     dev = sig.device
     batch = tuple(sig.shape[:-2])
     F, N = sig.shape[-2:]
@@ -408,7 +450,6 @@ def logmmse_frames_kernel(core: LogMMSE, st: dict, sig: torch.Tensor, hold):
     if N != core.nFFT:
         raise ValueError(f"K14: {N} bins, expected nFFT={core.nFFT}")
     f32, bvec = torch.float32, batch + (N,)
-    hist, dev_hist = st["hist"].clone(), st["dev_hist"].clone()
     hw = torch.empty(batch + (F, N), dtype=f32, device=dev)
     out = {k: torch.empty_like(st[k]) for k in
            ("Xk_prev", "sums", "devs", "count", "pos", "has_prev")}
@@ -421,8 +462,9 @@ def logmmse_frames_kernel(core: LogMMSE, st: dict, sig: torch.Tensor, hold):
         _build.check(st["noise_mu2"], "K14 noise_mu2", f32, bvec, dev),
         _build.check(st["Xk_prev"], "K14 Xk_prev", f32, bvec, dev),
         _build.check(st["has_prev"], "K14 has_prev", torch.bool, batch, dev),
-        _build.check(hist, "K14 hist", f32, batch + (H, N), dev),
-        _build.check(dev_hist, "K14 dev_hist", f32, batch + (H, N), dev),
+        _build.check(st["hist"], "K14 hist", f32, batch + (H, N), dev),
+        _build.check(st["dev_hist"], "K14 dev_hist", f32, batch + (H, N),
+                     dev),
         _build.check(st["sums"], "K14 sums", f32, bvec, dev),
         _build.check(st["devs"], "K14 devs", f32, bvec, dev),
         _build.check(st["count"], "K14 count", torch.int32, (), dev),
@@ -432,9 +474,9 @@ def logmmse_frames_kernel(core: LogMMSE, st: dict, sig: torch.Tensor, hold):
         out["Xk_prev"].data_ptr(), out["sums"].data_ptr(),
         out["devs"].data_ptr(), out["count"].data_ptr(),
         out["pos"].data_ptr(), out["has_prev"].data_ptr())
-    st = dict(st)
-    st.update(out, hist=hist, dev_hist=dev_hist)
-    return st, hw
+    new = dict(st)
+    new.update(out, **hand_over(st))
+    return new, hw
 
 
 def logmmse_frames(core: LogMMSE, st: dict, sig: torch.Tensor, hold):

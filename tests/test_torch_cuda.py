@@ -1874,7 +1874,9 @@ def test_logmmse_frames_kernel_matches_plain(gpu, fs, wideband, batch,
     """K14 against its plain version on the card at the served IF NR's
     2.4 MS/s (nFFT 96 000, H 200) and the AF NR's 24 kS/s at batch 2: the
     rings, sums, counters and has_prev bit-identical, the gains and X
-    >= 120 dB; the caller's state untouched."""
+    >= 120 dB.  The plain version runs first: it copies the rings, while
+    the kernel writes its slots in place and hands the rings over (the
+    given state's are emptied and marked)."""
     from sdrplusplusbrown_tpu_torch.ops import logmmse as plm
     from torch_parity import logmmse_frames_inputs
     core = plm.LogMMSE(fs, wideband=wideband)
@@ -1883,11 +1885,15 @@ def test_logmmse_frames_kernel_matches_plain(gpu, fs, wideband, batch,
     sig = sig.to(gpu)
     h = None if hold is None else torch.tensor(hold, device=gpu)
     before = {k: v.clone() for k, v in st.items()}
-    got_st, got_hw = plm.logmmse_frames_kernel(core, st, sig, h)
     want_st, want_hw = plm.logmmse_frames_ref(core, st, sig, h)
-    torch.cuda.synchronize()
-    for k, v in st.items():
+    for k, v in st.items():      # the plain version copies
         assert torch.equal(v, before[k]), k
+    ptr = st["hist"].data_ptr()
+    got_st, got_hw = plm.logmmse_frames_kernel(core, st, sig, h)
+    torch.cuda.synchronize()
+    assert got_st["hist"].data_ptr() == ptr            # written in place
+    for k in plm.RINGS:
+        assert st[k].numel() == 0 and st[k].handed_over, k
     for k in ("hist", "dev_hist", "sums", "devs", "count", "pos",
               "has_prev"):
         assert torch.equal(got_st[k], want_st[k]), k
@@ -1911,15 +1917,97 @@ def test_logmmse_frames_dispatch_launches_once_a_block(gpu):
     assert plm.logmmse_frames_kernel.launches - n0 == 3
 
 
-@pytest.mark.parametrize("case", range(4))
+def _no_plain_k14(monkeypatch):
+    """K14's plain halves raise when they run (on the card's path)."""
+    from sdrplusplusbrown_tpu_torch.ops import logmmse as plm
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version of K14 ran on the card")
+    monkeypatch.setattr(plm, "logmmse_frames_ref", refuse)
+    monkeypatch.setattr(plm.LogMMSE, "_push_history", refuse)
+
+
+@pytest.mark.parametrize("wideband", [True, False])
+def test_logmmse_prime_launches_k14_once(gpu, monkeypatch, wideband):
+    """``LogMMSE.prime`` on CUDA tensors is one K14 launch and no plain
+    version; its history is the plain ``_push_history``'s on the same
+    card's spectra bit for bit, its Xk_prev and has_prev the given
+    state's."""
+    from sdrplusplusbrown_tpu_torch.ops import logmmse as plm
+    core = plm.LogMMSE(2.4e6 if wideband else 24_000.0, wideband=wideband)
+    batch = () if wideband else (2,)
+    rng = np.random.default_rng(4)
+    n = core.NOISE_FRAMES * core.Slen
+    x0 = torch.from_numpy((rng.standard_normal(batch + (n,)) + 1j
+                           * rng.standard_normal(batch + (n,)))
+                          .astype(np.complex64)).to(gpu)
+    st = _to(core.init_state(batch), gpu)
+    st["Xk_prev"] += 0.5
+    _, sig = core._spectra(x0.reshape(batch + (core.NOISE_FRAMES,
+                                               core.Slen)))
+    want = core._push_history(dict(st), sig, None)
+    before = {k: st[k].clone() for k in ("Xk_prev", "has_prev")}
+    _no_plain_k14(monkeypatch)
+    n0 = plm.logmmse_frames_kernel.launches
+    got = core.prime(st, x0)
+    torch.cuda.synchronize()
+    assert plm.logmmse_frames_kernel.launches - n0 == 1
+    for k in ("hist", "dev_hist", "sums", "devs", "count", "pos"):
+        assert torch.equal(got[k], want[k]), k
+    for k, v in before.items():
+        assert torch.equal(got[k], v), k
+
+
+def test_logmmse_handed_over_state_raises(gpu, monkeypatch):
+    """A LogMMSE state whose rings K14 took cannot be used again: the IF
+    NR's ``apply`` on it raises, naming the hand-over, and the state it
+    returned goes on to give the plain chain's result (three blocks
+    against the plain version's three on the same inputs)."""
+    from sdrplusplusbrown_tpu_torch.ops import logmmse as plm
+    nr = plm.IFNRLogMMSE(96_000.0)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy((rng.standard_normal(60_000) + 1j
+                          * rng.standard_normal(60_000))
+                         .astype(np.complex64)).to(gpu)
+    st0 = nr.prime(_to(nr.init_state(()), gpu), x[:12 * nr.core.Slen])
+    blk = [x[i * 4 * nr.core.len2:(i + 1) * 4 * nr.core.len2]
+           for i in range(3)]
+    plain = {k: v.clone() for k, v in st0.items()}
+    outs = []
+    with monkeypatch.context() as m:   # the plain chain: rings copied
+        m.setattr(plm, "logmmse_frames", plm.logmmse_frames_ref)
+        for b in blk:
+            y, plain = nr.apply(None, plain, b)
+            outs.append(y)
+    st = st0
+    for i, b in enumerate(blk):
+        y, st_next = nr.apply(None, st, b)
+        with pytest.raises(RuntimeError, match="handed over"):
+            nr.apply(None, st, b)
+        _close(outs[i], y, 100.0, f"block {i}")
+        st = st_next
+    for k in ("hist", "dev_hist", "sums", "devs", "count", "pos"):
+        assert torch.equal(st[k], plain[k]), k
+
+
+@pytest.mark.parametrize("case", range(5))
 def test_linear_recurrence_kernel_matches_plain(gpu, case):
     """K15 against its plain version (the doubling scan) on the card at
-    the paths' poles and rows (tests/torch_parity.py:recurrence_cases):
-    >= 80 dB, and at least as close as the plain version to the float64
-    recurrence."""
+    the paths' poles and rows (tests/torch_parity.py:recurrence_cases)
+    and at the served RDS block's 480 000 samples: >= 100 dB at the DC
+    blocker, 130 dB at the noise blanker, 80 dB elsewhere, and at least
+    as close as the plain version to the float64 recurrence."""
     from sdrplusplusbrown_tpu_torch.ops import recurrence as prec
     from torch_parity import recurrence_cases, recurrence_chunks_model
-    name, a, b, y0 = list(recurrence_cases())[case]
+    cases = list(recurrence_cases())
+    rng = np.random.default_rng(8)
+    T = 480_000
+    x = ((rng.standard_normal(T) + 1j * rng.standard_normal(T) + 0.1)
+         * 0.3).astype(np.complex64)[None]
+    r = np.float32(50.0 / 2.4e6)
+    cases.append(("served RDS block", float(np.float32(1) - r), x * r,
+                  np.array([0.03 - 0.01j], np.complex64)))
+    name, a, b, y0 = cases[case]
     ta = torch.from_numpy(a).to(gpu) if isinstance(a, np.ndarray) else a
     tb, ty0 = torch.from_numpy(b).to(gpu), torch.from_numpy(y0).to(gpu)
     got = prec.linear_recurrence_kernel(ta, tb, ty0)
@@ -1930,8 +2018,40 @@ def test_linear_recurrence_kernel_matches_plain(gpu, case):
         np.asarray(a, np.float32).astype(np.float64), b.astype(wide),
         y0.astype(wide))
     got, want = got.cpu().numpy(), want.cpu().numpy()
-    assert snr_db(want, got) >= 80.0, name
+    bar = {"front end DC": 100.0, "noise blanker": 130.0,
+           "served RDS block": 100.0}.get(name, 80.0)
+    assert snr_db(want, got) >= bar, name
     assert snr_db(truth, got) >= snr_db(truth, want) - 0.5, name
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_linear_recurrence_fused_forms_match_the_unfused_route(gpu, case):
+    """K15's "dc" and "nb" forms on the card against the unfused route:
+    K15's "scan" form, then the blocks' torch ops (``dc_route``,
+    ``nb_route``) on the same card, bit-identical (out and state); and
+    against the plain version (the doubling scan, the same ops) >= 100 dB
+    (DC) and 130 dB (NB)."""
+    from sdrplusplusbrown_tpu_torch.ops import recurrence as prec
+    from torch_parity import recurrence_fused_cases
+    name, form, pole, gain, level, x, y0 = list(
+        recurrence_fused_cases())[case]
+    tx, ty0 = torch.from_numpy(x).to(gpu), torch.from_numpy(y0).to(gpu)
+    lvl = torch.tensor(level, device=gpu) if level == 4.0 else level
+    extra = (gain,) if form == "dc" else (gain, lvl)
+    route = prec.dc_route if form == "dc" else prec.nb_route
+    n0 = prec.linear_recurrence_kernel.launches
+    got = prec.linear_recurrence_kernel(pole, tx, ty0, form, *extra)
+    assert prec.linear_recurrence_kernel.launches - n0 == 1
+    unfused = route(prec.linear_recurrence_kernel, pole, tx, ty0, *extra)
+    plain = prec.linear_recurrence_ref(pole, tx, ty0, form, *extra)
+    torch.cuda.synchronize()
+    for g, u in zip(got, unfused):
+        assert g.shape == u.shape and g.dtype == u.dtype, name
+        assert torch.equal(g, u), (name, snr_db(u.cpu().numpy(),
+                                                g.cpu().numpy()))
+    bar = 100.0 if form == "dc" else 130.0
+    for g, p in zip(got, plain):
+        _close(p, g, bar, f"{name} against the plain version")
 
 
 def test_recurrence_kernels_raise_instead_of_falling_back(gpu):
@@ -1947,6 +2067,12 @@ def test_recurrence_kernels_raise_instead_of_falling_back(gpu):
                                       b, torch.zeros(2, device=gpu))
     with pytest.raises(ValueError):
         prec.linear_recurrence_kernel(0.5, b, torch.zeros(2))
+    with pytest.raises(ValueError):
+        prec.linear_recurrence_kernel(0.5, b, torch.zeros(2, device=gpu),
+                                      "fused")
+    with pytest.raises(ValueError):          # a fused form's pole is scalar
+        prec.linear_recurrence_kernel(torch.ones(2, 64, device=gpu), b,
+                                      torch.zeros(2, device=gpu), "dc")
     core = plm.LogMMSE(96_000.0, wideband=True)
     st = _to(core.init_state(()), gpu)
     sig = torch.ones(2, core.nFFT, device=gpu)

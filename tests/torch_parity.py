@@ -562,8 +562,6 @@ def wait_for(pred, what: str, timeout: float = 10.0):
 
 
 # ---- K14 and K15 (the served block's host-bound recurrences) --------------
-RECURRENCE_WARPS = 32         # csrc/recurrence.cu: segments (warps) a row
-RECURRENCE_K = 4              # csrc/recurrence.cu: contiguous samples a lane
 
 
 def logmmse_frames_inputs(core, batch, frames, count, seed):
@@ -595,6 +593,25 @@ def logmmse_frames_inputs(core, batch, frames, count, seed):
     return st, torch.from_numpy(mag(*batch, frames, N) * 2.0)
 
 
+def _fma(a, y, b):
+    """a·y + b rounded once to float32 (csrc/recurrence.cu's __fmaf_rn;
+    the exact product in float64, then the sum: a double rounding that
+    differs from the card's in a last bit at rare ties), each part of a
+    complex y, b; exact in float64 inputs."""
+    y, b = np.asarray(y), np.asarray(b)
+    dt = np.result_type(y.dtype, b.dtype)
+    if dt in (np.float64, np.complex128):
+        return a * y + b
+    if np.iscomplexobj(y) or np.iscomplexobj(b):
+        out = np.empty(np.broadcast_shapes(np.shape(a), y.shape, b.shape),
+                       dt)
+        out.real = _fma(a, y.real, b.real)
+        out.imag = _fma(a, y.imag, b.imag)
+        return out
+    return (np.float64(1) * a * y.astype(np.float64)
+            + b.astype(np.float64)).astype(np.float32)
+
+
 def _warp_scan(A, B):
     """csrc/recurrence.cu:warp_scan on maps [..., 32] (lanes last)."""
     d = 1
@@ -602,60 +619,142 @@ def _warp_scan(A, B):
         Ap = np.concatenate([A[..., :d], A[..., :-d]], axis=-1)
         Bp = np.concatenate([B[..., :d], B[..., :-d]], axis=-1)
         lanes = np.arange(32) >= d
-        A, B = np.where(lanes, Ap * A, A), np.where(lanes, A * Bp + B, B)
+        A, B = np.where(lanes, Ap * A, A), np.where(lanes, _fma(A, Bp, B), B)
         d *= 2
     return A, B
 
 
-def recurrence_chunks_model(a, b, y0):
-    """K15's arithmetic (csrc/recurrence.cu) in numpy on rows [R, T]:
-    RECURRENCE_WARPS segments of whole batches of 32 lanes ×
-    RECURRENCE_K samples, each batch's lane maps scanned and folded into
-    its segment's, the segments' maps scanned, each segment walked batch
-    by batch from its start (every segment side by side; the identity,
-    a = 1 and b = 0, past a segment's end)."""
-    R, T = b.shape
+#: samples a lane, warps a block and the largest cluster of K15
+#: (csrc/recurrence.cu: K, WARPS, CLUSTER_MAX)
+RECURRENCE_K, RECURRENCE_WARPS, RECURRENCE_CLUSTER = 4, 32, 16
+
+
+def recurrence_cluster_size(T: int, cmax: int = RECURRENCE_CLUSTER) -> int:
+    """Blocks (one cluster) K15 gives a row of T samples
+    (csrc/recurrence.cu:cluster_size): as many as give each warp a batch
+    of 32 lanes × RECURRENCE_K samples, at most ``cmax`` (16 on an H100,
+    where a GPC holds 16 of its blocks)."""
+    batches = -(-T // (32 * RECURRENCE_K))
+    return max(1, min(cmax, -(-batches // RECURRENCE_WARPS)))
+
+
+def recurrence_segments(T, cluster):
+    """K15's partition of a row of T samples (csrc/recurrence.cu): the
+    sample index of [block, warp, batch, lane, k], −1 past a warp's
+    segment.  A cluster of ``cluster`` blocks takes runs of whole batches
+    of 32 lanes × RECURRENCE_K samples, a block's run cut into
+    RECURRENCE_WARPS segments."""
     W, K = RECURRENCE_WARPS, RECURRENCE_K
     batch = 32 * K
-    per = -(-(-(-T // batch)) // W)
-    L = per * batch
-    pad = W * L - T
+    nb = -(-T // batch)
+    per_block = -(-nb // cluster)
+    per_warp = -(-per_block // W)
+    b0 = np.minimum(np.arange(cluster) * per_block, nb)[:, None]
+    b1 = np.minimum(b0 + per_block, nb)
+    sb = np.minimum(b0 + np.arange(W) * per_warp, b1)          # [C, W]
+    se = np.minimum(sb + per_warp, b1)
+    bt = sb[..., None] + np.arange(per_warp)                   # [C, W, j]
+    i = (bt[..., None, None] * batch + np.arange(32)[:, None] * K
+         + np.arange(K))
+    ok = (bt < se[..., None])[..., None, None] & (i < T)
+    return np.where(ok, i, -1)
+
+
+def recurrence_chunks_model(a, b, y0, cluster=None):
+    """K15's arithmetic (csrc/recurrence.cu) in numpy on rows [R, T]: a
+    cluster of ``cluster`` blocks a row (default
+    ``recurrence_cluster_size(T)``), each block's run of batches cut into
+    RECURRENCE_WARPS segments (``recurrence_segments``), each batch's
+    lane maps composed sample by sample and scanned, folded into its
+    segment's; a block's segment maps scanned; each block's start the
+    blocks before it applied to y0 in order, each segment's the prefix
+    of the segments before it applied to that; each segment walked batch
+    by batch from its start; at a segment's last sample short of the
+    row's end the next segment's start is written (after a block's last
+    segment the next block's).  Every a·y + b is one rounding
+    (``_fma``); the identity, a = 1 and b = 0, past a segment's end."""
+    R, T = b.shape
+    C = recurrence_cluster_size(T) if cluster is None else cluster
+    idx = recurrence_segments(T, C)          # [C, W, per, 32, K]
+    per = idx.shape[2]
     wide = b.dtype in (np.float64, np.complex128)
     a = np.broadcast_to(np.asarray(a, np.float64 if wide else np.float32),
                         b.shape)
     one, zero = a.dtype.type(1), b.dtype.type(0)
-    # [R, W, per, 32, K]: segment, batch, lane, sample
-    av = np.pad(a, ((0, 0), (0, pad)), constant_values=one).reshape(
-        R, W, per, 32, K)
-    bv = np.pad(b, ((0, 0), (0, pad))).reshape(R, W, per, 32, K)
+    ok = idx >= 0
+    av = np.where(ok, a[:, np.maximum(idx, 0)], one)   # [R, C, W, per, 32, K]
+    bv = np.where(ok, b[:, np.maximum(idx, 0)], zero)
 
     def lane_maps(j):
-        A = np.full((R, W, 32), one, a.dtype)
-        B = np.full((R, W, 32), zero, b.dtype)
-        for k in range(K):
-            A, B = A * av[:, :, j, :, k], av[:, :, j, :, k] * B + \
-                bv[:, :, j, :, k]
+        A = np.full(av.shape[:3] + (32,), one, a.dtype)
+        B = np.full(av.shape[:3] + (32,), zero, b.dtype)
+        for k in range(RECURRENCE_K):
+            A, B = A * av[..., j, :, k], _fma(av[..., j, :, k], B,
+                                             bv[..., j, :, k])
         return _warp_scan(A, B)
 
-    As = np.full((R, W), one, a.dtype)
-    Bs = np.full((R, W), zero, b.dtype)
+    As = np.full(av.shape[:3], one, a.dtype)        # [R, C, W]
+    Bs = np.full(av.shape[:3], zero, b.dtype)
     for j in range(per):
         A, B = lane_maps(j)
-        At, Bt = A[..., 31], B[..., 31]
-        As, Bs = As * At, At * Bs + Bt
-    Aw, Bw = _warp_scan(As, Bs)
-    y0 = np.asarray(y0, b.dtype)[:, None]
-    carry = np.concatenate([y0, Aw[:, :-1] * y0 + Bw[:, :-1]], axis=1)
-    y = np.empty((R, W, per, 32, K), b.dtype)
+        As, Bs = As * A[..., 31], _fma(A[..., 31], Bs, B[..., 31])
+    Aw, Bw = _warp_scan(As, Bs)                     # warps' prefix maps
+    y = np.asarray(y0, b.dtype).copy()
+    start = np.empty((R, C), b.dtype)
+    for c in range(C):                              # the blocks in order
+        start[:, c] = y
+        y = _fma(Aw[:, c, 31], y, Bw[:, c, 31])
+    carry = np.concatenate([start[..., None], _fma(
+        Aw[..., :-1], start[..., None], Bw[..., :-1])], axis=-1)
+    # the next segment's start, written at a segment's last sample short
+    # of the row's end: the next warp's, or after the block's last
+    # segment the next block's
+    nxt = np.concatenate([carry[..., 1:], np.concatenate(
+        [start[:, 1:], y[:, None]], axis=1)[..., None]], axis=-1)
+    out = np.zeros((R, T), b.dtype)
     for j in range(per):
         A, B = lane_maps(j)
-        yv = np.concatenate([carry[..., None], A[..., :-1] * carry[..., None]
-                             + B[..., :-1]], axis=-1)
-        for k in range(K):
-            yv = av[:, :, j, :, k] * yv + bv[:, :, j, :, k]
-            y[:, :, j, :, k] = yv
+        yv = np.concatenate([carry[..., None], _fma(
+            A[..., :-1], carry[..., None], B[..., :-1])], axis=-1)
+        for k in range(RECURRENCE_K):
+            yv = _fma(av[..., j, :, k], yv, bv[..., j, :, k])
+            i = idx[:, :, j, :, k]
+            out[:, i[i >= 0]] = yv[:, i >= 0]
         carry = yv[..., 31]
-    return y.reshape(R, -1)[:, :T]
+    seg_end = idx.reshape(C, RECURRENCE_WARPS, -1).max(-1) + 1   # 0: empty
+    run_end = seg_end.max(-1)
+    for c in range(C):
+        for w in range(RECURRENCE_WARPS):
+            s1 = seg_end[c, w]
+            if 0 < s1 < T:
+                out[:, s1 - 1] = (nxt[:, c, RECURRENCE_WARPS - 1]
+                                  if s1 == run_end[c] else nxt[:, c, w])
+    return out
+
+
+def dc_blocker_model(pole, gain, x, y0):
+    """K15's "dc" form in numpy: b = gain·x, the recurrence as
+    ``recurrence_chunks_model``, out[n] = x[n] − o[n−1] → (out, o[:, −1])."""
+    o = recurrence_chunks_model(pole, x * np.float32(gain), y0)
+    prev = np.concatenate([np.asarray(y0, x.dtype)[:, None], o[:, :-1]],
+                          axis=1)
+    return x - prev, o[:, -1]
+
+
+def noise_blanker_model(pole, gain, level, x, y0):
+    """K15's "nb" form in numpy: m = |x|, the envelope's recurrence (held
+    over m = 0) as ``recurrence_chunks_model``, e = m / amp, the gain 1/e
+    where e > level → (x · gain, amp[:, −1])."""
+    f = np.float32
+    m = np.abs(x).astype(f)
+    nz = m != 0
+    a = np.where(nz, f(pole), f(1)).astype(f)
+    b = np.where(nz, m * f(gain), f(0)).astype(f)
+    amp = recurrence_chunks_model(a, b, np.asarray(y0, f))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        e = np.where(nz, m / amp, f(1)).astype(f)
+        g = np.where(e > f(level), f(1) / e, f(1)).astype(f)
+    return (x * g).astype(x.dtype), amp[:, -1]
 
 
 def recurrence_cases():
@@ -680,3 +779,31 @@ def recurrence_cases():
            (m * ra).astype(np.complex64), np.zeros(4, np.complex64))
     yield ("short row", 0.5, rng.standard_normal((3, 100)).astype(np.float32),
            np.ones(3, np.float32))
+
+
+def recurrence_fused_cases():
+    """(name, form, pole, gain, level, x, y0) at the fused forms' paths:
+    the front end's DC blocker (50/SR, one 120 000-sample complex row),
+    the AM demod's (100/IF, 4 float32 envelope rows), the noise blanker
+    (500/24000, level 10) on a complex row with impulses (blanked) and
+    zero samples (held), and on 2 rows with a level tensor."""
+    rng = np.random.default_rng(7)
+    f = np.float32
+    T = 120_000
+    x = ((rng.standard_normal(T) + 1j * rng.standard_normal(T) + 0.1
+          + 0.1j) * 0.3).astype(np.complex64)[None]
+    r = f(50.0 / 2.4e6)
+    yield ("front end DC", "dc", float(f(1) - r), float(r), 0.0, x,
+           np.array([0.05 + 0.02j], np.complex64))
+    m = rng.standard_normal((4, 2_400)).astype(f) + 0.5
+    ra = f(100.0 / 24_000.0)
+    yield ("AM DC rows", "dc", float(f(1) - ra), float(ra), 0.0, m,
+           rng.standard_normal(4).astype(f))
+    xi = x.copy()
+    xi[0, ::1000] *= 60.0
+    xi[0, 5::977] = 0.0
+    rb = f(500.0 / 24_000.0)
+    yield ("noise blanker", "nb", float(f(1) - rb), float(rb), 10.0, xi,
+           np.ones(1, f))
+    yield ("noise blanker, level 4, 2 rows", "nb", float(f(1) - rb),
+           float(rb), 4.0, xi.reshape(2, -1), np.array([1.0, 0.3], f))
