@@ -307,10 +307,37 @@ Phases, each fatal on failure:
      sink (UDP int16) and the MPEG sink (TCP) to local listeners, each
      tone within 1 dB of the recording's (the MPEG stream byte for byte
      the host's Layer I encoding); (e) no thread or socket left.
+ 29. the digital decoders (``drive_decoders``): (a) K16 (the Viterbi) at
+     M17's LSF and stream lengths, KG-SSTV's frame and nine RyFi frames,
+     on hard and on soft input, and K13f at 20 000 samples, each against
+     its plain version (bit-identical), timed beside its chain floor as
+     in 24; the digital
+     demods' blocks (``FDClockRecovery``, ``FourFSKDemod``,
+     ``Pi4DQPSKDemod``) on the card with the counts zeroed; (b) the
+     served app in manual pump on a 0.8 s capture at 2.4 MS/s carrying an
+     M17 station, a KG-SSTV burst, a RyFi link at 240 kBd (``channel_sr``
+     720 kS/s), a Meteor QPSK carrier and a "broken" one at 72 k sym/s,
+     an ``m17_decoder``, ``kg_sstv_decoder``, ``ryfi_decoder`` and two
+     ``meteor_demodulator`` modules (one with ``broken: true``)
+     recording: the LSF's callsigns and all 14 stream payloads exact,
+     the KG-SSTV frames and RyFi packets exact with no bad frame, the
+     QPSK decisions after lock equal to the sent symbols up to rotation,
+     the broken carrier within a median 25° of its phases; the counts
+     zeroed before: K4f, K8, K12c, K13c, K13b, K13m and K16 launched and
+     held to their plans, every other kernel not; K13b timed on the
+     served block; the served calls that span K13m's 4 096-sample tiles
+     (a Meteor module's K12c, K13c and K13m at 15 000 samples, RyFi's
+     K13m at 72 000) and the last K16 call bit-identical to their plain
+     versions (K12c: 100 dB, its state exact); each module's launches,
+     and device µs a 0.1 s block; the Meteor recordings against the same
+     modules on the host CPU (every value within one step, 60 dB); (c)
+     RyFi at its default 720 kBd on 1.5 MS/s over 2 s of signal: every
+     packet exact, the wall seconds a second of signal split into the
+     card's (device µs by kernel) and the host's (deframer, RS).
 
-The main-path runs of phases 19 and 21-28 run inside ``no_plain_on_card``:
-a plain version of K5, K6, K8, K9, K12, K14 or K15, or LogMMSE's plain
-``_push_history``, given a CUDA tensor fails the run.
+The main-path runs of phases 19 and 21-29 run inside ``no_plain_on_card``:
+a plain version of K5, K6, K8, K9, K12, K13, K14, K15 or K16, or
+LogMMSE's plain ``_push_history``, given a CUDA tensor fails the run.
 Every ``launches`` count is of CUDA launches: each wrapper counts every
 launch it makes (``kernels/_build.py``).  Beside each CUDA-event time
 (which, for a kernel shorter than its wrapper's host work, is the
@@ -605,13 +632,27 @@ def work(tag: str, args) -> tuple:
         # the loop update (2 mul, 4 add, 2 clamps, 2 wraps) and, for
         # Costas, the rotate (4 mul, 2 add) and its detector (1-5)
         return 16 * R * T + 16 * R, (12 if tag == "K13p" else 20) * R * T
-    if tag == "K13m":   # x and its tail in, symbols and flags out
+    if tag == "K13b":   # K13c with the nearest-of-four-phases detector:
+        x = args[1]     # the rotate (6), the update (10), and a phase's
+        R, T = x.shape  # sub, add, fmod, fix-up, sub, |d|, compare (7 x 4)
+        return 16 * R * T + 16 * R, 45 * R * T      # and the product with |v|
+    if tag in ("K13m", "K13f"):   # x and its tail in, symbols and flags out
         mm, x = args[:2]
         R, T = x.shape
         n, w = mm.max_out(T), 2 if x.is_complex() else 1
         b = 4 * w * R * (T + 2 * (mm.K - 1)) + R * n * (4 * w + 1) \
             + 4 * mm.P * mm.K
+        if tag == "K13f":   # three interpolations (out, lo, hi) and the slope
+            return b, R * n * (6 * mm.K + 24)
         return b, R * n * (2 * w * mm.K + 20)
+    if tag == "K16":    # soft in; bits and final metrics out
+        soft, k = args[0], args[3]
+        R, N, S = soft.shape[0], soft.shape[1] // 2, 1 << (k - 1)
+        # a step: the rate-1/2 code's 4 distinct branch metrics (2 sub,
+        # 2 mul, 1 add each); a state and step: two adds, the compare, the
+        # tie's add and compare, the select
+        return (4 * soft.numel() + R * (N - k + 1) + 4 * R * S,
+                R * N * (4 * 5 + 6 * S))
     if tag == "K14":    # frames, state and F ring slots in; gains, state
         core, st, sig = args[:3]        # and the F slots out
         F = sig.shape[-2]
@@ -914,6 +955,7 @@ def main() -> int:
     drive_network(dev, card, report)
     drive_modes(dev, card, report)
     drive_trx(dev, card, report)
+    drive_decoders(dev, card, report)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1170,6 +1212,15 @@ KERNELS = {
     "K15": ("recurrence", "linear_recurrence",
             "sdrplusplusbrown_tpu_torch/csrc/recurrence.cu",
             "sdrplusplusbrown_tpu/ops/recurrence.py:22"),
+    "K16": ("fec", "viterbi_rows",
+            "sdrplusplusbrown_tpu_torch/csrc/viterbi.cu",
+            "sdrplusplusbrown_tpu/ops/fec.py:91"),
+    "K13b": ("costas", "costas_nearest_rows",
+             "sdrplusplusbrown_tpu_torch/csrc/loops.cu",
+             "sdrplusplusbrown_tpu/models/meteor.py:36"),
+    "K13f": ("clock_recovery", "fd_rows",
+             "sdrplusplusbrown_tpu_torch/csrc/loops.cu",
+             "sdrplusplusbrown_tpu/ops/clock_recovery.py:202"),
 }
 
 
@@ -3648,15 +3699,32 @@ def flat(tree) -> list:
     return [tree]
 
 
-def chain_clock_runs(kern, call, steps: int) -> tuple:
-    """LOOP_RUNS runs of ``kern`` on ``call`` with its chain clock: (cycles
-    a step, the SM clock in MHz during the chain) each run, from the
-    slowest row."""
+def loop_input(tag: str, call):
+    """The input rows of a sequential kernel's call (K16 takes its soft
+    bits first, the loops their block second)."""
+    return call[0] if tag == "K16" else call[1]
+
+
+def loop_steps(tag: str, call) -> int:
+    """The steps of a row's chain: trellis steps (K16), symbols (K13m,
+    K13f), else samples."""
+    x = loop_input(tag, call)
+    if tag == "K16":
+        return x.shape[1] // 2
+    if tag in ("K13m", "K13f"):
+        return call[0].max_out(x.shape[1])
+    return x.shape[1]
+
+
+def chain_clock_runs(kern, call, steps: int, x) -> tuple:
+    """LOOP_RUNS runs of ``kern`` on ``call`` (input rows ``x``) with its
+    chain clock: (cycles a step, the SM clock in MHz during the chain)
+    each run, from the slowest row."""
     import torch
-    R = call[1].shape[0]
+    R = x.shape[0]
     cpi, mhz = [], []
     for _ in range(LOOP_RUNS):
-        clk = torch.zeros(R, 2, dtype=torch.int64, device=call[1].device)
+        clk = torch.zeros(R, 2, dtype=torch.int64, device=x.device)
         kern(*call, clk)
         torch.cuda.synchronize()
         cycles, ns = clk.cpu().numpy().T
@@ -3666,9 +3734,23 @@ def chain_clock_runs(kern, call, steps: int) -> tuple:
     return np.array(cpi), np.array(mhz)
 
 
+def host_copy(tree):
+    """A kernel call's arguments with every tensor (in tuples, lists and
+    dicts) copied to the host CPU."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
+
+
 def check_loop_kernel(tag: str, call, card: str, what: str,
-                      timed: bool) -> dict:
-    """K13 or K12c against its plain version on ``call``: every returned
+                      timed: bool, plain_calls: int = 2,
+                      host: bool = False) -> dict:
+    """K13, K16 or K12c against its plain version on ``call``: every returned
     tensor bit-identical (K12c: the output within 100 dB, the state
     exact); with ``timed`` both timed with CUDA events (the kernel over
     LOOP_RUNS runs of 20 calls: median and range; the plain loop, a torch
@@ -3676,14 +3758,30 @@ def check_loop_kernel(tag: str, call, card: str, what: str,
     a launch over the launches the profiler saw, and its chain clocked
     on the kernel (``chain_clock_runs``)
     beside the chain floor: the steps at the fewest cycles a step of any
-    run, at the fastest SM clock (see LOOP_RUNS).  Raises on
+    run, at the fastest SM clock (see LOOP_RUNS).  ``plain_calls`` 0: the
+    plain loop's time is that of the comparison's call (a long loop of
+    torch launches).  ``host`` (untimed, K13m and K13f only): the plain
+    version runs on a host CPU copy of the call, where a step's dozens of
+    torch operations cost a third of what they cost as launches on the
+    card; its operations (adds, multiplies, compares, floors, gathers,
+    each rounded) give the same bits on either device.  Raises on
     disagreement."""
     import torch
     mod, name = kernel_fn(tag, "")
     kern = getattr(mod, name + "_kernel")
     ref = getattr(*kernel_fn(tag, "_ref"))
-    got, want = flat(kern(*call)), flat(ref(*call))
+    if host and (timed or tag not in ("K13m", "K13f")):
+        raise ValueError(f"{tag}: the host's plain version is untimed and "
+                         "K13m's or K13f's")
+    got = flat(kern(*call))
     torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    want = flat(ref(*(host_copy(call) if host else call)))
+    e1.record()
+    torch.cuda.synchronize()
+    if host:
+        got = [g.cpu() for g in got]
     err, same = 0.0, True
     for g, w in zip(got, want):
         d = g.to(w.dtype) if g.dtype != w.dtype else g
@@ -3701,14 +3799,15 @@ def check_loop_kernel(tag: str, call, card: str, what: str,
         ok, agree = same, ("bit-identical" if same else "NOT bit-identical")
     out = {"name": name, "route": "cuda", "source": KERNELS[tag][2],
            "replaces": KERNELS[tag][3], "max_abs_err": err}
-    steps = call[1].shape[1] if tag != "K13m" else \
-        call[0].max_out(call[1].shape[1])
-    shape = "x".join(str(d) for d in call[1].shape)
+    x = loop_input(tag, call)
+    steps = loop_steps(tag, call)
+    shape = "x".join(str(d) for d in x.shape)
     if timed:
         runs = np.array([event_ms(lambda: kern(*call))
                          for _ in range(LOOP_RUNS)])
         out["ms"] = float(np.median(runs))
-        out["plain_ms"] = event_ms(lambda: ref(*call), 2)
+        out["plain_ms"] = event_ms(lambda: ref(*call), plain_calls) \
+            if plain_calls else e0.elapsed_time(e1)
         out["bound_ms"], out["bound_by"] = bound(tag, call)
         out["library_ms"] = None
         # µs a launch over the launches the window saw: a launch the
@@ -3720,7 +3819,7 @@ def check_loop_kernel(tag: str, call, card: str, what: str,
         seen = sum(n for _, n in launches)
         us = (sum(t for t, _ in launches) / seen if seen
               else float("nan"))     # nan: the profiler saw none
-        cpi, mhz = chain_clock_runs(kern, call, steps)
+        cpi, mhz = chain_clock_runs(kern, call, steps, x)
         top = max(sm_clock_mhz(), float(mhz.max()))
         floor = steps * cpi.min() / top
         print(f"{tag} {name} ({what}, {shape}): kernel {out['ms']:.4f} ms "
@@ -3738,7 +3837,8 @@ def check_loop_kernel(tag: str, call, card: str, what: str,
               f"{us / floor:.2f}x the floor [{card}]")
     else:
         print(f"{tag} {name} ({what}, {shape}): max|err| {err:.3e}, "
-              f"{agree}")
+              f"{agree}" + (" (the plain version on the host CPU)"
+                            if host else ""))
     if not ok:
         fail(f"{tag} {what}: kernel disagrees with its plain version: "
              f"{agree} (max|err| {err:.3e})")
@@ -4681,19 +4781,24 @@ def k5_input_ops(bank, params, x) -> dict:
 
 
 class no_plain_on_card:
-    """Within: the plain versions of K5, K6, K8, K9, K12, K14 and K15, and
-    LogMMSE's plain history (``LogMMSE._push_history``), fail the run when
-    given a CUDA tensor (a wrapper, or ``LogMMSE.prime``, that fell back to
-    one on the card).  A call in another thread (the app's pump) is
-    recorded and fails the run at the end of the block."""
+    """Within: the plain versions of K5, K6, K8, K9, K12 (and K12c), K13
+    (its PLL, Costas — K13b's among them —, M&M and FD forms), K14, K15
+    and K16, and LogMMSE's plain history (``LogMMSE._push_history``), fail
+    the run when given a CUDA tensor (a wrapper, or ``LogMMSE.prime``,
+    that fell back to one on the card).  A call in another thread (the
+    app's pump) is recorded and fails the run at the end of the block."""
 
     SITES = (("channelizer_kernel", "pfb_bins_ref"),
              ("chan_frontend", "chan_post_ref"),
              ("fir_kernel", "fir_rows_ref"), ("fir_kernel", "fir_cplx_ref"),
              ("agc", "agc_rows_ref"),
+             ("pll", "pll_rows_ref"), ("costas", "costas_rows_ref"),
+             ("clock_recovery", "mm_rows_ref"),
+             ("clock_recovery", "fd_rows_ref"),
              ("recurrence", "linear_recurrence_ref"),
              ("logmmse", "logmmse_frames_ref"),
-             ("logmmse", "LogMMSE._push_history"))
+             ("logmmse", "LogMMSE._push_history"),
+             ("fec", "viterbi_rows_ref"))
 
     def __enter__(self):
         import importlib
@@ -5925,6 +6030,612 @@ def sinks_app(dev, card: str, tmp: str, cap: str) -> None:
             abs(lv["network"] - lv["recorder"]) > SINK_MARGIN_DB or \
             abs(lv["mpeg"] - lv["recorder via Layer I"]) > SINK_MARGIN_DB:
         fail("phase 28 (d): a sink's tone is not the recording's")
+
+
+
+# ---- phase 29: the digital decoders -----------------------------------------
+M17_DST, M17_SRC = "SP5WWP", "N0CALL"
+M17_FRAMES = 14               # stream frames after the preamble
+KG_PAYLOADS = (b"\x07" * 6, b"\xa5" * 6)
+RYFI_PACKETS = (b"hello ryfi over the air", bytes(range(256)) * 3)
+
+
+def _shaped(symbols: np.ndarray, baud: float, fs: float, beta: float,
+            taps: int) -> np.ndarray:
+    """``symbols`` (one a symbol) through the port's RRCInterpolator on the
+    host CPU: complex64 at ``fs``."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.ops.mod import RRCInterpolator
+    sh = RRCInterpolator(baud, fs, beta=beta, tap_count=taps)
+    g = sh.in_multiple
+    n = -(-len(symbols) // g) * g
+    x = np.zeros(n, np.complex64)
+    x[:len(symbols)] = symbols
+    y, _ = sh.apply(None, sh.init_state(()), torch.from_numpy(x))
+    return y.numpy()
+
+
+def m17_signal(fs: float, frames: int = M17_FRAMES) -> tuple:
+    """tests/test_m17.py's station at ``fs``: a preamble of outer-level
+    toggles, ``frames`` stream frames (frame n's payload 16 bytes of n)
+    with the LSF (M17_DST, M17_SRC) in their LICH, a tail; 4FSK RRC
+    frequency pulses (β 0.5) into the FM modulator (2 400 Hz), at phase
+    0.7.  (iq, payloads {fn: bytes}).  The demod settles over the first
+    two frames (their magnitude bits), in the JAX package as in the
+    port: frames 2 on decode (tests/test_m17.py holds 12 of 14)."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models import m17 as M
+    from sdrplusplusbrown_tpu_torch.ops.mod import QuadratureMod
+    segs = M.build_lich(M.encode_lsf(M17_DST, M17_SRC, type_word=0b101))
+    bits, payloads = [np.tile([0, 1], 600)], {}
+    for fn in range(frames):
+        payloads[fn] = bytes([fn] * 16)
+        bits.append(M.build_stream_frame(segs[fn % 6], fn, payloads[fn]))
+    bits.append(np.tile([0, 1], 400))
+    sym = M.bits_to_symbols(np.concatenate(bits))
+    shaped = _shaped(sym.astype(np.complex64), M.M17_BAUDRATE, fs, 0.5, 31)
+    fm = QuadratureMod(M.M17_DEVIATION, fs)
+    iq, _ = fm.apply(None, fm.init_state(()),
+                     torch.from_numpy(shaped.real.copy()))
+    return (iq.numpy() * np.exp(1j * 0.7)).astype(np.complex64), payloads
+
+
+def kg_sstv_signal(fs: float, rng) -> np.ndarray:
+    """tests/test_dab_kgsstv.py's KG-SSTV burst at ``fs``: random symbols,
+    then each of KG_PAYLOADS's frames after 40 random symbols, 300 more;
+    rectangular NRZ into FM at ±300 Hz, at phase 0.3."""
+    from sdrplusplusbrown_tpu_torch.models import kg_sstv as K
+    stream = np.concatenate(
+        [np.concatenate([2.0 * rng.integers(0, 2, 40).astype(np.float32)
+                         - 1.0, K.build_frame_symbols(p)])
+         for p in KG_PAYLOADS]
+        + [2.0 * rng.integers(0, 2, 300).astype(np.float32) - 1.0])
+    sps = fs / K.KGSSTV_BAUD
+    n_out = int(len(stream) * sps)
+    sidx = np.minimum((np.arange(n_out) / sps).astype(np.int64),
+                      len(stream) - 1)
+    phase = 2 * np.pi * np.cumsum(stream[sidx].astype(np.float64)) \
+        * K.KGSSTV_DEVIATION / fs
+    return np.exp(1j * (phase + 0.3)).astype(np.complex64)
+
+
+def ryfi_signal(baud: float, fs: float, packets, rng,
+                idle: int = 3000) -> np.ndarray:
+    """tests/test_ryfi.py's link at ``fs``: idle noise symbols, the
+    packets' frames (``transmit_packets``), idle; RRC β 0.6 (31 taps), 80 Hz
+    off at phase 0.5."""
+    from sdrplusplusbrown_tpu_torch.models import ryfi as R
+    pad = (rng.standard_normal(idle) + 1j * rng.standard_normal(idle)) \
+        * 0.05
+    sym = np.concatenate([pad, R.transmit_packets(list(packets)), pad])
+    tx = _shaped(sym.astype(np.complex64), baud, fs, 0.6, 31)
+    n = np.arange(len(tx))
+    return (tx * np.exp(1j * (2 * np.pi * 80.0 * n / fs + 0.5))
+            ).astype(np.complex64)
+
+
+def meteor_symbols(kind: str, n: int, rng) -> np.ndarray:
+    """``n`` Meteor symbols: QPSK (on the ±45° grid; ``oqpsk`` the same
+    symbols), or on the "broken" modulator's four phases."""
+    from sdrplusplusbrown_tpu_torch.models.meteor import BROKEN_PHASES
+    if kind == "broken":
+        return np.exp(1j * np.asarray(BROKEN_PHASES)[rng.integers(0, 4, n)]
+                      ).astype(np.complex64)
+    return np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, n))
+                  ).astype(np.complex64)
+
+
+def meteor_signal(kind: str, fs: float, sym: np.ndarray) -> np.ndarray:
+    """tests/test_decoders_wave1.py's Meteor carrier at ``fs`` (72 k
+    sym/s, RRC β 0.6, 33 taps, half amplitude, 40 Hz off at phase 0.3);
+    ``oqpsk``: I and Q shaped apart, Q one output sample late."""
+    if kind == "oqpsk":
+        ii = _shaped(sym.real.astype(np.complex64), 72_000.0, fs, 0.6,
+                     33).real
+        qq = _shaped(sym.imag.astype(np.complex64), 72_000.0, fs, 0.6,
+                     33).real
+        return ((ii[:-1] + 1j * qq[1:]) * 0.5).astype(np.complex64)
+    iq = _shaped(sym, 72_000.0, fs, 0.6, 33) * 0.5
+    n = np.arange(len(iq))
+    return (iq * np.exp(1j * (2 * np.pi * 40.0 * n / fs + 0.3))
+            ).astype(np.complex64)
+
+
+def qpsk_decisions(soft: np.ndarray, sent: np.ndarray, skip: int,
+                   min_len: int = 1000) -> tuple:
+    """(symbols compared, errors) of QPSK decisions of ``soft`` past its
+    first ``skip`` symbols against the ``sent`` symbols, at the rotation
+    (of four) and the lag (within ±80 symbols) with the fewest errors a
+    symbol over at least ``min_len`` symbols; (0, 0) where none is that
+    long."""
+    def dibit(s):
+        return (np.real(s) < 0).astype(int) * 2 + (np.imag(s) < 0)
+    tail, best = soft[skip:], (0, 0)
+    for k in range(4):
+        got = dibit(tail * np.exp(1j * np.pi / 2 * k))
+        for lag in range(max(-80, -skip), 81):
+            want = dibit(sent[skip + lag:skip + lag + len(got)])
+            m = min(len(want), len(got))
+            if m < min_len:
+                continue
+            err = int((got[:m] != want[:m]).sum())
+            if best[0] == 0 or err / m < best[1] / best[0]:
+                best = (m, err)
+    return best
+
+
+def broken_deviation_deg(soft: np.ndarray, skip: int) -> float:
+    """The median distance, in degrees, of ``soft`` past ``skip`` from the
+    nearest of the broken modulator's four phases (the JAX test's bar: 25;
+    an unlocked loop sits near 41)."""
+    from sdrplusplusbrown_tpu_torch.models.meteor import BROKEN_PHASES
+    ang = np.angle(soft[skip:])
+    dev = np.min(np.abs(((ang[:, None] - np.asarray(BROKEN_PHASES)[None]
+                          + np.pi) % (2 * np.pi)) - np.pi), axis=1)
+    return float(np.rad2deg(np.median(dev)))
+
+
+
+DEC_FS = FS                   # the served capture's rate
+DEC_SECONDS = 0.8             # its length
+DEC_NOISE = 0.005
+DEC_M17 = -200e3              # the carriers' offsets
+DEC_KG = 100e3
+DEC_RYFI = 600e3
+DEC_RYFI_AT = 0.0             # the RyFi burst's start, s: with the capture,
+                              # as a link that is up (after 0.3 s of noise
+                              # alone the Costas loop has wandered off and
+                              # the burst is not acquired: the JAX loop's
+                              # behaviour too)
+DEC_METEOR = {"Meteor": (-800e3, "qpsk"), "MeteorB": (-500e3, "broken")}
+DEC_METEOR_SYMS = 7200        # 0.1 s at 72 k sym/s
+DEC_METEOR_SKIP = 3000        # symbols to lock (tests/test_decoders_wave1)
+DEC_TAGS = ("K4f", "K8", "K12c", "K13b", "K13c", "K13m", "K16")
+DEC_CPU_BLOCKS = 2            # the Meteor modules' blocks on the host CPU
+DEC_METEOR_T = 15_000         # a Meteor module's 0.1 s block at 150 kS/s
+DEC_RYFI_T = 72_000           # RyFi's 0.1 s block at its 720 kS/s channel
+RYFI_FULL = (720_000.0, 1_500_000.0)   # (c): the module's defaults
+RYFI_FULL_SECONDS = 2.1
+RYFI_FULL_PACKET = 1000       # bytes a packet
+
+
+def drive_decoders(dev, card: str, report: dict) -> None:
+    """Phase 29: (a) the decoders' kernels against their plain versions
+    and the digital demods' blocks on the card; (b) the served app
+    decoding M17, KG-SSTV, RyFi and Meteor; (c) RyFi at its default
+    rate."""
+    import tempfile
+    t0 = time.perf_counter()
+    decoder_kernels(dev, card, report)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dec_") as tmp:
+        decoders_app(dev, card, report, tmp)
+    t2 = time.perf_counter()
+    ryfi_full_rate(dev, card)
+    t3 = time.perf_counter()
+    print(f"phase 29: {t3 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}"
+          f", (c) {t3 - t2:.1f}) [{card}]")
+
+
+def viterbi_frames(R: int, N: int, code, hard: bool, seed: int):
+    """R frames of N trellis steps as K16 takes them: random data encoded,
+    flipped 5 % (hard) or in noise (soft, σ 0.3), clipped to [0, 1]."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.ops import fec
+    g1, g2, k = code
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(R):
+        c = fec.conv_encode(rng.integers(0, 2, N - (k - 1)), g1, g2,
+                            k).astype(np.float32)
+        if hard:
+            idx = rng.choice(len(c), len(c) // 20, replace=False)
+            c[idx] = 1.0 - c[idx]
+        else:
+            c = np.clip(c + 0.3 * rng.standard_normal(len(c)), 0.0, 1.0)
+        rows.append(c.astype(np.float32))
+    return torch.from_numpy(np.stack(rows))
+
+
+def decoder_kernels(dev, card: str, report: dict) -> None:
+    """(a): K16 at its callers' frames and K13f at 20 000 samples, each
+    against its plain version (bit-identical), timed (K13b is timed in (b),
+    on the served block); then ``FDClockRecovery``, ``FourFSKDemod`` and ``Pi4DQPSKDemod`` on
+    the card, the counts zeroed before each, two blocks each: K13f (FD),
+    K8, K12c and K13m launched, nothing else; their outputs finite."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models import kg_sstv, m17, ryfi
+    from sdrplusplusbrown_tpu_torch.ops import clock_recovery, fec
+    from sdrplusplusbrown_tpu_torch.ops.demod_digital import (
+        FourFSKDemod, Pi4DQPSKDemod)
+    from sdrplusplusbrown_tpu_torch.runtime.block import to_device
+    m17c = (m17.CONV_G1, m17.CONV_G2, m17.CONV_K)
+    kgc = (kg_sstv.CONV_G1, kg_sstv.CONV_G2, kg_sstv.CONV_K)
+    ryc = (ryfi.CONV_G1, ryfi.CONV_G2, ryfi.CONV_K)
+    cases = (("M17 LSF", 1, 244, m17c), ("M17 stream", 1, 148, m17c),
+             ("KG-SSTV frame", 1, 54, kgc),
+             ("RyFi, 9 frames", 9, ryfi.FRAME_SYMS, ryc))
+    for label, R, N, code in cases:
+        for hard in (True, False):
+            soft = viterbi_frames(R, N, code, hard, N + hard).to(dev)
+            out = check_loop_kernel(
+                "K16", (soft, *code), card,
+                f"{label}, {'hard' if hard else 'soft'}", timed=not hard,
+                plain_calls=0)
+            if label.startswith("RyFi") and not hard:
+                report["K16"] = out
+            elif "K16" in report:
+                report["K16"]["max_abs_err"] = max(
+                    report["K16"]["max_abs_err"], out["max_abs_err"])
+    rng = np.random.default_rng(29)
+    # K13f: FDClockRecovery on 20 000 samples of BPSK at 10 a symbol
+    fd = clock_recovery.FDClockRecovery(10.0)
+    bits = 1.0 - 2.0 * rng.integers(0, 2, 2100)
+    y = (_shaped(bits.astype(np.complex64), 4800.0, 48_000.0, 0.35,
+                 31).real[:20_000]
+         + 0.02 * rng.standard_normal(20_000)).astype(np.float32)
+    st = to_device(fd.init_state((1,)), dev)
+    report["K13f"] = check_loop_kernel(
+        "K13f", (fd, torch.from_numpy(y)[None].to(dev), st), card,
+        "FDClockRecovery, 20 000 samples", timed=True, plain_calls=0)
+    # the demods' blocks with the counts zeroed (K13f's launches: FD's)
+    blocks = (
+        ("FDClockRecovery(10)", fd, torch.from_numpy(y[:10_000]).to(dev),
+         {"K13f": 2}),
+        ("FourFSKDemod(4800, 48 kS/s)", FourFSKDemod(4800.0, 48_000.0,
+                                                    2400.0),
+         torch.from_numpy(fsk4_signal(9600, rng)).to(dev),
+         {"K8": 2, "K13m": 2}),
+        ("Pi4DQPSKDemod(18 k, 72 kS/s)", Pi4DQPSKDemod(18_000.0, 72_000.0),
+         torch.from_numpy(pi4_signal(14_400, rng)).to(dev),
+         {"K8": 2, "K12c": 2, "K13m": 2}))
+    for label, dem, xb, want in blocks:
+        st = to_device(dem.init_state(()), dev)
+        half = xb.shape[-1] // 2
+        reset_counts()
+        with no_plain_on_card():
+            outs = []
+            for b in range(2):
+                out, st = dem.apply(None, st, xb[b * half:(b + 1) * half])
+                outs.append(out)
+            torch.cuda.synchronize()
+        counts = {t: kernel_count(t) for t in KERNELS if kernel_count(t)}
+        ok = all(torch.isfinite(o[0]).all() for o in outs)
+        nsym = sum(int(o[-1].sum()) for o in outs)
+        print(f"phase 29 (a): {label} on {dev}, 2 blocks of {half} samples:"
+              f" {nsym} symbols, launches " + ", ".join(
+                  f"{t}={n}" for t, n in counts.items()))
+        if counts != want or not ok or nsym < 100:
+            fail(f"phase 29 (a): {label}: launches {counts} (want {want}),"
+                 f" finite {ok}, {nsym} symbols")
+        if "K13f" in want:
+            report["K13f"]["launches"] = counts["K13f"]
+            report["K13f"]["launches_path"] = f"{label}, 2 blocks"
+
+
+def fsk4_signal(n: int, rng) -> np.ndarray:
+    """4FSK at 4 800 Bd on 48 kS/s (±2 400 Hz outer), in noise."""
+    sps = 10
+    lv = np.array([-1.0, -1 / 3, 1 / 3, 1.0])[rng.integers(0, 4,
+                                                         n // sps + 1)]
+    f = np.repeat(lv, sps)[:n]
+    ph = 2 * np.pi * 2400.0 * np.cumsum(f) / 48_000.0
+    return (np.exp(1j * ph) + 0.02 * (rng.standard_normal(n) + 1j
+                                      * rng.standard_normal(n))
+            ).astype(np.complex64)
+
+
+def pi4_signal(n: int, rng) -> np.ndarray:
+    """π/4-DQPSK at 18 k symbols/s on 72 kS/s, 300 Hz off, in noise."""
+    ph = np.cumsum(rng.integers(0, 4, n // 4 + 1) * (np.pi / 2) + np.pi / 4)
+    k = np.arange(n)
+    return (np.repeat(np.exp(1j * ph), 4)[:n]
+            * np.exp(2j * np.pi * 300.0 * k / 72_000.0)
+            + 0.02 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            ).astype(np.complex64)
+
+
+def decoders_capture(path: str) -> dict:
+    """(b)'s capture: DEC_SECONDS at 2.4 MS/s holding the M17 station, the
+    KG-SSTV burst, the RyFi burst (from DEC_RYFI_AT) and the two Meteor
+    carriers (from 0), each at its offset, in noise; returns what was
+    sent: the M17 payloads and the Meteor symbols."""
+    from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+    rng = np.random.default_rng(290)
+    n = int(DEC_FS * DEC_SECONDS)
+    x = np.zeros(n, np.complex128)
+    k = np.arange(n)
+
+    def add(sig, offset, at, amp):
+        i = int(at * DEC_FS)
+        m = min(len(sig), n - i)
+        x[i:i + m] += amp * sig[:m] * np.exp(2j * np.pi * offset
+                                             * k[i:i + m] / DEC_FS)
+    m17_iq, payloads = m17_signal(DEC_FS)
+    add(m17_iq, DEC_M17, 0.0, 0.2)
+    add(kg_sstv_signal(DEC_FS, rng), DEC_KG, 0.05, 0.2)
+    add(ryfi_signal(240_000.0, DEC_FS, RYFI_PACKETS, rng), DEC_RYFI,
+        DEC_RYFI_AT, 0.3)
+    sent = {"m17": payloads}
+    for name, (off, kind) in DEC_METEOR.items():
+        sym = meteor_symbols(kind, DEC_METEOR_SYMS, rng)
+        add(meteor_signal(kind, DEC_FS, sym), off, 0.0, 0.5)
+        sent[name] = sym
+    x += DEC_NOISE * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    write_wav(path, x.astype(np.complex64), DEC_FS, bits=32)
+    return sent
+
+
+def decoders_config(capture: str, meteor_only: bool = False) -> dict:
+    """(b)'s config.json: the capture through a file source, fft 65 536 at
+    20 fps, manual pump, the decoder modules (each Meteor module records
+    into a directory of its own beside the capture: the file names carry
+    the second they start)."""
+    mods = {n: {"type": "meteor_demodulator", "offset": off,
+                "broken": kind == "broken",
+                "directory": os.path.join(os.path.dirname(capture),
+                                          f"rec_{n}_{int(meteor_only)}")}
+            for n, (off, kind) in DEC_METEOR.items()}
+    if not meteor_only:
+        mods.update({
+            "M17": {"type": "m17_decoder", "offset": DEC_M17},
+            "KG": {"type": "kg_sstv_decoder", "offset": DEC_KG},
+            "RyFi": {"type": "ryfi_decoder", "offset": DEC_RYFI,
+                     "baudrate": 240_000.0, "channel_sr": 720_000.0}})
+    return {"source": {"type": "file", "path": capture, "loop": False},
+            "fftSize": FFT, "fftRate": 20, "pump": "manual",
+            "modules": mods}
+
+
+def meteor_recordings(app, blocks: int, per_module: dict | None = None,
+                      wrappers: dict | None = None):
+    """Start each Meteor module's recording, pump ``blocks`` blocks (each
+    module's baseband handler counted into ``per_module``: launches by
+    kernel, read from ``wrappers``, and calls), stop; {module: its int8
+    stream}."""
+    paths = {n: app.modules[n].handle_debug_command("start_record", "")[
+        "path"] for n in DEC_METEOR}
+    if per_module is not None:
+        ev = app.baseband_event
+        ev._handlers = [counted_handler(h, per_module, wrappers)
+                        for h in ev._handlers]
+    app.start()
+    if app.pump_step(blocks) != blocks:
+        fail("phase 29: the pump stopped")
+    out = {}
+    for n, path in paths.items():
+        app.modules[n].handle_debug_command("stop_record", "")
+        with open(path, "rb") as f:
+            out[n] = np.frombuffer(f.read(), np.int8)
+    return out
+
+
+def counted_handler(h, per_module: dict, wrappers: dict):
+    """A module's baseband handler that adds the kernel launches each of
+    its calls makes (the counts of ``wrappers``, {tag: the wrapper}: under
+    ``capture`` the module's names hold recorders) to
+    ``per_module[name]``."""
+    name = getattr(getattr(h, "__self__", None), "name", "?")
+    entry = per_module.setdefault(name, {"calls": 0, "launches": {}})
+
+    def handler(iq):
+        n0 = {t: w.launches for t, w in wrappers.items()}
+        h(iq)
+        entry["calls"] += 1
+        for t, w in wrappers.items():
+            d = w.launches - n0[t]
+            if d:
+                entry["launches"][t] = entry["launches"].get(t, 0) + d
+    return handler
+
+
+def decoders_app(dev, card: str, report: dict, tmp: str) -> None:
+    """(b): the served app on the decoders' capture, on the card, then its
+    Meteor modules on the host CPU."""
+    import torch
+    cap = os.path.join(tmp, "baseband_100000000Hz_10-00-00_01-01-2024.wav")
+    sent = decoders_capture(cap)
+    app = new_app(os.path.join(tmp, "p29"), decoders_config(cap), dev)
+    per_module: dict = {}
+    try:
+        blocks = int(DEC_SECONDS * 20)            # 50 ms blocks
+        wrappers = {t: getattr(*kernel_fn(t, "_kernel")) for t in KERNELS}
+        reset_counts()
+        with no_plain_on_card():
+            recs, cap29 = capture(tuple(KERNELS), lambda: meteor_recordings(
+                app, blocks, per_module, wrappers))
+            torch.cuda.synchronize()
+        counts = {t: kernel_count(t) for t in KERNELS}
+        block_len = app.pump_block_len
+        replies = {n: {c: app.modules[n].handle_debug_command(c, a)
+                       for c, a in cmds} for n, cmds in (
+            ("M17", (("get_lsf", ""), ("get_stream", ""))),
+            ("KG", (("status", ""), ("get_frames", ""))),
+            ("RyFi", (("status", ""), ("get_packets", "16"))))}
+        # device µs a module's 0.1 s block, after the run (its state goes
+        # on; the Meteor recordings are closed)
+        chunk = read_capture_block(cap, 0, int(DEC_FS // 10))
+        dev_us = {}
+        for n, m in app.modules.items():
+            by = {}
+            us, _ = call_profile(lambda m=m: m._on_baseband(chunk), 3,
+                                 by_kernel=by)
+            dev_us[n] = (us, by)
+    finally:
+        app.shutdown()
+    hold_launches(f"phase 29 (b), served decoders, {blocks} blocks",
+                  {t: counts[t] for t in DEC_TAGS}, cap29)
+    others = {t: c for t, c in counts.items() if c and t not in DEC_TAGS}
+    if min(counts[t] for t in DEC_TAGS) < 1 or others:
+        fail(f"phase 29 (b): launch pattern {counts}")
+    # K13b timed on MeteorB's last served block, the served calls that
+    # span K13m's tiles held bit for bit (K12c: 100 dB, its state exact)
+    # to the plain versions: a Meteor module's last AGC, Costas and clock
+    # recovery (15 000 samples, 4 tiles) and RyFi's last clock recovery
+    # (72 000, 18 tiles), and K16 at the last served frames
+    report["K13b"] = check_loop_kernel(
+        "K13b", cap29["K13b"][-1], card,
+        "Meteor's broken-modulation Costas, the served 0.1 s block",
+        timed=True, plain_calls=0)
+    for t in DEC_TAGS:
+        report.setdefault(t, {}).setdefault("launches_by_path", {})[
+            "served decoders"] = counts[t]
+    checks = [(t, DEC_METEOR_T) for t in ("K12c", "K13c", "K13m")] + [
+        ("K13m", DEC_RYFI_T)]
+    for t, T in checks:
+        calls = [c for c in cap29.get(t, ())
+                 if loop_input(t, c).shape[-1] == T]
+        if not calls:
+            fail(f"phase 29 (b): no served {t} call of {T} samples")
+        err = check_loop_kernel(t, calls[-1], card, f"served, {T} samples",
+                                timed=False, host=t == "K13m")["max_abs_err"]
+        report[t]["max_abs_err"] = max(report[t]["max_abs_err"], err)
+    err = check_loop_kernel("K16", cap29["K16"][-1], card,
+                            "served decoders", timed=False)["max_abs_err"]
+    report["K16"]["max_abs_err"] = max(report["K16"]["max_abs_err"], err)
+    for t in ("K16", "K13b"):
+        report[t]["launches"] = counts[t]
+        report[t]["launches_path"] = f"served decoders ({blocks} blocks)"
+    print(f"phase 29 (b): served app on {dev} ({block_len}-sample blocks, "
+          f"fft {FFT}), {blocks} blocks of the {DEC_SECONDS} s capture: "
+          "launches " + ", ".join(f"{t}={counts[t]}" for t in DEC_TAGS)
+          + ", every other kernel 0")
+    for n, e in per_module.items():
+        us, by = dev_us.get(n, (float("nan"), {}))
+        print(f"phase 29 (b): module {n}: {e['calls']} baseband calls, "
+              "launches " + ", ".join(f"{t}={c}" for t, c in
+                                      e["launches"].items())
+              + f"; device {us:.1f} us a 0.1 s block ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in by.items())
+              + f") [{card}]")
+    # the products
+    lsf, stream = replies["M17"]["get_lsf"], replies["M17"]["get_stream"]
+    frames = stream["frames"]
+    exact = all(bytes.fromhex(f["payload"]) == sent["m17"].get(f["fn"])
+                for f in frames)
+    print(f"phase 29 (b): M17 LSF {lsf}; {stream['total']} stream frames "
+          f"(fn {[f['fn'] for f in frames]}), payloads exact {exact}")
+    if not (lsf.get("valid") and (lsf["dst"], lsf["src"]) == (M17_DST,
+                                                              M17_SRC)):
+        fail(f"phase 29 (b): M17 LSF {lsf}")
+    if not exact or sorted(f["fn"] for f in frames) != sorted(sent["m17"]):
+        fail(f"phase 29 (b): M17 stream {stream}")
+    kg = replies["KG"]["get_frames"]["frames"]
+    print(f"phase 29 (b): KG-SSTV frames {kg}")
+    if kg != [p.hex() for p in KG_PAYLOADS]:
+        fail(f"phase 29 (b): KG-SSTV frames {kg}")
+    ry, pk = replies["RyFi"]["status"], replies["RyFi"]["get_packets"]
+    print(f"phase 29 (b): RyFi {ry}")
+    if pk["packets"] != [p.hex() for p in RYFI_PACKETS] or ry["bad_frames"]:
+        fail(f"phase 29 (b): RyFi packets {ry}")
+    for n, (off, kind) in DEC_METEOR.items():
+        soft = ((recs[n][0::2] + 1j * recs[n][1::2].astype(np.float64))
+                / 84.0)[:DEC_METEOR_SYMS]
+        if kind == "broken":
+            dev_deg = broken_deviation_deg(soft, DEC_METEOR_SKIP)
+            print(f"phase 29 (b): {n} (broken, {len(soft)} symbols "
+                  f"recorded): median {dev_deg:.1f} deg from its phases "
+                  "(bar 25)")
+            if not dev_deg < 25.0:
+                fail(f"phase 29 (b): {n} did not lock")
+        else:
+            m, err = qpsk_decisions(soft, sent[n], DEC_METEOR_SKIP)
+            print(f"phase 29 (b): {n} (QPSK, {len(soft)} symbols recorded):"
+                  f" {err} decision errors in {m} symbols after lock")
+            if m < 2000 or err:
+                fail(f"phase 29 (b): {n}: {err} errors in {m}")
+    # the Meteor modules on the host CPU: the same capture's first blocks
+    cpu = new_app(os.path.join(tmp, "p29cpu"),
+                  decoders_config(cap, meteor_only=True), "cpu")
+    try:
+        want = meteor_recordings(cpu, DEC_CPU_BLOCKS)
+    finally:
+        cpu.shutdown()
+    for n in DEC_METEOR:
+        w = want[n].astype(np.int64)
+        g = recs[n][:len(w)].astype(np.int64)
+        share = float(np.mean(np.abs(g - w) <= 1)) if len(w) else 0.0
+        sn = np_snr_db(w.astype(np.float64), g.astype(np.float64))
+        print(f"phase 29 (b): {n}'s int8 stream, card against host CPU, "
+              f"first {len(w)} values ({DEC_CPU_BLOCKS} blocks): "
+              f"{100 * share:.2f} % within one step (bar 100), {sn:.1f} dB "
+              "(bar 60)")
+        if len(w) < 2000 or share < 1.0 or sn < 60.0:
+            fail(f"phase 29 (b): {n}: the card's int8 stream is not the "
+                 "host CPU's")
+
+
+def read_capture_block(path: str, start: int, n: int) -> np.ndarray:
+    """``n`` complex64 samples of a capture from ``start``."""
+    from sdrplusplusbrown_tpu_torch.io.wav import read_wav_iq
+    return np.ascontiguousarray(read_wav_iq(path)[0][start:start + n],
+                                np.complex64)
+
+
+def ryfi_full_rate(dev, card: str) -> None:
+    """(c): RyFi at 720 kBd on 1.5 MS/s (the module's defaults), 2 s of
+    packets through ``RyfiReceiver`` on the card in 0.1 s blocks under
+    the profiler: every packet exact, no bad frame; wall seconds a second
+    of signal split into the demod (to its symbols' copy to the host),
+    the deframer, the Viterbi and the RS/reassembly, and device µs by
+    kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sdrplusplusbrown_tpu_torch.models import ryfi as R
+    baud, fs = RYFI_FULL
+    rng = np.random.default_rng(291)
+    n_frames = int(RYFI_FULL_SECONDS * baud / (R.FRAME_SYMS + R.SYNC_SYMS))
+    n_pk = n_frames * R.FRAME_DATA_SIZE // (RYFI_FULL_PACKET + 2) - 1
+    packets = [bytes(rng.integers(0, 256, RYFI_FULL_PACKET).tolist())
+               for _ in range(n_pk)]
+    t0 = time.perf_counter()
+    iq = ryfi_signal(baud, fs, packets, rng, idle=2000)
+    iq = (iq + 0.01 * (rng.standard_normal(len(iq))
+                       + 1j * rng.standard_normal(len(iq)))
+          ).astype(np.complex64)
+    blk = int(fs // 10)
+    iq = np.concatenate([iq, np.zeros((-len(iq)) % blk, np.complex64)])
+    t_gen = time.perf_counter() - t0
+    rx = R.RyfiReceiver(baud, fs, device=dev)
+    got = []
+    reset_counts()
+    with no_plain_on_card(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in range(len(iq) // blk):
+            got.extend(rx.process(iq[b * blk:(b + 1) * blk]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    secs = len(iq) / fs
+    by = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and not e.key.startswith(("aten::", "cuda",
+                                            "ProfilerStep")):
+            k = short_kernel(e.key)
+            by[k] = by.get(k, 0.0) + us
+    dev_s = sum(by.values()) / 1e6
+    counts = {t: kernel_count(t) for t in KERNELS if kernel_count(t)}
+    tm = rx.timing
+    print(f"phase 29 (c): RyFi at {baud / 1e3:.0f} kBd on {fs / 1e6:.1f} "
+          f"MS/s, {secs:.2f} s of signal ({n_frames} frames, {n_pk} packets "
+          f"of {RYFI_FULL_PACKET} bytes; made in {t_gen:.1f} s on the host): "
+          f"{len(got)} packets, {rx.frames_decoded} frames, "
+          f"{rx.frames_bad} bad; launches "
+          + ", ".join(f"{t}={n}" for t, n in counts.items()))
+    print(f"phase 29 (c): wall {wall / secs:.3f} s a second of signal "
+          f"(under the profiler): demod {tm['demod'] / secs:.3f} (to the "
+          f"symbols' host copy), deframer {tm['deframe'] / secs:.3f}, "
+          f"Viterbi {tm['viterbi'] / secs:.3f}, RS and reassembly "
+          f"{tm['rs'] / secs:.3f}; device {dev_s / secs:.4f} s a second "
+          "of signal (" + ", ".join(f"{k} {v / 1e3 / secs:.1f} ms"
+                                    for k, v in sorted(
+                                        by.items(), key=lambda kv: -kv[1]))
+          + f" a second) [{card}]")
+    if got != packets or rx.frames_bad:
+        fail(f"phase 29 (c): {len(got)} of {len(packets)} packets, "
+             f"{rx.frames_bad} bad frames")
 
 
 if __name__ == "__main__":

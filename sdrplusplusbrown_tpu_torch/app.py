@@ -18,7 +18,10 @@ each is host code that yields numpy blocks, ``tune`` retunes one with a
 tuner and ``shutdown`` closes it; the ``loopback`` transmitter (the
 ``transmitter`` config key), keyed by rigctl's ``T``; the
 ``iq_exporter``, ``scanner``, ``frequency_manager``, ``recorder`` and
-``scheduler`` modules (``modules/``), ``radio``
+``scheduler`` modules (``modules/``), the digital decoders
+``m17_decoder``, ``kg_sstv_decoder``, ``ryfi_decoder`` and
+``meteor_demodulator`` (each on the host baseband through its own RxVFO,
+demod and, but Meteor, Viterbi on the app's device), ``radio``
 modules with every demod (the RAW demod and plugin demods registered with
 ``models.radio.register_demod_provider`` among them; ``list_demods``),
 their noise blanker and FM IF filter (``set_nb``, ``set_fmif``), their
@@ -98,9 +101,8 @@ SPECTRUM_BUF_SIZE = 16384  # IF spectrum ring (reference radio_module.h:78)
 #: what the JAX app serves and the port does not yet: refused by name
 UNPORTED_MODULES = (
     "ft8_decoder", "vor_receiver", "ch_tetra_demodulator",
-    "ch_extravhf_decoder", "meteor_demodulator", "m17_decoder",
-    "tci_server", "weather_sat_decoder", "ryfi_decoder", "atv_decoder",
-    "falcon9_decoder", "dab_decoder", "kg_sstv_decoder", "websdr_view",
+    "ch_extravhf_decoder", "tci_server", "weather_sat_decoder",
+    "atv_decoder", "falcon9_decoder", "dab_decoder", "websdr_view",
     "reports_monitor", "discord_integration", "signal_detector")
 
 
@@ -616,6 +618,28 @@ class SDRApp:
             elif mtype == "scheduler":
                 from .modules.scheduler import SchedulerModule
                 self.modules[name] = SchedulerModule(name, self)
+            elif mtype == "meteor_demodulator":
+                from .modules.meteor_module import MeteorDemodulatorModule
+                self.modules[name] = MeteorDemodulatorModule(
+                    name, self, offset_hz=mc.get("offset", 0.0),
+                    symbolrate=mc.get("symbolrate", 72_000.0),
+                    broken_modulation=mc.get("broken", False),
+                    oqpsk=mc.get("oqpsk", False),
+                    directory=mc.get("directory"))
+            elif mtype == "m17_decoder":
+                from .modules.m17_module import M17DecoderModule
+                self.modules[name] = M17DecoderModule(
+                    name, self, offset_hz=mc.get("offset", 0.0))
+            elif mtype == "ryfi_decoder":
+                from .modules.ryfi_module import RyfiDecoderModule
+                self.modules[name] = RyfiDecoderModule(
+                    name, self, offset_hz=mc.get("offset", 0.0),
+                    baudrate=mc.get("baudrate", 720_000.0),
+                    channel_sr=mc.get("channel_sr", 1_500_000.0))
+            elif mtype == "kg_sstv_decoder":
+                from .modules.kg_sstv_module import KGSSTVDecoderModule
+                self.modules[name] = KGSSTVDecoderModule(
+                    name, self, offset_hz=mc.get("offset", 0.0))
             else:
                 flog.warn("unknown module type '{}' for '{}'", mtype, name)
 

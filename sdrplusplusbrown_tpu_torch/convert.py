@@ -13,7 +13,12 @@ filter tails, float32 audio tails), and the EFFT compressor's
 float32 ``prev_allowance``), and the transmit path's (``models/trx.py``:
 ``TxChain``'s AGC ``amp`` and ``env`` and its modulator's — the FM phase,
 a float32 scalar, or the SSB FIR's complex64 tail — and ``ServerTxPath``'s
-resampler tail) — and these functions convert them leaf by leaf. A tree
+resampler tail), and the digital demods' (``ops/demod_digital.py`` and
+``models/meteor.py``: the AGC's, the Costas loop's ``phase`` and
+``freq``, the RRC's tail, the clock recovery's ``tail``, ``phase``,
+``freq``, int32 ``offset`` and its symbol history, ``Pi4DQPSKDemod``'s
+``prev`` and ``bias``, ``FourFSKDemod``'s ``c_in`` and ``c_out``,
+Meteor's ``last_q``) — and these functions convert them leaf by leaf. A tree
 that the JAX package's ``runtime/checkpoint.load_state`` returned (numpy
 leaves) converts the same way, so that a checkpoint the JAX package saved
 continues in the port; the port's own ``runtime/checkpoint.py`` reads that

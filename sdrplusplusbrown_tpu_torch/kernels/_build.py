@@ -74,6 +74,8 @@ SIGNATURES = {
     "sdr_pll_rows": [_P, _I, _I, _P, _P, _F, _F, _F, _F, _P, _P, _P, _P],
     "sdr_costas_rows": [_P, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _P, _P,
                         _P, _P],
+    "sdr_costas_nearest_rows": [_P, _I, _I, _P, _P, _F, _F, _F, _F, _F, _F,
+                                _F, _F, _P, _P, _P, _P],
     "sdr_logmmse_frames": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P,
                            _P],
@@ -81,6 +83,9 @@ SIGNATURES = {
                               _P, _P],
     "sdr_mm_rows": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                     _F, _P, _P, _P, _P, _P, _P],
+    "sdr_fd_rows": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                    _F, _P, _P, _P, _P, _P, _P, _P],
+    "sdr_viterbi_rows": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 #: what the last build did (for chip_smoke.py's report)

@@ -1,6 +1,6 @@
-"""Mueller–Müller symbol timing recovery (counterpart of
-sdrplusplusbrown_tpu/ops/clock_recovery.py; reference
-dsp/clock_recovery/mm.h).
+"""Mueller–Müller and frequency-derivative symbol timing recovery
+(counterpart of sdrplusplusbrown_tpu/ops/clock_recovery.py; reference
+dsp/clock_recovery/mm.h and fd.h).
 
 Per output symbol an 8-tap polyphase-interpolated sample is taken at the
 loop's fractional position; the M&M timing error (real:
@@ -18,8 +18,15 @@ K13's M&M form (csrc/loops.cu: the bank and the row's [tail | x] staged
 in shared memory, one thread walking the loop) on a CUDA tensor and
 ``mm_rows_ref``, the same loop vectorised over rows, on a CPU tensor.
 The interpolation sums its taps in ascending order, each product and sum
-rounded.  ``FDClockRecovery`` is not ported yet: it goes with the digital
-decoders.
+rounded.  The kernel takes the 8 taps that every caller uses
+(``KERNEL_TAPS``); another ``interp_tap_count`` raises on a CUDA tensor
+and runs the plain version on a CPU tensor.
+
+``FDClockRecovery`` is the same loop on real data with the timing error
+taken from the interpolator's slope, err = dfdt·step(y), dfdt from the
+bank's rows either side of the symbol's (fd.h:105-134): kernel K13's FD
+form (K13f, ``fd_rows_kernel``) on a CUDA tensor, ``fd_rows_ref`` on a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from . import taps as taps_mod
 from .resampler import build_polyphase_bank
 
 _PC = ("p0", "p1", "p2", "c0", "c1", "c2")
+KERNEL_TAPS = 8         # the interpolator's taps in csrc/loops.cu (MM_K)
 
 
 def _step(x: torch.Tensor) -> torch.Tensor:
@@ -63,12 +71,26 @@ def _check(mm, x, state):
         raise ValueError("M&M offset: int32 [rows]")
 
 
+def _kernel_taps(mm) -> None:
+    if mm.K != KERNEL_TAPS:
+        raise ValueError(f"K13 on the card takes {KERNEL_TAPS} interpolator "
+                         f"taps, not {mm.K}")
+
+
 def _interp(win: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Σ_k win[:, k]·taps[:, k] in ascending k, each operation rounded."""
     acc = win[:, 0] * taps[:, 0]
     for k in range(1, win.shape[1]):
         acc = acc + win[:, k] * taps[:, k]
     return acc
+
+
+def _slope(ph_idx: torch.Tensor, P: int, out, lo, hi) -> torch.Tensor:
+    """FD's dfdt: hi − out at row 0, out − lo at row P − 1, else
+    (hi − lo)·0.5 (clock_recovery/fd.h:105-134)."""
+    return torch.where(ph_idx == 0, hi - out,
+                       torch.where(ph_idx == P - 1, out - lo,
+                                   (hi - lo) * 0.5))
 
 
 def mm_rows_ref(mm, x, state):
@@ -128,6 +150,59 @@ def mm_rows_ref(mm, x, state):
     return (sym, valids), st
 
 
+def _check_fd(fd, x, state):
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f"FD rows: {tuple(x.shape)} {x.dtype}, expected "
+                         f"float32 [rows, T]")
+    R = x.shape[0]
+    if state["tail"].shape != (R, fd.K - 1) or \
+            state["tail"].dtype != torch.float32:
+        raise ValueError(f"FD tail: {tuple(state['tail'].shape)}, expected "
+                         f"[{R}, {fd.K - 1}] float32")
+    if state["offset"].shape != (R,) or state["offset"].dtype != torch.int32:
+        raise ValueError("FD offset: int32 [rows]")
+
+
+def fd_rows_ref(fd, x, state):
+    """Plain PyTorch K13f (the FD form): x float32 [R, T] and a state dict
+    (tail [R, K − 1], phase, freq [R] float32, offset [R] int32) →
+    ((symbols [R, n_out], valid [R, n_out] bool), state')."""
+    _check_fd(fd, x, state)
+    R, T = x.shape
+    n_out = fd.max_out(T)
+    alpha, beta, fmin, fmax = _coefs(fd)
+    bank = torch.from_numpy(fd.bank).to(x.device)
+    ext = torch.cat([state["tail"], x], dim=-1)
+    idx = torch.arange(fd.K, device=x.device)
+    st = {k: v.clone() for k, v in state.items() if k != "tail"}
+    outs = torch.empty(R, n_out, dtype=torch.float32, device=x.device)
+    valids = torch.empty(R, n_out, dtype=torch.bool, device=x.device)
+    for n in range(n_out):
+        off = st["offset"]
+        valid = off < T
+        ph_idx = torch.clamp((st["phase"] * float(fd.P)).to(torch.int32),
+                             0, fd.P - 1)
+        win = torch.gather(ext, 1, (torch.clamp(off, 0, T - 1)[:, None]
+                                    + idx).long())
+        pi = ph_idx.long()
+        out = _interp(win, bank[pi])
+        lo = _interp(win, bank[torch.clamp(pi - 1, min=0)])
+        hi = _interp(win, bank[torch.clamp(pi + 1, max=fd.P - 1)])
+        outs[:, n] = out
+        valids[:, n] = valid
+        err = torch.clamp(_slope(ph_idx, fd.P, out, lo, hi) * _step(out),
+                          -1.0, 1.0)
+        freq = torch.clamp(st["freq"] + beta * err, fmin, fmax)
+        phase = (st["phase"] + freq) + alpha * err
+        delta = torch.floor(phase).to(torch.int32)
+        upd = dict(freq=freq, phase=phase - delta.float(), offset=off + delta)
+        for k, v in upd.items():
+            st[k] = torch.where(valid, v, st[k])
+    st["offset"] = st["offset"] - T
+    st["tail"] = ext[:, ext.shape[-1] - (fd.K - 1):]
+    return (outs, valids), st
+
+
 def _leaves(mm) -> tuple:
     """The float state leaves in the kernel's order (csrc/loops.cu:MMState):
     phase, freq, then last_out or p0 … c2."""
@@ -146,6 +221,7 @@ def mm_rows_kernel(mm, x, state, clk=None):
     by its pointer.  ``clk``: see ``_build.chain_clock``."""
     dev = x.device
     _check(mm, x, state)
+    _kernel_taps(mm)
     R, T = x.shape
     n_out = mm.max_out(T)
     dt = x.dtype
@@ -168,6 +244,42 @@ def mm_rows_kernel(mm, x, state, clk=None):
         valid.data_ptr(), st["tail"].data_ptr(), _ptrs([st[k] for k in keys]),
         st["offset"].data_ptr(), _build.chain_clock(clk, R, dev))
     return (sym, valid), st
+
+
+@_build.counted
+def fd_rows_kernel(fd, x, state, clk=None):
+    """K13f, the FD form of K13's clock recovery, on the card
+    (csrc/loops.cu); same contract as ``fd_rows_ref``."""
+    dev = x.device
+    _check_fd(fd, x, state)
+    _kernel_taps(fd)
+    R, T = x.shape
+    n_out = fd.max_out(T)
+    f32 = torch.float32
+    args = [_build.check(state[k], f"FD {k}", f32, (R,), dev)
+            for k in ("phase", "freq")]
+    sym = torch.empty(R, n_out, dtype=f32, device=dev)
+    valid = torch.empty(R, n_out, dtype=torch.bool, device=dev)
+    st = {k: torch.empty_like(state[k])
+          for k in ("tail", "phase", "freq", "offset")}
+    bank = device_const(fd, "bank", fd.bank, dev)
+    _build.launch(
+        "sdr_fd_rows", dev, _build.check(x, "FD input", f32, device=dev), R,
+        T, _build.check(state["tail"], "FD tail", f32, (R, fd.K - 1), dev),
+        *args,
+        _build.check(state["offset"], "FD offset", torch.int32, (R,), dev),
+        bank.data_ptr(), fd.P, fd.K, n_out, *_coefs(fd), sym.data_ptr(),
+        valid.data_ptr(), st["tail"].data_ptr(), st["phase"].data_ptr(),
+        st["freq"].data_ptr(), st["offset"].data_ptr(),
+        _build.chain_clock(clk, R, dev))
+    return (sym, valid), st
+
+
+def fd_rows(fd, x, state):
+    """K13f dispatch: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    fn = fd_rows_kernel if x.is_cuda else fd_rows_ref
+    return fn(fd, x, state)
 
 
 def mm_rows(mm, x, state):
@@ -216,14 +328,40 @@ class MMClockRecovery(Block):
     def apply(self, params, state, x):
         """x [..., T] → ((symbols [..., max_out(T)], valid), state').  The
         JAX block takes one stream (batch ()); the port also takes rows."""
+        return self._rows(mm_rows, state, x)
+
+    def _rows(self, fn, state, x):
         lead, T = x.shape[:-1], x.shape[-1]
         rows = math.prod(lead)
         dev = x.device
         dt = torch.complex64 if self.complex_data else torch.float32
         st = {k: v.to(dev).reshape((rows,) + v.shape[len(lead):])
               .contiguous() for k, v in state.items()}
-        (sym, valid), st = mm_rows(
+        (sym, valid), st = fn(
             self, x.to(dt).reshape(rows, T).contiguous(), st)
         n = sym.shape[-1]
         return ((sym.reshape(lead + (n,)), valid.reshape(lead + (n,))),
                 {k: v.reshape(lead + v.shape[1:]) for k, v in st.items()})
+
+
+class FDClockRecovery(MMClockRecovery):
+    """Frequency-derivative timing recovery for real symbol streams
+    (reference clock_recovery/fd.h): the M&M loop, its bank and limits,
+    with err = dfdt·step(y) and no symbol history in the state."""
+
+    def __init__(self, omega: float, omega_gain: float = 1e-6,
+                 mu_gain: float = 0.01, omega_rel_limit: float = 0.01,
+                 interp_phase_count: int = 128, interp_tap_count: int = 8):
+        super().__init__(omega, omega_gain, mu_gain, omega_rel_limit,
+                         interp_phase_count, interp_tap_count,
+                         complex_data=False)
+
+    def init_state(self, batch_shape=()):
+        st = super().init_state(batch_shape)
+        del st["last_out"]
+        return st
+
+    def apply(self, params, state, x):
+        """x [..., T] real → ((symbols [..., max_out(T)], valid),
+        state')."""
+        return self._rows(fd_rows, state, x)

@@ -13,9 +13,13 @@ The rotor depends on the carried phase, so the loop is sequential: the
 JAX package runs a ``lax.scan``; the port runs kernel K13's Costas form
 (csrc/loops.cu, one thread a row walking the chain) on a CUDA tensor and
 ``costas_rows_ref``, the same loop vectorised over rows, on a CPU tensor.
-A custom ``error_fn`` (the Meteor "broken modulation" detector) is a
-Python function of the derotated sample: the plain loop runs it on a CPU
-tensor, and on the card it raises, since K13 has no such form.
+
+A custom ``error_fn`` is a Python function of the derotated sample: the
+plain loop runs it on a CPU tensor.  One has a kernel form: the
+nearest-of-four-phases detector that ``nearest_phase_detector`` builds
+(Meteor's "broken modulation", models/meteor.py), which carries its form
+and phases as attributes; K13b runs it on the card.  Any other custom
+``error_fn`` raises on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -50,6 +54,40 @@ def costas_error(order: int, re: torch.Tensor,
     else:
         raise ValueError(f"invalid costas order {order}")
     return torch.clamp(err, -1.0, 1.0)
+
+
+#: float32(π) and float32(2π), as the JAX detector rounds them
+PI_F = float(np.float32(np.pi))
+TWO_PI_F = float(np.float32(2.0 * np.pi))
+
+
+def nearest_phase_detector(phases):
+    """The detector err = d·|v|, d the wrapped difference
+    mod(angle(v) − p + π, 2π) − π (floored modulo) to the first of the
+    four ``phases`` p with the smallest |d| (reference meteor_costas.h:
+    33-51).  It carries ``costas_form`` = "nearest4" and its float32
+    ``phases``, by which K13's wrapper runs it as K13b on the card."""
+    if len(phases) != 4:
+        raise ValueError("the nearest-phase detector takes four phases")
+    ps = tuple(float(np.float32(p)) for p in phases)
+
+    def detector(v: torch.Tensor) -> torch.Tensor:
+        re, im = v.real, v.imag
+        ang = torch.atan2(im, re)
+        p = torch.tensor(ps, dtype=torch.float32, device=v.device)
+        two_pi = torch.tensor(TWO_PI_F, dtype=torch.float32, device=v.device)
+        d = torch.remainder((ang[..., None] - p) + PI_F, two_pi) - PI_F
+        # argmin takes the first of equal |d|: the reference's strict <
+        best = d.gather(-1, d.abs().argmin(-1, keepdim=True))[..., 0]
+        return best * torch.hypot(re, im)
+    detector.costas_form = "nearest4"
+    detector.phases = ps
+    return detector
+
+
+def nearest_form(costas) -> bool:
+    """Whether ``costas`` carries the nearest-phase detector (K13b)."""
+    return getattr(costas.error_fn, "costas_form", None) == "nearest4"
 
 
 def costas_rows_ref(costas, x, phase, freq):
@@ -97,10 +135,43 @@ def costas_rows_kernel(costas, x, phase, freq, clk=None):
     return y, ph_out, fr_out
 
 
+def costas_nearest_rows_ref(costas, x, phase, freq):
+    """Plain PyTorch K13b: ``costas_rows_ref`` with the nearest-phase
+    detector."""
+    if not nearest_form(costas):
+        raise ValueError("K13b takes a nearest-phase detector")
+    return costas_rows_ref(costas, x, phase, freq)
+
+
+@_build.counted
+def costas_nearest_rows_kernel(costas, x, phase, freq, clk=None):
+    """K13b, the Costas form with the nearest-of-four-phases detector, on
+    the card (csrc/loops.cu); same contract as ``costas_rows_ref``."""
+    if not nearest_form(costas):
+        raise ValueError("K13b takes a nearest-phase detector")
+    dev = x.device
+    check_loop_rows(x, phase, freq, "Costas")
+    R, T = x.shape
+    y = torch.empty_like(x)
+    ph_out, fr_out = torch.empty_like(phase), torch.empty_like(freq)
+    _build.launch(
+        "sdr_costas_nearest_rows", dev,
+        _build.check(x, "Costas input", torch.complex64, device=dev), R, T,
+        _build.check(phase, "Costas phase", torch.float32, (R,), dev),
+        _build.check(freq, "Costas freq", torch.float32, (R,), dev),
+        *loop_coefs(costas), *costas.error_fn.phases, y.data_ptr(),
+        ph_out.data_ptr(), fr_out.data_ptr(), _build.chain_clock(clk, R, dev))
+    return y, ph_out, fr_out
+
+
 def costas_rows(costas, x, phase, freq):
-    """K13 (Costas form) dispatch: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    fn = costas_rows_kernel if x.is_cuda else costas_rows_ref
+    """K13 (Costas form) dispatch: the kernel for CUDA tensors (K13b for
+    the nearest-phase detector), the plain version for CPU tensors."""
+    if nearest_form(costas):
+        fn = costas_nearest_rows_kernel if x.is_cuda \
+            else costas_nearest_rows_ref
+    else:
+        fn = costas_rows_kernel if x.is_cuda else costas_rows_ref
     return fn(costas, x, phase, freq)
 
 

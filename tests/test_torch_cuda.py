@@ -1664,11 +1664,14 @@ def test_costas_kernel_matches_plain(gpu, order, R, T):
 
 
 @pytest.mark.parametrize("cplx", [False, True])
-@pytest.mark.parametrize("R,T", [(1, 250), (1, 2500), (3, 2500)])
+@pytest.mark.parametrize("R,T", [(1, 250), (1, 2500), (3, 2500),
+                                 (2, 20_000)])
 def test_mm_kernel_matches_plain(gpu, cplx, R, T):
-    """K13's M&M form at the RDS shapes (real; complex as well): symbols,
-    valid, the new tail, state and offset bit-identical to the plain
-    loop, from a carried state mid-stream (negative offset, history)."""
+    """K13's M&M form at the RDS shapes (real; complex as well) and at
+    20 000 samples (five of the kernel's input tiles, as the decoders'
+    0.1 s blocks take several): symbols, valid, the new tail, state and
+    offset bit-identical to the plain loop, from a carried state
+    mid-stream (negative offset, history)."""
     from sdrplusplusbrown_tpu_torch.ops import clock_recovery as cr
     blk = cr.MMClockRecovery(5000.0 / 1187.5, 1e-6, 0.01, 0.01,
                              complex_data=cplx)
@@ -2169,3 +2172,160 @@ def test_tx_path_matches_cpu(gpu, mode):
     assert len(out["cuda"][1]) == len(out["cpu"][1]) > 0
     for g, c in zip(*(out[k][1] for k in ("cuda", "cpu"))):
         _close(torch.from_numpy(c), torch.from_numpy(g), 80.0, "TX packets")
+
+
+# ---- K16 (the Viterbi), K13b and K13f (the decoders' loop forms) -----------
+
+def _viterbi_soft(rng, R, N, g1, g2, k, hard: bool):
+    """R frames of N steps: encoded random bits, flipped (hard) or in
+    noise (soft), with a few erasures (0.5)."""
+    from sdrplusplusbrown_tpu_torch.ops import fec
+    out = []
+    for _ in range(R):
+        c = fec.conv_encode(rng.integers(0, 2, N - (k - 1)), g1, g2,
+                            k).astype(np.float32)
+        if hard:
+            idx = rng.choice(len(c), len(c) // 20, replace=False)
+            c[idx] = 1.0 - c[idx]
+        else:
+            c = np.clip(c + 0.3 * rng.standard_normal(len(c)), 0.0, 1.0)
+        c[rng.choice(len(c), len(c) // 16, replace=False)] = 0.5
+        out.append(c.astype(np.float32))
+    return torch.from_numpy(np.stack(out))
+
+
+@pytest.mark.parametrize("hard", [True, False], ids=["hard", "soft"])
+@pytest.mark.parametrize("R,N,code", [
+    (1, 244, (0b11001, 0b10111, 5)), (1, 148, (0b11001, 0b10111, 5)),
+    (1, 54, (0o155, 0o117, 7)), (9, 8168, (0o161, 0o127, 7)),
+    (2, 30_000, (0o171, 0o133, 7)), (3, 300, (0o561, 0o753, 9))],
+    ids=["m17_lsf", "m17_stream", "kg_sstv", "ryfi9", "global", "k9"])
+def test_viterbi_kernel_matches_plain(gpu, hard, R, N, code):
+    """K16 at M17's LSF and stream lengths, KG-SSTV's frame, nine RyFi
+    frames, a frame whose decisions go to global scratch, and K = 9 (256
+    states, eight warps): bits and final metrics bit-identical to the
+    plain version on the card."""
+    from sdrplusplusbrown_tpu_torch.ops import fec
+    g1, g2, k = code
+    soft = _viterbi_soft(np.random.default_rng(N + hard), R, N, g1, g2, k,
+                         hard).to(gpu)
+    if N == 30_000:
+        assert fec.viterbi_scratch(N, k, R, gpu) is not None
+    got = fec.viterbi_rows_kernel(soft, g1, g2, k)
+    want = fec.viterbi_rows_ref(soft, g1, g2, k)
+    torch.cuda.synchronize()
+    _exact(got, want, f"K16 {N}")
+
+
+def test_costas_nearest_kernel_matches_plain(gpu):
+    """K13b at Meteor's 0.1 s block (15 000 samples at 150 kS/s) and a
+    partial tile, from a carried phase: bit-identical to the plain loop
+    on the card."""
+    from sdrplusplusbrown_tpu_torch.models.meteor import (
+        BROKEN_PHASES, broken_modulation_error)
+    from sdrplusplusbrown_tpu_torch.ops import costas
+    blk = costas.Costas(4, 0.005, error_fn=broken_modulation_error)
+    for R, T in ((1, 15_000), (3, 2049)):
+        rng = np.random.default_rng(T)
+        ph = np.asarray(BROKEN_PHASES)[rng.integers(0, 4, (R, T // 2 + 1))]
+        noise = rng.standard_normal((R, T)) \
+            + 1j * rng.standard_normal((R, T))
+        x = np.repeat(np.exp(1j * ph), 2, axis=1)[:, :T] \
+            * np.exp(0.002j * np.arange(T)) + 0.05 * noise
+        x = torch.from_numpy(x.astype(np.complex64)).to(gpu)
+        p0 = torch.from_numpy(rng.uniform(-3, 3, R).astype(np.float32)
+                              ).to(gpu)
+        f0 = torch.full((R,), 0.001, dtype=torch.float32, device=gpu)
+        got = costas.costas_nearest_rows_kernel(blk, x, p0, f0)
+        want = costas.costas_nearest_rows_ref(blk, x, p0, f0)
+        torch.cuda.synchronize()
+        _exact(got, want, f"K13b {R}x{T}")
+
+
+def test_fd_kernel_matches_plain(gpu):
+    """K13f at 20 000 samples (10 a symbol) and rows of 2 500 from a
+    carried state mid-stream: symbols, valid, tail, state and offset
+    bit-identical to the plain loop on the card."""
+    from sdrplusplusbrown_tpu_torch.ops import clock_recovery as cr
+    blk = cr.FDClockRecovery(10.0)
+    for R, T in ((1, 20_000), (3, 2500)):
+        rng = np.random.default_rng(T + R)
+        t = np.arange(T) / blk.omega
+        sym = np.sign(rng.standard_normal((R, int(t[-1]) + 2)))
+        x = np.stack([np.convolve(s[t.astype(int)], np.ones(7) / 7, "same")
+                      for s in sym]) + 0.05 * rng.standard_normal((R, T))
+        x = torch.from_numpy(x.astype(np.float32)).to(gpu)
+        st = _to(blk.init_state((R,)), gpu)
+        st["offset"] = torch.full((R,), -3, dtype=torch.int32, device=gpu)
+        st["phase"] = torch.full((R,), 0.995, dtype=torch.float32,
+                                 device=gpu)
+        st["tail"] = torch.from_numpy(rng.standard_normal((R, blk.K - 1))
+                                      .astype(np.float32)).to(gpu)
+        got = cr.fd_rows_kernel(blk, x, st)
+        want = cr.fd_rows_ref(blk, x, st)
+        torch.cuda.synchronize()
+        assert got[0][1].sum() > T // 12
+        _exact(got, want, f"K13f {R}x{T}")
+
+
+def test_decoder_kernels_raise_instead_of_falling_back(gpu):
+    """A CUDA tensor runs K16, K13b and K13f or raises: a mistyped input
+    is refused, and a Costas detector other than the nearest-phase one
+    still has no kernel form."""
+    from sdrplusplusbrown_tpu_torch.models.meteor import \
+        broken_modulation_error
+    from sdrplusplusbrown_tpu_torch.ops import clock_recovery, costas, fec
+    x = torch.ones(1, 16, dtype=torch.complex64, device=gpu)
+    z = torch.zeros(1, dtype=torch.float32, device=gpu)
+    with pytest.raises(ValueError):
+        fec.viterbi_rows(torch.ones(1, 31, device=gpu))
+    with pytest.raises(ValueError):
+        costas.costas_rows(costas.Costas(
+            4, 0.01, error_fn=broken_modulation_error), x.real.contiguous(),
+            z, z)
+    with pytest.raises(NotImplementedError):
+        costas.costas_rows(costas.Costas(
+            4, 0.01, error_fn=lambda v: v.imag), x, z, z)
+    fd = clock_recovery.FDClockRecovery(10.0)
+    with pytest.raises(ValueError):
+        clock_recovery.fd_rows(fd, x, _to(fd.init_state((1,)), gpu))
+    # the kernel's interpolator takes 8 taps: another count is refused
+    x = torch.ones(1, 64, dtype=torch.float32, device=gpu)
+    for blk, fn in ((clock_recovery.FDClockRecovery(
+            10.0, interp_tap_count=4), clock_recovery.fd_rows),
+                    (clock_recovery.MMClockRecovery(
+                        4.21, interp_tap_count=4, complex_data=False),
+                     clock_recovery.mm_rows)):
+        with pytest.raises(ValueError, match="8 interpolator taps"):
+            fn(blk, x, _to(blk.init_state((1,)), gpu))
+
+
+@pytest.mark.parametrize("form", ["viterbi", "nearest", "fd"])
+def test_decoder_kernels_chain_clock(gpu, form):
+    """With ``clk`` K16, K13b and K13f fill every row's chain cycles and
+    nanoseconds and return the same bits as without it."""
+    from sdrplusplusbrown_tpu_torch.models.meteor import \
+        broken_modulation_error
+    from sdrplusplusbrown_tpu_torch.ops import clock_recovery, costas, fec
+    R, T = 2, 1000
+    rng = np.random.default_rng(8)
+    if form == "viterbi":
+        fn, args = fec.viterbi_rows_kernel, (_viterbi_soft(
+            rng, R, T, fec.G1, fec.G2, 7, False).to(gpu), fec.G1, fec.G2, 7)
+    elif form == "nearest":
+        z = torch.zeros(R, dtype=torch.float32, device=gpu)
+        fn, args = costas.costas_nearest_rows_kernel, (
+            costas.Costas(4, 0.01, error_fn=broken_modulation_error),
+            _loop_input(rng, R, T).to(gpu), z, z)
+    else:
+        blk = clock_recovery.FDClockRecovery(4.21)
+        fn, args = clock_recovery.fd_rows_kernel, (
+            blk, _loop_input(rng, R, T).real.contiguous().to(gpu),
+            _to(blk.init_state((R,)), gpu))
+    clk = torch.zeros(R, 2, dtype=torch.int64, device=gpu)
+    got, want = fn(*args, clk), fn(*args)
+    torch.cuda.synchronize()
+    _exact(got, want, f"{form} with its chain clock")
+    cycles, ns = clk[:, 0].cpu().numpy(), clk[:, 1].cpu().numpy()
+    assert (cycles >= T // 5).all() and (ns > 0).all(), clk
+    assert (cycles / ns < 2.5).all(), clk
