@@ -959,7 +959,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("launches_path", "launches_by_path")
+    extra = ("launches_path", "launches_by_path", "cycles_a_step")
     print(json.dumps({"kernels": [
         {k: report[t][k] for k in keys + extra if k in report[t]}
         for t in KERNELS]}))
@@ -3822,6 +3822,7 @@ def check_loop_kernel(tag: str, call, card: str, what: str,
         cpi, mhz = chain_clock_runs(kern, call, steps, x)
         top = max(sm_clock_mhz(), float(mhz.max()))
         floor = steps * cpi.min() / top
+        out["cycles_a_step"] = float(np.median(cpi))
         print(f"{tag} {name} ({what}, {shape}): kernel {out['ms']:.4f} ms "
               f"(median of {LOOP_RUNS} runs, {runs.min():.4f}-"
               f"{runs.max():.4f}), plain {out['plain_ms']:.4f} ms, library "

@@ -5,6 +5,8 @@
 // rows C..2C-1), as in the JAX package's raw kernel handoff.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -59,6 +61,40 @@ struct ChainClock {
     }
   }
 };
+
+// mbarriers in shared memory (K13's clock recovery): ``mbar_init`` by one
+// thread for ``count`` arrivals a phase, then ``fence_mbar_init`` and a
+// __syncthreads before any use; ``mbar_arrive`` releases this thread's
+// earlier shared-memory writes to the thread that ``mbar_wait``s (acquire)
+// for the phase of that ``parity`` to complete.
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(b))),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(b)))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(b));
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
 
 // Opt ``kernel`` in to ``bytes`` of dynamic shared memory: a launch above
 // the default 48 KB needs it (the H100 allows up to 227 KB a block).

@@ -745,27 +745,13 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned n) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(b)), "r"(n) : "memory");
-}
+using sdr::mbar_init;
+using sdr::mbar_wait;
 
 // Arrive on ``b`` and expect ``bytes`` of asynchronous copies there.
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                ::"r"(smem_u32(b)), "r"(bytes) : "memory");
-}
-
-// Wait until phase ``parity`` of ``b`` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(b)), "r"(parity) : "memory");
-  } while (!done);
 }
 
 // ``bytes`` (a multiple of 16; both addresses 16-byte aligned) global ->
@@ -1077,7 +1063,7 @@ __global__ void __launch_bounds__(NT, WG || NT == 512 ? 1 : 2)
     a0 = a1 = i0 + span;
   if (tid == 0) {
     for (int i = 0; i <= ring; ++i) mbar_init(&bar[i], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sdr::fence_mbar_init();
     if (g.staged) {   // first, to land while the block sets up
       const unsigned bytes = static_cast<unsigned>(a1 - a0) * 4;
       mbar_expect_tx(&bar[ring], 2 * bytes);

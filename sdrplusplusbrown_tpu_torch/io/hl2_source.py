@@ -68,6 +68,11 @@ SEND_REGISTERS = (0, 1, 2, 9, 0xA, 0x17, 9, 1, 2, 9, 2)
 
 SAMPLES_PER_FRAME = 63        # (512-8)/8 at 1 receiver
 FRAME_BYTES = 512
+# the RX socket's receive buffer asked for: the receive loop is Python, and
+# while another thread holds the interpreter the frames wait in the kernel,
+# whose default buffer (~200 KB) holds ~40 ms of them at 384 kS/s and
+# dropped the rest; the kernel caps the request at its rmem_max
+RX_SOCKET_BUFFER = 4 << 20
 FULL_SCALE_24 = 8388607.0     # 2^23-1 (hl2_device.h:720)
 
 #: band label → (low Hz, high Hz, filter-board relay bits)
@@ -257,6 +262,8 @@ class HL2Device:
         self._tx_queue = np.zeros(0, np.complex64)
 
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                              RX_SOCKET_BUFFER)
         self._sock.bind(("0.0.0.0", 0))
         self._sock.settimeout(0.1)
         self._threads: List[threading.Thread] = []

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -74,6 +75,7 @@ SIGNATURES = {
     "sdr_pll_rows": [_P, _I, _I, _P, _P, _F, _F, _F, _F, _P, _P, _P, _P],
     "sdr_costas_rows": [_P, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _P, _P,
                         _P, _P],
+    "sdr_costas_rotor": [_P, _I, _P],
     "sdr_costas_nearest_rows": [_P, _I, _I, _P, _P, _F, _F, _F, _F, _F, _F,
                                 _F, _F, _P, _P, _P, _P],
     "sdr_logmmse_frames": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -81,16 +83,19 @@ SIGNATURES = {
                            _P],
     "sdr_linear_recurrence": [_P, _F, _F, _P, _F, _P, _P, _I, _I, _I, _I,
                               _P, _P],
-    "sdr_mm_rows": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                    _F, _P, _P, _P, _P, _P, _P],
-    "sdr_fd_rows": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                    _F, _P, _P, _P, _P, _P, _P, _P],
+    "sdr_mm_rows": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                    _F, _F, _P, _P, _P, _P, _P, _P],
+    "sdr_fd_rows": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                    _F, _F, _P, _P, _P, _P, _P, _P, _P],
     "sdr_viterbi_rows": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 #: what the last build did (for chip_smoke.py's report)
 BUILD_INFO: dict = {}
 _LIB: list = []
+# build() names its objects by the process id: a second thread's first
+# launch waits for the first's build instead of compiling over it
+_LIB_LOCK = threading.Lock()
 
 
 def _sources():
@@ -166,14 +171,16 @@ def build() -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     if not _LIB:
-        so = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(so, name)
-            fn.argtypes = argtypes + [_P]
-            fn.restype = ctypes.c_int
-        so.sdr_error_string.argtypes = [ctypes.c_int]
-        so.sdr_error_string.restype = ctypes.c_char_p
-        _LIB.append(so)
+        with _LIB_LOCK:
+            if not _LIB:
+                so = ctypes.CDLL(build())
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(so, name)
+                    fn.argtypes = argtypes + [_P]
+                    fn.restype = ctypes.c_int
+                so.sdr_error_string.argtypes = [ctypes.c_int]
+                so.sdr_error_string.restype = ctypes.c_char_p
+                _LIB.append(so)
     return _LIB[0]
 
 

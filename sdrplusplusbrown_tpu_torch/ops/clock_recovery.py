@@ -14,13 +14,16 @@ state as it was.
 
 The position advances by a floor of the loop's own output, so the loop
 is sequential: the JAX package runs a ``lax.scan``; the port runs kernel
-K13's M&M form (csrc/loops.cu: the bank and the row's [tail | x] staged
-in shared memory, one thread walking the loop) on a CUDA tensor and
-``mm_rows_ref``, the same loop vectorised over rows, on a CPU tensor.
+K13's M&M form (csrc/loops.cu: two warps staging the row's [tail | x]
+into a ring of chunks in shared memory, one warp walking the loop in runs
+of up to 32 steps that need no check; ``mm_schedule`` models its plan) on
+a CUDA tensor and ``mm_rows_ref``, the same loop vectorised over rows, on
+a CPU tensor.
 The interpolation sums its taps in ascending order, each product and sum
 rounded.  The kernel takes the 8 taps that every caller uses
-(``KERNEL_TAPS``); another ``interp_tap_count`` raises on a CUDA tensor
-and runs the plain version on a CPU tensor.
+(``KERNEL_TAPS``) and a bank of a power of two rows (every caller's is
+128); another ``interp_tap_count`` or ``interp_phase_count`` raises on a
+CUDA tensor and runs the plain version on a CPU tensor.
 
 ``FDClockRecovery`` is the same loop on real data with the timing error
 taken from the interpolator's slope, err = dfdt·step(y), dfdt from the
@@ -75,6 +78,9 @@ def _kernel_taps(mm) -> None:
     if mm.K != KERNEL_TAPS:
         raise ValueError(f"K13 on the card takes {KERNEL_TAPS} interpolator "
                          f"taps, not {mm.K}")
+    if mm.P < 1 or mm.P & (mm.P - 1):
+        raise ValueError(f"K13 on the card takes a bank of a power of two "
+                         f"rows, not {mm.P}")
 
 
 def _interp(win: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -203,6 +209,106 @@ def fd_rows_ref(fd, x, state):
     return (outs, valids), st
 
 
+#: the ring and the runs of K13m (csrc/loops.cu: MM_CH, MM_NCH, MM_RUN)
+RING_CHUNK = 1024
+RING_CHUNKS = 4
+RUN = 32
+
+
+def run_bound(mm) -> int:
+    """The runs' bound that the wrappers pass to K13m and K13f: the most a
+    step advances the window once the phase is in [0, 1).  A step moves it
+    by floor((ph + fr) + α·err), at most floor((1 + hi) + |α|) and at least
+    floor(lo − |α|) for fr in the frequency clamp's range [lo, hi] and
+    |err| ≤ 1 (float32 sums round monotonically, so the bounds hold as
+    rounded).  At least 1; 0 where a step may go back (lo < |α|) and the
+    kernel takes every step with its checks."""
+    f = np.float32
+    alpha, _, fmin, fmax = (f(v) for v in _coefs(mm))
+    lo, hi = min(fmin, fmax), max(fmin, fmax)
+    most = (f(1.0) + hi) + abs(alpha)
+    if not (lo >= abs(alpha) and most < f(1e6)):
+        return 0
+    return max(int(np.floor(most)), 1)
+
+
+def mm_schedule(T: int, offset: int, n_out: int, dmax: int, advance):
+    """A model of K13m's plan on one row of T samples (csrc/loops.cu:
+    mm_kernel) from the carried ``offset``, the loop's steps advancing the
+    window by ``advance(n)`` (the floor of step n's phase), ``dmax`` as
+    ``run_bound``.  Returns a dict: ``chunks`` [(ext start, length, slot)]
+    the staging warps write, ``events`` the chain's ("acquire" | "release",
+    chunk) and ("read", window start, "ring" | "global", n) in order,
+    ``symbols`` [(first, count, "run" | "step" | "fill")] and ``valid``,
+    the number of valid steps.  The model holds the plan's rules as it
+    goes (a run's windows staged, not passed and in the block; a chunk
+    waited for only when the staging warps can have written it)."""
+    H, CH, NCH = KERNEL_TAPS - 1, RING_CHUNK, RING_CHUNKS
+    n_ext = H + T
+    e0 = min(max(offset, 0), T - 1)
+    nch = -(-(n_ext - e0) // CH)
+    chunks = [(e0 + c * CH, min(CH, n_ext - e0 - c * CH), c % NCH)
+              for c in range(nch)]
+    events, symbols = [], []
+    got = {"avail": 0, "released": 0}
+
+    def acquire_to(c):
+        for a in range(got["avail"], min(c, nch)):
+            # the staging warps fill chunk a once a - NCH is passed
+            assert a < got["released"] + NCH, ("waits on an unstaged chunk",
+                                               a, got)
+            events.append(("acquire", a))
+            got["avail"] = a + 1
+
+    def release_to(c):
+        for a in range(got["released"], min(c, nch)):
+            acquire_to(a + 1)
+            events.append(("release", a))
+            got["released"] = a + 1
+
+    o, n, nv = offset, 0, n_out
+    while n < n_out:
+        K = 0
+        if dmax > 0 and n > 0 and e0 <= o < T:
+            ob = o - e0
+            release_to(ob // CH)
+            acquire_to((ob + KERNEL_TAPS - 1) // CH + 2)
+            lim = min(T - 1 - o, e0 + got["avail"] * CH - KERNEL_TAPS - o)
+            K = min(n_out - n,
+                    RUN if lim >= (RUN - 1) * dmax else lim // dmax + 1)
+        if K > 0:
+            for j in range(K):
+                assert e0 + got["released"] * CH <= o and o < T, (o, got)
+                assert o + KERNEL_TAPS <= e0 + got["avail"] * CH, (o, got)
+                events.append(("read", o, "ring", n + j))
+                d = advance(n + j)
+                assert 0 <= d <= dmax, d
+                o += d
+            symbols.append((n, K, "run"))
+            n += K
+            continue
+        start = min(max(o, 0), T - 1)
+        sb = start - e0
+        cl = (sb + KERNEL_TAPS - 1) // CH
+        if sb >= got["released"] * CH and cl < min(got["released"] + NCH,
+                                                   nch):
+            acquire_to(cl + 1)
+            events.append(("read", start, "ring", n))
+        else:
+            events.append(("read", start, "global", n))
+        symbols.append((n, 1, "step"))
+        if o >= T:
+            nv = n
+            if n + 1 < n_out:
+                symbols.append((n + 1, n_out - n - 1, "fill"))
+            break
+        o += advance(n)
+        n += 1
+    release_to(nch)
+    return {"chunks": chunks, "events": events, "symbols": symbols,
+            "valid": nv, "e0": e0}
+
+
 def _leaves(mm) -> tuple:
     """The float state leaves in the kernel's order (csrc/loops.cu:MMState):
     phase, freq, then last_out or p0 … c2."""
@@ -240,7 +346,8 @@ def mm_rows_kernel(mm, x, state, clk=None):
         "sdr_mm_rows", dev, _build.check(x, "M&M input", dt, device=dev), R,
         T, int(mm.complex_data), tail, _ptrs([state[k] for k in keys]),
         _build.check(state["offset"], "M&M offset", torch.int32, (R,), dev),
-        bank.data_ptr(), mm.P, mm.K, n_out, *_coefs(mm), sym.data_ptr(),
+        bank.data_ptr(), mm.P, mm.K, n_out, run_bound(mm), *_coefs(mm),
+        sym.data_ptr(),
         valid.data_ptr(), st["tail"].data_ptr(), _ptrs([st[k] for k in keys]),
         st["offset"].data_ptr(), _build.chain_clock(clk, R, dev))
     return (sym, valid), st
@@ -268,7 +375,8 @@ def fd_rows_kernel(fd, x, state, clk=None):
         T, _build.check(state["tail"], "FD tail", f32, (R, fd.K - 1), dev),
         *args,
         _build.check(state["offset"], "FD offset", torch.int32, (R,), dev),
-        bank.data_ptr(), fd.P, fd.K, n_out, *_coefs(fd), sym.data_ptr(),
+        bank.data_ptr(), fd.P, fd.K, n_out, run_bound(fd), *_coefs(fd),
+        sym.data_ptr(),
         valid.data_ptr(), st["tail"].data_ptr(), st["phase"].data_ptr(),
         st["freq"].data_ptr(), st["offset"].data_ptr(),
         _build.chain_clock(clk, R, dev))

@@ -11,8 +11,12 @@ sample:
 
 The rotor depends on the carried phase, so the loop is sequential: the
 JAX package runs a ``lax.scan``; the port runs kernel K13's Costas form
-(csrc/loops.cu, one thread a row walking the chain) on a CUDA tensor and
-``costas_rows_ref``, the same loop vectorised over rows, on a CPU tensor.
+(csrc/loops.cu: one warp a row walking the chain, its samples loaded in
+batches of 32 two batches ahead and its outputs stored a batch at a time;
+the rotor cosf/sinf of the phase from one inline range reduction,
+``rotor_kernel``) on a CUDA tensor and
+``costas_rows_ref``, the same loop vectorised over rows, on a CPU
+tensor.
 
 A custom ``error_fn`` is a Python function of the derotated sample: the
 plain loop runs it on a CPU tensor.  One has a kernel form: the
@@ -88,6 +92,31 @@ def nearest_phase_detector(phases):
 def nearest_form(costas) -> bool:
     """Whether ``costas`` carries the nearest-phase detector (K13b)."""
     return getattr(costas.error_fn, "costas_form", None) == "nearest4"
+
+
+def rotor_ref(x: torch.Tensor) -> tuple:
+    """Plain PyTorch form of K13c's rotor and rotation: 1 turned by x with
+    ``costas_rows_ref``'s products and sums, (1·cos x − 0·sin x,
+    1·sin x + 0·cos x).  That is (cos x, sin x) but for the sine of −0,
+    which comes out +0."""
+    c, s = torch.cos(x), torch.sin(x)
+    return c * 1.0 - s * 0.0, s * 1.0 + c * 0.0
+
+
+@_build.counted
+def rotor_kernel(x: torch.Tensor) -> tuple:
+    """K13c's rotor and rotation (csrc/loops.cu:turn, as the chain calls
+    it) turning 1 by each value of a float32 CUDA tensor: cosf and sinf as
+    the card's library gives them, computed from one range reduction where
+    |x| <= π (the library's functions elsewhere), their quadrant's selects
+    and signs applied to the sample; the card tests hold it to
+    ``rotor_ref`` bit for bit."""
+    dev = x.device
+    y = torch.empty(x.shape, dtype=torch.complex64, device=dev)
+    _build.launch("sdr_costas_rotor", dev,
+                  _build.check(x, "rotor input", torch.float32, device=dev),
+                  x.numel(), y.data_ptr())
+    return y.real, y.imag
 
 
 def costas_rows_ref(costas, x, phase, freq):

@@ -41,3 +41,36 @@ def test_signature_matches_the_source(name):
     params = _declarations()[name]
     assert params[-1] == "cudaStream_t stream", params[-1]
     assert [_kind(p) for p in params[:-1]] == _build.SIGNATURES[name]
+
+
+def test_first_launches_from_two_threads_build_once(monkeypatch):
+    """``lib()`` from two threads at once: one build (its object files
+    are named by the process id, so two would compile over each other)
+    and both threads get the one library."""
+    import threading
+    import time
+    calls = []
+
+    def slow_build():
+        calls.append(threading.get_ident())
+        time.sleep(0.2)
+        return "libsdrkernels_fake.so"
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "_LIB", [])
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(_build.lib()))
+               for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(calls) == 1
+    assert len(got) == 2 and got[0] is got[1]

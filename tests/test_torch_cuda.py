@@ -2329,3 +2329,245 @@ def test_decoder_kernels_chain_clock(gpu, form):
     cycles, ns = clk[:, 0].cpu().numpy(), clk[:, 1].cpu().numpy()
     assert (cycles >= T // 5).all() and (ns > 0).all(), clk
     assert (cycles / ns < 2.5).all(), clk
+
+
+# ---- K13's Costas and M&M forms as redesigned: every length, rows, ------
+# carried state and samples a symbol; the rotor on every float32 ---------
+
+LOOP_LENGTHS = [1, 4095, 4096, 4097, 72_000]
+
+
+def _costas_block(form):
+    from sdrplusplusbrown_tpu_torch.models.meteor import \
+        broken_modulation_error
+    from sdrplusplusbrown_tpu_torch.ops import costas
+    if form == "nearest":
+        return costas.Costas(4, 0.005, error_fn=broken_modulation_error)
+    return costas.Costas(form, 0.01, init_freq=0.3, min_freq=0.25,
+                         max_freq=0.35)
+
+
+def _costas_replay(blk, x, ph0, fr0, got):
+    """The plain loop's operations (``costas_rows_ref``) replayed on the
+    kernel's outputs: each step's error from its output (on the card, all
+    steps at once), the loop's phase before each step from them (on the
+    host, step by step, each float32 operation rounded as ``loop_update``
+    rounds it), then each output from the input and torch.cos / torch.sin
+    of its step's phase (on the card, all at once).  Every output and the
+    final state bit for bit: by induction on the steps, the plain loop's
+    result, at the cost of one pass of vector operations instead of one of
+    ~50 torch launches a step."""
+    from sdrplusplusbrown_tpu_torch.ops import costas, pll
+    y, ph1, fr1 = got
+    a, b, lo, hi = (np.float32(v) for v in pll.loop_coefs(blk))
+    if blk.error_fn is None:
+        err = costas.costas_error(blk.order, y.real, y.imag)
+    else:
+        err = torch.clamp(blk.error_fn(y), -1.0, 1.0)
+    err = err.cpu().numpy()
+    R, T = y.shape
+    PI, TWO_PI = np.float32(pll.PI), np.float32(pll.TWO_PI)
+    ph = np.empty((R, T), np.float32)
+    p, f = ph0.cpu().numpy().copy(), fr0.cpu().numpy().copy()
+    for t in range(T):
+        ph[:, t] = p
+        e = err[:, t]
+        f = np.minimum(np.maximum(f + b * e, lo), hi)
+        d = (p + f) + a * e
+        d = np.where(d > PI, d - TWO_PI, d)
+        p = np.where(d <= -PI, d + TWO_PI, d).astype(np.float32)
+    phs = torch.from_numpy(ph).to(y.device)
+    c, s = torch.cos(-phs), torch.sin(-phs)
+    want = torch.complex(x.real * c - x.imag * s, x.real * s + x.imag * c)
+    assert torch.equal(torch.view_as_real(y).view(torch.int32),
+                       torch.view_as_real(want).view(torch.int32))
+    assert np.array_equal(ph1.cpu().numpy().view(np.int32),
+                          p.view(np.int32))
+    assert np.array_equal(fr1.cpu().numpy().view(np.int32),
+                          f.astype(np.float32).view(np.int32))
+
+
+def _costas_check(blk, x, ph0, fr0, what):
+    """K13c / K13b against the plain loop on the card (short rows), or
+    its replay (``_costas_replay``)."""
+    from sdrplusplusbrown_tpu_torch.ops import costas
+    nearest = costas.nearest_form(blk)
+    kern = costas.costas_nearest_rows_kernel if nearest \
+        else costas.costas_rows_kernel
+    got = kern(blk, x, ph0, fr0)
+    torch.cuda.synchronize()
+    if x.shape[1] <= 300:
+        ref = costas.costas_nearest_rows_ref if nearest \
+            else costas.costas_rows_ref
+        _exact(got, ref(blk, x, ph0, fr0), what)
+    else:
+        _costas_replay(blk, x, ph0, fr0, got)
+
+
+@pytest.mark.parametrize("T", LOOP_LENGTHS)
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("form", [2, 4, 8, "nearest"])
+def test_costas_forms_at_every_length(gpu, form, R, T):
+    """K13c (orders 2, 4, 8) and K13b at one sample, either side of 4 096
+    and RyFi's 72 000, one row and four, from carried phases across
+    [-pi, pi]: outputs and state bit-identical to the plain loop's
+    operations (the loop itself where T = 1)."""
+    blk = _costas_block(form)
+    rng = np.random.default_rng(R * T + len(str(form)))
+    x = _loop_input(rng, R, T, w0=0.3).to(gpu)
+    ph0 = torch.from_numpy(rng.uniform(-np.pi, np.pi, R).astype(np.float32)
+                           ).to(gpu)
+    fr0 = torch.full((R,), 0.3 if form != "nearest" else 0.001,
+                     dtype=torch.float32, device=gpu)
+    _costas_check(blk, x, ph0, fr0, f"costas {form} {R}x{T}")
+
+
+@pytest.mark.parametrize("T", [300, 4097])
+@pytest.mark.parametrize("form", [2, 4, 8, "nearest"])
+def test_costas_carried_phase_outside_the_rotor_domain(gpu, form, T):
+    """A carried phase outside [-pi, pi] (just past pi, -7.5, 40, 1e5),
+    where the first steps take the library's cosf/sinf until the wrap
+    brings the phase in, and loop limits too wide to keep it there (the
+    checked walk throughout): bit-identical."""
+    from sdrplusplusbrown_tpu_torch.ops import costas
+    rng = np.random.default_rng(T + len(str(form)))
+    x = _loop_input(rng, 4, T, w0=0.3).to(gpu)
+    ph0 = torch.tensor([3.1416, -7.5, 40.0, 1e5], dtype=torch.float32,
+                       device=gpu)
+    fr0 = torch.full((4,), 0.3, dtype=torch.float32, device=gpu)
+    _costas_check(_costas_block(form), x, ph0, fr0,
+                  f"costas {form} carried phase")
+    if form != "nearest":
+        wide = costas.Costas(form, 0.01, init_freq=0.3, min_freq=-7.0,
+                             max_freq=7.0)
+        _costas_check(wide, x, ph0, fr0, f"costas {form} wide limits")
+
+
+def test_costas_rotor_is_cosf_and_sinf_on_every_float(gpu):
+    """The inline rotor and its rotation (csrc/loops.cu:turn, as the
+    Costas chain calls it) turning 1 by every float32 in [-float32(pi),
+    float32(pi)], about 2.16e9 values in chunks of 2^28, against the plain
+    loop's products on torch.cos and torch.sin on the card (the library's
+    cosf and sinf): bit for bit, signed zeros included (the sine of -0
+    comes out +0 from both, as -0 + 0 does)."""
+    from sdrplusplusbrown_tpu_torch.ops import costas
+    top = int(np.float32(np.pi).view(np.int32))
+    chunk = 1 << 28
+    for sign in (0, -(1 << 31)):
+        for lo in range(0, top + 1, chunk):
+            bits = torch.arange(sign + lo, sign + min(lo + chunk, top + 1),
+                                dtype=torch.int32, device=gpu)
+            a = bits.view(torch.float32)
+            c, s = costas.rotor_kernel(a)
+            cr, sr = costas.rotor_ref(a)
+            for got, want in ((c, cr), (s, sr)):
+                bad = got.contiguous().view(torch.int32) != want.view(
+                    torch.int32)
+                if bad.any():
+                    i = int(bad.nonzero()[0, 0])
+                    raise AssertionError(
+                        f"{int(bad.sum())} values differ; first: "
+                        f"{float(a[i])!r} -> {float(got[i])!r}, want "
+                        f"{float(want[i])!r}")
+            del bits, a, c, s, cr, sr, bad
+    torch.cuda.synchronize()
+
+
+def _mm_input(rng, R, T, sps, cplx):
+    """R rows of +-1 symbols at ``sps`` samples a symbol, band-limited by
+    a 3-tap average, in noise (complex: a quadrature stream too)."""
+    t = np.arange(T) / sps
+    sym = np.sign(rng.standard_normal((R, int(t[-1]) + 2)))
+    x = np.stack([np.convolve(s[t.astype(int)], np.ones(3) / 3, "same")
+                  for s in sym]) + 0.05 * rng.standard_normal((R, T))
+    if cplx:
+        q = np.sign(rng.standard_normal((R, int(t[-1]) + 2)))
+        x = x + 1j * np.stack([np.convolve(s[t.astype(int)],
+                                           np.ones(3) / 3, "same")
+                               for s in q])
+    return torch.from_numpy(x).to(torch.complex64 if cplx
+                                  else torch.float32)
+
+
+def _mm_check(form, sps, R, T, gpu, seed, phase=None, offset=None, P=128):
+    """K13m (real, complex) or K13f with a bank of P rows on R rows of T
+    samples from a carried state (the given phase and offset, else 0.37
+    and -2, a random tail and history): symbols, valid, the new tail,
+    state and offset bit for bit the plain version's on a host CPU copy of
+    the call (its adds, multiplies, compares, floors and gathers round the
+    same on either device)."""
+    from sdrplusplusbrown_tpu_torch.ops import clock_recovery as cr
+    cplx = form == "mm_cplx"
+    blk = cr.FDClockRecovery(sps, interp_phase_count=P) if form == "fd" \
+        else cr.MMClockRecovery(sps, 1e-6, 0.01, 0.01,
+                                interp_phase_count=P, complex_data=cplx)
+    rng = np.random.default_rng(seed)
+    x = _mm_input(rng, R, T, sps, cplx)
+    st = blk.init_state((R,))
+    st["offset"] = torch.full((R,), -2, dtype=torch.int32) \
+        if offset is None else torch.tensor(offset, dtype=torch.int32)
+    st["phase"] = torch.full((R,), 0.37, dtype=torch.float32) \
+        if phase is None else torch.tensor(phase, dtype=torch.float32)
+    dt = torch.complex64 if cplx else torch.float32
+    st["tail"] = torch.from_numpy(rng.standard_normal(
+        (R, blk.K - 1)).astype(np.float32)).to(dt)
+    if cplx:
+        for k in ("p0", "p1", "c0"):
+            st[k] = torch.from_numpy((rng.standard_normal(R) + 1j
+                                      * rng.standard_normal(R))
+                                     .astype(np.complex64))
+    elif form == "mm_real":
+        st["last_out"] = torch.from_numpy(
+            rng.standard_normal(R).astype(np.float32))
+    kern = cr.fd_rows_kernel if form == "fd" else cr.mm_rows_kernel
+    ref = cr.fd_rows_ref if form == "fd" else cr.mm_rows_ref
+    got = kern(blk, x.to(gpu), _to(st, gpu))
+    torch.cuda.synchronize()
+    want = ref(blk, x, st)
+    got = ((got[0][0].cpu(), got[0][1].cpu()),
+           {k: v.cpu() for k, v in got[1].items()})
+    _exact(got, want, f"{form} sps {sps} {R}x{T}")
+    return want
+
+
+@pytest.mark.parametrize("T", LOOP_LENGTHS)
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("form", ["mm_real", "mm_cplx", "fd"])
+def test_clock_forms_at_every_length(gpu, form, R, T):
+    """K13m real and complex and K13f at RDS's 4.2 samples a symbol (FD
+    at 10, its decoders'), at one sample, either side of 4 096 (the ring's
+    chunk is 1 024 and it holds four) and 72 000, one row and four:
+    bit-identical to the plain version."""
+    sps = 10.0 if form == "fd" else 4.21
+    want = _mm_check(form, sps, R, T, gpu, seed=R * T + len(form))
+    if T > 100:
+        assert want[0][1].sum() > R * T // (2 * sps)
+
+
+@pytest.mark.parametrize("sps", [1.68, 2.08, 3.0, 4.2])
+@pytest.mark.parametrize("form", ["mm_real", "mm_cplx", "fd"])
+def test_clock_forms_at_every_symbol_rate(gpu, form, sps):
+    """Falcon9's 1.68, Meteor's 2.08, RyFi's 3.0 and RDS's 4.2 samples a
+    symbol (the window's step and so the runs' bound differ) over 20 000
+    samples, two rows: bit-identical."""
+    _mm_check(form, sps, 2, 20_000, gpu, seed=int(sps * 100))
+
+
+@pytest.mark.parametrize("P", [16, 256])
+@pytest.mark.parametrize("form", ["mm_real", "mm_cplx", "fd"])
+def test_clock_forms_at_any_power_of_two_bank(gpu, form, P):
+    """A bank of 16 or 256 rows in place of every caller's 128 (a run
+    takes the row from the phase by a mask of P - 1) over 20 000 samples,
+    two rows: bit-identical."""
+    _mm_check(form, 3.0, 2, 20_000, gpu, seed=P, P=P)
+
+
+@pytest.mark.parametrize("form", ["mm_real", "mm_cplx", "fd"])
+def test_clock_forms_from_any_carried_state(gpu, form):
+    """Carried phases outside [0, 1) (-0.4, 1.7) and at its ends, offsets
+    before the block (-9), inside it (5) and past it (T + 3: every step
+    invalid): bit-identical, the steps a run cannot take included."""
+    T = 4097
+    _mm_check(form, 3.0, 4, T, gpu, seed=11,
+              phase=[-0.4, 1.7, 0.0, 0.99999994],
+              offset=[-9, 5, T + 3, 0])
