@@ -308,10 +308,12 @@ Phases, each fatal on failure:
      tone within 1 dB of the recording's (the MPEG stream byte for byte
      the host's Layer I encoding); (e) no thread or socket left.
  29. the digital decoders (``drive_decoders``): (a) K16 (the Viterbi) at
-     M17's LSF and stream lengths, KG-SSTV's frame and nine RyFi frames,
-     on hard and on soft input, and K13f at 20 000 samples, each against
-     its plain version (bit-identical), timed beside its chain floor as
-     in 24; the digital
+     M17's LSF and stream lengths, KG-SSTV's frame, nine RyFi frames, a
+     D-STAR header (K = 3) and a K = 9 frame (both of K16's forms: one
+     warp a frame to 64 states, a block a frame above), on hard and on
+     soft input, and K13f at 20 000 samples, each against its plain
+     version (bit-identical), timed beside its chain floor as in 24 (K16's
+     trellis and traceback clocked apart); the digital
      demods' blocks (``FDClockRecovery``, ``FourFSKDemod``,
      ``Pi4DQPSKDemod``) on the card with the counts zeroed; (b) the
      served app in manual pump on a 0.8 s capture at 2.4 MS/s carrying an
@@ -3716,21 +3718,29 @@ def loop_steps(tag: str, call) -> int:
     return x.shape[1]
 
 
-def chain_clock_runs(kern, call, steps: int, x) -> tuple:
+def chain_clock_runs(kern, call, steps: int, x,
+                     parts: list | None = None) -> tuple:
     """LOOP_RUNS runs of ``kern`` on ``call`` (input rows ``x``) with its
     chain clock: (cycles a step, the SM clock in MHz during the chain)
-    each run, from the slowest row."""
+    each run, from the slowest row.  A kernel with several clocks
+    (``clock_slots``: K16's trellis, then its argmin and traceback) counts
+    their sum; ``parts``, where given, gets each run's cycles a step of
+    each clock, of that row."""
     import torch
     R = x.shape[0]
+    slots = getattr(kern, "clock_slots", 1)
     cpi, mhz = [], []
     for _ in range(LOOP_RUNS):
-        clk = torch.zeros(R, 2, dtype=torch.int64, device=x.device)
+        clk = torch.zeros(R, 2 * slots, dtype=torch.int64, device=x.device)
         kern(*call, clk)
         torch.cuda.synchronize()
-        cycles, ns = clk.cpu().numpy().T
+        each = clk.cpu().numpy().reshape(R, slots, 2)
+        cycles, ns = each.sum(axis=1).T
         r = int(np.argmax(cycles))
         cpi.append(cycles[r] / steps)
         mhz.append(cycles[r] / ns[r] * 1e3)
+        if parts is not None:
+            parts.append(each[r, :, 0] / steps)
     return np.array(cpi), np.array(mhz)
 
 
@@ -3819,10 +3829,14 @@ def check_loop_kernel(tag: str, call, card: str, what: str,
         seen = sum(n for _, n in launches)
         us = (sum(t for t, _ in launches) / seen if seen
               else float("nan"))     # nan: the profiler saw none
-        cpi, mhz = chain_clock_runs(kern, call, steps, x)
+        parts = []
+        cpi, mhz = chain_clock_runs(kern, call, steps, x, parts)
         top = max(sm_clock_mhz(), float(mhz.max()))
         floor = steps * cpi.min() / top
         out["cycles_a_step"] = float(np.median(cpi))
+        # K16: the trellis's and the traceback's share apart
+        split = "" if len(parts[0]) < 2 else " (trellis {:.2f}, argmin and " \
+            "traceback {:.2f})".format(*np.median(np.array(parts), axis=0))
         print(f"{tag} {name} ({what}, {shape}): kernel {out['ms']:.4f} ms "
               f"(median of {LOOP_RUNS} runs, {runs.min():.4f}-"
               f"{runs.max():.4f}), plain {out['plain_ms']:.4f} ms, library "
@@ -3830,7 +3844,7 @@ def check_loop_kernel(tag: str, call, card: str, what: str,
               f"max|err| {err:.3e}, {agree}; device {us:.1f} us a launch "
               f"({seen} of {win['calls']} launches seen); chain "
               f"{np.median(cpi):.2f} "
-              f"cycles a step "
+              f"cycles a step{split} "
               f"({cpi.min():.2f}-{cpi.max():.2f}) at an SM clock of "
               f"{np.median(mhz):.0f} MHz ({mhz.min():.0f}-{mhz.max():.0f}) "
               f"over {LOOP_RUNS} runs; chain floor {floor:.1f} us ({steps} "
@@ -6239,8 +6253,9 @@ def viterbi_frames(R: int, N: int, code, hard: bool, seed: int):
 
 
 def decoder_kernels(dev, card: str, report: dict) -> None:
-    """(a): K16 at its callers' frames and K13f at 20 000 samples, each
-    against its plain version (bit-identical), timed (K13b is timed in (b),
+    """(a): K16 at its callers' frames (and K = 3 and K = 9 frames: both
+    of its forms) and K13f at 20 000 samples, each against its plain
+    version (bit-identical), timed (K13b is timed in (b),
     on the served block); then ``FDClockRecovery``, ``FourFSKDemod`` and ``Pi4DQPSKDemod`` on
     the card, the counts zeroed before each, two blocks each: K13f (FD),
     K8, K12c and K13m launched, nothing else; their outputs finite."""
@@ -6253,9 +6268,14 @@ def decoder_kernels(dev, card: str, report: dict) -> None:
     m17c = (m17.CONV_G1, m17.CONV_G2, m17.CONV_K)
     kgc = (kg_sstv.CONV_G1, kg_sstv.CONV_G2, kg_sstv.CONV_K)
     ryc = (ryfi.CONV_G1, ryfi.CONV_G2, ryfi.CONV_K)
+    # beside the callers' frames, a D-STAR header (K = 3, the warp form's
+    # fewest states) and a K = 9 frame (the block form), so that both of
+    # K16's forms are held on every run
     cases = (("M17 LSF", 1, 244, m17c), ("M17 stream", 1, 148, m17c),
              ("KG-SSTV frame", 1, 54, kgc),
-             ("RyFi, 9 frames", 9, ryfi.FRAME_SYMS, ryc))
+             ("RyFi, 9 frames", 9, ryfi.FRAME_SYMS, ryc),
+             ("D-STAR header (K = 3)", 1, 330, (0b111, 0b101, 3)),
+             ("K = 9, 3 frames", 3, 300, (0o561, 0o753, 9)))
     for label, R, N, code in cases:
         for hard in (True, False):
             soft = viterbi_frames(R, N, code, hard, N + hard).to(dev)

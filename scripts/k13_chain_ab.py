@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K13's loop kernels of one tree at the shapes of their callers, for a
-parent / change comparison on one NVIDIA GPU:
+"""The port's loop kernels of one tree at the shapes of their callers, for
+a parent / change comparison on one NVIDIA GPU:
 
-    python3 scripts/k13_chain_ab.py [--tree DIR] [--runs N]
+    python3 scripts/k13_chain_ab.py [--tree DIR] [--runs N] [--tags T,..]
                                     [--latency] [--sass FILE]
 
 Times K13c (the Costas forms), K13m (M&M), K13b and K13f as the port's
@@ -11,7 +11,13 @@ clock (real, 4.21 samples a symbol) on 1 x 1 000 and 4 x 1 000 samples,
 a Meteor demod's Costas (order 4) and clock (complex, 2.08) and the
 "broken" detector (K13b) on 1 x 15 000, RyFi's (order 4; complex, 3.0)
 on 1 x 72 000, FDClockRecovery (K13f, 10) on 1 x 20 000 and the complex
-clock at Falcon9's 1.68 on 1 x 20 000.  Each case prints the wrapper's
+clock at Falcon9's 1.68 on 1 x 20 000; K12c (the complex AGC) at RDS's 1
+x 1 000, Meteor's 1 x 15 000, RyFi's 1 x 72 000 and the AM carrier AGC's
+4 x 2 400, K12 (the real form) at 4 x 2 400; K16 (the Viterbi) at RyFi's
+9 x 8 168 steps, M17's 1 x 244 and 1 x 148 and KG-SSTV's 1 x 54, its
+trellis and its traceback clocked apart where the tree's kernel clocks
+them.  ``--tags`` keeps the cases of those kernels only (e.g.
+``K12,K12c,K16``).  Each case prints the wrapper's
 time by CUDA events (median of N runs of 20 calls), the device µs a
 launch from a profiler window (``chip_smoke.call_profile``) and the
 chain's cycles a step as the kernel clocks them (``chip_smoke.
@@ -22,14 +28,17 @@ parent in one call.
 
 ``--latency`` also compiles and runs a dependent-chain microbenchmark of
 the card's instruction latencies (one thread, 64 x 16 dependent
-operations a kind, ``clock64``) and prints, for every port-only loop kernel (K12,
-K12c, K13's PLL, Costas and M&M forms, K13b, K13f, K16), the least chain
-of its recurrence a step: the operations from one step's state to the
-next that the plain version's bits require (``CHAINS``), at those
-latencies.  ``--sass FILE`` writes ``cuobjdump -sass`` of the tree's
-loops.cu kernels to FILE (gzip) and prints each loop kernel's count of BSSY /
-BSYNC, local-memory and shared-memory instructions and ptxas's
-registers and spills from the build log.  Needs CUDA; imports no JAX.
+operations a kind, ``clock64``) and prints, for every port-only loop
+kernel (K12, K12c, K13's PLL, Costas and M&M forms, K13b, K13f, K16's
+two forms), the least chain of its recurrence a step: the operations
+from one step's state to the next that the plain version's bits require
+(``CHAINS``), at those latencies.  ``--sass FILE`` writes ``cuobjdump
+-sass`` of the tree's loop kernels to FILE (gzip) and prints each one's
+count of BSSY / BSYNC, local-memory and shared-memory instructions, each
+of its loops with its instructions by kind (``loops``: K12c's walk, K16's
+trellis step and traceback among them) and the instructions from each
+global load to the first use of its register, and ptxas's registers and
+spills from the build log.  Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -77,13 +86,17 @@ def _symbols(rng, R, T, sps, cplx):
     return x.astype(np.complex64 if cplx else np.float32)
 
 
-def cases(dev):
+def cases(dev, smoke):
     """(label, tag, wrapper, args, steps) of every timed shape."""
     import torch
+    from sdrplusplusbrown_tpu_torch.models import kg_sstv, m17
+    from sdrplusplusbrown_tpu_torch.models import ryfi as ryfi_model
     from sdrplusplusbrown_tpu_torch.models.meteor import MeteorDemod
     from sdrplusplusbrown_tpu_torch.models.rds import RDSDemod
+    from sdrplusplusbrown_tpu_torch.ops import agc
     from sdrplusplusbrown_tpu_torch.ops import clock_recovery as cr
-    from sdrplusplusbrown_tpu_torch.ops import costas
+    from sdrplusplusbrown_tpu_torch.ops import costas, fec
+    from sdrplusplusbrown_tpu_torch.ops.demod import AMDemod
     from sdrplusplusbrown_tpu_torch.ops.demod_digital import PSKDemod
     from sdrplusplusbrown_tpu_torch.runtime.block import to_device
     rng = np.random.default_rng(22)
@@ -127,25 +140,65 @@ def cases(dev):
     clock("RyFi M&M (complex, 3.0), 1 x 72000", ryfi.recov, 1, 72_000)
     clock("FD clock (K13f, 10), 1 x 20000", fd, 1, 20_000)
     clock("Falcon9 M&M (complex, 1.68), 1 x 20000", falcon, 1, 20_000)
+
+    def gain(label, blk, R, T, cplx=True):
+        x = rng.standard_normal((R, T)) * np.linspace(0.2, 2.0, T)
+        if cplx:
+            x = x + 1j * rng.standard_normal((R, T))
+        x = torch.from_numpy(x.astype(np.complex64 if cplx
+                                      else np.float32)).to(dev)
+        st = to_device(blk.init_state((R,)), dev)
+        out.append((label, "K12c" if cplx else "K12",
+                    agc.agc_cplx_rows_kernel if cplx
+                    else agc.agc_rows_kernel,
+                    (blk, x, st["amp"], st["env"], False), T))
+
+    gain("RDS AGC (complex), 1 x 1000", rds.agc, 1, 1000)
+    gain("Meteor AGC (complex), 1 x 15000", met.agc, 1, 15_000)
+    gain("RyFi AGC (complex), 1 x 72000", ryfi.agc, 1, 72_000)
+    gain("AM carrier AGC (complex), 4 x 2400",
+         AMDemod(15e3, carrier_agc=True).c_agc, 4, 2400)
+    gain("AM audio AGC (real), 4 x 2400",
+         agc.AGC(attack=50 / 24e3, decay=5 / 24e3), 4, 2400, cplx=False)
+
+    def trellis(label, R, N, code):
+        soft = smoke.viterbi_frames(R, N, code, False, N).to(dev)
+        out.append((label, "K16", fec.viterbi_rows_kernel, (soft, *code),
+                    N))
+
+    trellis("RyFi Viterbi (K = 7), 9 x 8168", 9, ryfi_model.FRAME_SYMS,
+            (ryfi_model.CONV_G1, ryfi_model.CONV_G2, ryfi_model.CONV_K))
+    m17c = (m17.CONV_G1, m17.CONV_G2, m17.CONV_K)
+    trellis("M17 LSF Viterbi (K = 5), 1 x 244", 1, 244, m17c)
+    trellis("M17 stream Viterbi (K = 5), 1 x 148", 1, 148, m17c)
+    trellis("KG-SSTV Viterbi (K = 7), 1 x 54", 1, 54,
+            (kg_sstv.CONV_G1, kg_sstv.CONV_G2, kg_sstv.CONV_K))
     return out
 
 
-def time_cases(smoke, dev, runs, label, card):
+def time_cases(smoke, dev, runs, label, card, tags=None):
     import torch
     smoke.LOOP_RUNS = runs
-    for name, tag, kern, args, steps in cases(dev):
-        x = args[1]
+    for name, tag, kern, args, steps in cases(dev, smoke):
+        if tags and tag not in tags:
+            continue
+        x = smoke.loop_input(tag, args)
         kern(*args)
         torch.cuda.synchronize()
         ms = np.array([smoke.event_ms(lambda: kern(*args))
                        for _ in range(runs)])
         us, n = smoke.call_profile(lambda: kern(*args))
-        cpi, mhz = smoke.chain_clock_runs(kern, args, steps, x)
+        parts = []
+        cpi, mhz = smoke.chain_clock_runs(kern, args, steps, x, parts)
+        split = ""
+        if len(parts[0]) > 1:      # K16: the trellis, then the traceback
+            tr, tb = np.median(np.array(parts), axis=0)
+            split = f" (trellis {tr:.2f}, argmin and traceback {tb:.2f})"
         print(f"tree {label}: {tag} {name}: {np.median(ms):.4f} ms "
               f"({ms.min():.4f}-{ms.max():.4f}), {us:.1f} us device a call "
               f"({n} launches), chain {np.median(cpi):.2f} cycles a step "
-              f"({cpi.min():.2f}-{cpi.max():.2f}) over {steps} steps at "
-              f"{np.median(mhz):.0f} MHz [{card}]", flush=True)
+              f"({cpi.min():.2f}-{cpi.max():.2f}){split} over {steps} "
+              f"steps at {np.median(mhz):.0f} MHz [{card}]", flush=True)
 
 
 # ---- the latency microbenchmark ------------------------------------------
@@ -163,6 +216,8 @@ LATENCY_CU = r"""
     __shared__ float sf[128];                                                \
     float x = in[0], y = in[1], z = in[2], fv[16];                           \
     int i = (int)in[3], j = (int)in[4];                                      \
+    const unsigned long long w64 =                                           \
+        ((unsigned long long)__float_as_uint(y) << 32) | __float_as_uint(z);  \
     bool p[16];                                                              \
     for (int k = 0; k < 16; ++k) {                                           \
       fv[k] = in[5 + k];                                                     \
@@ -214,13 +269,43 @@ KERNEL(k_smem_bar,
          x = __uint_as_float(sm[64 * (k & 1) + (threadIdx.x ^ 32)]);
        },
        x)
+// a shuffle of the value just shuffled (K16's warp form: the metrics)
+KERNEL(k_shfl, x = __shfl_sync(0xffffffffu, x, (threadIdx.x + 1) & 31), x)
+// K16's traceback step: the decision bit of state i from a 64-bit word,
+// shifted up to the register's top, or'd with i >> 1, masked
+KERNEL(k_trace,
+       i = (int)((((unsigned)(w64 >> i)) << 5 | ((unsigned)i >> 1)) & 63),
+       (float)i)
+
+// a pointer chase through global memory cached in L2 only (ld.global.cg:
+// a load whose address is the previous load's value; ``keep`` holds the
+// 64-entry ring)
+__global__ void k_ldg_l2(const float* in, int reps, long long* cyc,
+                         float* keep) {
+  unsigned* g = reinterpret_cast<unsigned*>(keep);
+  if (threadIdx.x == 0)
+    for (int k = 0; k < 64; ++k) g[k] = (k + 17) & 63;
+  __syncthreads();
+  __threadfence();
+  unsigned i = (unsigned)in[3];
+  const long long t0 = clock64();
+  i += (unsigned)(t0 >> 62);
+  _Pragma("unroll 1") for (int r = 0; r < reps; ++r) {
+    _Pragma("unroll") for (int k = 0; k < 64; ++k)
+      asm volatile("ld.global.cg.u32 %0, [%1];" : "=r"(i) : "l"(g + i));
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) cyc[0] = t1 - t0;
+  __syncthreads();
+  keep[threadIdx.x] = (float)i;
+}
 
 extern "C" int lat_run(int which, const float* in, int reps, long long* cyc,
                        float* keep) {
   void (*ks[])(const float*, int, long long*, float*) = {
       k_fadd, k_fmul, k_ffma, k_fmnmx, k_fsel, k_fsetp_fsel,
       k_fmul_f2i_i2f, k_fmul_frnd, k_row_lds, k_lds, k_shf_iadd, k_cosf,
-      k_atan2f, k_hypotf, k_smem_bar};
+      k_atan2f, k_hypotf, k_smem_bar, k_shfl, k_trace, k_ldg_l2};
   ks[which]<<<1, which == 14 ? 64 : 32>>>(in, reps, cyc, keep);
   return (int)cudaDeviceSynchronize();
 }
@@ -233,10 +318,14 @@ extern "C" int lat_run(int which, const float* in, int reps, long long* cyc,
 #: shared memory (M&M's bank row: a multiply, floor by an add rounding
 #: down to 1.5 2^23, a mask of its bits, the address, the load); LDS a
 #: pointer chase; SHF_IADD a shift and an add (K16's traceback step);
-#: SMEM_BAR a store, __syncthreads and the other warp's load (K16's step)
+#: SMEM_BAR a store, __syncthreads and the other warp's load (K16's block
+#: form's step); SHFL a shuffle of the shuffled value (K16's warp form);
+#: SHR64_SHL_LOP3 K16's traceback step (a 64-bit shift by the state, a
+#: shift up, an or with the state's half and a mask); LDG_L2 a load from
+#: L2 whose address is the last load's value
 OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP_FSEL",
        "FMUL_F2I_I2F", "FMUL_FRND", "ROW_LDS", "LDS", "SHF_IADD", "COSF",
-       "ATAN2F", "HYPOTF", "SMEM_BAR")
+       "ATAN2F", "HYPOTF", "SMEM_BAR", "SHFL", "SHR64_SHL_LOP3", "LDG_L2")
 
 # The least chain of each loop's recurrence a step, in operations of
 # OPS: from one step's state to the next, the operations the plain
@@ -264,9 +353,17 @@ def _add(*parts) -> dict:
     return out
 
 
+_ENVELOPE = {"FMUL": 1, "FADD": 1, "FSEL": 1}
+_WARP_TRELLIS = {"SHFL": 1, "FADD": 1, "FMNMX": 2}
+_WARP_TRACE = {"SHR64_SHL_LOP3": 1}
+
 CHAINS = {
     # amp = ia > amp ? amp(1 - atk) + ia atk : amp(1 - dec) + ia dec
-    "K12 / K12c (the envelope)": {"FMUL": 1, "FADD": 1, "FSEL": 1},
+    "K12 / K12c (the envelope)": _ENVELOPE,
+    # K12c's earlier walk: the envelope, and at each batch's top a load
+    # (from L2 at best) and its hypotf before the walk could go on
+    "K12c, the earlier design (the envelope; a load and a hypotf a batch)":
+        _add(_ENVELOPE, {"LDG_L2": 1 / 32, "HYPOTF": 1 / 32}),
     # err = wrap(a - ph); fr = clamp(fr + b err); ph = wrap((ph+fr) + a err)
     "K13 PLL": _add({"FADD": 1}, _WRAP, _LOOP, _WRAP),
     # rotor and rotation, err = clamp(re im), the loop, the wrap
@@ -287,10 +384,18 @@ CHAINS = {
     # slope (hi - lo) 0.5 and its select, x s(out)
     "K13f": _add(_INTERP, {"FADD": 1, "FMUL": 2, "FSEL": 1}, _CLAMP,
                  _LOOP),
-    # a trellis step: the predecessor's metric through shared memory and
-    # the step's barrier, + branch, min, min(., 1e9); the traceback's
-    # step: the decision word's load, a shift and an add
-    "K16": {"SMEM_BAR": 1, "FADD": 1, "FMNMX": 2, "LDS": 1, "SHF_IADD": 1},
+    # the block form (S > 64; the earlier design for every S): the
+    # predecessor's metric through shared memory and the step's barrier,
+    # + branch, min, min(., 1e9); the traceback's step: the decision
+    # word's load, a shift and an add
+    "K16 block form (trellis + traceback)": {
+        "SMEM_BAR": 1, "FADD": 1, "FMNMX": 2, "LDS": 1, "SHF_IADD": 1},
+    # the warp form (S <= 64): the predecessor's metric by a shuffle, +
+    # branch, min, min(., 1e9); the traceback's step on the word loaded a
+    # group ahead
+    "K16 warp form, trellis": _WARP_TRELLIS,
+    "K16 warp form, traceback": _WARP_TRACE,
+    "K16 warp form (trellis + traceback)": _add(_WARP_TRELLIS, _WARP_TRACE),
 }
 
 
@@ -383,11 +488,72 @@ def chain_loop(fn: str) -> str:
             + ", ".join(f"{k} {v}" for k, v in count.items()))
 
 
+#: the opcodes ``loops`` counts in each loop
+LOOP_OPS = ("SHFL", "VOTE", "FMNMX", "FSEL", "MUFU", "LDS", "STS", "LDG",
+            "LD.", "STG", "ST.", "BAR", "WARPSYNC", "BSSY", "BSYNC", "LDL",
+            "STL", "BRA")
+
+
+def _opcode(ins: str) -> str:
+    return ins.split()[1] if ins.startswith("@") else ins.split()[0]
+
+
+def _sources(ins: str) -> str:
+    """The operand text an instruction reads: a store's every operand,
+    else all but its destination."""
+    op = _opcode(ins)
+    rest = ins.split(op, 1)[1]
+    if op.startswith(("ST", "RED", "ATOM", "BAR", "BRA")):
+        return rest
+    return rest.split(",", 1)[1] if "," in rest else ""
+
+
+def loops(fn: str) -> list:
+    """Every loop of a function's SASS (a backward branch and its
+    target): its instructions, the count of each of ``LOOP_OPS`` and, for
+    each global load in it, how many instructions later (around the
+    loop) an instruction first reads the register it loads: a load whose
+    first use comes soon is waited for there."""
+    ins = [(int(a, 16), i.strip()) for a, i in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+    out = []
+    for addr, i in ins:
+        m = re.search(r"BRA (0x[0-9a-f]+)", i)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [b for a, b in ins if int(m.group(1), 16) <= a <= addr]
+        ops = [_opcode(b) for b in body]
+        count = {k: sum(o.startswith(k) for o in ops) for k in LOOP_OPS}
+        uses = []
+        for n, b in enumerate(body):
+            if not ops[n].startswith(("LDG", "LD.")):
+                continue
+            dst = re.match(r"\S+\s+(R\d+)", b.split(None, 1)[1]
+                           if b.startswith("@") else b)
+            if not dst:
+                continue
+            reg = re.compile(rf"\b{dst.group(1)}\b")
+            for d in range(1, len(body) + 1):
+                if reg.search(_sources(body[(n + d) % len(body)])):
+                    uses.append(d)
+                    break
+        out.append(f"loop {m.group(1)}-{addr:#x}: {len(body)} "
+                   f"instructions, " + ", ".join(
+                       f"{k.rstrip('.')} {v}" for k, v in count.items()
+                       if v)
+                   + (f"; a global load's first use {min(uses)} "
+                      f"instructions on (of {len(uses)} loads)"
+                      if uses else ""))
+    return out
+
+
 def sass(path: str, label: str) -> None:
-    """``cuobjdump -sass`` of the tree's loops.cu kernels (K13's forms)
-    into ``path`` (gzip), and for each its instruction count and BSSY,
-    BSYNC, local (LDL, STL) and shared (LDS, STS) memory instructions;
-    ptxas's lines for loops.cu from the build log."""
+    """``cuobjdump -sass`` of the tree's loop kernels (K12, K12c, K13's
+    forms, K16) into ``path`` (gzip), and for each its instruction count
+    and BSSY, BSYNC, local (LDL, STL) and shared (LDS, STS) memory
+    instructions, K13's chain loop (``chain_loop``) and, for K12, K12c
+    and K16, every loop (``loops``); ptxas's lines for loops.cu, agc.cu
+    and viterbi.cu from the build log."""
     import gzip
     from sdrplusplusbrown_tpu_torch.kernels import _build
     so = _build.build()
@@ -397,7 +563,8 @@ def sass(path: str, label: str) -> None:
     keep = []
     for fn in re.split(r"\n\s+Function : ", text)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if not re.search(r"costas_kernel|mm_kernel|pll_kernel", name):
+        if not re.search(r"costas_kernel|mm_kernel|pll_kernel|"
+                         r"agc_rows_kernel|viterbi", name):
             continue
         keep.append(f"Function : {fn}")
         ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", fn)
@@ -412,15 +579,21 @@ def sass(path: str, label: str) -> None:
         if walk:
             print(f"tree {label}: SASS {name}: the chain's loop "
                   + walk)
+        if re.search(r"agc_rows_kernel|viterbi", name):
+            for lp in loops(fn):
+                print(f"tree {label}: SASS {name}: {lp}")
     with gzip.open(path, "wt") as fh:
         fh.write("\n".join(keep))
     log = so[:-3] + ".log"
     if os.path.exists(log):
         with open(log) as fh:
-            lines = fh.read().split("== loops.cu", 1)[-1].split("== ", 1)[0]
-        for ln in lines.splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
-                print(f"tree {label}: ptxas {ln.strip()}")
+            text = fh.read()
+        for src in ("loops.cu", "agc.cu", "viterbi.cu"):
+            lines = text.split(f"== {src}", 1)[-1].split("== ", 1)[0] \
+                if f"== {src}" in text else ""
+            for ln in lines.splitlines():
+                if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                    print(f"tree {label}: ptxas {src}: {ln.strip()}")
 
 
 def main() -> int:
@@ -429,6 +602,8 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=7)
     ap.add_argument("--latency", action="store_true")
     ap.add_argument("--sass", default=None)
+    ap.add_argument("--tags", default="",
+                    help="comma-separated kernels to time (default all)")
     a = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -449,7 +624,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if a.sass:
         sass(a.sass, label)
-    time_cases(smoke, dev, a.runs, label, card)
+    time_cases(smoke, dev, a.runs, label, card,
+               set(filter(None, a.tags.split(","))))
     if a.latency:
         with tempfile.TemporaryDirectory(prefix="k13_latency_") as tmp:
             chain_bounds(latencies(tmp), card)

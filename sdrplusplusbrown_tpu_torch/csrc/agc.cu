@@ -43,9 +43,16 @@
 //
 // The complex form (sdr_agc_cplx_rows: the AM carrier AGC, RDSDemod's
 // AGC) is the same kernel on complex64 rows: each lane's hypotf of its
-// sample, computed where the real form loads x, is what the chain walks,
-// and the output warp scales both planes.  The real form's arithmetic is
-// unchanged.  Both forms take ``clk`` (null on the served path): the
+// sample is what the chain walks, and the output warp scales both planes.
+// The output warp computes the hypotfs, AHEAD batches before its own
+// batch, into a ring of MAGS batches in shared memory; the chain warp
+// reads a batch's |x| three batches before its walk, after the free
+// signal it already waits on (ops/agc.py:ring_schedule models the order).
+// So the chain warp loads nothing from global memory and computes no
+// hypotf: taken by the chain warp at its load (an earlier design), the
+// load's latency and hypotf's sat on the chain every batch, 38 cycles a
+// step against the real form's 25.  The real form's code is unchanged.
+// Both forms take ``clk`` (null on the served path): the
 // chain warp's cycles and nanoseconds a row (sdr::ChainClock), the
 // chain's measured cost a step.
 #include <cfloat>
@@ -59,9 +66,13 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int SLOTS = 2;        // ring of envelope batches in shared memory
+constexpr int MAGS = 8;         // K12c: ring of |x| batches in shared memory
+constexpr int AHEAD = 5;        // K12c: batches the output warp's |x| leads
+constexpr int START = 1 + 2 * SLOTS;   // K12c: |x| of batches 0 .. AHEAD-1
 
 // Named barriers 1 .. 2·SLOTS (0 is __syncthreads'): slot s full, slot s
-// free; 64 threads each, the two warps.
+// free; START (K12c): the output warp's first AHEAD batches of |x| are
+// written; 64 threads each, the two warps.
 __device__ __forceinline__ void arrive(int id) {
   asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
 }
@@ -96,18 +107,6 @@ __device__ __forceinline__ float walk(float amp, const float (&xs)[32],
   return amp;
 }
 
-// The chain's input at sample i of a row: |x| (hypotf of the planes for
-// complex x, K12's complex form; the real form walks fabsf of x itself).
-template <bool CPLX>
-__device__ __forceinline__ float chain_in(const float* xr, int i) {
-  if constexpr (CPLX) {
-    const float2 v = reinterpret_cast<const float2*>(xr)[i];
-    return hypotf(v.x, v.y);
-  } else {
-    return xr[i];
-  }
-}
-
 // grid R, 64 threads: warp 0 the chain, warp 1 the outputs.  CPLX: x and
 // y are complex64 rows (interleaved), the chain walks |x| and the gain
 // and ramp scale both planes.
@@ -121,6 +120,7 @@ __global__ void __launch_bounds__(64)
                     float* __restrict__ amp_out, int* __restrict__ env_out,
                     unsigned long long* __restrict__ clk) {
   __shared__ __align__(16) float ring[SLOTS][32];
+  __shared__ float mag[CPLX ? MAGS : 1][32];
   const int r = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const float* xr = x + static_cast<long>(r) * T * (CPLX ? 2 : 1);
@@ -132,17 +132,28 @@ __global__ void __launch_bounds__(64)
     if (!frozen) {
       cc.start();
       // batch b: every lane's copy of its 32 samples (xs) and this lane's
-      // (xv); own and nxt, this lane's of batches b + 1 and b + 2
-      float own = lane < T ? chain_in<CPLX>(xr, lane) : 0.f;
-      float nxt = 32 + lane < T ? chain_in<CPLX>(xr, 32 + lane) : 0.f;
+      // (xv); own and nxt, this lane's of batches b + 1 and b + 2 (K12c:
+      // their |x|, and far, batch b + 3's, from the output warp's ring)
+      float own, nxt, far;
+      if constexpr (CPLX) {
+        wait(START);
+        own = mag[0][lane];
+        nxt = mag[1][lane];
+        far = mag[2][lane];
+      } else {
+        own = lane < T ? xr[lane] : 0.f;
+        nxt = 32 + lane < T ? xr[32 + lane] : 0.f;
+      }
       float xs[32];
 #pragma unroll
       for (int k = 0; k < 32; ++k) xs[k] = __shfl_sync(FULL, own, k);
       float xv = own;
       for (int b = 0; b < nb; ++b) {
         own = nxt;
-        nxt = 32 * b + 64 + lane < T ? chain_in<CPLX>(xr, 32 * b + 64 + lane)
-                                     : 0.f;
+        if constexpr (CPLX)
+          nxt = far;
+        else
+          nxt = 32 * b + 64 + lane < T ? xr[32 * b + 64 + lane] : 0.f;
         float xn[32], h[32];
         if (__all_sync(FULL, fabsf(xv) >= FLT_MIN))
           amp = walk<false>(amp, xs, xn, own, h, atk, one_atk, dec, one_dec);
@@ -158,6 +169,10 @@ __global__ void __launch_bounds__(64)
           slot[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2],
                                 h[4 * q + 3]);
         arrive(full_bar(s));
+        // K12c: |x| of batch b + 3, which the output warp wrote before its
+        // free signal for batch b - 2 (waited on above from b = SLOTS on;
+        // batches 3 and 4 before START)
+        if constexpr (CPLX) far = mag[(b + 3) % MAGS][lane];
 #pragma unroll
         for (int k = 0; k < 32; ++k) xs[k] = xn[k];
         xv = own;
@@ -183,13 +198,39 @@ __global__ void __launch_bounds__(64)
   const V* xv_row = reinterpret_cast<const V*>(xr);
   V* yv_row = reinterpret_cast<V*>(yr);
   V xn = lane < T ? xv_row[lane] : V{};
+  // K12c: |x| of batches 0 .. AHEAD-1 into the ring (their loads issued
+  // together, then the hypotfs), then START; mraw, this lane's sample of
+  // batch b + AHEAD, loaded a batch ahead
+  float2 mraw{};
+  if constexpr (CPLX) {
+    if (!frozen) {
+      float2 v[AHEAD + 1];
+#pragma unroll
+      for (int q = 0; q <= AHEAD; ++q) {
+        const int i = 32 * q + lane;
+        v[q] = i < T ? xv_row[i] : float2{};
+      }
+#pragma unroll
+      for (int q = 0; q < AHEAD; ++q) mag[q][lane] = hypotf(v[q].x, v[q].y);
+      mraw = v[AHEAD];
+      arrive(START);
+    }
+  }
   for (int b = 0; b < nb; ++b) {
     const int s0 = 32 * b, n = s0 + lane;
     const V xv = xn;
     xn = n + 32 < T ? xv_row[n + 32] : V{};
-    float ia;
+    float ia = 0.f;
     if constexpr (CPLX) {
-      ia = hypotf(xv.x, xv.y);
+      if (!frozen) {
+        // batch b + AHEAD's |x|, before this batch's free signal (slot
+        // (b + AHEAD) % MAGS last held batch b - 3's, long read); then
+        // this batch's own, written AHEAD batches ago
+        mag[(b + AHEAD) % MAGS][lane] = hypotf(mraw.x, mraw.y);
+        const int i = n + 32 * (AHEAD + 1);
+        mraw = i < T ? xv_row[i] : float2{};
+        ia = mag[b % MAGS][lane];
+      }
     } else {
       ia = fabsf(xv);
     }

@@ -197,14 +197,15 @@ def launch(name: str, device: torch.device, *args) -> None:
     _LAUNCHED[0] += 1
 
 
-def chain_clock(clk, rows: int, device) -> int | None:
-    """The ``clk`` argument of a sequential kernel (K12, K13): None (the
-    served path: the kernel reads no clock), or an int64 [rows, 2] CUDA
-    tensor that the kernel fills with its chain's SM cycles and
-    nanoseconds a row (csrc/common.cuh:ChainClock)."""
+def chain_clock(clk, rows: int, device, slots: int = 1) -> int | None:
+    """The ``clk`` argument of a sequential kernel (K12, K13, K16): None
+    (the served path: the kernel reads no clock), or an int64 [rows, 2 ·
+    slots] CUDA tensor that the kernel fills with its chains' SM cycles
+    and nanoseconds a row, a pair a chain (csrc/common.cuh:ChainClock;
+    K16 has two: its trellis and its traceback)."""
     if clk is None:
         return None
-    return check(clk, "chain clock", torch.int64, (rows, 2), device)
+    return check(clk, "chain clock", torch.int64, (rows, 2 * slots), device)
 
 
 def check(t: torch.Tensor, what: str, dtype, shape=None, device=None):

@@ -14,8 +14,10 @@ ramp scale both planes: K12's complex form):
 The envelope's coefficient switches on a comparison with its own output,
 so no associative scan computes it: the JAX package runs a ``lax.scan``;
 the port runs K12 (csrc/agc.cu: a block of two warps a row, one walking
-the envelope, one computing the gains and writing the outputs) on a CUDA
-tensor and ``agc_rows_ref``, the same per-sample loop, on a CPU tensor.
+the envelope, one computing the gains and writing the outputs, and for
+a complex block the |x| the chain walks, handed over through a ring whose
+order ``ring_schedule`` models) on a CUDA tensor and ``agc_rows_ref``,
+the same per-sample loop, on a CPU tensor.
 Both round each operation on its own; XLA:CPU contracts the update into
 a fused multiply-add (which product it fuses depends on the scan's
 unrolled copy), so the two packages' ``amp`` differ by an ulp at some
@@ -38,6 +40,50 @@ from ..runtime.block import Block
 ENVELOPE_LEN = 4800  # reference loop/agc.h:163 (_totalEnvelopeLength)
 ENV_MAX = 1 << 30
 _TINY = float(np.finfo(np.float32).tiny)
+
+#: K12's rings (csrc/agc.cu): envelope batches from the chain warp to the
+#: output warp; K12c's |x| batches from the output warp to the chain
+#: warp, written AHEAD batches before the output warp's own batch; the
+#: named barriers: slot s full 1 + s, free 1 + SLOTS + s, START (|x| of
+#: batches 0 .. AHEAD-1 written)
+SLOTS, MAGS, AHEAD = 2, 8, 5
+START = 1 + 2 * SLOTS
+
+
+def ring_schedule(T: int, cplx: bool, frozen: bool = False) -> dict:
+    """The order of K12's two warps on one row of T samples, as
+    csrc/agc.cu runs them: for "chain" and "output", the events in
+    program order, ("arrive", id) and ("sync", id) on a named barrier of
+    the two warps (64 threads), ("write" | "read", ring, slot, batch) of
+    a shared-memory ring ("env": the envelopes; "mag": K12c's |x|)."""
+    nb = (T + 31) // 32
+    chain, out = [], []
+    if cplx and not frozen:
+        out += [("write", "mag", q, q) for q in range(AHEAD)]
+        out.append(("arrive", START))
+    for b in range(nb):
+        s = b % SLOTS
+        if cplx and not frozen:
+            out += [("write", "mag", (b + AHEAD) % MAGS, b + AHEAD),
+                    ("read", "mag", b % MAGS, b)]
+        if not frozen:
+            out += [("sync", 1 + s), ("read", "env", s, b),
+                    ("arrive", 1 + SLOTS + s)]
+    if frozen:
+        return {"chain": chain, "output": out}
+    if cplx:
+        chain += [("sync", START)] + [("read", "mag", q, q)
+                                      for q in range(3)]
+    for b in range(nb):
+        s = b % SLOTS
+        if b >= SLOTS:
+            chain.append(("sync", 1 + SLOTS + s))
+        chain += [("write", "env", s, b), ("arrive", 1 + s)]
+        if cplx:
+            chain.append(("read", "mag", (b + 3) % MAGS, b + 3))
+    chain += [("sync", 1 + SLOTS + b % SLOTS)
+              for b in range(max(nb, SLOTS), nb + SLOTS)]
+    return {"chain": chain, "output": out}
 
 
 def fast_agc(set_point: float = 1.0, max_gain: float = 10e6,

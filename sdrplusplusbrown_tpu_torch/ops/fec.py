@@ -4,8 +4,11 @@ core/libcorrect, vendored: convolutional r=1/2 K=7..9 codes and
 RS(255,223), used by the decoder modules — M17, KG-SSTV, RyFi, and later
 falcon9, dstar, pager).
 
-The Viterbi decoder is kernel K16 (csrc/viterbi.cu, one frame a block,
-the states across its threads) on a CUDA tensor and ``viterbi_rows_ref``,
+The Viterbi decoder is kernel K16 (csrc/viterbi.cu: up to 64 states one
+warp a frame, the metrics in registers exchanged by shuffles, the plan
+``viterbi_warp_plan``, the traceback's loads ``viterbi_trace_plan``; more
+states one block a frame, a thread a state) on a CUDA tensor and
+``viterbi_rows_ref``,
 the same add-compare-select vectorised over frames and states, with the
 JAX package's host traceback, on a CPU tensor.  Both keep the JAX
 package's arithmetic and tie rules bit for bit:
@@ -46,6 +49,13 @@ G1, G2 = 0o171, 0o133
 DEC_SMEM_MAX = 160 * 1024
 BIG = 1e9
 TIE = 1e-6
+#: the most states K16's warp form takes (csrc/viterbi.cu WARP_STATES):
+#: every code of the port's callers (K = 3, 5 and 7); more states run the
+#: block form
+WARP_STATES = 64
+#: steps of a traceback group: the warp form loads each group's decision
+#: words during the group before
+TRACE_GROUP = 32
 
 
 def conv_encode(bits: np.ndarray, g1: int = G1, g2: int = G2,
@@ -90,6 +100,76 @@ def predecessor_outputs(g1: int, g2: int, k: int) -> np.ndarray:
             assert nxt[s, n & 1] == n
             out[n, which] = outs[s, n & 1]
     return out
+
+
+def _pair(reg: int, g1: int, g2: int) -> int:
+    """The coded pair a full K-bit register emits, as 2 e0 + e1."""
+    return 2 * (bin(reg & g1).count("1") & 1) + (bin(reg & g2).count("1")
+                                                 & 1)
+
+
+def viterbi_warp_plan(g1: int, g2: int, k: int) -> dict:
+    """K16's warp form (csrc/viterbi.cu:viterbi_warp_kernel), one warp a
+    frame, for S = 2^(k−1) ≤ WARP_STATES states; the kernel computes the
+    same from its lane index:
+
+      * ``regs``: states a lane, 2 where S = 64, else 1;
+      * ``state`` [32, regs]: the state lane L keeps in register q: L +
+        32 q, or L mod S where S ≤ 32 (the lanes from S on copy lane L
+        mod S: their shuffles read live lanes, their bits are never read);
+      * ``src`` [32, regs, 2, 2]: for that state's low (0) and high (1)
+        predecessor, (n >> 1) and (n >> 1) + S/2, the (lane, register)
+        the step shuffles its metric from: one shuffle a (q, w), so each
+        reads one register in every lane;
+      * ``code`` [32, regs, 2]: the pair each predecessor emits on the
+        way, 2 e0 + e1 of the full registers n and n + S: the column of
+        the step's branch-metric table the lane reads."""
+    S = 1 << (k - 1)
+    if S > WARP_STATES:
+        raise ValueError(f"K16's warp form: {S} states, at most "
+                         f"{WARP_STATES}")
+    regs = 2 if S == WARP_STATES else 1
+    state = np.zeros((32, regs), np.int64)
+    src = np.zeros((32, regs, 2, 2), np.int64)
+    code = np.zeros((32, regs, 2), np.int64)
+    for lane in range(32):
+        for q in range(regs):
+            n = lane + 32 * q if regs == 2 else lane & (S - 1)
+            state[lane, q] = n
+            lo = n >> 1
+            for w in (0, 1):
+                src[lane, q, w] = (lo & 31, w) if regs == 2 else \
+                    (lo + w * S // 2, 0)
+                code[lane, q, w] = _pair(n + w * S, g1, g2)
+    return {"S": S, "regs": regs, "state": state, "src": src,
+            "code": code}
+
+
+def viterbi_trace_plan(N: int) -> list:
+    """The warp form's traceback over N steps, as csrc/viterbi.cu runs
+    it: groups of TRACE_GROUP steps [g, g + 32) from the top one (g = N
+    − 32) down by 32, the last one (g ≤ 0) with its steps below 0
+    skipped; a group's words in registers 0..31 by position (step g + 31
+    − j in register j).  The events in program order: ("load", t, j)
+    puts step t's decision word into register j; ("use", t, j) is step
+    t's traceback step reading register j.  The top group's words are
+    loaded before the walk; every later group's word for position j
+    during the group before, right after that group's use of register
+    j."""
+    G = TRACE_GROUP
+    events = [("load", N - 1 - j, j) for j in range(G) if N - 1 - j >= 0]
+    g = N - G
+    while True:
+        last = g <= 0
+        for j in range(G):
+            t = g + G - 1 - j
+            if not last or t >= 0:
+                events.append(("use", t, j))
+            if not last and g - 1 - j >= 0:
+                events.append(("load", g - 1 - j, j))
+        if last:
+            return events
+        g -= G
 
 
 def _check(soft, k):
@@ -149,7 +229,8 @@ def viterbi_scratch(N: int, k: int, R: int, device):
 def viterbi_rows_kernel(soft, g1: int = G1, g2: int = G2, k: int = 7,
                         clk=None):
     """K16 on the card (csrc/viterbi.cu); same contract as
-    ``viterbi_rows_ref``.  ``clk``: see ``_build.chain_clock``."""
+    ``viterbi_rows_ref``.  ``clk``: see ``_build.chain_clock``; two
+    slots, the trellis's and the argmin and traceback's."""
     dev = soft.device
     _check(soft, k)
     R, N = soft.shape[0], soft.shape[1] // 2
@@ -161,8 +242,11 @@ def viterbi_rows_kernel(soft, g1: int = G1, g2: int = G2, k: int = 7,
         _build.check(soft, "Viterbi soft", torch.float32, device=dev), R, N,
         int(g1), int(g2), int(k),
         None if scratch is None else scratch.data_ptr(), bits.data_ptr(),
-        final.data_ptr(), _build.chain_clock(clk, R, dev))
+        final.data_ptr(), _build.chain_clock(clk, R, dev, slots=2))
     return bits, final
+
+
+viterbi_rows_kernel.clock_slots = 2
 
 
 def viterbi_rows(soft, g1: int = G1, g2: int = G2, k: int = 7):

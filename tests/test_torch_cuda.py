@@ -1720,6 +1720,38 @@ def test_agc_complex_kernel_matches_plain(gpu, R, T):
         assert torch.equal(a, ar) and torch.equal(e, er)
 
 
+@pytest.mark.parametrize("R,T", [(1, 15_000), (1, 72_000), (2, 72_013)])
+def test_agc_complex_kernel_at_the_decoders_blocks(gpu, R, T):
+    """K12c at a Meteor module's 0.1 s block (1 x 15 000, a partial last
+    batch) and RyFi's (1 x 72 000), and rows with a partial last batch
+    at that length, from a carried state (the envelope mid-stream, the
+    ramp's end inside the block or past it), with zero and subnormal
+    samples across batch edges: the output >= 100 dB and the state
+    exact, as at the other shapes."""
+    from sdrplusplusbrown_tpu_torch.ops import agc
+    rng = np.random.default_rng(T + R)
+    blk = agc.AGC(set_point=1.0, attack=0.1, decay=0.1, max_gain=10e6)
+    x = ((rng.standard_normal((R, T)) + 1j * rng.standard_normal((R, T)))
+         * np.linspace(0.05, 2, T)).astype(np.complex64)
+    tiny = np.float32(1e-40)                     # subnormal
+    for n, edge in enumerate((32, 4096, 32 * (T // 64), 32 * (T // 32)
+                              - 32)):
+        straddle, after = (0.0, tiny + 1j * tiny)[::1 - 2 * (n % 2)]
+        x[:, edge - 3:edge + 2] = straddle
+        x[:, edge + 2:edge + 5] = after
+    x[:, -2:] = 0.0
+    amp = rng.uniform(0.2, 1.5, R).astype(np.float32)
+    env = np.array([3000, 1 << 20][:R], np.int32)
+    for frozen in (False, True):
+        args = (blk, torch.from_numpy(x).to(gpu), torch.from_numpy(amp)
+                .to(gpu), torch.from_numpy(env).to(gpu), frozen)
+        y, a, e = agc.agc_cplx_rows_kernel(*args)
+        yr, ar, er = agc.agc_rows_ref(*args)
+        torch.cuda.synchronize()
+        _close(yr, y, 100.0, f"K12c {R}x{T} frozen={frozen}")
+        assert torch.equal(a, ar) and torch.equal(e, er)
+
+
 def test_loop_kernels_raise_instead_of_falling_back(gpu):
     """On a CUDA tensor the loops launch K13 or raise: a custom Costas
     detector has no kernel form, and a mistyped block is refused."""
@@ -2198,13 +2230,16 @@ def _viterbi_soft(rng, R, N, g1, g2, k, hard: bool):
 @pytest.mark.parametrize("R,N,code", [
     (1, 244, (0b11001, 0b10111, 5)), (1, 148, (0b11001, 0b10111, 5)),
     (1, 54, (0o155, 0o117, 7)), (9, 8168, (0o161, 0o127, 7)),
-    (2, 30_000, (0o171, 0o133, 7)), (3, 300, (0o561, 0o753, 9))],
-    ids=["m17_lsf", "m17_stream", "kg_sstv", "ryfi9", "global", "k9"])
+    (2, 30_000, (0o171, 0o133, 7)), (3, 300, (0o561, 0o753, 9)),
+    (1, 330, (0b111, 0b101, 3))],
+    ids=["m17_lsf", "m17_stream", "kg_sstv", "ryfi9", "global", "k9",
+         "dstar"])
 def test_viterbi_kernel_matches_plain(gpu, hard, R, N, code):
     """K16 at M17's LSF and stream lengths, KG-SSTV's frame, nine RyFi
-    frames, a frame whose decisions go to global scratch, and K = 9 (256
-    states, eight warps): bits and final metrics bit-identical to the
-    plain version on the card."""
+    frames, a frame whose decisions go to global scratch, K = 9 (256
+    states: the block form, eight warps) and D-STAR's header (K = 3: the
+    warp form at four states): bits and final metrics bit-identical to
+    the plain version on the card."""
     from sdrplusplusbrown_tpu_torch.ops import fec
     g1, g2, k = code
     soft = _viterbi_soft(np.random.default_rng(N + hard), R, N, g1, g2, k,
@@ -2302,8 +2337,9 @@ def test_decoder_kernels_raise_instead_of_falling_back(gpu):
 
 @pytest.mark.parametrize("form", ["viterbi", "nearest", "fd"])
 def test_decoder_kernels_chain_clock(gpu, form):
-    """With ``clk`` K16, K13b and K13f fill every row's chain cycles and
-    nanoseconds and return the same bits as without it."""
+    """With ``clk`` K16 (its trellis and its traceback apart), K13b and
+    K13f fill every row's chain cycles and nanoseconds and return the
+    same bits as without it."""
     from sdrplusplusbrown_tpu_torch.models.meteor import \
         broken_modulation_error
     from sdrplusplusbrown_tpu_torch.ops import clock_recovery, costas, fec
@@ -2322,12 +2358,16 @@ def test_decoder_kernels_chain_clock(gpu, form):
         fn, args = clock_recovery.fd_rows_kernel, (
             blk, _loop_input(rng, R, T).real.contiguous().to(gpu),
             _to(blk.init_state((R,)), gpu))
-    clk = torch.zeros(R, 2, dtype=torch.int64, device=gpu)
+    # K16 clocks its trellis and its traceback apart: two pairs a row
+    slots = 2 if form == "viterbi" else 1
+    clk = torch.zeros(R, 2 * slots, dtype=torch.int64, device=gpu)
     got, want = fn(*args, clk), fn(*args)
     torch.cuda.synchronize()
     _exact(got, want, f"{form} with its chain clock")
-    cycles, ns = clk[:, 0].cpu().numpy(), clk[:, 1].cpu().numpy()
-    assert (cycles >= T // 5).all() and (ns > 0).all(), clk
+    for q in range(slots):
+        cycles = clk[:, 2 * q].cpu().numpy()
+        ns = clk[:, 2 * q + 1].cpu().numpy()
+        assert (cycles >= T // 5).all() and (ns > 0).all(), clk
     assert (cycles / ns < 2.5).all(), clk
 
 

@@ -102,8 +102,32 @@ def _ryfi_frame(rng):
                                    jax_ryfi.CONV_K)
 
 
-VITERBI_CASES = {"hard_flips": _hard_flips, "soft_noise": _soft_noise,
-                 "m17_lsf": _m17_lsf, "ryfi_frame": _ryfi_frame}
+def _dstar(soft: bool):
+    """A D-STAR header's 330 trellis steps (K = 3, g1 0b111, g2 0b101,
+    the JAX package's models/dstar.py): 328 random bits encoded, 8 %
+    flipped (hard: ties in many steps) or in noise (soft, with erasures
+    at 0.5).  K16's warp form takes it with four states a warp."""
+    def make(rng):
+        code = (0b111, 0b101, 3)
+        c = jax_fec.conv_encode(rng.integers(0, 2, 328), *code).astype(
+            np.float32)
+        if soft:
+            c = np.clip(c + 0.35 * rng.standard_normal(c.size), 0.0, 1.0)
+            c[rng.choice(c.size, c.size // 16, replace=False)] = 0.5
+        else:
+            idx = rng.choice(c.size, c.size // 12, replace=False)
+            c[idx] = 1.0 - c[idx]
+        return c.astype(np.float32), code
+    return make
+
+
+#: each case's input and its seed (fixed: a case added does not move the
+#: others' inputs)
+VITERBI_CASES = {"hard_flips": (_hard_flips, 0),
+                 "soft_noise": (_soft_noise, 3), "m17_lsf": (_m17_lsf, 1),
+                 "ryfi_frame": (_ryfi_frame, 2),
+                 "dstar_hard": (_dstar(False), 4),
+                 "dstar_soft": (_dstar(True), 5)}
 
 
 def _jax_final_metrics(soft, g1, g2, k):
@@ -126,8 +150,8 @@ def _jax_final_metrics(soft, g1, g2, k):
 
 @pytest.mark.parametrize("case", sorted(VITERBI_CASES))
 def test_viterbi_matches_jax_bit_for_bit(case):
-    soft, (g1, g2, k) = VITERBI_CASES[case](np.random.default_rng(
-        sorted(VITERBI_CASES).index(case)))
+    make, seed = VITERBI_CASES[case]
+    soft, (g1, g2, k) = make(np.random.default_rng(seed))
     want = jax_fec.viterbi_decode(jnp.asarray(soft), g1, g2, k)
     bits, final = fec.viterbi_rows_ref(torch.from_numpy(soft)[None], g1, g2,
                                        k)
