@@ -70,6 +70,11 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     frames and, keyed by rigctl, the TX audio of a stream client), each
     fed by a fake peer in a process of its own, and the network and MPEG
     sinks: K4f, K8, K9, K12, K15.
+  * the wideband decoders — the app's ``weather_sat_decoder`` (NOAA
+    HRPT: K12c, K13's PLL form, K8, K13m's real form), ``falcon9_decoder``
+    (K8, K13m), ``atv_decoder`` (K12c), ``dab_decoder`` and
+    ``vor_receiver`` (K8), each through its RxVFO on K8 and served from a
+    capture at its users' source rate, the spectrum on K4f.
 
 Phases, each fatal on failure:
 
@@ -336,8 +341,34 @@ Phases, each fatal on failure:
      RyFi at its default 720 kBd on 1.5 MS/s over 2 s of signal: every
      packet exact, the wall seconds a second of signal split into the
      card's (device µs by kernel) and the host's (deframer, RS).
+ 30. the wideband decoders (``drive_wideband``): (b) the JAX package's
+     slow tests' RF loopbacks through each module on an app on the card
+     at its channel rate, the counts zeroed before each: HRPT's two frames
+     at 3 MS/s (every pixel and the TIP words exact; K8, K12c, K13p,
+     K13m), Falcon 9's frame at 6 MS/s (the packet exact; K8, K13m), VOR
+     at 25 kHz at three azimuths (the last two 1 s windows within 2 deg,
+     quality > 90 %) and on noise (quality < 50 %; K8), ATV's 2 352 lines
+     at 14.77 MS/s (lock > 750, a frame, mid-row correlation > 0.9;
+     K12c) and DAB's 30 frames at 2.048 MS/s (25 frames seen, the CFO
+     within 60 Hz, dibits > 85 %; host only), the loop kernels' calls
+     captured; (a) K13p and K12c at HRPT's 1 x 300 000, K12c at ATV's
+     1 x 590 625 and K13m at HRPT's 300 000 and Falcon 9's 600 000
+     samples, each on its last loopback call: clocked at the full shape
+     (ms, device µs, cycles a step beside the chain floor), then against
+     its plain version on a prefix of that call in two blocks, the second
+     from the state the kernel returned (every output and state bit for
+     bit; K12c's output 100 dB; K13m's plain version on a host CPU copy);
+     (c) each module served by the app in manual pump on a capture at its
+     users' rate (HRPT on 6 MS/s, Falcon 9 on 10 MS/s, ATV on 20 MS/s,
+     DAB on 2.4 MS/s, VOR on 250 kS/s; fft 65 536 at 20 fps, 8 192 for
+     VOR), each delivering (b)'s product (Falcon 9: 41 back-to-back
+     frames, every packet); the counts zeroed before: the module's
+     kernels and K4f launched and held to their plans, every other kernel
+     not; each module's launches, device µs and loop kernels' share a
+     0.1 s block, its handler's wall and its host stages' seconds a second
+     of signal.
 
-The main-path runs of phases 19 and 21-29 run inside ``no_plain_on_card``:
+The main-path runs of phases 19 and 21-30 run inside ``no_plain_on_card``:
 a plain version of K5, K6, K8, K9, K12, K13, K14, K15 or K16, or
 LogMMSE's plain ``_push_history``, given a CUDA tensor fails the run.
 Every ``launches`` count is of CUDA launches: each wrapper counts every
@@ -958,6 +989,7 @@ def main() -> int:
     drive_modes(dev, card, report)
     drive_trx(dev, card, report)
     drive_decoders(dev, card, report)
+    drive_wideband(dev, card, report)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -6434,14 +6466,17 @@ def meteor_recordings(app, blocks: int, per_module: dict | None = None,
 def counted_handler(h, per_module: dict, wrappers: dict):
     """A module's baseband handler that adds the kernel launches each of
     its calls makes (the counts of ``wrappers``, {tag: the wrapper}: under
-    ``capture`` the module's names hold recorders) to
-    ``per_module[name]``."""
+    ``capture`` the module's names hold recorders) and its wall seconds
+    to ``per_module[name]``."""
     name = getattr(getattr(h, "__self__", None), "name", "?")
-    entry = per_module.setdefault(name, {"calls": 0, "launches": {}})
+    entry = per_module.setdefault(name, {"calls": 0, "launches": {},
+                                         "wall": 0.0})
 
     def handler(iq):
         n0 = {t: w.launches for t, w in wrappers.items()}
+        t0 = time.perf_counter()
         h(iq)
+        entry["wall"] += time.perf_counter() - t0
         entry["calls"] += 1
         for t, w in wrappers.items():
             d = w.launches - n0[t]
@@ -6658,6 +6693,622 @@ def ryfi_full_rate(dev, card: str) -> None:
         fail(f"phase 29 (c): {len(got)} of {len(packets)} packets, "
              f"{rx.frames_bad} bad frames")
 
+
+# ---- phase 30: the wideband decoders ---------------------------------
+
+WB_VOR_AZ = (0.0, 137.0, 289.5)   # tests/test_decoders_wave1.py's azimuths
+WB_VOR_SECONDS = 6.0
+WB_VOR_NOISE_SECONDS = 4.0
+WB_PREFIX = 3000              # samples a block of the K13p / K12c prefixes
+WB_MM_PREFIX = 5000           # and of the K13m prefixes
+WB_FALCON_FRAMES_S = 0.12     # (c): seconds of back-to-back Falcon frames
+WB_SEED = 12345               # the JAX tests' ``rng`` (tests/conftest.py)
+#: (c)'s served apps: label → (module, module type, source rate, offset,
+#: the reference fault that keeps the product from its bars there, or
+#: None), each capture at a rate its users run: an Airspy Mini class
+#: L-band receiver (HRPT, 6 MS/s; Falcon 9's channel rate, 6 MS/s), an
+#: Airspy R2 behind an S-band downconverter (Falcon 9, 10 MS/s), a HackRF
+#: on an amateur-TV band (ATV, 20 MS/s), an RTL-SDR in Band III (DAB at
+#: 2.4 MS/s, and at 2.048 MS/s, the rate DAB receivers set it to), an
+#: airband receiver (VOR, 250 kS/s)
+WB_SERVED = {
+    "HRPT": ("HRPT", "weather_sat_decoder", 6_000_000.0, 100e3, None),
+    "Falcon9": ("Falcon9", "falcon9_decoder", 10_000_000.0, 0.0,
+                "the JAX module's 4 MHz RxVFO bandwidth cuts the FSK's "
+                "+-2 MHz tones: the JAX app decodes no frame of this "
+                "capture either (ROADMAP queue 3)"),
+    "Falcon9 6 MS/s": ("Falcon9", "falcon9_decoder", 6_000_000.0, 0.0,
+                       None),
+    "ATV": ("ATV", "atv_decoder", 20_000_000.0, 1e6, None),
+    "DAB": ("DAB", "dab_decoder", 2_400_000.0, 200e3,
+            "the reference FrameFreqSync's CFO correlation diverges when "
+            "the symbols' timing is fractional, as the RxVFO's 64/75 "
+            "resampler makes it: the JAX package's front end does the "
+            "same on this capture (ROADMAP queue 3)"),
+    "DAB 2.048 MS/s": ("DAB", "dab_decoder", 2_048_000.0, 0.0, None),
+    "VOR": ("VOR", "vor_receiver", 250_000.0, 30e3, None)}
+#: the kernels each served app launches (its spectrum K4f, its RxVFO's
+#: and filters' K8, its loops); every other kernel stays at 0
+WB_TAGS = {"HRPT": ("K4f", "K8", "K12c", "K13p", "K13m"),
+           "Falcon9": ("K4f", "K8", "K13m"),
+           "Falcon9 6 MS/s": ("K4f", "K8", "K13m"),
+           "ATV": ("K4f", "K8", "K12c"), "DAB": ("K4f", "K8"),
+           "DAB 2.048 MS/s": ("K4f",), "VOR": ("K4f", "K8")}
+#: the kernels phase 30's paths report in ``launches_by_path``
+WB_REPORT_TAGS = ("K8", "K9", "K12c", "K13p", "K13m")
+
+
+def hrpt_channel(rng, fs: float) -> tuple:
+    """tests/test_hrpt.py's RF loopback at ``fs``: two HRPT frames (a
+    ramp image with TIP words, a random one) behind 15 000 random bits,
+    PM at 1.17 rad, 150 Hz off, noise 0.02; (iq, [av1, av2], tip)."""
+    from sdrplusplusbrown_tpu_torch.models import hrpt as H
+    av1 = np.stack([(np.arange(2048) * k + 7) % 1024 for k in range(1, 6)])
+    av2 = rng.integers(0, 1024, (5, 2048))
+    tip = rng.integers(0, 1024, 520)
+    bits = H.frames_signal(rng, [H.build_frame(av1, tip),
+                                 H.build_frame(av2)])
+    iq = H.pm_modulate(bits, samplerate=fs)
+    n = np.arange(len(iq))
+    iq = iq * np.exp(1j * (2 * np.pi * 150.0 * n / fs + 0.4))
+    iq = iq + 0.02 * (rng.standard_normal(len(iq))
+                      + 1j * rng.standard_normal(len(iq)))
+    return iq.astype(np.complex64), [av1, av2], tip
+
+
+def falcon_frames(rng, n_frames: int, fs: float, noise: float) -> tuple:
+    """``n_frames`` back-to-back Falcon 9 frames (frame k carrying one
+    packet, counter k + 1) behind 4 000 random bits at ``fs``; (iq,
+    packets)."""
+    from sdrplusplusbrown_tpu_torch.models import falcon9 as F
+    pkts, bits = [], [rng.integers(0, 2, 4000).astype(np.uint8)]
+    for k in range(n_frames):
+        pk = F.make_packet(b"\x00" * 8 + f"falcon frame {k}".encode()
+                           + bytes(rng.integers(0, 256, 64).tolist()))
+        wire = F.falcon_rs_encode(F.build_frame_payload(k + 1, pk, 0))
+        bits += [F.ASM_BITS, np.unpackbits(wire)]
+        pkts.append(pk)
+    bits.append(rng.integers(0, 2, 2000).astype(np.uint8))
+    return F.falcon_signal(np.concatenate(bits), noise, 0.2, rng, fs), pkts
+
+
+def atv_channel(rng) -> tuple:
+    """tests/test_atv.py's RF loopback at 14.765625 MS/s: a sine pattern
+    on 2 352 lines (12 frames of 90-line fields), negative AM, noise
+    0.004; (iq, pattern)."""
+    from sdrplusplusbrown_tpu_torch.models import atv as A
+    pattern = (0.5 + 0.4 * np.sin(2 * np.pi * np.arange(A.VISIBLE_W)
+                                  / 128.0)).astype(np.float32)
+    sig = A.video_signal(pattern, n_normal=90, reps=12)
+    iq = ((0.8 - 0.45 * sig) * np.exp(1j * 0.3)).astype(np.complex64)
+    iq = iq + 0.004 * (rng.standard_normal(len(iq))
+                       + 1j * rng.standard_normal(len(iq)))
+    return iq.astype(np.complex64), pattern
+
+
+def dab_channel(rng) -> tuple:
+    """tests/test_dab_kgsstv.py's signal at 2.048 MS/s: 30 frames of 10
+    data symbols, 350 Hz off, noise 0.005; (iq, each frame's dibits)."""
+    from sdrplusplusbrown_tpu_torch.models import dab as D
+    frames, dibits = [], []
+    for _ in range(30):
+        iq, dib = D.build_frame(10, rng)
+        frames.append(iq)
+        dibits.append(dib)
+    sig = np.concatenate(frames)
+    n = np.arange(len(sig))
+    sig = sig * np.exp(2j * np.pi * 350.0 * n / D.DAB_SR)
+    sig = sig + 0.005 * (rng.standard_normal(len(sig))
+                         + 1j * rng.standard_normal(len(sig)))
+    return sig.astype(np.complex64), dibits
+
+
+def at_rate(x: np.ndarray, fs_in: float, fs: float, offset: float,
+            block: int, granule: int = 1) -> np.ndarray:
+    """``x`` at ``fs_in`` resampled to ``fs`` (a rational resampler),
+    moved to ``offset`` and padded with zeros to whole ``granule``s (a
+    module's block), then to whole ``block``s (the app's)."""
+    from fractions import Fraction
+    from scipy.signal import resample_poly
+    r = Fraction(int(fs), int(fs_in))
+    y = x if r == 1 else resample_poly(x, r.numerator, r.denominator)
+    y = y * np.exp(2j * np.pi * offset * np.arange(len(y)) / fs)
+    n = -(-len(y) // granule) * granule
+    n = -(-n // block) * block
+    return np.concatenate([y, np.zeros(n - len(y))]).astype(np.complex64)
+
+
+# -- the products, each held to the JAX package's slow tests' bars ------
+def hrpt_product(framer, avs, tip) -> str:
+    ok = (framer.frames >= 2 and len(framer.avhrr_lines) >= 2
+          and all(np.array_equal(framer.avhrr_lines[i], a)
+                  for i, a in enumerate(avs))
+          and np.array_equal(framer.tip[0], tip))
+    return (f"{framer.frames} frames, both frames' 5 x 2048 pixels and the "
+            f"TIP words exact: {ok}"), ok
+
+
+def falcon_product(mod, pkts) -> tuple:
+    got = mod.pkt_sync.packets
+    ok = got == pkts and mod.frames_bad == 0
+    return (f"{mod.frames_ok} frames, {mod.frames_bad} bad, {len(got)} of "
+            f"{len(pkts)} packets exact: {ok}"), ok
+
+
+def atv_product(mod, pattern) -> tuple:
+    img = mod.assembler.image
+    rows = img[img.max(axis=1) > 40]
+    c = float(np.corrcoef(rows[len(rows) // 2].astype(float), pattern)[
+        0, 1]) if len(rows) > 50 else float("nan")
+    ok = (mod.linesync.locked > 750 and mod.assembler.frames >= 1
+          and 0.1 < mod.assembler.gain < 10.0 and c > 0.9)
+    return (f"locked {mod.linesync.locked} (bar > 750), "
+            f"{mod.assembler.frames} frames (bar >= 1), gain "
+            f"{mod.assembler.gain:.3f}, mid-row correlation {c:.4f} (bar "
+            f"> 0.9)"), ok
+
+
+def dab_product(mod, dibits, cfo: float) -> tuple:
+    """DAB's bars; the frames counted are those ``dab_frames_within``
+    saw inside the signal (the zeros that pad it to whole blocks are
+    null symbols to the front end)."""
+    ff = mod.ffsync
+    dm = ff.demap_time_differential()
+    accs = [float((dm[i] == dibits[-1][i]).mean())
+            for i in range(min(len(dm), len(dibits[-1])))]
+    acc = float(np.mean(accs)) if accs else 0.0
+    frames = mod.frames_within["frames"]
+    ok = (frames >= 25 and abs(ff.last_cfo_hz - cfo) < 60.0
+          and len(accs) >= 8 and acc > 0.85
+          and len(ff.constellations[-1]) == 1534)
+    return (f"{frames} frames (bar >= 25), CFO {ff.last_cfo_hz:.1f} Hz "
+            f"(want {cfo:.0f} +- 60), the last frame's dibits "
+            f"{100 * acc:.2f} % (bar 85) over {len(accs)} symbols"), ok
+
+
+def dab_frames_within(mod, n_sig: int) -> None:
+    """Count on ``mod.frames_within["frames"]`` the frames the module's
+    front end has seen by its last symbol inside the first ``n_sig``
+    channel samples."""
+    from sdrplusplusbrown_tpu_torch.models.dab import TU
+    ff, box = mod.ffsync, {"frames": 0}
+    orig = ff.push_symbol
+
+    def push(s, pos=None):
+        orig(s, pos=pos)
+        if pos is not None and pos + TU <= n_sig:
+            box["frames"] = ff.frames_seen
+    ff.push_symbol = push
+    mod.frames_within = box
+
+
+def drive_wideband(dev, card: str, report: dict) -> None:
+    """Phase 30: (b) each wideband decoder's RF loopback on the card
+    through its module at its channel rate, the loop kernels' calls
+    captured; (a) K13p, K12c and K13m at those callers' shapes against
+    their plain versions on two-block prefixes and clocked at the full
+    shape; (c) each module served by the app in manual pump on a capture
+    at its users' source rate."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wb_") as tmp:
+        calls = wideband_loopbacks(dev, card, tmp)
+        t1 = time.perf_counter()
+        wideband_kernels(calls, card, report)
+        t2 = time.perf_counter()
+        for label in WB_SERVED:
+            wideband_served(label, dev, card, report, tmp)
+    t3 = time.perf_counter()
+    print(f"phase 30: {t3 - t0:.1f} s ((b) {t1 - t0:.1f}, (a) {t2 - t1:.1f}"
+          f", (c) {t3 - t2:.1f}) [{card}]")
+
+
+def channel_app(tmp: str, name: str, mtype: str, sr: float, dev):
+    """An app at the channel rate ``sr`` (no source: the module is fed
+    by hand) holding one module ``name`` of ``mtype``."""
+    return new_app(os.path.join(tmp, f"p30b_{name}"), {
+        "source": {"type": "none", "samplerate": sr}, "fftSize": 4096,
+        "modules": {name: {"type": mtype}}}, dev)
+
+
+def loopback_run(label: str, want: dict, run) -> dict:
+    """``run()`` on the card inside ``no_plain_on_card`` with the counts
+    zeroed before and K12c's, K13p's and K13m's calls captured; fails
+    unless exactly the kernels of ``want`` launched, each at least once;
+    returns the captured calls."""
+    import torch
+    reset_counts()
+    with no_plain_on_card():
+        _, cap = capture(("K12c", "K13p", "K13m"), run)
+        torch.cuda.synchronize()
+    counts = {t: kernel_count(t) for t in KERNELS if kernel_count(t)}
+    print(f"phase 30 (b): {label}: launches " + (", ".join(
+        f"{t}={n}" for t, n in counts.items()) or "none (host only)"))
+    if set(counts) != set(want):
+        fail(f"phase 30 (b): {label}: launches {counts}, want {want}")
+    return cap
+
+
+def wideband_loopbacks(dev, card: str, tmp: str) -> dict:
+    """(b): the JAX package's slow tests' loopbacks through each module on
+    an app on the card at the channel rate; returns the captured loop
+    kernel calls by caller."""
+    from sdrplusplusbrown_tpu_torch.models import atv as A
+    from sdrplusplusbrown_tpu_torch.models import dab as D
+    from sdrplusplusbrown_tpu_torch.models import falcon9 as F
+    from sdrplusplusbrown_tpu_torch.models import hrpt as H
+    from sdrplusplusbrown_tpu_torch.models import vor as V
+    calls = {}
+    # each signal from a fresh generator of the JAX tests' seed: the JAX
+    # package's slow tests' signals, sample for sample
+    # HRPT at 3 MS/s
+    iq, avs, tip = hrpt_channel(np.random.default_rng(WB_SEED),
+                                H.HRPT_VFO_SR)
+    app = channel_app(tmp, "Sat", "weather_sat_decoder", H.HRPT_VFO_SR, dev)
+    try:
+        mod = app.modules["Sat"]
+        x = np.concatenate([iq, np.zeros((-len(iq)) % mod.rc.out_len,
+                                         np.complex64)])
+        cap = loopback_run(f"HRPT, {len(iq)} samples at 3 MS/s in blocks "
+                           f"of {mod.rc.out_len}",
+                           ("K8", "K12c", "K13p", "K13m"),
+                           lambda: mod.process_iq(x))
+        calls["HRPT"] = cap
+        msg, ok = hrpt_product(mod.framer, avs, tip)
+    finally:
+        app.shutdown()
+    print(f"phase 30 (b): HRPT: {msg}")
+    if not ok:
+        fail("phase 30 (b): HRPT's frames are not the sent ones")
+    # Falcon 9 at 6 MS/s: tests/test_falcon9.py's frame, noise 0.05
+    pkts = [F.make_packet(b"\x00" * 8 + b"telemetry hello world")]
+    wire = F.falcon_rs_encode(F.build_frame_payload(1, b"".join(pkts), 0))
+    rng = np.random.default_rng(WB_SEED)
+    iq = F.falcon_signal(F.frame_bits(wire, rng), 0.05, 0.2, rng)
+    app = channel_app(tmp, "F9", "falcon9_decoder", F.FALCON_SR, dev)
+    try:
+        mod = app.modules["F9"]
+        x = np.concatenate([iq, np.zeros((-len(iq)) % mod.rc.out_len,
+                                         np.complex64)])
+        calls["Falcon9"] = loopback_run(
+            f"Falcon 9, {len(iq)} samples at 6 MS/s in a block of "
+            f"{mod.rc.out_len}", ("K8", "K13m"), lambda: mod.process_iq(x))
+        msg, ok = falcon_product(mod, pkts)
+    finally:
+        app.shutdown()
+    print(f"phase 30 (b): Falcon 9: {msg}")
+    if not ok:
+        fail("phase 30 (b): Falcon 9's packet is not the sent one")
+    # VOR at 25 kHz: three azimuths, then noise, a window at a time
+    app = new_app(os.path.join(tmp, "p30b_vor"), {
+        "source": {"type": "none", "samplerate": V.VOR_IN_SR},
+        "fftSize": 4096, "modules": {
+            f"V{i}": {"type": "vor_receiver"} for i in range(4)}}, dev)
+    try:
+        def vor_windows(mod, x):
+            out = []
+            blk = mod.rc.out_len
+            for i in range(0, len(x) - blk + 1, blk):
+                mod._on_baseband(x[i:i + blk])
+                out.append(mod.handle_debug_command("get_bearing", ""))
+            return out
+        got = {}
+
+        def run():
+            for i, az in enumerate(WB_VOR_AZ):
+                got[az] = vor_windows(app.modules[f"V{i}"], V.synthesize_vor(
+                    np.deg2rad(az), WB_VOR_SECONDS, noise=0.05))
+            T = int(WB_VOR_NOISE_SECONDS * V.VOR_IN_SR)
+            rng = np.random.default_rng(7)      # the JAX test's
+            got["noise"] = vor_windows(app.modules["V3"], (0.3 * (
+                rng.standard_normal(T) + 1j * rng.standard_normal(T))
+            ).astype(np.complex64))
+        loopback_run("VOR, 3 azimuths x 6 s and 4 s of noise at 25 kHz in "
+                     "1 s blocks", ("K8",), run)
+    finally:
+        app.shutdown()
+    for az in WB_VOR_AZ:
+        last = got[az][-2:]
+        err = [abs(((w["bearing"] - az + 180.0) % 360.0) - 180.0)
+               for w in last]
+        print(f"phase 30 (b): VOR at {az} deg: the last two windows "
+              f"{[w['bearing'] for w in last]} deg (error bar 2), quality "
+              f"{[w['quality'] for w in last]} % (bar 90)")
+        if max(err) >= 2.0 or min(w["quality"] for w in last) <= 90.0:
+            fail(f"phase 30 (b): VOR at {az} deg: {got[az]}")
+    qn = [w["quality"] for w in got["noise"][-2:]]
+    print(f"phase 30 (b): VOR on noise: quality {qn} % (bar < 50)")
+    if max(qn) >= 50.0:
+        fail(f"phase 30 (b): VOR's quality on noise {qn}")
+    # ATV at 14.765625 MS/s
+    iq, pattern = atv_channel(np.random.default_rng(WB_SEED))
+    app = channel_app(tmp, "ATV", "atv_decoder", A.SAMPLE_RATE, dev)
+    try:
+        mod = app.modules["ATV"]
+        x = np.concatenate([iq, np.zeros((-len(iq)) % mod.rc.out_len,
+                                         np.complex64)])
+        calls["ATV"] = loopback_run(
+            f"ATV, {len(iq)} samples at 14.77 MS/s in blocks of "
+            f"{mod.rc.out_len}", ("K12c",), lambda: mod.process_iq(x))
+        msg, ok = atv_product(mod, pattern)
+    finally:
+        app.shutdown()
+    print(f"phase 30 (b): ATV: {msg}")
+    if not ok:
+        fail("phase 30 (b): ATV's picture fails its bars")
+    # DAB at 2.048 MS/s: host numpy only (the JAX module's too)
+    iq, dibits = dab_channel(np.random.default_rng(WB_SEED))
+    app = channel_app(tmp, "DAB", "dab_decoder", D.DAB_SR, dev)
+    try:
+        mod = app.modules["DAB"]
+        dab_frames_within(mod, len(iq))
+        x = np.concatenate([iq, np.zeros((-len(iq)) % mod.rc.out_len,
+                                         np.complex64)])
+        loopback_run(f"DAB, {len(iq)} samples at 2.048 MS/s", (),
+                     lambda: mod.process_iq(x))
+        msg, ok = dab_product(mod, dibits, -350.0)
+    finally:
+        app.shutdown()
+    print(f"phase 30 (b): DAB: {msg}")
+    if not ok:
+        fail("phase 30 (b): DAB fails its bars")
+    return calls
+
+
+def wideband_kernels(calls: dict, card: str, report: dict) -> None:
+    """(a): each loop kernel at its caller's shape: its last served call
+    of (b) (a locked block) clocked at the full shape, and against its
+    plain version on a prefix of that call in two blocks, the second
+    from the state the kernel returned for the first (both blocks' every
+    output and state bit for bit; K12c's output 100 dB, its state exact;
+    K13m's plain version on a host CPU copy)."""
+    cases = (("K13p", "HRPT", "HRPT's carrier PLL", WB_PREFIX),
+             ("K12c", "HRPT", "HRPT's AGC", WB_PREFIX),
+             ("K12c", "ATV", "ATV's AGC", WB_PREFIX),
+             ("K13m", "HRPT", "HRPT's clock recovery (2.254 a symbol)",
+              WB_MM_PREFIX),
+             ("K13m", "Falcon9", "Falcon 9's clock recovery (1.68 a "
+              "symbol)", WB_MM_PREFIX))
+    for tag, caller, what, n in cases:
+        got = calls[caller].get(tag)
+        if not got:
+            fail(f"phase 30 (a): no {tag} call from {caller}")
+        call = got[-1]
+        loop_at_shape(tag, call, card, what)
+        err = loop_prefix(tag, call, n, card, what)
+        report[tag]["max_abs_err"] = max(report[tag]["max_abs_err"], err)
+
+
+def loop_state(tag: str, out) -> tuple:
+    """The carried state a loop kernel's result hands its next call."""
+    if tag == "K13p":
+        return tuple(out[1:])
+    if tag == "K12c":
+        return (out[1], out[2])
+    return (out[1],)
+
+
+def loop_prefix(tag: str, call, n: int, card: str, what: str) -> float:
+    """``call``'s first 2·n input samples as two calls, the second from
+    the state the kernel returned for the first, each held to the plain
+    version (``check_loop_kernel``); their largest |error|."""
+    kern = getattr(*kernel_fn(tag, "_kernel"))
+    head, x, rest = call[0], call[1], tuple(call[2:])
+    if tag == "K12c":
+        state, tail = rest[:2], rest[2:]
+    else:
+        state, tail = rest, ()
+    err = 0.0
+    for b in range(2):
+        blk = (head, x[:, b * n:(b + 1) * n].contiguous(), *state, *tail)
+        err = max(err, check_loop_kernel(
+            tag, blk, card, f"{what}, prefix block {b + 1} of {n}",
+            timed=False, host=tag == "K13m")["max_abs_err"])
+        state = loop_state(tag, kern(*blk))
+    return err
+
+
+def loop_at_shape(tag: str, call, card: str, what: str) -> None:
+    """A loop kernel on its caller's full call: CUDA-event ms (a launch
+    of milliseconds, the wrapper's host time a few µs of it; a profiler
+    window late in the script saw none of these launches), its chain
+    clocked (``chain_clock_runs``) beside its bound and the chain
+    floor."""
+    kern = getattr(*kernel_fn(tag, "_kernel"))
+    x = loop_input(tag, call)
+    steps = loop_steps(tag, call)
+    runs = np.array([event_ms(lambda: kern(*call), 3) for _ in range(3)])
+    ms = float(np.median(runs))
+    cpi, mhz = chain_clock_runs(kern, call, steps, x)
+    top = max(sm_clock_mhz(), float(mhz.max()))
+    floor = steps * cpi.min() / top
+    bms, by = bound(tag, call)
+    print(f"phase 30 (a): {tag} ({what}, {x.shape[0]} x {x.shape[1]}, "
+          f"{steps} steps): kernel {ms:.4f} ms ({runs.min():.4f}-"
+          f"{runs.max():.4f}), bound {bms:.6f} ms ({by}); chain "
+          f"{np.median(cpi):.2f} cycles a step ({cpi.min():.2f}-"
+          f"{cpi.max():.2f}) at {np.median(mhz):.0f} MHz over {LOOP_RUNS} "
+          f"runs; chain floor {floor:.1f} us, {ms * 1e3 / floor:.2f}x it "
+          f"[{card}]")
+
+
+def host_stages(name: str, mod) -> list:
+    """(owner, attribute) of the host stages a module's blocks run (its
+    framer or OFDM front end), to time."""
+    if name == "HRPT":
+        return [(mod.framer, "push_symbols")]
+    if name == "Falcon9":
+        import sdrplusplusbrown_tpu_torch.modules.falcon9_module as fm
+        return [(mod.deframer, "push_bits"), (fm, "falcon_rs_decode"),
+                (mod.pkt_sync, "push_frame")]
+    if name == "ATV":
+        return [(mod.linesync, "push"), (mod.assembler, "push_line")]
+    if name == "DAB":
+        return [(mod.csync, "push"), (mod.ffsync, "push_symbol")]
+    return []
+
+
+class timed_stages:
+    """Within: each (owner, attribute) of ``stages`` adds its wall time
+    to ``seconds``."""
+
+    def __init__(self, stages):
+        self.stages, self.seconds, self.saved = stages, 0.0, []
+
+    def __enter__(self):
+        for owner, attr in self.stages:
+            orig = getattr(owner, attr)
+
+            def timed(*a, _orig=orig, **k):
+                t = time.perf_counter()
+                try:
+                    return _orig(*a, **k)
+                finally:
+                    self.seconds += time.perf_counter() - t
+            self.saved.append((owner, attr, orig))
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in self.saved:
+            setattr(owner, attr, orig)
+        return False
+
+
+def wideband_capture(label: str, path: str, mblk: int) -> tuple:
+    """(c)'s capture for ``label`` at its source rate: the module's (b)
+    signal (from a fresh generator of the JAX tests' seed; Falcon 9's
+    back-to-back frames) at its offset, padded to whole blocks of the
+    module (``mblk`` samples) and of the pump (50 ms); (seconds, the
+    product check: a function of the module → (message, ok), the
+    signal's length at the channel rate)."""
+    from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+    from sdrplusplusbrown_tpu_torch.models import atv as A
+    from sdrplusplusbrown_tpu_torch.models import dab as D
+    from sdrplusplusbrown_tpu_torch.models import falcon9 as F
+    from sdrplusplusbrown_tpu_torch.models import vor as V
+    name, _, fs, off, _ = WB_SERVED[label]
+    rng = np.random.default_rng(WB_SEED)
+    blk = int(fs // 20)
+    if name == "HRPT":
+        iq, avs, tip = hrpt_channel(rng, fs)
+        x = at_rate(iq, fs, fs, off, blk, mblk)
+        check = lambda m: hrpt_product(m.framer, avs, tip)  # noqa: E731
+    elif name == "Falcon9":
+        n = int(WB_FALCON_FRAMES_S * F.FALCON_BAUD / (F.FRAME_BITS + 32))
+        iq, pkts = falcon_frames(rng, n, fs, 0.02)
+        x = at_rate(iq, fs, fs, off, blk, mblk)
+        check = lambda m: falcon_product(m, pkts)  # noqa: E731
+    elif name == "ATV":
+        iq, pattern = atv_channel(rng)
+        x = at_rate(iq, A.SAMPLE_RATE, fs, off, blk, mblk)
+        check = lambda m: atv_product(m, pattern)  # noqa: E731
+    elif name == "DAB":
+        iq, dibits = dab_channel(rng)
+        x = at_rate(iq, D.DAB_SR, fs, off, blk, mblk)
+        check = lambda m: dab_product(m, dibits, -350.0)  # noqa: E731
+    else:
+        az = WB_VOR_AZ[1]
+        iq = V.synthesize_vor(np.deg2rad(az), WB_VOR_SECONDS, fs=fs,
+                              noise=0.05, seed=3)
+        x = at_rate(iq, fs, fs, off, blk, mblk)
+
+        def check(m):
+            r = m.handle_debug_command("get_bearing", "")
+            err = abs(((r["bearing"] - az + 180.0) % 360.0) - 180.0)
+            return (f"bearing {r['bearing']} deg at {az} (error bar 2), "
+                    f"quality {r['quality']} % (bar 90), {r['windows']} "
+                    "windows"), err < 2.0 and r["quality"] > 90.0
+    write_wav(path, x, fs, bits=32)
+    return len(x) / fs, check, len(iq)
+
+
+def wideband_served(label: str, dev, card: str, report: dict,
+                    tmp: str) -> None:
+    """(c) for one served app: the app on its capture (fft 65 536 at 20
+    fps, 8 192 below 1 MS/s: VOR's airband receiver; manual pump), the
+    counts zeroed before: the module's kernels and the spectrum's
+    launched and held to their plans, every other kernel not; the
+    product held to its bars, but where the reference's own fault keeps
+    it from them (``WB_SERVED``: the product is printed beside the
+    fault); the module's launches, device µs and loop kernels' share a
+    0.1 s block and its handler's wall and host stages' seconds a second
+    of signal."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.runtime.pump import Rechunker
+    name, mtype, fs, off, fault = WB_SERVED[label]
+    probe = channel_app(tmp, f"probe{len(os.listdir(tmp))}", mtype, fs, dev)
+    try:
+        mblk = next(iter(probe.modules.values())).rc.out_len
+    finally:
+        probe.shutdown()
+    cap = os.path.join(tmp, f"wb_{len(os.listdir(tmp))}_100000000Hz_"
+                            "10-00-00_01-01-2024.wav")
+    seconds, check, n_sig = wideband_capture(label, cap, mblk)
+    app = new_app(os.path.join(tmp, f"p30c_{len(os.listdir(tmp))}"), {
+        "source": {"type": "file", "path": cap, "loop": False},
+        "fftSize": FFT if fs >= 1e6 else 8192, "fftRate": 20,
+        "pump": "manual",
+        "modules": {name: {"type": mtype, "offset": off}}}, dev)
+    per_module: dict = {}
+    try:
+        mod = app.modules[name]
+        if name == "DAB":
+            dab_frames_within(mod, n_sig)
+        wrappers = {t: getattr(*kernel_fn(t, "_kernel")) for t in KERNELS}
+        ev = app.baseband_event
+        ev._handlers = [counted_handler(h, per_module, wrappers)
+                        for h in ev._handlers]
+        reset_counts()
+        app.start()
+        with no_plain_on_card(), timed_stages(host_stages(name, mod)) as hs:
+            (blocks, ), capd = capture(tuple(KERNELS), lambda: (
+                app.pump_step(10 ** 6), ))
+            torch.cuda.synchronize()
+        counts = {t: kernel_count(t) for t in KERNELS}
+        msg, ok = check(mod)
+        block_len = app.pump_block_len
+        # a 0.1 s block's device time: whole module blocks from a fresh
+        # rechunker (each call then makes exactly one), scaled to 0.1 s
+        mod.rc = Rechunker(mblk)
+        chunk = read_capture_block(cap, 0, mblk)
+        reps = max(1, min(3, int(0.3 * fs // mblk)))
+        by: dict = {}
+        us, n = 0.0, 0          # a module without a kernel: host only
+        if per_module.get(name, {}).get("launches"):
+            us, n = call_profile(lambda: mod._on_baseband(chunk), reps,
+                                 by_kernel=by)
+    finally:
+        app.shutdown()
+    tags = WB_TAGS[label]
+    head = f"phase 30 (c), served {label} ({fs / 1e6:g} MS/s)"
+    hold_launches(f"{head}, {blocks} blocks",
+                  {t: counts[t] for t in tags}, capd)
+    others = {t: c for t, c in counts.items() if c and t not in tags}
+    if min(counts[t] for t in tags) < 1 or others:
+        fail(f"{head}: launch pattern {counts}")
+    print(f"{head}: {seconds:.3f} s of capture, {blocks} blocks of "
+          f"{block_len} (the module's block {mblk}); {msg}"
+          + (f" -- not held: {fault}" if fault else ""))
+    if not ok and not fault:
+        fail(f"{head}: the product fails its bars")
+    e = per_module.get(name, {"calls": 0, "launches": {}, "wall": 0.0})
+    scale = 0.1 * fs / mblk
+    loops = sum(v for k, v in by.items()
+                if k in ("agc_rows_kernel", "pll_kernel", "mm_kernel"))
+    print(f"{head}: module {name}: launches over the run "
+          + (", ".join(f"{t}={c}" for t, c in e["launches"].items())
+             or "none") + f"; a 0.1 s block: device {us * scale:.1f} us "
+          f"in {n * scale:.1f} launches (" + ", ".join(
+              f"{k} {v * scale:.1f}" for k, v in sorted(
+                  by.items(), key=lambda kv: -kv[1]))
+          + f"), the loop kernels {loops * scale:.1f} us "
+          f"({100 * loops / us if us else 0.0:.1f} %); the handler's "
+          f"wall {e['wall'] / seconds:.4f} s a second of signal, its host "
+          f"stages {hs.seconds / seconds:.4f} s [{card}]")
+    for t in WB_REPORT_TAGS:
+        report.setdefault(t, {}).setdefault("launches_by_path", {})[
+            f"served {label} ({blocks} blocks)"] = counts[t]
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -21,7 +21,12 @@ tuner and ``shutdown`` closes it; the ``loopback`` transmitter (the
 ``scheduler`` modules (``modules/``), the digital decoders
 ``m17_decoder``, ``kg_sstv_decoder``, ``ryfi_decoder`` and
 ``meteor_demodulator`` (each on the host baseband through its own RxVFO,
-demod and, but Meteor, Viterbi on the app's device), ``radio``
+demod and, but Meteor, Viterbi on the app's device), the wideband
+decoders ``vor_receiver``, ``weather_sat_decoder`` (NOAA HRPT),
+``atv_decoder``, ``falcon9_decoder`` and ``dab_decoder`` (each through
+its RxVFO, where the source is wider than its channel, and its demod on
+the app's device, its framer on the host; DAB's OFDM front end is host
+numpy, as in the JAX package), ``radio
 modules with every demod (the RAW demod and plugin demods registered with
 ``models.radio.register_demod_provider`` among them; ``list_demods``),
 their noise blanker and FM IF filter (``set_nb``, ``set_fmif``), their
@@ -100,10 +105,9 @@ SPECTRUM_BUF_SIZE = 16384  # IF spectrum ring (reference radio_module.h:78)
 
 #: what the JAX app serves and the port does not yet: refused by name
 UNPORTED_MODULES = (
-    "ft8_decoder", "vor_receiver", "ch_tetra_demodulator",
-    "ch_extravhf_decoder", "tci_server", "weather_sat_decoder",
-    "atv_decoder", "falcon9_decoder", "dab_decoder", "websdr_view",
-    "reports_monitor", "discord_integration", "signal_detector")
+    "ft8_decoder", "ch_tetra_demodulator", "ch_extravhf_decoder",
+    "tci_server", "websdr_view", "reports_monitor", "discord_integration",
+    "signal_detector")
 
 
 def describe_device(dev: torch.device) -> str:
@@ -639,6 +643,28 @@ class SDRApp:
             elif mtype == "kg_sstv_decoder":
                 from .modules.kg_sstv_module import KGSSTVDecoderModule
                 self.modules[name] = KGSSTVDecoderModule(
+                    name, self, offset_hz=mc.get("offset", 0.0))
+            elif mtype == "vor_receiver":
+                from .modules.vor_module import VORReceiverModule
+                self.modules[name] = VORReceiverModule(
+                    name, self, offset_hz=mc.get("offset", 0.0),
+                    integration_time=mc.get("integration_time", 1.0))
+            elif mtype == "weather_sat_decoder":
+                from .modules.weather_sat_module import \
+                    WeatherSatDecoderModule
+                self.modules[name] = WeatherSatDecoderModule(
+                    name, self, offset_hz=mc.get("offset", 0.0))
+            elif mtype == "atv_decoder":
+                from .modules.atv_module import ATVDecoderModule
+                self.modules[name] = ATVDecoderModule(
+                    name, self, offset_hz=mc.get("offset", 0.0))
+            elif mtype == "falcon9_decoder":
+                from .modules.falcon9_module import Falcon9DecoderModule
+                self.modules[name] = Falcon9DecoderModule(
+                    name, self, offset_hz=mc.get("offset", 0.0))
+            elif mtype == "dab_decoder":
+                from .modules.dab_module import DABDecoderModule
+                self.modules[name] = DABDecoderModule(
                     name, self, offset_hz=mc.get("offset", 0.0))
             else:
                 flog.warn("unknown module type '{}' for '{}'", mtype, name)

@@ -20,6 +20,17 @@ def binary_slice(x):
     return (np.asarray(x) > 0.0).astype(np.uint8)
 
 
+def valid_hard_bits(sym: torch.Tensor, valid: torch.Tensor) -> np.ndarray:
+    """The sliced bits (sym > 0) of a clock recovery's valid symbols as a
+    host uint8 array: sliced and marked on the symbols' device, then one
+    copy to the host (no count read back first, as ``sym[valid]`` on the
+    card would)."""
+    b = torch.where(valid, (sym > 0.0).to(torch.uint8),
+                    torch.full_like(valid, 2, dtype=torch.uint8))
+    b = b.cpu().numpy()
+    return b[b != 2]
+
+
 class DifferentialDecoder(Block):
     """out[n] = (in[n] − in[n−1]) mod M (reference
     digital/differential_decoder.h; M = 2 → XOR for bits)."""
