@@ -74,7 +74,14 @@ kernels, which it first builds from ``sdrplusplusbrown_tpu_torch/csrc``:
     HRPT: K12c, K13's PLL form, K8, K13m's real form), ``falcon9_decoder``
     (K8, K13m), ``atv_decoder`` (K12c), ``dab_decoder`` and
     ``vor_receiver`` (K8), each through its RxVFO on K8 and served from a
-    capture at its users' source rate, the spectrum on K4f.
+    capture at its users' source rate, the spectrum on K4f;
+  * the voice and trunking decoders — the app's ``ch_extravhf_decoder``
+    (DMR, P25, D-STAR and the CTCSS/DCS carriers: its RxVFO on K8,
+    ``FourFSKDemod`` on K8 and K13m's real form, the D-STAR header's
+    Viterbi on K16) and ``ch_tetra_demodulator`` (a TETRA downlink:
+    ``Pi4DQPSKDemod`` on K12c, K8 and K13m's complex form, one RxVFO
+    granule a call) served from one 2.4 MS/s capture, the spectrum on
+    K4f; POCSAG through ``GFSKDemod`` (K8, K13m).
 
 Phases, each fatal on failure:
 
@@ -367,8 +374,28 @@ Phases, each fatal on failure:
      not; each module's launches, device µs and loop kernels' share a
      0.1 s block, its handler's wall and its host stages' seconds a second
      of signal.
+ 31. the voice and trunking decoders (``drive_voice``): (b) one app on a
+     1.5 s capture at 2.4 MS/s (``voice_capture``: a DMR base station, a
+     P25 station, a D-STAR station, NFM carriers with CTCSS 100.0 Hz and
+     DCS 023, a TETRA downlink), fft 65 536, 30 manual 50 ms blocks, five
+     ``ch_extravhf_decoder`` modules and a ``ch_tetra_demodulator``, the
+     counts zeroed before: K4f, K8, K12c, K13m and K16 launched and held
+     to their plans, every other kernel not; every product held (the DMR
+     embedded, short and full LC with the standard RS(12,9), the CSBK,
+     the P25 NAC, LDU1 LC, NET_STS_BCST at a mid read and the signed
+     IDEN_UP after a bad block, the D-STAR callsigns with crc_ok, the
+     tone and the code, the TETRA cell and "HELLO TPU") and equal to the
+     same app's on the host CPU (a subprocess, ``voice_cpu_main``, its
+     TETRA module to the mid read); (c) each module's launches, device
+     µs and loop share a 0.1 s block, its handler's wall and host stages'
+     seconds a second of signal; (a) K13m at DMR's 0.1 s block, K12c and
+     K13m at TETRA's 24-sample granule and at 0.1 s (150 granules side by
+     side, ``joined_call``), each clocked and held bit for bit to its
+     plain version on two blocks with the state carried, and K16 at K = 3
+     on a D-STAR header with 6 errors; POCSAG's page through
+     ``GFSKDemod`` on the card.
 
-The main-path runs of phases 19 and 21-30 run inside ``no_plain_on_card``:
+The main-path runs of phases 19 and 21-31 run inside ``no_plain_on_card``:
 a plain version of K5, K6, K8, K9, K12, K13, K14, K15 or K16, or
 LogMMSE's plain ``_push_history``, given a CUDA tensor fails the run.
 Every ``launches`` count is of CUDA launches: each wrapper counts every
@@ -990,6 +1017,7 @@ def main() -> int:
     drive_trx(dev, card, report)
     drive_decoders(dev, card, report)
     drive_wideband(dev, card, report)
+    drive_voice(dev, card, report)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1295,13 +1323,21 @@ def k14_chain(kern, args):
     return call
 
 
-def capture(tags, run):
+#: the record of the running ``capture``, readable while it runs
+#: (``module_calls``)
+capture_log: dict = {}
+
+
+def capture(tags, run, suffix: str = "_kernel"):
     """Run ``run()`` with the wrappers of ``tags`` recording their
     arguments; returns (run's result, {tag: [args of each call]}); a K14
-    call's state is recorded as a copy (``state_copy``)."""
+    call's state is recorded as a copy (``state_copy``).  ``suffix``
+    "_ref": the plain versions' calls instead (a run on the host CPU)."""
+    global capture_log
     captured, originals = {}, {}
+    capture_log = captured
     for tag in tags:
-        mod, name = kernel_fn(tag, "_kernel")
+        mod, name = kernel_fn(tag, suffix)
         originals[tag] = orig = getattr(mod, name)
 
         def rec(*args, _tag=tag, _orig=orig):
@@ -1316,7 +1352,7 @@ def capture(tags, run):
         out = run()
     finally:
         for tag in tags:
-            mod, name = kernel_fn(tag, "_kernel")
+            mod, name = kernel_fn(tag, suffix)
             setattr(mod, name, originals[tag])
     return out, captured
 
@@ -7108,7 +7144,8 @@ def loop_prefix(tag: str, call, n: int, card: str, what: str) -> float:
     return err
 
 
-def loop_at_shape(tag: str, call, card: str, what: str) -> None:
+def loop_at_shape(tag: str, call, card: str, what: str,
+                  label: str = "phase 30 (a)") -> None:
     """A loop kernel on its caller's full call: CUDA-event ms (a launch
     of milliseconds, the wrapper's host time a few µs of it; a profiler
     window late in the script saw none of these launches), its chain
@@ -7123,7 +7160,7 @@ def loop_at_shape(tag: str, call, card: str, what: str) -> None:
     top = max(sm_clock_mhz(), float(mhz.max()))
     floor = steps * cpi.min() / top
     bms, by = bound(tag, call)
-    print(f"phase 30 (a): {tag} ({what}, {x.shape[0]} x {x.shape[1]}, "
+    print(f"{label}: {tag} ({what}, {x.shape[0]} x {x.shape[1]}, "
           f"{steps} steps): kernel {ms:.4f} ms ({runs.min():.4f}-"
           f"{runs.max():.4f}), bound {bms:.6f} ms ({by}); chain "
           f"{np.median(cpi):.2f} cycles a step ({cpi.min():.2f}-"
@@ -7309,6 +7346,908 @@ def wideband_served(label: str, dev, card: str, report: dict,
     for t in WB_REPORT_TAGS:
         report.setdefault(t, {}).setdefault("launches_by_path", {})[
             f"served {label} ({blocks} blocks)"] = counts[t]
+
+
+# ---- phase 31: the voice and trunking decoders -----------------------
+VO_FS = 2_400_000.0           # an RTL-SDR class receiver
+VO_SECONDS = 1.5
+VO_NOISE = 0.005              # per component, on every channel
+VO_SYMRATE = 4_800.0          # DMR / P25 / D-STAR (the DSD front end)
+VO_DEV = 1_944.0              # the 4FSK outer deviation (the module's)
+VO_DMR, VO_P25, VO_DSTAR = -600e3, -300e3, 150e3
+VO_CTCSS, VO_DCS, VO_TETRA = 300e3, 450e3, 700e3
+VO_DMR_CC = 7
+VO_DMR_LC = (2350, 2310123)   # the voice superframe's embedded LC (tg, src)
+VO_DMR_HDR = (91, 3120101)    # the voice LC header's full LC (tg, src)
+VO_DMR_CSBK = (4197, 150587)  # the CSBK's (dst, src): BS_Dwn_Act
+VO_DMR_SLC = (0x1, 0x00AB12)  # the CACH's short LC (opcode, data)
+VO_P25_NAC = 0x293
+VO_P25_LC = (4242, 31337)     # tests/test_e2e_synthetic_digital.py's LDU1
+VO_P25_NET = (0xBEE00, 0x3A1)   # its NET_STS_BCST (WACN, system)
+#: an IDEN_UP: identifier, bandwidth, the transmit offset's sign bit (0:
+#: negative) and magnitude in channel spacings, the spacing and the base
+#: frequency (units of 125 Hz and 5 Hz): 851.00625 MHz, -1.0 MHz
+VO_IDEN = (1, 100, 0, 80, 100, 170_201_250)
+VO_DSTAR_CALLS = ("DB0TPU G", "DB0TPU B", "CQCQCQ", "TP9UZT", "73")
+VO_CTCSS_HZ = 100.0
+VO_DCS_CODE = 0o023
+VO_TETRA_CELL = (250, 13, 22)   # MCC, MNC, colour
+VO_TETRA_SSI = 0x123456
+VO_TETRA_TEXT = b"HELLO TPU"
+VO_POCSAG = (0x15ABC8, "TPU PAGER OK")   # tests/test_pocsag.py's page
+VO_TAGS = ("K4f", "K8", "K12c", "K13m", "K16")
+VO_SEED = 31
+
+
+def bits_msb(value: int, n: int) -> np.ndarray:
+    return np.array([(value >> (n - 1 - i)) & 1 for i in range(n)],
+                    np.uint8)
+
+
+def air_of_bits(bits: np.ndarray) -> np.ndarray:
+    """Bit pairs → on-air dibits (first bit the high one)."""
+    bits = np.asarray(bits, np.uint8)
+    return (bits[0::2] << 1 | bits[1::2]).astype(np.uint8)
+
+
+def sync_air(name: str) -> np.ndarray:
+    """A DSD sync word as on-air dibits ('1' = +3 = 01b, '3' = -3 = 11b)."""
+    from sdrplusplusbrown_tpu_torch.models.dsd import SYNC_PATTERNS
+    pat = dict((n, p) for n, p, _ in SYNC_PATTERNS)[name]
+    return np.array([1 if c == "1" else 3 for c in pat], np.uint8)
+
+
+def rs129_reversed_taps(data9) -> np.ndarray:
+    """The JAX package's RS(12,9) parity rule (models/dmr_burst.py:493):
+    the generator's taps applied in reversed order, for the printout
+    beside the standard parity."""
+    from sdrplusplusbrown_tpu_torch.models.dmr_burst import _RS_EXP, _RS_LOG
+    g = [64, 56, 14, 1]
+    reg = [0, 0, 0]
+    for d in np.asarray(data9, np.int64):
+        fb = int(d) ^ reg[0]
+        reg = reg[1:] + [0]
+        if fb:
+            for i in range(3):
+                reg[i] ^= int(_RS_EXP[_RS_LOG[g[i + 1]] + _RS_LOG[fb]])
+    return np.array(reg, np.uint8)
+
+
+def lc_octets(flco: int, dst: int, src: int) -> np.ndarray:
+    return np.array([flco, 0, 0, dst >> 16, (dst >> 8) & 255, dst & 255,
+                     src >> 16, (src >> 8) & 255, src & 255], np.uint8)
+
+
+def dmr_air(rng, n: int) -> np.ndarray:
+    """A DMR base station's n on-air dibits: random dibits carrying a voice
+    superframe (embedded LC VO_DMR_LC, colour VO_DMR_CC) from dibit 2 400
+    (0.5 s: the demod's slicer levels and clock settle over the first
+    0.4 s),
+    then four data bursts a TDMA frame apart (a voice LC header with the
+    standard RS(12,9), a CSBK, a terminator with LC, an idle burst), their
+    CACHs carrying the short LC VO_DMR_SLC (tests/test_dmr_burst.py's
+    layouts)."""
+    from sdrplusplusbrown_tpu_torch.models import dmr_burst as D
+    air = rng.integers(0, 4, n).astype(np.uint8)
+    frag = D.encode_embedded_lc(lc_octets(0, *VO_DMR_LC))
+    a_end = 2400
+    air[a_end - 23:a_end + 1] = sync_air("DMR_BS_VOICE")
+    for k, lcss in enumerate([1, 3, 3, 2, 0], start=1):
+        emb = np.zeros(16, np.uint8)
+        emb[:4] = bits_msb(VO_DMR_CC, 4)
+        emb[5:7] = bits_msb(lcss, 2)
+        f = frag[32 * (k - 1):32 * k] if k <= 4 else np.zeros(32, np.uint8)
+        e = a_end + 288 * k
+        air[e - 23:e + 1] = air_of_bits(np.concatenate([emb[:8], f,
+                                                        emb[8:]]))
+    a = np.zeros(64, np.uint8)
+    a[16:40] = bits_msb(VO_DMR_CSBK[0], 24)
+    a[40:64] = bits_msb(VO_DMR_CSBK[1], 24)
+    hdr = lc_octets(0, *VO_DMR_HDR)
+    bursts = [(1, D.bptc_196_96_encode(D.encode_full_lc(hdr, 1))),
+              (3, D.bptc_196_96_encode(D.encode_csbk(56, 0, a))),
+              (2, D.bptc_196_96_encode(D.encode_full_lc(hdr, 2))),
+              (9, None)]
+    slc = D.encode_short_lc(*VO_DMR_SLC)
+    for k, (dt, pay) in enumerate(bursts):
+        e = a_end + 288 * 6 + 400 + 288 * k
+        st = D.encode_slot_type(cc=VO_DMR_CC, data_type=dt)
+        cach = D.encode_cach(1, 0, [1, 3, 3, 2][k], slc[17 * k:17 * k + 17])
+        air[e - 89:e - 77] = air_of_bits(cach)
+        if pay is not None:
+            air[e - 77:e - 28] = air_of_bits(pay[:98])
+            air[e + 6:e + 55] = air_of_bits(pay[98:])
+        air[e - 28:e - 23] = air_of_bits(st[:10])
+        air[e - 23:e + 1] = sync_air("DMR_BS_DATA")
+        air[e + 1:e + 6] = air_of_bits(st[10:])
+    return air
+
+
+def p25_sync_nid(nac: int, duid: int) -> np.ndarray:
+    """Sync + NID on-air dibits, the status dibit inserted
+    (tests/test_e2e_synthetic_digital.py)."""
+    from sdrplusplusbrown_tpu_torch.models import p25 as P
+    cw = P.bch_63_16_encode((nac << 4) | duid)
+    bits = [(cw >> (62 - i)) & 1 for i in range(63)] + [0]
+    d = [bits[2 * k] * 2 + bits[2 * k + 1] for k in range(11)] + [1] + [
+        bits[2 * k] * 2 + bits[2 * k + 1] for k in range(11, 32)]
+    return np.concatenate([sync_air("P25P1"), np.asarray(d, np.uint8)])
+
+
+def p25_tsbk_args(opcode: int) -> np.ndarray:
+    """The 64 argument bits of VO_P25's TSBKs: the group voice grant, the
+    NET_STS_BCST and the IDEN_UP."""
+    a = np.zeros(64, np.uint8)
+    if opcode == 0x00:
+        a[8:24] = bits_msb(0x0C21, 16)
+        a[24:40] = bits_msb(VO_P25_LC[0], 16)
+        a[40:64] = bits_msb(VO_P25_LC[1], 24)
+    elif opcode == 0x3B:
+        a[8:28] = bits_msb(VO_P25_NET[0], 20)
+        a[28:40] = bits_msb(VO_P25_NET[1], 12)
+    else:
+        iden, bw, sign, mag, spacing, base = VO_IDEN
+        a[0:4] = bits_msb(iden, 4)
+        a[4:13] = bits_msb(bw, 9)
+        a[13:22] = bits_msb((sign << 8) | mag, 9)
+        a[22:32] = bits_msb(spacing, 10)
+        a[32:64] = bits_msb(base, 32)
+    return a
+
+
+def p25_air(rng, n: int) -> tuple:
+    """A P25 Phase 1 station's n on-air dibits (NAC VO_P25_NAC): 1 200
+    random dibits (the demod settles over them), then LDU1s
+    with the link control VO_P25_LC, a TSDU of the voice grant and the
+    NET_STS_BCST (last block), more LDU1s, a TSDU whose first block fails
+    its trellis and whose second is the IDEN_UP (last block), LDU1s to the
+    end; each frame followed by 40 random dibits.  (air, the dibit where
+    the first TSDU ends, the dibit where the second begins)."""
+    from sdrplusplusbrown_tpu_torch.models import p25 as P
+    lcinfo = np.zeros(56, np.uint8)
+    lcinfo[16:32] = bits_msb(VO_P25_LC[0], 16)
+    lcinfo[32:56] = bits_msb(VO_P25_LC[1], 24)
+    grant = P.encode_tsbk(0x00, 0x00, p25_tsbk_args(0x00))
+    bad = grant.copy()
+    bad[rng.choice(196, 40, replace=False)] ^= 1
+    tsdus = [[grant, P.encode_tsbk(0x3B, 0x00, p25_tsbk_args(0x3B),
+                                   lb=True)],
+             [bad, P.encode_tsbk(0x3D, 0x00, p25_tsbk_args(0x3D),
+                                 lb=True)]]
+    frames, marks = [rng.integers(0, 4, 1200).astype(np.uint8)], []
+    for i in range(64):
+        if i in (2, 5):
+            body = np.concatenate([p25_sync_nid(VO_P25_NAC, 0x7),
+                                   P.encode_tsdu(tsdus[i == 5])])
+            marks.append(sum(map(len, frames)) + (len(body) if i == 2
+                                                  else 0))
+        else:
+            body = np.concatenate([p25_sync_nid(VO_P25_NAC, 0x5),
+                                   P.encode_ldu1(0x00, 0x00, lcinfo, rng)])
+        frames += [body, rng.integers(0, 4, 40).astype(np.uint8)]
+        if sum(map(len, frames)) >= n:
+            break
+    return np.concatenate(frames)[:n], marks[0], marks[1]
+
+
+def dstar_air(rng, n: int) -> np.ndarray:
+    """A D-STAR station's n on-air dibits: random dibits (as
+    tests/test_dmr_burst.py's stream) carrying two radio headers
+    (VO_DSTAR_CALLS, outer symbols) after their header syncs, a voice
+    sync after each."""
+    from sdrplusplusbrown_tpu_torch.models import dstar as S
+    air = rng.integers(0, 4, n).astype(np.uint8)
+    rpt2, rpt1, ur, my, suffix = VO_DSTAR_CALLS
+    hdr = S.encode_header(b"\x00\x00\x00", rpt2, rpt1, ur, my, suffix)
+    hdr = np.where(hdr == 1, 3, 1).astype(np.uint8)
+    for e in (2400, 5000):
+        air[e - 23:e + 1] = sync_air("DSTAR_HD")
+        air[e + 1:e + 1 + len(hdr)] = hdr
+        v = e + len(hdr) + 400
+        air[v - 23:v + 1] = sync_air("DSTAR_SYNC")
+    return air
+
+
+def fsk4_iq(air: np.ndarray, fs: float) -> np.ndarray:
+    """On-air dibits → 4FSK (01 +3, 00 +1, 10 -1, 11 -3 at VO_DEV outer)
+    with GFSKMod's gaussian (BT 0.5) frequency pulses at 10 samples a
+    symbol, interpolated to ``fs`` and integrated: complex64 at ``fs``."""
+    lvl = np.array([1 / 3, 1.0, -1 / 3, -1.0])[air]
+    sps = 10
+    fr = np.repeat(lvl, sps)
+    t = (np.arange(4 * sps + 1) - 2 * sps) / sps
+    sigma = np.sqrt(np.log(2)) / (2 * np.pi * 0.5)
+    g = np.exp(-t * t / (2 * sigma * sigma))
+    fr = np.convolve(fr, g / g.sum(), mode="same")
+    n = int(len(air) * fs / VO_SYMRATE)
+    f = np.interp(np.arange(n) * (VO_SYMRATE * sps / fs),
+                  np.arange(len(fr)), fr)
+    return np.exp(2j * np.pi * VO_DEV * np.cumsum(f) / fs).astype(
+        np.complex64)
+
+
+def fm_iq(dev_hz: np.ndarray, fs: float) -> np.ndarray:
+    """A frequency track (Hz) at ``fs`` → the FM carrier."""
+    return np.exp(2j * np.pi * np.cumsum(dev_hz) / fs).astype(np.complex64)
+
+
+def nfm_tone_dev(n: int, fs: float, ctcss: float | None = None,
+                 dcs: int | None = None) -> np.ndarray:
+    """An NFM voice channel's frequency track: a 1 kHz tone at 0.4 of the
+    outer deviation with the subaudible CTCSS tone (0.15) or the DCS code's
+    NRZ at 134.366 bps (0.2), as in tests/test_dmr_burst.py's detector
+    tests."""
+    from sdrplusplusbrown_tpu_torch.ops.ctcss import DCS_BITRATE, \
+        dcs_codeword
+    t = np.arange(n) / fs
+    a = 0.4 * np.sin(2 * np.pi * 1000.0 * t)
+    if ctcss is not None:
+        a += 0.15 * np.sin(2 * np.pi * ctcss * t)
+    if dcs is not None:
+        w = dcs_codeword(dcs)
+        nrz = 2.0 * np.array([(w >> b) & 1 for b in range(23)]) - 1.0
+        a += 0.2 * nrz[(t * DCS_BITRATE).astype(np.int64) % 23]
+    return VO_DEV * a
+
+
+def tetra_encode_sch(t1: np.ndarray, K: int, a: int, init: int):
+    """Type-1 → type-5 bits of a TETRA signalling block (CRC, the rate-1/4
+    K = 5 mother code, the rate-2/3 puncturing, block interleaving,
+    scrambling): tests/test_tetra_mac.py's oracle."""
+    from sdrplusplusbrown_tpu_torch.models import tetra as T
+    r = T.crc16_itut(t1)
+    t2 = np.concatenate([t1, bits_msb(r ^ 0xFFFF, 16), np.zeros(4,
+                                                                np.uint8)])
+    dd = np.zeros(4, np.int64)
+    mom = []
+    for b in t2:
+        mom += [(b + dd[0] + dd[3]) % 2, (b + dd[1] + dd[2] + dd[3]) % 2,
+                (b + dd[0] + dd[1] + dd[3]) % 2,
+                (b + dd[0] + dd[2] + dd[3]) % 2]
+        dd = np.roll(dd, 1)
+        dd[0] = b
+    mom = np.array(mom, np.uint8)
+    j = np.arange(1, K + 1)
+    blk = (j - 1) // 3
+    t3 = mom[8 * blk + np.array((1, 2, 5))[(j - 3 * blk) - 1] - 1]
+    t4 = np.zeros(K, np.uint8)
+    t4[(a * j) % K] = t3
+    return t4 ^ T.scramble_sequence(init, K)
+
+
+def tetra_sds_bits(rng) -> np.ndarray:
+    """tests/test_tetra_mac.py's fragmented SDS loopback as a downlink bit
+    stream of 14 bursts: the BSCH of cell VO_TETRA_CELL, then a D-SDS-DATA
+    (SSI VO_TETRA_SSI, VO_TETRA_TEXT) in MAC-RESOURCE + MAC-FRAG + MAC-END
+    on SCH/HD in one timeslot of three consecutive frames; with ``rng``
+    every bit the test's stream leaves 0 (the other bursts, and the
+    fields of these four that it does not set) is a random one instead, as
+    a scrambled downlink's are: long runs of one dibit leave the demod's
+    clock recovery without a timing error to track."""
+    from sdrplusplusbrown_tpu_torch.models import tetra as T
+    mcc, mnc, colour = VO_TETRA_CELL
+    init = T.cell_scramb_init(mcc, mnc, colour)
+    data = np.unpackbits(np.frombuffer(VO_TETRA_TEXT, np.uint8))
+    sdu = np.concatenate([bits_msb(0b0010, 4), bits_msb(2, 3),
+                          bits_msb(15, 5), bits_msb(1, 2),
+                          bits_msb(VO_TETRA_SSI, 24), bits_msb(3, 2),
+                          bits_msb(len(data), 11), data])
+    hdr = np.concatenate([bits_msb(0, 2), [0, 0], bits_msb(0, 2), [0],
+                          bits_msb(63, 6), bits_msb(1, 3),
+                          bits_msb(0xFFFFFF, 24), [0, 0, 0]]).astype(
+        np.uint8)
+    used = 124 - len(hdr)
+    blocks = [np.concatenate([hdr, sdu[:used]])]
+    rest = np.concatenate([sdu[used:], np.zeros(120, np.uint8)])[:120]
+    blocks.append(np.concatenate([[0, 1, 0, 0], rest]).astype(np.uint8))
+    left = max(0, len(sdu) - used - 120)
+    li = (left + 7) // 8 if left else 1
+    end = np.zeros(8 * li, np.uint8)
+    end[:left] = sdu[used + 120:]
+    blk = np.concatenate([[0, 1, 1, 1, 0], bits_msb(li, 6), [0, 0], end])
+    blocks.append(np.concatenate([blk, np.zeros(124 - len(blk))]).astype(
+        np.uint8))
+    n_b = T.BURST_BITS
+    stream = np.zeros(n_b * 14, np.uint8) if rng is None else \
+        rng.integers(0, 2, n_b * 14).astype(np.uint8)
+
+    def burst(i):
+        return stream[i * n_b:(i + 1) * n_b]
+    t1 = np.zeros(60, np.uint8)
+    t1[4:10] = bits_msb(colour, 6)
+    t1[31:41] = bits_msb(mcc, 10)
+    t1[41:55] = bits_msb(mnc, 14)
+    sb = burst(0)
+    sb[T.SB_BLK1_OFF:T.SB_BLK1_OFF + 120] = tetra_encode_sch(
+        t1, 120, 11, T.SCRAMB_INIT)
+    sb[T.SB_SYNC_TRAIN_OFF:T.SB_SYNC_TRAIN_OFF + 38] = T.Y_BITS
+    for i, b in enumerate(blocks):
+        nb = burst(1 + 4 * i)
+        nb[T.NDB_BLK1_OFF:T.NDB_BLK1_OFF + 216] = tetra_encode_sch(
+            b, 216, 101, init)
+        nb[T.NDB_TRAIN_OFF:T.NDB_TRAIN_OFF + 22] = T.P_BITS
+    return stream
+
+
+def tetra_dibits(bits: np.ndarray) -> np.ndarray:
+    """TETRA bit pairs → the demod's dibits (the inverse of
+    models/tetra.py:dibits_to_bits: 00→0, 01→1, 11→2, 10→3)."""
+    return np.array([0, 1, 3, 2], np.int64)[air_of_bits(bits)]
+
+
+def tetra_downlink_bits(rng, copies: int) -> np.ndarray:
+    """The TETRA downlink of phase 31: 128 random bits (the demod settles
+    over them), then ``copies`` of ``tetra_sds_bits(rng)``."""
+    return np.concatenate([rng.integers(0, 2, 128).astype(np.uint8)] + [
+        tetra_sds_bits(rng) for _ in range(copies)])
+
+
+def pi4_iq(bits: np.ndarray, fs: float) -> np.ndarray:
+    """A TETRA bit stream → π/4-DQPSK at 18 k symbols/s, RRC (β 0.35)
+    shaped to ``fs``: the demod's dibit k is the differential phase
+    (2k + 1)·π/4 (ops/demod_digital.py: ⌊∠d / (π/2)⌋ mod 4)."""
+    k = tetra_dibits(bits)
+    sym = np.exp(1j * np.cumsum((2 * k + 1) * np.pi / 4))
+    return _shaped(sym.astype(np.complex64), 18_000.0, fs, 0.35, 31)
+
+
+def voice_capture(path: str | None, fs: float = VO_FS,
+                  seconds: float = VO_SECONDS, channels=None) -> dict:
+    """Phase 31's capture: ``seconds`` at ``fs`` holding the DMR, P25 and
+    D-STAR stations, the CTCSS and DCS carriers and the TETRA downlink
+    (``channels``: {name: offset}, all of them by default), each at its
+    offset in noise; written to ``path`` (a 32-bit WAV) when given.
+    Returns {"iq", "p25_marks": (the second where the first TSDU ends,
+    where the second begins)}."""
+    rng = np.random.default_rng(VO_SEED)
+    if channels is None:
+        channels = {"DMR": VO_DMR, "P25": VO_P25, "DSTAR": VO_DSTAR,
+                    "CTCSS": VO_CTCSS, "DCS": VO_DCS, "TETRA": VO_TETRA}
+    n = int(fs * seconds)
+    n_sym = int(seconds * VO_SYMRATE) + 1
+    x = np.zeros(n, np.complex128)
+    k = np.arange(n)
+    out = {}
+    for name, off in channels.items():
+        if name == "DMR":
+            sig = fsk4_iq(dmr_air(rng, n_sym), fs)
+        elif name == "P25":
+            air, end1, start2 = p25_air(rng, n_sym)
+            out["p25_marks"] = (end1 / VO_SYMRATE, start2 / VO_SYMRATE)
+            sig = fsk4_iq(air, fs)
+        elif name == "DSTAR":
+            sig = fsk4_iq(dstar_air(rng, n_sym), fs)
+        elif name in ("CTCSS", "DCS"):
+            sig = fm_iq(nfm_tone_dev(n, fs, ctcss=VO_CTCSS_HZ if
+                                     name == "CTCSS" else None,
+                                     dcs=VO_DCS_CODE if name == "DCS"
+                                     else None), fs)
+        else:
+            reps = int(np.ceil(seconds * 36_000 / (14 * 510)))
+            sig = pi4_iq(tetra_downlink_bits(rng, reps), fs)
+        m = min(n, len(sig))
+        x[:m] += 0.2 * sig[:m] * np.exp(2j * np.pi * off * k[:m] / fs)
+    x += VO_NOISE * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    out["iq"] = x.astype(np.complex64)
+    if path is not None:
+        from sdrplusplusbrown_tpu_torch.io.wav import write_wav
+        write_wav(path, out["iq"], fs, bits=32)
+    return out
+
+
+#: the loop kernels' names in a profiler window (K12c, K13m, K16)
+VO_LOOP_NAMES = ("agc_rows_kernel", "mm_kernel", "viterbi_warp_kernel",
+                 "viterbi_kernel")
+#: on the host CPU the TETRA module's plain loops take about 12 ms a
+#: granule (1 600 samples): the CPU app's TETRA module stops at the mid
+#: read, where both apps' TETRA products are held
+VO_CPU_TETRA = "TETRA"
+VO_CPU_THREADS = 2            # the host CPU app's torch threads
+VO_LOOP_TAGS = ("K12c", "K13m", "K16")
+
+
+def drive_voice(dev, card: str, report: dict) -> None:
+    """Phase 31: (b) the voice and trunking decoders served by one app on
+    the card (one ``ch_extravhf_decoder`` a channel, one
+    ``ch_tetra_demodulator``), their products held and held equal to the
+    same app's on the host CPU, the loop kernels' calls captured by
+    module; (c) each module's device time and launches a 0.1 s block and
+    its host share; (a) K13m, K12c and K16 at the voice paths' shapes
+    against their plain versions; POCSAG on the card's GFSK demod."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vo_") as tmp:
+        calls, card_st, cpu = voice_app(dev, card, report, tmp)
+        try:
+            t1 = time.perf_counter()
+            voice_kernels(calls, dev, card, report)
+            t2 = time.perf_counter()
+            pocsag_on_card(dev, card, report)
+            t3 = time.perf_counter()
+        except BaseException:
+            cpu.kill()
+            raise
+        voice_on_host(card_st, cpu.finish())
+    t4 = time.perf_counter()
+    print(f"phase 31: {t4 - t0:.1f} s ((b) and (c) {t1 - t0:.1f}, (a) "
+          f"{t2 - t1:.1f}, POCSAG {t3 - t2:.1f}, the rest of the host CPU "
+          f"app's run {t4 - t3:.1f}) [{card}]")
+
+
+def voice_config(capture: str) -> dict:
+    """Phase 31's config.json: the capture through a file source, fft
+    65 536 at 20 fps, manual pump, a module a channel."""
+    mods = {n: {"type": "ch_extravhf_decoder", "offset": off} for n, off in (
+        ("DMR", VO_DMR), ("P25", VO_P25), ("DSTAR", VO_DSTAR),
+        ("CTCSS", VO_CTCSS), ("DCS", VO_DCS))}
+    mods["TETRA"] = {"type": "ch_tetra_demodulator", "offset": VO_TETRA}
+    return {"source": {"type": "file", "path": capture, "loop": False},
+            "fftSize": FFT, "fftRate": 20, "pump": "manual",
+            "modules": mods}
+
+
+def voice_statuses(app) -> dict:
+    """Every module's status, as JSON gives it back (lists for tuples)."""
+    return json.loads(json.dumps({n: m.handle_debug_command("status", "")
+                                  for n, m in app.modules.items()}))
+
+
+def voice_cpu_main() -> None:
+    """Phase 31's app on the host CPU as a process of its own:
+    ``python3 -c "import chip_smoke; chip_smoke.voice_cpu_main()" CAPTURE
+    MID OUT``: ``voice_pump`` on the capture with ``MID`` blocks to the
+    mid read, its statuses to OUT as JSON."""
+    import tempfile
+    import torch
+    cap, mid, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+    torch.set_num_threads(VO_CPU_THREADS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vocpu_") as tmp:
+        app = new_app(tmp, voice_config(cap), "cpu")
+        try:
+            first, end, blocks = voice_pump(app, mid)
+        finally:
+            app.shutdown()
+    with open(out, "w") as f:
+        json.dump({"first": first, "end": end, "blocks": blocks,
+                   "seconds": time.perf_counter() - t0}, f)
+
+
+class VoiceCpuProcess:
+    """``voice_cpu_main`` in a subprocess; ``finish()`` waits for it and
+    returns what it wrote."""
+
+    def __init__(self, cap: str, mid: int, out: str):
+        self.out = out
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             "chip_smoke.voice_cpu_main()", cap, str(mid), out],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL)
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait(timeout=10)
+
+    def finish(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+            fail("phase 31: the host CPU app did not end within 300 s")
+        if rc != 0:
+            fail(f"phase 31: the host CPU app exited with {rc}")
+        with open(self.out) as f:
+            return json.load(f)
+
+
+def voice_pump(app, mid: int) -> tuple:
+    """Start the app, pump ``mid`` blocks, read every module's status,
+    pump to the capture's end, read again: (mid statuses, end statuses,
+    blocks).  On the host CPU the TETRA module stops at the mid read
+    (VO_CPU_TETRA)."""
+    app.start()
+    if app.pump_step(mid) != mid:
+        fail("phase 31: the pump stopped")
+    first = voice_statuses(app)
+    if app.device.type == "cpu":
+        app.modules[VO_CPU_TETRA].disable()
+    rest = app.pump_step(10 ** 6)
+    return first, voice_statuses(app), mid + rest
+
+
+def module_calls(tags, by_module: dict, name: str, h):
+    """Module ``name``'s baseband handler ``h`` under ``capture``: the
+    calls of ``tags`` that each of its calls makes go to
+    ``by_module[name][tag]``."""
+    def handler(iq):
+        n0 = {t: len(capture_log.get(t, ())) for t in tags}
+        h(iq)
+        for t in tags:
+            by_module.setdefault(name, {}).setdefault(t, []).extend(
+                capture_log.get(t, [])[n0[t]:])
+    return handler
+
+
+def joined_call(tag: str, calls, k: int, suffix: str = "_kernel"):
+    """K12c's or K13m's first ``k`` consecutive calls of one module as one
+    call: their inputs side by side from the first call's state.  Each
+    call must start from the state the one before returned (``suffix``'s
+    function run on it), bit for bit; fails otherwise."""
+    import torch
+    fn = getattr(*kernel_fn(tag, suffix))
+    for i in range(k - 1):
+        got = flat(loop_state(tag, fn(*calls[i])))
+        want = flat(calls[i + 1][2:4] if tag == "K12c" else calls[i + 1][2])
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"phase 31 (a): {tag}'s call {i + 1} does not start from "
+                 f"the state call {i} returned")
+    x = torch.cat([loop_input(tag, c) for c in calls[:k]], dim=1)
+    return (calls[0][0], x.contiguous(), *calls[0][2:])
+
+
+def voice_products(st: dict, mid: dict, marks) -> list:
+    """(what, got, want) of every product phase 31 holds, from the end
+    statuses ``st`` and the mid read ``mid``."""
+    dmr, p25m, p25e = st["DMR"], mid["P25"]["p25"], st["P25"]["p25"]
+    ds, te, tm = st["DSTAR"]["dstar"], st["TETRA"], mid["TETRA"]
+
+    def lc(d):
+        return None if d is None else (d["dst"], d["src"])
+
+    def tsbk(d, keys):
+        return None if d is None else tuple(d.get(k) for k in keys)
+
+    def cell(t):
+        c = t["cell"]
+        return None if c is None else (c["mcc"], c["mnc"], c["colour"])
+
+    def sdu(t):
+        s = t["last_tm_sdu"]
+        return None if s is None else (s.get("callingSsi"), bytes.fromhex(
+            s.get("userData", "")))
+    hdr = ds["lastHeader"] or {}
+    return [
+        ("DMR embedded LC (tg, src)", lc(dmr["lastLC"]), VO_DMR_LC),
+        ("DMR colour code", dmr["colorCode"], VO_DMR_CC),
+        ("DMR short LC (opcode, data)", tsbk(dmr["lastShortLC"], (
+            "opcode", "data")), VO_DMR_SLC),
+        ("DMR CSBK (name, dst, src)", tsbk(dmr["lastCSBK"], (
+            "csbkoName", "dst", "src")), ("BS_Dwn_Act",) + VO_DMR_CSBK),
+        ("DMR voice LC header and terminator decoded (RS(12,9))",
+         (dmr["burstTypes"].get("VOICE Header", 0), dmr["fullLcDecodes"]),
+         (1, 2)),
+        ("DMR full LC (tg, src)", lc(dmr["lastFullLC"]), VO_DMR_HDR),
+        ("P25 NAC", p25e["nac"], VO_P25_NAC),
+        ("P25 LDU1 LC (tg, src)", tsbk(p25e["lastLC"], ("talkgroup", "src")),
+         VO_P25_LC),
+        (f"P25 TSBK at the mid read (after the TSDU ending at "
+         f"{marks[0]:.3f} s, before the one at {marks[1]:.3f} s)",
+         tsbk(p25m["lastTSBK"], ("opcodeName", "wacn", "sysId")),
+         ("NET_STS_BCST",) + VO_P25_NET),
+        ("P25 last TSBK (its TSDU's first block bad): IDEN_UP (tx offset "
+         "MHz, spacing kHz, base MHz)", tsbk(p25e["lastTSBK"], (
+             "opcodeName", "txOffsetMhz", "spacingKhz", "baseFreqMhz")),
+         ("IDEN_UP", -1.0, 12.5, 851.00625)),
+        ("D-STAR headers with crc_ok", ds["headerCrcOk"], 2),
+        ("D-STAR callsigns", tuple(hdr.get(k) for k in (
+            "rpt2", "rpt1", "ur", "my", "suffix")), VO_DSTAR_CALLS),
+        ("CTCSS tone", st["CTCSS"]["ctcss"]["tone"], VO_CTCSS_HZ),
+        ("DCS code (inverted)", (st["DCS"]["dcs"]["code"],
+                                 st["DCS"]["dcs"]["inverted"]),
+         (f"{VO_DCS_CODE:03o}", False)),
+        ("TETRA sync decodes > 0", te["sync_decodes"] > 0, True),
+        ("TETRA cell at the mid read (MCC, MNC, colour)", cell(tm),
+         VO_TETRA_CELL),
+        ("TETRA TM-SDU at the mid read (SSI, text)", sdu(tm),
+         (VO_TETRA_SSI, VO_TETRA_TEXT)),
+        ("TETRA cell (MCC, MNC, colour)", cell(te), VO_TETRA_CELL),
+        ("TETRA TM-SDU (SSI, text)", sdu(te), (VO_TETRA_SSI, VO_TETRA_TEXT)),
+    ]
+
+
+def voice_summary(st: dict) -> dict:
+    """An ExtraVHF status less its two rounded float readings (the CTCSS
+    ratio and the DCS bit error rate: the card's and the host's audio
+    agree to rounding, which can move a rounded figure; they are printed
+    beside)."""
+    out = dict(st)
+    if "ctcss" in out:
+        out["ctcss"] = {k: v for k, v in out["ctcss"].items()
+                        if k != "ratio_db"}
+        out["dcs"] = {k: v for k, v in out["dcs"].items() if k != "ber"}
+    return out
+
+
+def voice_stages(name: str, mod) -> list:
+    """(owner, attribute) of a voice module's host stages, to time."""
+    if name == "TETRA":
+        return [(mod.decoder, "push")]
+    return [(mod.burst, "push"), (mod.ctcss, "take"), (mod.dcs, "push")]
+
+
+def voice_app(dev, card: str, report: dict, tmp: str) -> tuple:
+    """(b) and (c): the served app on the card, its products held, then
+    the same app started on the host CPU in a process of its own
+    (``VoiceCpuProcess``, while (c), (a) and POCSAG run); returns (the
+    loop kernels' calls by module, the card's statuses, that process)."""
+    import contextlib
+    import torch
+    from sdrplusplusbrown_tpu_torch.runtime.pump import Rechunker
+    cap = os.path.join(tmp, "baseband_460000000Hz_10-00-00_01-01-2024.wav")
+    t0 = time.perf_counter()
+    marks = voice_capture(cap)["p25_marks"]
+    mid = int(np.ceil((marks[0] + 0.15) * 20))
+    if (mid + 1) * 0.05 >= marks[1]:
+        fail(f"phase 31: no mid read between the TSDUs {marks}")
+    print(f"phase 31 (b): capture {VO_SECONDS} s at {VO_FS / 1e6:g} MS/s "
+          f"made in {time.perf_counter() - t0:.1f} s: DMR at "
+          f"{VO_DMR / 1e3:g} kHz, P25 {VO_P25 / 1e3:g}, D-STAR "
+          f"{VO_DSTAR / 1e3:g}, NFM with CTCSS {VO_CTCSS_HZ} Hz "
+          f"{VO_CTCSS / 1e3:g}, NFM with DCS {VO_DCS_CODE:03o} "
+          f"{VO_DCS / 1e3:g}, TETRA {VO_TETRA / 1e3:g}; the mid read after "
+          f"block {mid}")
+    app = new_app(os.path.join(tmp, "p31"), voice_config(cap), dev)
+    per_module: dict = {}
+    by_module: dict = {}
+    cpu = None
+    try:
+        wrappers = {t: getattr(*kernel_fn(t, "_kernel")) for t in KERNELS}
+        ev = app.baseband_event
+        ev._handlers = [module_calls(
+            VO_LOOP_TAGS, by_module,
+            getattr(getattr(h, "__self__", None), "name", "?"),
+            counted_handler(h, per_module, wrappers)) for h in ev._handlers]
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(no_plain_on_card())
+            hs = {n: stack.enter_context(timed_stages(voice_stages(n, m)))
+                  for n, m in app.modules.items()}
+            (first, end, blocks), capd = capture(
+                tuple(KERNELS), lambda: voice_pump(app, mid))
+            torch.cuda.synchronize()
+        counts = {t: kernel_count(t) for t in KERNELS}
+        block_len = app.pump_block_len
+        # the same app on the host CPU from here on, beside (c), (a) and
+        # POCSAG; (b)'s wall and host times are taken
+        cpu = VoiceCpuProcess(cap, mid, os.path.join(tmp, "p31cpu.json"))
+        # (c): each module's device time from a fresh rechunker, scaled to
+        # a 0.1 s block: an ExtraVHF module's 0.1 s block (one call), 0.05
+        # s of TETRA's (75 granules: the profiler's windows of its 150
+        # granules' 12 700 launches took most of a minute)
+        dev_us = {}
+        for n, m in app.modules.items():
+            span = 0.05 if n == VO_CPU_TETRA else 0.1
+            chunk = read_capture_block(cap, 0, int(VO_FS * span))
+            m.feed.rc = m.rc = Rechunker(m.rc.out_len)
+            by, cnt = {}, {}
+            us, nl = call_profile(lambda m=m: m._on_baseband(chunk),
+                                  1 if n == VO_CPU_TETRA else 3,
+                                  by_kernel=by, counts=cnt)
+            k = 0.1 / span
+            dev_us[n] = (us * k, nl * k, {t: v * k for t, v in by.items()})
+    except BaseException:
+        if cpu is not None:
+            cpu.kill()
+        raise
+    finally:
+        app.shutdown()
+    try:
+        return voice_report(dev, card, report, counts, capd, blocks,
+                            block_len, first, end, marks, per_module, hs,
+                            dev_us, by_module, cpu)
+    except BaseException:
+        cpu.kill()
+        raise
+
+
+def voice_report(dev, card, report, counts, capd, blocks, block_len, first,
+                 end, marks, per_module, hs, dev_us, by_module, cpu):
+    """(b)'s launches and products held, (c)'s measurements printed;
+    returns ``voice_app``'s result."""
+    from sdrplusplusbrown_tpu_torch.models import dmr_burst as D
+    tag_counts = {t: counts[t] for t in VO_TAGS}
+    hold_launches(f"phase 31 (b), served voice decoders, {blocks} blocks",
+                  tag_counts, capd)
+    others = {t: c for t, c in counts.items() if c and t not in VO_TAGS}
+    if min(tag_counts.values()) < 1 or others:
+        fail(f"phase 31 (b): launch pattern {counts}")
+    print(f"phase 31 (b): served app on {dev} ({block_len}-sample blocks, "
+          f"fft {FFT}), {blocks} blocks: launches " + ", ".join(
+              f"{t}={counts[t]}" for t in VO_TAGS) + ", every other kernel 0")
+    for t in VO_TAGS:
+        report.setdefault(t, {}).setdefault("launches_by_path", {})[
+            f"served voice decoders ({blocks} blocks)"] = counts[t]
+    bad = []
+    for what, got, want in voice_products(end, first, marks):
+        print(f"phase 31 (b): {what}: {got}" + ("" if got == want else
+                                                f" -- want {want}"))
+        if got != want:
+            bad.append(what)
+    hdr = lc_octets(0, *VO_DMR_HDR)
+    std, rev = D.rs_12_9_parity(hdr), rs129_reversed_taps(hdr)
+    print(f"phase 31 (b): the voice LC header's RS(12,9) parity "
+          f"{std.tolist()} (standard); the JAX package's rule would give "
+          f"{rev.tolist()}, {'not ' if std.tolist() != rev.tolist() else ''}"
+          "the same (not held)")
+    iden, bw, sign, mag, spacing, base = VO_IDEN
+    print(f"phase 31 (b): the IDEN_UP's transmit offset field "
+          f"0x{(sign << 8) | mag:03x} read unsigned in 0.25 MHz, the JAX "
+          f"package's rule, would be {((sign << 8) | mag) * 0.25} MHz (not "
+          "held)")
+    if bad:
+        fail(f"phase 31 (b): products {bad}")
+    # (c)
+    for n, m_us in dev_us.items():
+        us, nl, by = m_us
+        e = per_module.get(n, {"calls": 0, "launches": {}, "wall": 0.0})
+        loops = sum(v for k, v in by.items() if k in VO_LOOP_NAMES)
+        own = sum(e["launches"].values())
+        print(f"phase 31 (c): module {n}: {e['calls']} baseband calls, own "
+              f"kernel launches " + (", ".join(
+                  f"{t}={c}" for t, c in e["launches"].items()) or "none")
+              + f" ({own / blocks:.1f} a 50 ms block); a 0.1 s block: "
+              f"device {us:.1f} us in {nl:.0f} launches (" + ", ".join(
+                  f"{k} {v:.1f}" for k, v in sorted(
+                      by.items(), key=lambda kv: -kv[1])[:6])
+              + f"), the loop kernels {loops:.1f} us "
+              f"({100 * loops / us if us else 0.0:.1f} %); the handler's "
+              f"wall {e['wall'] / VO_SECONDS:.4f} s a second of signal, its "
+              f"host stages {hs[n].seconds / VO_SECONDS:.4f} s [{card}]")
+    return by_module, {"first": first, "end": end, "blocks": blocks,
+                       "marks": marks}, cpu
+
+
+def voice_on_host(card_st: dict, cpu_st: dict) -> None:
+    """(b)'s products on the card against the same app's on the host CPU:
+    every product of ``voice_products`` equal (the TETRA module's at the
+    mid read, where the host's stops); whether every module's whole
+    status is equal too (but the two rounded float readings,
+    ``voice_summary``) is printed, with those readings side by side."""
+    first, end, marks = card_st["first"], card_st["end"], card_st["marks"]
+    cfirst, cend = cpu_st["first"], cpu_st["end"]
+
+    def held(items):
+        return [(w, g) for w, g, _ in items
+                if not (w.startswith("TETRA") and "mid read" not in w)]
+    card_p = held(voice_products(end, first, marks))
+    host_p = held(voice_products(cend, cfirst, marks))
+    diff = [w for (w, g), (_, h) in zip(card_p, host_p) if g != h]
+    same = [n for n in end if n != VO_CPU_TETRA
+            and voice_summary(end[n]) == voice_summary(cend[n])] + [
+        f"{n} at the mid read" for n in first
+        if voice_summary(first[n]) == voice_summary(cfirst[n])]
+    for n in end:
+        if "ctcss" in end[n]:
+            print(f"phase 31 (b): {n}: the rounded readings, card / host "
+                  f"CPU: CTCSS ratio {end[n]['ctcss']['ratio_db']} / "
+                  f"{cend[n]['ctcss']['ratio_db']} dB, DCS bit error rate "
+                  f"{end[n]['dcs']['ber']} / {cend[n]['dcs']['ber']}")
+    print(f"phase 31 (b): the same app on the host CPU ({cpu_st['blocks']} "
+          f"blocks in {cpu_st['seconds']:.1f} s, {VO_CPU_THREADS} torch "
+          f"threads, its TETRA module to the mid read): {len(card_p)} "
+          f"products equal to the card's: " + ("yes" if not diff else
+                                               f"NO ({diff})")
+          + f"; whole statuses equal (not held): {len(same)} of "
+          f"{2 * len(end) - 1} ({sorted(same)})")
+    if diff or cpu_st["blocks"] != card_st["blocks"]:
+        for w in diff:
+            print(f"phase 31 (b): {w}: card {dict(card_p)[w]}, host CPU "
+                  f"{dict(host_p)[w]}")
+        fail(f"phase 31 (b): the card's products are not the host CPU's: "
+             f"{diff}, blocks {card_st['blocks']} / {cpu_st['blocks']}")
+
+
+def voice_kernels(by_module: dict, dev, card: str, report: dict) -> None:
+    """(a): the loop kernels at the voice paths' shapes, on (b)'s served
+    calls: K13m's real form at DMR's 0.1 s block (1 600 samples, 3.33 a
+    symbol), K12c and K13m's complex form at TETRA's granule (24
+    samples) and at 0.1 s (150 granules' inputs side by side,
+    ``joined_call``), each clocked at the shape and held to its plain
+    version on two blocks of that shape, the second from the state the
+    kernel returned (every output and state bit for bit; K12c's output
+    100 dB; K13m's plain version on a host CPU copy); K16 at K = 3 on a
+    D-STAR header with correctable errors, timed beside its plain
+    version, and on (b)'s last served header."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models import dstar as S
+    dmr = by_module.get("DMR", {}).get("K13m", [])
+    tet = by_module.get("TETRA", {})
+    if len(dmr) < 4 or len(tet.get("K12c", [])) < 700 or \
+            len(tet.get("K13m", [])) < 700:
+        fail(f"phase 31 (a): served calls DMR K13m {len(dmr)}, TETRA "
+             f"{ {t: len(v) for t, v in tet.items()} }")
+    cases = [("K13m", dmr[-3:], 1, 1600, "DMR's clock recovery (real, "
+              "3.33 a symbol), a 0.1 s block")]
+    for tag in ("K12c", "K13m"):
+        cs = tet[tag][-700:]
+        what = "TETRA's AGC" if tag == "K12c" else \
+            "TETRA's clock recovery (complex, 2 a symbol)"
+        cases += [(tag, cs, 1, 24, f"{what}, a granule"),
+                  (tag, cs, 150, 3600, f"{what}, 0.1 s (150 granules)")]
+    for tag, cs, k, n, what in cases:
+        one = joined_call(tag, cs, k) if k > 1 else cs[0]
+        if loop_input(tag, one).shape[1] != n:
+            fail(f"phase 31 (a): {what}: {loop_input(tag, one).shape}")
+        loop_at_shape(tag, one, card, what, "phase 31 (a)")
+        two = joined_call(tag, cs, 2 * k)
+        err = loop_prefix(tag, two, n, card, what)
+        report[tag]["max_abs_err"] = max(report[tag]["max_abs_err"], err)
+    # K16: a D-STAR header with 6 channel errors, descrambled and
+    # deinterleaved as models/dstar.py:decode_header does
+    bits = S.encode_header(b"\x00\x00\x00", *VO_DSTAR_CALLS)
+    rx = bits.copy()
+    rx[np.random.default_rng(VO_SEED).choice(S.HEADER_BITS, 6,
+                                             replace=False)] ^= 1
+    deint = np.empty(S.HEADER_BITS, np.float32)
+    deint[S.deinterleave_indices()] = rx ^ S.scramble_sequence(
+        S.HEADER_BITS)
+    call = (torch.from_numpy(deint[None]).to(dev), 0b111, 0b101, 3)
+    out = check_loop_kernel("K16", call, card, "a D-STAR header with 6 "
+                            "channel errors, K = 3", timed=True)
+    got = S.decode_header(rx, device=dev)
+    print(f"phase 31 (a): that header decoded on the card: crc_ok "
+          f"{got['crc_ok']}, MY {got['my']!r}")
+    if not got["crc_ok"] or got["my"] != VO_DSTAR_CALLS[3]:
+        fail(f"phase 31 (a): the D-STAR header with errors: {got}")
+    served = by_module.get("DSTAR", {}).get("K16", [])
+    if not served:
+        fail("phase 31 (a): no K16 call from the D-STAR module")
+    err = check_loop_kernel("K16", served[-1], card, "the served D-STAR "
+                            "header", timed=False)["max_abs_err"]
+    report["K16"]["max_abs_err"] = max(report["K16"]["max_abs_err"], err,
+                                       out["max_abs_err"])
+
+
+def pocsag_on_card(dev, card: str, report: dict) -> None:
+    """POCSAG (no module in the JAX package): tests/test_pocsag.py's RF
+    loopback, the page VO_POCSAG at 1 200 Bd, ±4.5 kHz on 24 kS/s with
+    noise, through ``GFSKDemod`` on the card in 0.1 s blocks (K8, K13m's
+    real form, 20 samples a symbol; the counts zeroed before), its hard
+    bits to the host ``POCSAGDecoder``: the page held."""
+    import torch
+    from sdrplusplusbrown_tpu_torch.models.pocsag import POCSAGDecoder, \
+        encode_transmission
+    from sdrplusplusbrown_tpu_torch.ops.demod_digital import GFSKDemod
+    from sdrplusplusbrown_tpu_torch.ops.digital import valid_hard_bits
+    from sdrplusplusbrown_tpu_torch.ops.mod import GFSKMod
+    from sdrplusplusbrown_tpu_torch.runtime.block import to_device
+    fs, baud, devhz = 24_000.0, 1_200.0, 4_500.0
+    bits = np.concatenate([encode_transmission(*VO_POCSAG),
+                           np.tile([1, 0], 32).astype(np.uint8)])
+    nrz = (1.0 - 2.0 * bits).astype(np.float32).repeat(int(fs / baud))
+    mod = GFSKMod(fs, devhz, baud, bt=0.5)
+    tx, _ = mod.apply(None, mod.init_state(()), torch.from_numpy(nrz))
+    rng = np.random.default_rng(12345)
+    T = tx.shape[-1]
+    ch = (tx.numpy() * np.exp(1j * 0.4) + 0.05 * (
+        rng.standard_normal(T) + 1j * rng.standard_normal(T))).astype(
+        np.complex64)
+    dem = GFSKDemod(baud, fs, devhz)
+    st = to_device(dem.init_state(()), dev)
+    blk = int(fs // 10)
+    ch = np.concatenate([ch, np.zeros((-T) % blk, np.complex64)])
+    hard = []
+    reset_counts()
+    with no_plain_on_card():
+        for i in range(0, len(ch), blk):
+            (sym, valid), st = dem.apply(None, st, torch.from_numpy(
+                ch[i:i + blk]).to(dev))
+            hard.append(1 - valid_hard_bits(sym, valid))
+        torch.cuda.synchronize()
+    counts = {t: kernel_count(t) for t in KERNELS if kernel_count(t)}
+    dec = POCSAGDecoder()
+    dec.push_bits(np.concatenate(hard))
+    msgs = [(m["address"], m["text"]) for m in dec.messages]
+    print(f"phase 31: POCSAG, {len(ch)} samples at 24 kS/s in "
+          f"{len(ch) // blk} blocks on the card: launches " + ", ".join(
+              f"{t}={c}" for t, c in counts.items()) + f"; pages {msgs}")
+    if set(counts) != {"K8", "K13m"} or msgs[:1] != [VO_POCSAG]:
+        fail(f"phase 31: POCSAG: {counts}, {msgs}")
+    for t in ("K8", "K13m"):
+        report[t].setdefault("launches_by_path", {})[
+            f"POCSAG ({len(ch) // blk} blocks)"] = counts[t]
 
 if __name__ == "__main__":
     sys.exit(main())

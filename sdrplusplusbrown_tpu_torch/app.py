@@ -26,7 +26,12 @@ decoders ``vor_receiver``, ``weather_sat_decoder`` (NOAA HRPT),
 ``atv_decoder``, ``falcon9_decoder`` and ``dab_decoder`` (each through
 its RxVFO, where the source is wider than its channel, and its demod on
 the app's device, its framer on the host; DAB's OFDM front end is host
-numpy, as in the JAX package), ``radio
+numpy, as in the JAX package), the voice and trunking decoders
+``ch_extravhf_decoder`` (DMR, P25, D-STAR, X2-TDMA, NXDN and ProVoice
+frame sync and the burst layer past it, CTCSS and DCS) and
+``ch_tetra_demodulator`` (the TETRA downlink's lower and upper MAC), each
+through its RxVFO and demod on the app's device and one copy a block to
+its host decoder, ``radio
 modules with every demod (the RAW demod and plugin demods registered with
 ``models.radio.register_demod_provider`` among them; ``list_demods``),
 their noise blanker and FM IF filter (``set_nb``, ``set_fmif``), their
@@ -105,9 +110,8 @@ SPECTRUM_BUF_SIZE = 16384  # IF spectrum ring (reference radio_module.h:78)
 
 #: what the JAX app serves and the port does not yet: refused by name
 UNPORTED_MODULES = (
-    "ft8_decoder", "ch_tetra_demodulator", "ch_extravhf_decoder",
-    "tci_server", "websdr_view", "reports_monitor", "discord_integration",
-    "signal_detector")
+    "ft8_decoder", "tci_server", "websdr_view", "reports_monitor",
+    "discord_integration", "signal_detector")
 
 
 def describe_device(dev: torch.device) -> str:
@@ -665,6 +669,14 @@ class SDRApp:
             elif mtype == "dab_decoder":
                 from .modules.dab_module import DABDecoderModule
                 self.modules[name] = DABDecoderModule(
+                    name, self, offset_hz=mc.get("offset", 0.0))
+            elif mtype == "ch_extravhf_decoder":
+                from .modules.extravhf_module import ExtraVhfDecoderModule
+                self.modules[name] = ExtraVhfDecoderModule(
+                    name, self, offset_hz=mc.get("offset", 0.0))
+            elif mtype == "ch_tetra_demodulator":
+                from .modules.tetra_module import TetraDemodulatorModule
+                self.modules[name] = TetraDemodulatorModule(
                     name, self, offset_hz=mc.get("offset", 0.0))
             else:
                 flog.warn("unknown module type '{}' for '{}'", mtype, name)

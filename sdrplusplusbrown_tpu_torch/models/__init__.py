@@ -1,0 +1,3 @@
+from .pocsag import POCSAGDecoder
+
+__all__ = ["POCSAGDecoder"]

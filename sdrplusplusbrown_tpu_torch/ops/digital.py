@@ -31,6 +31,16 @@ def valid_hard_bits(sym: torch.Tensor, valid: torch.Tensor) -> np.ndarray:
     return b[b != 2]
 
 
+def valid_dibits(dibit: torch.Tensor, valid: torch.Tensor) -> np.ndarray:
+    """A demod's dibits at its valid symbols as a host int32 array: marked
+    on the dibits' device, then one copy to the host (as
+    ``valid_hard_bits``)."""
+    d = torch.where(valid, dibit.to(torch.int32),
+                    torch.full_like(dibit, -1, dtype=torch.int32))
+    d = d.cpu().numpy()
+    return d[d >= 0]
+
+
 class DifferentialDecoder(Block):
     """out[n] = (in[n] − in[n−1]) mod M (reference
     digital/differential_decoder.h; M = 2 → XOR for bits)."""

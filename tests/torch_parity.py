@@ -551,6 +551,20 @@ def net_config(source: dict, **modules) -> dict:
                                   "offset": 50e3}, **modules}}
 
 
+def equal_tree(a, b) -> bool:
+    """Equal results: arrays by value, tuples, lists and dicts element by
+    element, anything else by ``==``."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(equal_tree(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)) and isinstance(b, (tuple, list)):
+        return len(a) == len(b) and all(equal_tree(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return a is not None and b is not None and np.array_equal(a, b)
+    return a == b
+
+
 def wait_for(pred, what: str, timeout: float = 10.0):
     """Poll ``pred`` until it holds; fail with ``what`` after
     ``timeout`` seconds."""
